@@ -1,0 +1,1348 @@
+"""Agg-tree compiler: IR -> a batch-first torch program + host harvest.
+
+The port of the JAX package's aggs/compile.py for the slice's modes. `plan`
+resolves fields and picks an execution MODE per node from static index
+metadata (the same choices the JAX package makes with the value-domain
+cube and member operands off and its Pallas gate on); `_run` evaluates the
+whole tree for a [B, P] int32 param matrix — one row per query of an
+msearch group, a single query is B = 1 — with eager torch ops and the
+three CUDA kernels of ops/kernels.py; the copied `harvest` reconstructs
+exact user-domain fruits (bit-identical to the oracle).
+
+The plan does not depend on the device: a program on CPU tensors plans and
+runs exactly the kernel modes the card runs (the kernels' plain versions
+execute them there).
+
+Modes:
+- metrics at the root or under filters (MaskCtx): narrow single-valued
+  planes through the fused_metrics kernel; wide planes by exact torch
+  reductions; multi-valued fields reduce static per-doc pre-aggregates.
+- histogram / terms ("dense", and "scatter" for nested nodes past the
+  dense budget — the same integer index_add_ in torch): per-query bucket
+  reductions over STATIC bucket-id planes (nested buckets compose static
+  slot ids; only validity is per query).
+- high-cardinality root-level terms / histograms ("prefix"): bucket-sorted
+  OrderedLayout scanned by the chain_blocks kernel (chain mask evaluated
+  in-kernel, per-32-row-block counts + int64 payload sums), then per-bucket
+  totals as cumsum differences at the 32-aligned bucket bounds.
+- percentiles ("rank"): value-sorted OrderedLayout scanned by the
+  chain_counts kernel (per-128-row-group counts); integer ranks resolve to
+  layout rows through torch.searchsorted over the count prefix plus a lazy
+  128-row window recompute — no [R] mask per query.
+
+Every other shape — non-integer percents, percentiles or top_hits under
+buckets, top_hits, facets, set-type / exists / phrase queries,
+multi-valued query or bucket fields, the cube, member operands, sharding —
+raises NotImplementedError at plan time naming the shape.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..aggs import ir as A
+from ..index.loader import _put
+from ..ops import kernels as K
+from ..ops import reductions as R
+from ..query import compile as qc
+from ..query import ir as Q
+from ..schema import FieldType
+from ..utils import exact, mono as mono_mod
+
+MAX_TERMS_CARD = 1 << 27
+MAX_HIST_NB = 1 << 20  # f64 bucket-layout bound (host boundary list is O(nb))
+MAX_HIST_NB_HOST = 1 << 24  # columns spanning more buckets than this are
+# refused here (the JAX package routes them to its host path)
+
+#: rows per chain_counts group (the lazy rank-selection window)
+GROUP = 128
+
+
+def _wrap64(x: int) -> int:
+    return ((x + 2**63) % 2**64) - 2**63
+
+
+@dataclass
+class MaskCtx:
+    mask: torch.Tensor  # [B, T] bool
+
+
+@dataclass
+class SlotCtx:
+    """Bucket context: rows are docs, `bid` is the STATIC flat composite
+    slot id plane ([T] int32, meaningful where `valid`), `valid` the
+    per-query [B, T] bool row validity."""
+    bid: torch.Tensor
+    valid: torch.Tensor
+    dims: Tuple[int, ...]
+
+    @property
+    def nslots(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+
+def _has_set_query(query, aggs) -> bool:
+    """True when the outer query or any filter/post_filter query holds a
+    set-type query (TermSet/Fuzzy/Regex)."""
+    def walk_q(q):
+        if isinstance(q, (Q.TermSetQuery, Q.FuzzyTermQuery, Q.RegexQuery)):
+            return True
+        if isinstance(q, Q.BooleanQuery):
+            return any(walk_q(c) for c in (*q.must, *q.should, *q.must_not))
+        return False
+
+    def walk_a(node):
+        if isinstance(node, dict):
+            return any(walk_a(v) for v in node.values())
+        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)) \
+                and walk_q(node.query):
+            return True
+        return any(walk_a(sub) for _, sub in getattr(node, "sub_aggs", ()))
+
+    return walk_q(query) or walk_a(aggs)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class Program:
+    def __init__(self, dindex, query: Q.Query, aggs: Dict[str, A.Agg],
+                 config=None):
+        from ..engine_config import EngineConfig
+        A.validate_agg_tree(dindex.schema, aggs)
+        if _has_set_query(query, aggs):
+            raise NotImplementedError(
+                "set-type queries (TermSet/Fuzzy/Regex) are not ported yet")
+        self.dindex = dindex
+        self.query = query
+        self.aggs = aggs
+        self.config = config or EngineConfig()
+        self.dense_nb = self.config.dense_nb
+        self.device = dindex.device
+        # every scalar param of this (query, aggs) shape, in one sorted
+        # order: the columns of the [B, P] param matrix
+        self._pkeys = tuple(sorted(self._extract(query, aggs)))
+        self._pcol = {k: i for i, k in enumerate(self._pkeys)}
+        self.plan: Dict[tuple, dict] = {}
+        self._arrays: Dict[str, torch.Tensor] = {"alive": dindex.alive}
+        self._root_chain = ((query, ("q",)),)
+        self._root = self._chain_entry(self._root_chain)
+        self._plan_aggs(aggs, ("a",), in_slot=False, hdims=(), tflat=1,
+                        chain=self._root_chain)
+        #: per-query fruit layout of the packed [B, F] int64 output
+        self._pack_spec = None
+
+    # ======================================================================
+    # public
+    # ======================================================================
+
+    def _extract(self, query, aggs) -> dict:
+        params = qc.extract_params(query, self.dindex)
+        self._extract_filter_params(aggs, ("a",), params)
+        return params
+
+    def param_key(self, query, aggs):
+        """Canonical hashable key of a request's extracted device params.
+        A program is a pure function of (params, resident planes), so equal
+        keys imply bit-identical fruits — agg_search_batch computes
+        repeated queries of a group ONCE (searcher._submit_group)."""
+        return tuple(sorted((k, int(v))
+                            for k, v in self._extract(query, aggs).items()))
+
+    def submit(self, query, aggs):
+        return self.submit_many([query], aggs)
+
+    def submit_many(self, queries, aggs):
+        """Run B same-shape queries as one [B, P] param matrix; returns the
+        device-side packed fruits {"packed": [B, F] int64}."""
+        pmat = qc.param_matrix([self._extract(q, aggs) for q in queries],
+                               self._pkeys, self.device)
+        return self._run(pmat)
+
+    def run(self, query, aggs):
+        return self.finalize(self.submit(query, aggs), aggs)
+
+    def finalize(self, raw, aggs):
+        return self.finalize_many(raw, aggs, 1)[0]
+
+    def finalize_many(self, raw, aggs, B: int):
+        """One device->host copy of the packed fruits, then host harvest of
+        the first B rows."""
+        vecs = raw["packed"].cpu().numpy()
+        return [self.harvest_host(self._unpack_host(vecs[b]), aggs)
+                for b in range(B)]
+
+    def harvest_host(self, host, aggs):
+        return {name: self._harvest(agg, host[name], ("a", name), None)
+                for name, agg in aggs.items()}
+
+    # ======================================================================
+    # planning
+    # ======================================================================
+
+    def _col(self, field):
+        return self.dindex.column(field)
+
+    def _need(self, key, arr):
+        self._arrays[key] = arr
+
+    def _need_col_planes(self, col):
+        if col.multi:
+            raise NotImplementedError(
+                f"multi-valued field {col.name!r} as a row plane")
+        if col.narrow or col.ftype.is_stringy:
+            self._need(f"{col.name}:w", col.w)
+        else:
+            self._need(f"{col.name}:hi", col.hi)
+            self._need(f"{col.name}:lo", col.lo)
+
+    def _chain_entry(self, chain, prefix="", planes_of=None):
+        """Compile a chain to its mask program and register what evaluating
+        it needs: the planes (unpermuted, or the layout view under
+        `prefix` via `planes_of`), the op list as a device operand, and the
+        program's param columns of the [B, P] matrix."""
+        mp = qc.mask_program(chain, self.dindex)
+        if planes_of is None:
+            for key in mp.plane_keys:
+                self._need_col_planes(self._col(key.rsplit(":", 1)[0]))
+        else:
+            planes_of(mp.plane_keys)
+        if len(mp.plane_keys) > K.MAX_PLANES or len(mp.ops) > K.MAX_OPS:
+            raise NotImplementedError(
+                f"query chain needs {len(mp.plane_keys)} planes / "
+                f"{len(mp.ops)} ops (kernel limits {K.MAX_PLANES} / "
+                f"{K.MAX_OPS})")
+        cols = [self._pcol[k] for k in mp.param_keys]
+        return {"mp": mp, "prefix": prefix,
+                "ops": K.ops_tensor(mp.ops, self.device),
+                "cols": torch.tensor(cols, dtype=torch.int64,
+                                     device=self.device)}
+
+    def _chain_pmat(self, entry, pmat):
+        """The [B, Pc] param sub-matrix a chain's mask program reads (one
+        zero column for a param-free chain, so every query keeps a row)."""
+        if entry["cols"].numel() == 0:
+            return torch.zeros(pmat.shape[0], 1, dtype=torch.int32,
+                               device=pmat.device)
+        return pmat.index_select(1, entry["cols"]).contiguous()
+
+    def _chain_mask(self, entry, pmat, arrays) -> torch.Tensor:
+        mp = entry["mp"]
+        planes = [arrays[entry["prefix"] + k] for k in mp.plane_keys]
+        return qc.eval_ops(mp.ops, planes, self._chain_pmat(entry, pmat),
+                           (self.dindex.T,))
+
+    @staticmethod
+    def _host_planes(col):
+        """(w, None) or (hi, lo): the host planes behind a single-valued
+        column's device planes."""
+        if col.narrow or col.ftype.is_stringy:
+            return col._w_host, None
+        return col._hi_host, col._lo_host
+
+    def _sum_limbs_host(self, col):
+        if getattr(col, "_sum_limbs_host_cache", None) is None:
+            col._sum_limbs_host_cache = col.sum_limbs_host()
+        return col._sum_limbs_host_cache
+
+    def _doc_preagg_host(self, col):
+        return col.doc_preagg_host(self.dindex.T)
+
+    def _need_preagg(self, col, need_sum, need_minmax):
+        pre = self._doc_preagg_host(col)
+        key = f"{col.name}:pre:"
+        dev = self.device
+        if key + "cnt" not in self._arrays:
+            self._need(key + "cnt", _put(pre["cnt"], dev))
+        if need_sum and key + "sum" not in self._arrays:
+            self._need(key + "sum", _put(pre["sum"], dev))
+        if need_minmax:
+            names = ("minA", "maxA") if col.narrow else \
+                ("minA", "minB", "maxA", "maxB")
+            for nm in names:
+                if key + nm not in self._arrays:
+                    self._need(key + nm, _put(pre[nm], dev))
+
+    # -- permuted (layout) views ---------------------------------------------
+
+    def _build_chain_view(self, layout, prefix, chain, payload_fields=()):
+        """Register the untransposed permuted planes a chain kernel scans,
+        cached on the layout: the combined alive & valid plane `avalid`
+        (int8), the chain's mask-program planes, and (chain_blocks) the
+        payload sum planes. Returns (chain entry, {payload field: meta}):
+        meta["skeys"] are the field's sum-plane keys, meta["cnt_key"] its
+        per-doc value-count plane (multi-valued payloads), meta["direct"]
+        the flat-sum shape."""
+        perm = layout.perm
+
+        def cache(key, build):
+            if key not in layout.cache:
+                layout.cache[key] = _put(np.ascontiguousarray(build()),
+                                         self.device)
+            self._need(prefix + key, layout.cache[key])
+
+        cache("avalid", lambda: ((self.dindex.alive_host[perm] > 0)
+                                 & (layout.valid_perm_host > 0))
+              .astype(np.int8))
+
+        def planes_of(keys):
+            for key in keys:
+                f, kind = key.rsplit(":", 1)
+                ph = self._host_planes(self._col(f))[1 if kind == "lo"
+                                                     else 0]
+                cache(key, lambda ph=ph: ph[perm])
+
+        entry = self._chain_entry(chain, prefix, planes_of)
+        pay_plan = {}
+        for g in payload_fields:
+            if g in pay_plan:
+                continue
+            colg = self._col(g)
+            meta = {"skeys": [], "cnt_key": None,
+                    "direct": colg.sum_direct and not colg.multi}
+            if colg.multi:
+                pre = self._doc_preagg_host(colg)
+                for i in range(pre["sum"].shape[1]):
+                    k = f"pay:{g}:s{i}"
+                    cache(k, lambda pre=pre, i=i: pre["sum"][perm, i])
+                    meta["skeys"].append(k)
+                k = f"pay:{g}:cnt"
+                cache(k, lambda pre=pre: pre["cnt"][perm])
+                meta["cnt_key"] = k
+            elif colg.sum_direct:
+                hp = self._host_planes(colg)
+                cache(f"pay:{g}:s0", lambda hp=hp: hp[0][perm])
+                meta["skeys"] = [f"pay:{g}:s0"]
+            else:
+                limbs = self._sum_limbs_host(colg)
+                for i in range(limbs.shape[1]):
+                    k = f"pay:{g}:s{i}"
+                    cache(k, lambda limbs=limbs, i=i: limbs[perm, i])
+                    meta["skeys"].append(k)
+            pay_plan[g] = meta
+        return entry, pay_plan
+
+    # -- node planners -------------------------------------------------------
+
+    def _plan_aggs(self, node, path, *, in_slot, hdims, tflat, chain):
+        if isinstance(node, (dict, tuple)):
+            items = node.items() if isinstance(node, dict) else node
+            for name, sub in items:
+                self._plan_aggs(sub, path + (name,), in_slot=in_slot,
+                                hdims=hdims, tflat=tflat, chain=chain)
+            return
+        if isinstance(node, A.CountAgg):
+            self.plan[path] = {"kind": "count", "hdims": hdims}
+            return
+        if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
+                             A.StatsAgg)):
+            self._plan_metric(node, path, hdims)
+            return
+        if isinstance(node, A.PercentilesAgg):
+            if in_slot:
+                raise NotImplementedError(
+                    "percentiles under bucket aggs (slot_rank) are not "
+                    "ported yet")
+            self._plan_percentiles(node, path, hdims, chain)
+            return
+        if isinstance(node, A.FacetAgg):
+            raise NotImplementedError("facet aggs are not ported yet")
+        if isinstance(node, A.HistogramAgg):
+            self._plan_histogram(node, path, in_slot=in_slot, hdims=hdims,
+                                 tflat=tflat, chain=chain)
+            return
+        if isinstance(node, A.TermsAgg):
+            self._plan_terms(node, path, in_slot=in_slot, hdims=hdims,
+                             tflat=tflat, chain=chain)
+            return
+        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
+            sub_chain = chain + ((node.query, path + ("fq",)),)
+            self.plan[path] = {
+                "kind": "filter", "hdims": hdims,
+                "fmask": self._chain_entry(((node.query, path + ("fq",)),))}
+            self._plan_aggs(node.sub_aggs, path, in_slot=in_slot,
+                            hdims=hdims, tflat=tflat, chain=sub_chain)
+            return
+        if isinstance(node, A.TopHitsAgg):
+            raise NotImplementedError("top_hits aggs are not ported yet")
+        raise TypeError(f"unknown agg {type(node)!r}")
+
+    @staticmethod
+    def _metric_needs(node):
+        need_min = isinstance(node, (A.MinAgg, A.StatsAgg))
+        need_max = isinstance(node, (A.MaxAgg, A.StatsAgg))
+        need_sum = isinstance(node, (A.SumAgg, A.AvgAgg, A.StatsAgg))
+        return need_min, need_max, need_sum
+
+    def _metric_plan_dict(self, node, hdims):
+        """Harvest metadata for a metric node."""
+        col = self._col(node.field)
+        return {"kind": "metric", "ftype": col.ftype, "narrow": col.narrow,
+                "multi": col.multi,
+                "direct": col.sum_direct and not col.multi,
+                "min_mono": col.min_mono,
+                "min_user": (col.min_user() if col.ftype != FieldType.F64
+                             else None),
+                "base": col.f64_base_exp, "hdims": hdims}
+
+    def _plan_metric(self, node, path, hdims):
+        col = self._col(node.field)
+        need_min, need_max, need_sum = self._metric_needs(node)
+        p = self._metric_plan_dict(node, hdims)
+        if col.multi:
+            self._need_preagg(col, need_sum, need_min or need_max)
+        else:
+            self._need_col_planes(col)
+            if need_sum and not col.sum_direct:
+                self._need(f"{node.field}:limbs", col.sum_limbs())
+            # root/filter-scope narrow metrics run the fused kernel
+            p["fused"] = col.narrow and not hdims
+        self.plan[path] = p
+
+    def _plan_percentiles(self, node, path, hdims, chain):
+        col = self._col(node.field)
+        if col.multi:
+            raise NotImplementedError(
+                "percentiles over a multi-valued field (value-row layouts) "
+                "are not ported yet")
+        if not all(float(q).is_integer() for q in node.percents):
+            raise NotImplementedError(
+                "non-integer percents (phase-2 rank resolution) are not "
+                "ported yet")
+        layout = col.value_layout()
+        prefix = f"VL:{node.field}#"
+        entry, _ = self._build_chain_view(layout, prefix, chain)
+        self.plan[path] = {
+            "kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
+            "min_mono": col.min_mono, "percents": node.percents,
+            "hdims": hdims, "pmode": "rank", "int_percents": True,
+            "layout": layout, "prefix": prefix, "pallas_counts": True,
+            "chainp": entry}
+
+    def _hist_layout(self, col, node):
+        if col.n_values == 0:
+            return {"hmode": "empty", "k_min": 0, "nb": 1}
+        if getattr(node, "calendar", None):
+            # calendar intervals: static period boundaries over the
+            # column's [min, max]; bucket keys are the period starts
+            from ..utils import calendar as cal
+            lo = mono_mod.scalar_from_mono("date", col.min_mono)
+            hi = mono_mod.scalar_from_mono("date", col.max_mono)
+            keys, inner = cal.calendar_layout(node.calendar, lo, hi)
+            nb = len(keys)
+            if nb > MAX_HIST_NB:
+                raise NotImplementedError(
+                    f"calendar histogram would span {nb} buckets on device")
+            # rm domain: rm = (mono - min_mono) - 2^63; boundary micros b ->
+            # mono = b - 2^63 (the u64->mono shift)
+            rb = [_wrap64(((int(b) - 2**63) - col.min_mono) - 2**63)
+                  for b in inner]
+            return {"hmode": "bounds", "k_min": 0, "nb": nb,
+                    "rbounds": np.asarray(rb, np.int64),
+                    "keys": np.asarray(keys, np.int64)}
+        if col.ftype == FieldType.F64:
+            lo = mono_mod.scalar_from_mono("f64", col.min_mono)
+            hi = mono_mod.scalar_from_mono("f64", col.max_mono)
+            k_min, bounds_mono = exact.f64_histogram_buckets(
+                lo, hi, float(node.interval), float(node.offset))
+            nb = len(bounds_mono) + 1
+            if nb > MAX_HIST_NB:
+                raise NotImplementedError(
+                    f"f64 histogram would span {nb} buckets on device")
+            rb = [_wrap64((int(b) - col.min_mono) - 2**63)
+                  for b in bounds_mono]
+            return {"hmode": "bounds", "k_min": k_min, "nb": nb,
+                    "rbounds": np.asarray(rb, np.int64)}
+        iv, off = int(node.interval), int(node.offset)
+        lo_u = col.min_user()
+        hi_u = mono_mod.scalar_from_mono(col.ftype.value, col.max_mono)
+        k_min = (lo_u - off) // iv
+        k_max = (hi_u - off) // iv
+        nb = k_max - k_min + 1
+        if nb > MAX_HIST_NB_HOST:
+            raise NotImplementedError(
+                f"histogram column spans {nb} buckets (the host path "
+                "applies the realized-span ceiling)")
+        # j = (w - w_base) // iv with w_base = (off + k_min*iv) - lo_u <= 0
+        w_base = (off + k_min * iv) - lo_u
+        span_num = col.span - w_base
+        if span_num <= 2**63 - 1:
+            return {"hmode": "direct64", "k_min": k_min, "nb": nb,
+                    "w_base": int(w_base), "iv": iv}
+        raise NotImplementedError("histogram span exceeds 2^63")
+
+    @staticmethod
+    def _host_bucket_ids(col, p) -> np.ndarray:
+        """Exact host computation of 0-based bucket indices per row
+        (padding/invalid rows land in bucket 0; masked off at query time)."""
+        from ..index.loader import _w_u64
+        m = col._host_mono
+        if p["hmode"] == "empty":
+            return np.zeros(m.shape[0], np.int64)
+        if p["hmode"] == "bounds":
+            rm = (_w_u64(m, col.min_mono)
+                  - np.uint64(2**63)).view(np.int64)
+            return np.searchsorted(p["rbounds"], rm, side="right")
+        w = _w_u64(m, col.min_mono)
+        num = w + np.uint64(-p["w_base"])  # fits u64 (span_num checked)
+        return (num // np.uint64(p["iv"])).astype(np.int64)
+
+    def _bucket_field(self, node):
+        col = self._col(node.field)
+        if col.multi:
+            raise NotImplementedError(
+                f"bucket agg over the multi-valued field {node.field!r} is "
+                "not ported yet")
+        return col
+
+    def _sub_kinds_ok(self, node) -> bool:
+        return all(isinstance(s, (A.CountAgg, A.SumAgg, A.AvgAgg))
+                   for _, s in node.sub_aggs)
+
+    def _plan_prefix(self, node, p, layout, prefix, chain, hdims, nb):
+        """Prefix-mode lowering of a root-level bucket agg: the chain_blocks
+        kernel over the bucket layout's permuted view; the metric subs
+        keep only harvest metadata (their sums come from the payloads)."""
+        pay_fields = [s.field for _, s in node.sub_aggs
+                      if isinstance(s, (A.SumAgg, A.AvgAgg))]
+        p["prefix"] = prefix
+        p["pallas_prefix"] = True
+        p["chainp"], p["pay_plan"] = self._build_chain_view(
+            layout, prefix, chain, pay_fields)
+        n_pay = sum(len(m["skeys"]) + (m["cnt_key"] is not None)
+                    for m in p["pay_plan"].values())
+        if n_pay > K.MAX_PAYLOADS:
+            raise NotImplementedError(
+                f"{n_pay} payload planes exceed the chain_blocks limit "
+                f"{K.MAX_PAYLOADS}")
+        self._need(prefix + "bounds32",
+                   _put(layout.bounds.astype(np.int64), self.device))
+        for name, sub in node.sub_aggs:
+            if isinstance(sub, A.CountAgg):
+                self.plan[p["path"] + (name,)] = {"kind": "count",
+                                                  "hdims": hdims + (nb,)}
+            else:
+                self.plan[p["path"] + (name,)] = self._metric_plan_dict(
+                    sub, hdims + (nb,))
+
+    def _plan_histogram(self, node, path, *, in_slot, hdims, tflat, chain):
+        col = self._bucket_field(node)
+        p = {"kind": "histogram", "ftype": col.ftype, "multi": False,
+             "hdims": hdims, "path": path}
+        p.update(self._hist_layout(col, node))
+        nb = p["nb"]
+        if tflat * nb >= 2**31:
+            raise NotImplementedError(
+                "composite bucket slot space exceeds 2^31 on device")
+        bid_key = (f"{node.field}:bid:cal:{node.calendar}" if node.calendar
+                   else f"{node.field}:bid:{node.interval}:{node.offset}")
+        bid_host = self._host_bucket_ids(col, p)
+        self.plan[path] = p
+        if tflat * nb > self.dense_nb and not in_slot \
+                and self._sub_kinds_ok(node):
+            p["mode"] = "prefix"
+            layout = col.layout_for_ids(bid_key, bid_host, nb)
+            self._plan_prefix(node, p, layout, f"HL:{bid_key}#", chain,
+                              hdims, nb)
+            return
+        p["mode"] = "dense" if tflat * nb <= self.dense_nb else "scatter"
+        self._need(bid_key, col.bucket_id_plane(bid_key, lambda: bid_host))
+        p["bid_key"] = bid_key
+        for name, sub in node.sub_aggs:
+            self._plan_aggs(sub, path + (name,), in_slot=True,
+                            hdims=hdims + (nb,), tflat=tflat * nb,
+                            chain=chain)
+
+    def _plan_terms(self, node, path, *, in_slot, hdims, tflat, chain):
+        col = self._bucket_field(node)
+        p = {"kind": "terms", "ftype": col.ftype, "multi": False,
+             "hdims": hdims, "path": path}
+        if col.ftype.is_stringy:
+            card = col.card
+            p["keys"] = col.terms
+        else:
+            card = col.card
+            p["keys_mono"] = col.term_ids()[1]
+        if card > MAX_TERMS_CARD:
+            raise NotImplementedError(
+                f"terms cardinality {card} exceeds the device bound")
+        if tflat * card >= 2**31:
+            raise NotImplementedError(
+                "composite bucket slot space exceeds 2^31 on device")
+        p["card"] = card
+        p["keff"] = min(node.size, card)
+        # default order: composite-key top-k on device; any other order
+        # ships every bucket and selects on the host with the oracle's
+        # comparator (exact for every order target)
+        p["order"] = node.order
+        p["sel"] = "topk" if node.order == ("_count", "desc") else "host"
+        self.plan[path] = p
+        sub_hdims = hdims + ((card if p["sel"] == "host" else p["keff"]),)
+        if tflat * card > self.dense_nb and not in_slot \
+                and self._sub_kinds_ok(node):
+            p["mode"] = "prefix"
+            self._plan_prefix(node, p, col.bucket_layout(),
+                              f"BL:{node.field}#", chain, hdims,
+                              sub_hdims[-1])
+            return
+        p["mode"] = "dense" if tflat * card <= self.dense_nb else "scatter"
+        if col.ftype.is_stringy:
+            self._need(f"{node.field}:w", col.w)
+        else:
+            self._need(f"{node.field}:tid", col.tid())
+        for name, sub in node.sub_aggs:
+            self._plan_aggs(sub, path + (name,), in_slot=True,
+                            hdims=sub_hdims, tflat=tflat * card,
+                            chain=chain)
+
+    def _extract_filter_params(self, node, path, out):
+        if isinstance(node, (dict, tuple)):
+            items = node.items() if isinstance(node, dict) else node
+            for name, sub in items:
+                self._extract_filter_params(sub, path + (name,), out)
+            return
+        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
+            out.update(qc.extract_params(node.query, self.dindex,
+                                         path=path + ("fq",)))
+            self._extract_filter_params(node.sub_aggs, path, out)
+            return
+        if isinstance(node, (A.HistogramAgg, A.TermsAgg)):
+            self._extract_filter_params(node.sub_aggs, path, out)
+
+    # ======================================================================
+    # evaluation
+    # ======================================================================
+
+    def _run(self, pmat):
+        arrays = self._arrays
+        B, T = pmat.shape[0], self.dindex.T
+        mask = self._chain_mask(self._root, pmat, arrays) \
+            & (arrays["alive"] > 0)
+        ctx = MaskCtx(mask.expand(B, T))
+        out = {name: self._eval(agg, ctx, pmat, arrays, ("a", name))
+               for name, agg in self.aggs.items()}
+        return {"packed": self._pack_outputs(out, self.aggs, B)}
+
+    def _eval(self, node, ctx, pmat, arrays, path):
+        p = self.plan.get(path)
+        if isinstance(node, A.CountAgg):
+            if isinstance(ctx, MaskCtx):
+                return {"cnt": R.ts_count(ctx.mask)}
+            return {"cnt": R.dense_bucket_counts(ctx.bid, ctx.valid,
+                                                 ctx.nslots)}
+        if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
+                             A.StatsAgg)):
+            return self._eval_metric(node, ctx, arrays, p)
+        if isinstance(node, A.PercentilesAgg):
+            return self._eval_percentiles(pmat, arrays, p)
+        if isinstance(node, A.HistogramAgg):
+            return self._eval_histogram(node, ctx, pmat, arrays, path, p)
+        if isinstance(node, A.TermsAgg):
+            return self._eval_terms(node, ctx, pmat, arrays, path, p)
+        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
+            fmask = self._chain_mask(p["fmask"], pmat, arrays)
+            if isinstance(ctx, MaskCtx):
+                sub_ctx = MaskCtx(ctx.mask & fmask)
+                out = {"cnt": R.ts_count(sub_ctx.mask)}
+            else:
+                sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims)
+                out = {"cnt": R.dense_bucket_counts(
+                    sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots)}
+            for name, sub in node.sub_aggs:
+                out[name] = self._eval(sub, sub_ctx, pmat, arrays,
+                                       path + (name,))
+            return out
+        raise TypeError(f"unknown agg {type(node)!r}")
+
+    # -- metrics -------------------------------------------------------------
+
+    def _eval_metric(self, node, ctx, arrays, p):
+        field = node.field
+        col = self._col(field)
+        need_min, need_max, need_sum = self._metric_needs(node)
+        out = {}
+        slot = isinstance(ctx, SlotCtx)
+        valid = ctx.valid if slot else ctx.mask
+
+        def msum(plane):
+            if slot:
+                return R.dense_bucket_sum(ctx.bid, valid, plane, ctx.nslots)
+            return R.ts_sum_plane(plane, valid)
+
+        def mmin(plane, m):
+            if slot:
+                return R.dense_bucket_min(ctx.bid, m, plane, ctx.nslots)
+            return R.masked_min_i32(plane, m)
+
+        def mmax(plane, m):
+            if slot:
+                return R.dense_bucket_max(ctx.bid, m, plane, ctx.nslots)
+            return R.masked_max_i32(plane, m)
+
+        if col.multi:
+            pre = f"{field}:pre:"
+            cnt_doc = arrays[pre + "cnt"]
+            out["cnt"] = msum(cnt_doc)
+            if need_sum:
+                planes = arrays[pre + "sum"]
+                out["sum"] = torch.stack(
+                    [msum(planes[:, i]) for i in range(planes.shape[1])],
+                    dim=-1)
+            mm = valid & (cnt_doc > 0)
+            for which, need, red in (("min", need_min, mmin),
+                                     ("max", need_max, mmax)):
+                if not need:
+                    continue
+                if col.narrow:
+                    v = arrays[pre + which + "A"]
+                    out[which] = red(v, mm)
+                elif slot:
+                    v = R.wide_recon(arrays[pre + which + "A"],
+                                     arrays[pre + which + "B"])
+                    out[which] = red(v, mm)
+                else:
+                    wide = (R.masked_min_wide if which == "min"
+                            else R.masked_max_wide)
+                    out[which] = wide(arrays[pre + which + "A"],
+                                      arrays[pre + which + "B"], mm)
+            return out
+
+        if p.get("fused"):
+            cnt, tot, mn, mx = K.fused_metrics(valid.contiguous(),
+                                               arrays[f"{field}:w"])
+            out["cnt"] = cnt
+            if need_min:
+                out["min"] = mn
+            if need_max:
+                out["max"] = mx
+            if need_sum:
+                if p["direct"]:
+                    out["sum"] = tot
+                else:  # narrow f64: exact signed limb planes
+                    limbs = arrays[f"{field}:limbs"]
+                    out["sum"] = R.masked_sum_planes(
+                        valid, [limbs[:, i] for i in range(limbs.shape[1])])
+            return out
+
+        out["cnt"] = (R.dense_bucket_counts(ctx.bid, valid, ctx.nslots)
+                      if slot else R.ts_count(valid))
+        if need_min or need_max:
+            if col.narrow:
+                v = arrays[f"{field}:w"]
+                if need_min:
+                    out["min"] = mmin(v, valid)
+                if need_max:
+                    out["max"] = mmax(v, valid)
+            elif slot:
+                v = R.wide_recon(arrays[f"{field}:hi"], arrays[f"{field}:lo"])
+                if need_min:
+                    out["min"] = mmin(v, valid)
+                if need_max:
+                    out["max"] = mmax(v, valid)
+            else:
+                hi, lo = arrays[f"{field}:hi"], arrays[f"{field}:lo"]
+                if need_min:
+                    out["min"] = R.masked_min_wide(hi, lo, valid)
+                if need_max:
+                    out["max"] = R.masked_max_wide(hi, lo, valid)
+        if need_sum:
+            if p["direct"]:
+                out["sum"] = msum(arrays[f"{field}:w"])
+            else:
+                limbs = arrays[f"{field}:limbs"]
+                out["sum"] = torch.stack(
+                    [msum(limbs[:, i]) for i in range(limbs.shape[1])],
+                    dim=-1)
+        return out
+
+    # -- percentiles ---------------------------------------------------------
+
+    def _int_ranks(self, p, m):
+        """0-based (lo, hi) rank pairs per percent, exact in int64:
+        rank = (q * (m-1)) // 100 for integer q <= 100; matches
+        utils/exact.py percentile_rank. m: [B] -> [B, 2P]."""
+        ms = (m - 1).clamp(min=0)
+        ranks = []
+        for q in p["percents"]:
+            lo = (int(q) * ms) // 100
+            hi = torch.minimum(lo + 1, ms)
+            ranks.extend([lo, hi])
+        return torch.stack(ranks, dim=-1)
+
+    def _window_mask(self, p, sub_pmat, arrays, blk):
+        """Chain-mask bits of the GROUP-row windows at groups `blk`
+        ([B, K]) -> bool [B, K, GROUP], recomputed from the permuted planes
+        (the kernel never materializes the [R] mask)."""
+        entry, prefix = p["chainp"], p["prefix"]
+        rows = (blk[..., None] * GROUP
+                + torch.arange(GROUP, device=blk.device))
+        planes = [arrays[prefix + k][rows] for k in entry["mp"].plane_keys]
+        m = qc.eval_ops(entry["mp"].ops, planes, sub_pmat,
+                        tuple(rows.shape[1:]))
+        return m & (arrays[prefix + "avalid"][rows] > 0)
+
+    def _eval_percentiles(self, pmat, arrays, p):
+        entry, prefix = p["chainp"], p["prefix"]
+        sub = self._chain_pmat(entry, pmat)
+        counts = K.chain_counts(
+            sub, entry["ops"],
+            [arrays[prefix + k] for k in entry["mp"].plane_keys],
+            arrays[prefix + "avalid"])
+        cum = torch.cumsum(counts, dim=-1, dtype=torch.int64)
+        m = cum[:, -1]
+        rows = _rank_select_rows_lazy(
+            cum, self._int_ranks(p, m),
+            lambda blk: self._window_mask(p, sub, arrays, blk))
+        return {"m": m, "rows": rows}
+
+    # -- bucket aggs ---------------------------------------------------------
+
+    def _eval_prefix_kernel(self, node, pmat, arrays, p):
+        """Prefix-mode bucket totals via the chain_blocks kernel: (per-bucket
+        counts [B, card] int64, sub_out)."""
+        entry, prefix = p["chainp"], p["prefix"]
+        pay_keys = []
+        for meta in p["pay_plan"].values():
+            pay_keys += meta["skeys"]
+            if meta["cnt_key"]:
+                pay_keys.append(meta["cnt_key"])
+        c32, sums = K.chain_blocks(
+            self._chain_pmat(entry, pmat), entry["ops"],
+            [arrays[prefix + k] for k in entry["mp"].plane_keys],
+            arrays[prefix + "avalid"],
+            [arrays[prefix + k] for k in pay_keys])
+        bounds32 = arrays[prefix + "bounds32"]
+        counts = R.prefix_diff_counts_from_blocks(c32, bounds32)
+        col_of = {k: j for j, k in enumerate(pay_keys)}
+
+        def bucket_sums(key):
+            return R.prefix_diff_sums_from_blocks(sums[:, col_of[key]],
+                                                  bounds32)
+
+        sub_out = {}
+        for name, sub in node.sub_aggs:
+            if isinstance(sub, A.CountAgg):
+                sub_out[name] = {"cnt": counts}
+                continue
+            meta = p["pay_plan"][sub.field]
+            ssum = torch.stack([bucket_sums(k) for k in meta["skeys"]],
+                               dim=-1)
+            gcnt = bucket_sums(meta["cnt_key"]) if meta["cnt_key"] \
+                else counts
+            if len(meta["skeys"]) == 1 and meta["direct"]:
+                sub_out[name] = {"cnt": gcnt, "sum": ssum[..., 0]}
+            else:
+                sub_out[name] = {"cnt": gcnt, "sum": ssum}
+        return counts, sub_out
+
+    def _eval_histogram(self, node, ctx, pmat, arrays, path, p):
+        nb = p["nb"]
+        if p["mode"] == "prefix":
+            counts, sub_out = self._eval_prefix_kernel(node, pmat, arrays, p)
+            return {"counts": counts, **sub_out}
+        bid_own = arrays[p["bid_key"]]
+        if isinstance(ctx, MaskCtx):
+            sub_ctx = SlotCtx(bid_own, ctx.mask, (nb,))
+        else:
+            sub_ctx = SlotCtx(ctx.bid * nb + bid_own, ctx.valid,
+                              ctx.dims + (nb,))
+        out = {"counts": R.dense_bucket_counts(sub_ctx.bid, sub_ctx.valid,
+                                               sub_ctx.nslots)}
+        for name, sub in node.sub_aggs:
+            out[name] = self._eval(sub, sub_ctx, pmat, arrays,
+                                   path + (name,))
+        return out
+
+    def _eval_terms(self, node, ctx, pmat, arrays, path, p):
+        card = p["card"]
+        if p["mode"] == "prefix":
+            counts, sub_out = self._eval_prefix_kernel(node, pmat, arrays, p)
+            return self._terms_select(p, counts, sub_out, 1)
+        col = self._col(node.field)
+        ids = arrays[f"{node.field}:w"] if col.ftype.is_stringy \
+            else arrays[f"{node.field}:tid"]
+        if isinstance(ctx, MaskCtx):
+            sub_ctx = SlotCtx(ids, ctx.mask & (ids >= 0), (card,))
+            anc_flat = 1
+        else:
+            sub_ctx = SlotCtx(ctx.bid * card + ids, ctx.valid & (ids >= 0),
+                              ctx.dims + (card,))
+            anc_flat = ctx.nslots
+        counts = R.dense_bucket_counts(sub_ctx.bid, sub_ctx.valid,
+                                       sub_ctx.nslots)
+        sub_out = {name: self._eval(sub, sub_ctx, pmat, arrays,
+                                    path + (name,))
+                   for name, sub in node.sub_aggs}
+        return self._terms_select(p, counts, sub_out, anc_flat)
+
+    def _terms_select(self, p, counts, sub_out, anc_flat):
+        """Dispatch the planned selection mode: device top-k or all buckets
+        for host selection."""
+        card, keff = p["card"], p["keff"]
+        B = counts.shape[0]
+        c2 = counts.reshape(B, anc_flat, card)
+        total = c2.sum(dim=-1)
+        if p["sel"] == "host":
+            return {"counts": counts, "total": total, **sub_out}
+        # (count desc, key asc): unique composite keys, so top-k has no ties
+        ids = torch.arange(card, dtype=torch.int64, device=counts.device)
+        key = c2 * (1 << 27) + (card - 1 - ids)
+        top = torch.topk(key, keff, dim=-1).indices  # [B, anc, keff]
+
+        def gather(a):
+            tail = a.shape[2:]
+            rest = a.shape[1] // (anc_flat * card)
+            b = a.reshape((B, anc_flat, card, rest) + tail)
+            idx = top.reshape((B, anc_flat, keff) + (1,) * (1 + len(tail)))
+            g = torch.gather(b, 2, idx.expand((B, anc_flat, keff, rest)
+                                              + tail))
+            return g.reshape((B, anc_flat * keff * rest) + tail)
+
+        return {"counts": torch.gather(c2, 2, top).reshape(B, -1),
+                "ids": top.reshape(B, -1).to(torch.int32),
+                "total": total, **_tree_map(gather, sub_out)}
+
+    # ======================================================================
+    # fetch (one batched device->host copy)
+    # ======================================================================
+
+    def _pack_outputs(self, out, aggs, B):
+        """Walk the agg tree in deterministic order and concatenate every
+        fruit leaf into ONE [B, F] int64 tensor (all device fruits are
+        integral: exact limb sums, w-domain min/max, counts, ids, rows)."""
+        spec = []
+        parts = []
+
+        def keep(path, key, v):
+            spec.append((path, key, tuple(v.shape[1:])))
+            parts.append(v.expand((B,) + tuple(v.shape[1:]))
+                         .reshape(B, -1).to(torch.int64))
+
+        def strip(node, r, path):
+            if isinstance(node, (dict, tuple)):
+                items = node.items() if isinstance(node, dict) else node
+                for n, s in items:
+                    strip(s, r[n], path + (n,))
+                return
+            if isinstance(node, (A.HistogramAgg, A.TermsAgg,
+                                 A.FilterAgg, A.PostFilterAgg)):
+                for k, v in r.items():
+                    if not isinstance(v, dict):
+                        keep(path, k, v)
+                for n, s in node.sub_aggs:
+                    strip(s, r[n], path + (n,))
+                return
+            for k, v in r.items():  # metric / count / percentile leaves
+                keep(path, k, v)
+
+        strip(aggs, out, ("a",))
+        self._pack_spec = spec
+        return torch.cat(parts, dim=1)
+
+    def _unpack_host(self, vec: np.ndarray):
+        """One packed int64 host row -> nested fruit dict of np views."""
+        host: Dict[str, dict] = {}
+        off = 0
+        for path, key, shape in self._pack_spec:
+            node = host
+            for k in path[1:]:
+                node = node.setdefault(k, {})
+            size = 1
+            for d in shape:
+                size *= d
+            node[key] = (vec[off:off + size].reshape(shape) if shape
+                         else vec[off])
+            off += size
+        return host
+
+    # ======================================================================
+    # harvest (copied from the JAX package's aggs/compile.py)
+    # ======================================================================
+
+    @staticmethod
+    def _flat(raw, flat, key):
+        """Fruit scalar for this node at flattened bucket-prefix index
+        `flat` (None = root scope, raw entries are unbucketed scalars).
+        The flat index is threaded down the recursion as a plain int
+        (child = parent * child_axis + j) instead of re-raveling prefix
+        tuples per bucket — np.ravel_multi_index boxing was ~60% of the
+        measured host harvest cost on bucketed trees (74ms/128-query
+        batch on bench c3)."""
+        a = raw[key]
+        if flat is None:
+            return a
+        return a[flat]
+
+    def _harvest(self, node, raw, path, flat):
+        """`flat`: flattened index of the enclosing bucket prefix under
+        this node's hdims chain (row-major, matching the device fruit
+        layout), or None at root."""
+        if isinstance(node, A.CountAgg):
+            return {"value": int(self._flat(raw, flat, "cnt"))}
+        if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
+                             A.StatsAgg)):
+            return self._harvest_metric(node, raw, path, flat)
+        if isinstance(node, A.PercentilesAgg):
+            return self._harvest_percentiles(node, raw, path, flat)
+        if isinstance(node, A.HistogramAgg):
+            return self._harvest_histogram(node, raw, path, flat)
+        if isinstance(node, A.FacetAgg):
+            return self._harvest_facet(node, raw, path, flat)
+        if isinstance(node, A.TermsAgg):
+            return self._harvest_terms(node, raw, path, flat)
+        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
+            out = {"doc_count": int(self._flat(raw, flat, "cnt"))}
+            for name, sub in node.sub_aggs:
+                out[name] = self._harvest(sub, raw[name], path + (name,),
+                                          flat)
+            return out
+        if isinstance(node, A.TopHitsAgg):
+            return self._harvest_top_hits(node, raw, path, flat)
+        raise TypeError(f"unknown agg {type(node)!r}")
+
+    def _mono_from_mm(self, p, raw_val) -> int:
+        """Device min/max output (narrow: w int32; wide: rm int64) -> mono."""
+        if p["narrow"]:
+            w = int(raw_val)
+        else:
+            w = int(raw_val) + 2**63
+        return _wrap64(p["min_mono"] + w)
+
+    def _user_scalar(self, ftype, mono: int):
+        v = mono_mod.scalar_from_mono(ftype.value, mono)
+        return float(v) if ftype == FieldType.F64 else int(v)
+
+    def _reconstruct_sum(self, p, sum_out, cnt: int):
+        if p["ftype"] == FieldType.F64:
+            return exact.f64_reconstruct_sum(
+                np.atleast_1d(np.asarray(sum_out)), p["base"])
+        if p["direct"] and np.ndim(sum_out) == 0:
+            return int(sum_out) + cnt * int(p["min_user"])
+        return exact.int_reconstruct_sum(np.asarray(sum_out)) \
+            + cnt * int(p["min_user"])
+
+    def _sum_at(self, p, raw, flat, cnt: int):
+        """_reconstruct_sum for a bucketed node, with a vectorized fast
+        path: integer limb accumulators recombine for ALL buckets in one
+        int64 numpy pass (cached on the raw dict) when the per-limb
+        magnitude bound proves the int64 math cannot overflow; per-bucket
+        Python big-int exactness otherwise. Same result by construction —
+        the fast path only runs when its values equal the big-int ones."""
+        if flat is None or p["ftype"] == FieldType.F64:
+            return self._reconstruct_sum(p, self._flat(raw, flat, "sum"),
+                                         cnt)
+        a = np.asarray(raw["sum"])
+        if a.ndim < 2:  # direct mode: one int32-ranged scalar per bucket
+            return int(a[flat]) + cnt * int(p["min_user"])
+        tot = raw.get("_sumtot", None)
+        if tot is None:
+            tot = _limb_totals_vec(a)
+            raw["_sumtot"] = False if tot is None else tot
+        if tot is not False:
+            return int(tot[flat]) + cnt * int(p["min_user"])
+        return exact.int_reconstruct_sum(a[flat]) + cnt * int(p["min_user"])
+
+    def _harvest_metric(self, node, raw, path, flat):
+        p = self.plan[path]
+        ftype = p["ftype"]
+        cnt = int(self._flat(raw, flat, "cnt"))
+
+        def mmval(key):
+            if cnt == 0:
+                return None
+            return self._user_scalar(
+                ftype,
+                self._mono_from_mm(p, self._flat(raw, flat, key)))
+
+        if isinstance(node, A.SumAgg):
+            return {"value": self._sum_at(p, raw, flat, cnt)}
+        if isinstance(node, A.MinAgg):
+            return {"value": mmval("min")}
+        if isinstance(node, A.MaxAgg):
+            return {"value": mmval("max")}
+        s = self._sum_at(p, raw, flat, cnt)
+        avg = None if cnt == 0 else (
+            s / cnt if ftype == FieldType.F64 else float(Fraction(s) / cnt))
+        if isinstance(node, A.AvgAgg):
+            return {"value": avg, "sum": s, "count": cnt}
+        return {"count": cnt, "sum": s, "min": mmval("min"),
+                "max": mmval("max"), "avg": avg}
+
+    def _harvest_percentiles(self, node, raw, path, flat=None):
+        p = self.plan[path]
+        ftype = p["ftype"]
+        if p.get("pmode") == "slot_rank":
+            flat = 0 if flat is None else flat
+            m = int(np.asarray(raw["m"]).reshape(-1)[flat])
+            if m == 0:
+                return {"values": {str(q): None for q in node.percents}}
+            if "vals" in raw or ("rows" not in raw
+                                 and p.get("phase2_vals")):
+                # sharded slot bisection (in-trace "vals", or phase-2
+                # "pvals" for non-integer percents) emitted the selected
+                # VALUES directly (narrow: w domain; wide: rm domain)
+                vals = np.asarray(raw["vals"] if "vals" in raw
+                                  else raw["pvals"]).reshape(
+                    -1, 2 * len(node.percents))[flat]
+                out = {}
+                for i, q in enumerate(node.percents):
+                    _, _, frac = exact.percentile_rank(q, m)
+                    v_lo = self._user_scalar(
+                        ftype, self._mono_from_mm(p, vals[2 * i]))
+                    v_hi = self._user_scalar(
+                        ftype, self._mono_from_mm(p, vals[2 * i + 1]))
+                    out[str(q)] = exact.interpolate(float(v_lo),
+                                                    float(v_hi), frac)
+                return {"values": out}
+            rows = np.asarray(raw["rows"] if "rows" in raw
+                              else raw["pvals"]).reshape(
+                -1, 2 * len(node.percents))[flat]
+            out = {}
+            for i, q in enumerate(node.percents):
+                _, _, frac = exact.percentile_rank(q, m)
+                v_lo = self._user_scalar(
+                    ftype, int(p["layout"].sorted_mono[int(rows[2 * i])]))
+                v_hi = self._user_scalar(
+                    ftype,
+                    int(p["layout"].sorted_mono[int(rows[2 * i + 1])]))
+                out[str(q)] = exact.interpolate(float(v_lo), float(v_hi),
+                                                frac)
+            return {"values": out}
+        m = int(raw["m"])
+        if m == 0:
+            return {"values": {str(q): None for q in node.percents}}
+        if p["pmode"] == "rank" and p.get("int_percents"):
+            if p.get("bisect"):
+                # cross-shard bisection emitted the selected VALUES directly
+                # (narrow: w domain; wide: rm domain)
+                vals = np.asarray(raw["vals"])
+                out = {}
+                for i, q in enumerate(node.percents):
+                    _, _, frac = exact.percentile_rank(q, m)
+                    v_lo = self._user_scalar(
+                        ftype, self._mono_from_mm(p, vals[2 * i]))
+                    v_hi = self._user_scalar(
+                        ftype, self._mono_from_mm(p, vals[2 * i + 1]))
+                    out[str(q)] = exact.interpolate(float(v_lo), float(v_hi),
+                                                    frac)
+                return {"values": out}
+            rows = np.asarray(raw["rows"])
+            out = {}
+            for i, q in enumerate(node.percents):
+                _, _, frac = exact.percentile_rank(q, m)
+                v_lo = self._user_scalar(
+                    ftype, int(p["layout"].sorted_mono[int(rows[2 * i])]))
+                v_hi = self._user_scalar(
+                    ftype, int(p["layout"].sorted_mono[int(rows[2 * i + 1])]))
+                out[str(q)] = exact.interpolate(float(v_lo), float(v_hi),
+                                                frac)
+            return {"values": out}
+        got = np.asarray(raw["pvals"])
+        fracs = raw["_fracs"]
+        out = {}
+        for i, q in enumerate(node.percents):
+            if p["pmode"] == "rank" and not p.get("bisect"):
+                lo_mono = int(p["layout"].sorted_mono[int(got[2 * i])])
+                hi_mono = int(p["layout"].sorted_mono[int(got[2 * i + 1])])
+            else:  # bisect paths emitted rm (wide) or w (narrow) values
+                def to_mono(v):
+                    w = int(v) if p["narrow"] else int(v) + 2**63
+                    return _wrap64(p["min_mono"] + w)
+                lo_mono = to_mono(got[2 * i])
+                hi_mono = to_mono(got[2 * i + 1])
+            v_lo = self._user_scalar(ftype, lo_mono)
+            v_hi = self._user_scalar(ftype, hi_mono)
+            out[str(q)] = exact.interpolate(float(v_lo), float(v_hi),
+                                            fracs[i])
+        return {"values": out}
+
+    def _harvest_histogram(self, node, raw, path, flat):
+        p = self.plan[path]
+        nb, k_min, ftype = p["nb"], p["k_min"], p["ftype"]
+        base = (0 if flat is None else flat) * nb
+        row = np.asarray(raw["counts"]).reshape(-1)[base:base + nb]
+        buckets = []
+        for j in np.nonzero(row)[0].tolist():
+            c = int(row[j])
+            k = k_min + j
+            if "keys" in p:  # calendar: keys ARE the period-start micros
+                key = int(p["keys"][k])
+            elif ftype == FieldType.F64:
+                key = exact.f64_histogram_key(k, float(node.interval),
+                                              float(node.offset))
+            else:
+                key = int(node.offset) + k * int(node.interval)
+            b = {"key": key, "doc_count": c}
+            for name, sub in node.sub_aggs:
+                b[name] = self._harvest(sub, raw[name], path + (name,),
+                                        base + j)
+            buckets.append(b)
+        return {"buckets": buckets}
+
+    def _term_key_user(self, p, tid: int):
+        if p["ftype"] == FieldType.BYTES:
+            return bytes(p["keys"][tid])
+        if p["ftype"].is_stringy:
+            return str(p["keys"][tid])
+        return self._user_scalar(p["ftype"], int(p["keys_mono"][tid]))
+
+    def _harvest_terms_hostsel(self, node, raw, path, flat):
+        """Host-side exact selection for `order` modes the device cannot
+        prove exact (avg, f64 sums, limb-plane sums): compares HARVESTED
+        user values — the identical comparator to the oracle — with key-asc
+        ties via the key-ascending bucket id order."""
+        p = self.plan[path]
+        card = p["card"]
+        base = 0 if flat is None else flat
+        cvec = np.asarray(raw["counts"]).reshape(-1, card)[base]
+        present = np.nonzero(cvec > 0)[0].tolist()
+        target, direction = p["order"]
+        desc = direction == "desc"
+        if target == "_count":
+            # host-forced selection of a count-ordered node (e.g. a
+            # non-integer-percent percentile sub pins the fruits to full
+            # slot space): (count desc/asc, key asc) like the device top-k
+            order_ids = sorted(present,
+                               key=lambda j: (-int(cvec[j]) if desc
+                                              else int(cvec[j]), j))
+        elif target == "_key":
+            order_ids = sorted(present, reverse=desc)
+        else:
+            sub = dict(node.sub_aggs)[target]
+            vals = {j: self._harvest(sub, raw[target], path + (target,),
+                                     base * card + j)["value"]
+                    for j in present}
+            ids = [j for j in present if vals[j] is not None]
+            nones = [j for j in present if vals[j] is None]
+            ids.sort(key=lambda j: vals[j], reverse=desc)
+            order_ids = ids + nones
+        top = order_ids[: node.size]
+        buckets = []
+        shown = 0
+        for j in top:
+            c = int(cvec[j])
+            shown += c
+            b = {"key": self._term_key_user(p, j), "doc_count": c}
+            for name, s in node.sub_aggs:
+                b[name] = self._harvest(s, raw[name], path + (name,),
+                                        base * card + j)
+            buckets.append(b)
+        return {"buckets": buckets,
+                "sum_other_doc_count": int(cvec.sum()) - shown}
+
+    def _harvest_facet(self, node, raw, path, flat):
+        """Facet harvest (§A.12): slice the full per-ordinal count vector
+        to the static child ordinals, order (count desc, path asc)."""
+        p = self.plan[path]
+        card = p["card"]
+        base = 0 if flat is None else flat
+        cvec = np.asarray(raw["counts"]).reshape(-1, card)[base]
+        rows = [(str(p["keys"][j]), int(cvec[j]))
+                for j in p["facet_children"] if cvec[j] > 0]
+        rows.sort(key=lambda kv: (-kv[1], kv[0]))
+        return {"buckets": [{"key": k, "doc_count": c}
+                            for k, c in rows[: node.size]]}
+
+    def _harvest_terms(self, node, raw, path, flat):
+        p = self.plan[path]
+        if p["sel"] == "host":
+            return self._harvest_terms_hostsel(node, raw, path, flat)
+        keff = p["keff"]
+        base = (0 if flat is None else flat) * keff
+        crow = np.asarray(raw["counts"]).reshape(-1)[base:base + keff]
+        ids = np.asarray(raw["ids"]).reshape(-1)
+        total = np.asarray(raw["total"]).reshape(-1)
+        total_here = int(total[0 if flat is None else flat])
+        shown = 0
+        buckets = []
+        for i in np.nonzero(crow)[0].tolist():
+            c = int(crow[i])
+            tid = int(ids[base + i])
+            key = self._term_key_user(p, tid)
+            shown += c
+            b = {"key": key, "doc_count": c}
+            for name, sub in node.sub_aggs:
+                b[name] = self._harvest(sub, raw[name], path + (name,),
+                                        base + i)
+            buckets.append(b)
+        return {"buckets": buckets, "sum_other_doc_count": total_here - shown}
+
+    def _harvest_top_hits(self, node, raw, path, flat=None):
+        p = self.plan[path]
+        if p.get("in_slot"):
+            flat = 0 if flat is None else flat
+            keys_a = np.asarray(raw["keys"])
+            kcap = keys_a.shape[-1]
+            m = int(np.asarray(raw["m"]).reshape(-1)[flat])
+            k = min(node.size, m, kcap)
+            keys = keys_a.reshape(-1, kcap)[flat][:k]
+            docs = np.asarray(raw["docs"]).reshape(-1, kcap)[flat][:k]
+        else:
+            m = int(raw["m"])
+            k = min(node.size, m)
+            keys = np.asarray(raw["keys"])[:k]
+            docs = np.asarray(raw["docs"])[:k]
+        starts = self.dindex.seg_starts
+        hits = []
+        for kk, dd in zip(keys.tolist(), docs.tolist()):
+            si = int(np.searchsorted(starts, dd, side="right")) - 1
+            hit = {"segment": si, "doc": int(dd - starts[si])}
+            if p.get("score"):
+                hit["score"] = 1.0  # scoring-disabled constant score (§A.10)
+            else:
+                rm = int(kk) if node.ascending else int(~np.int64(kk))
+                mono = self._mono_from_mm(p, rm)
+                hit["value"] = self._user_scalar(p["ftype"], mono)
+            hits.append(hit)
+        return {"hits": hits}
+
+
+def _limb_totals_vec(a: np.ndarray):
+    """[H, L] int64 limb accumulators -> [H] exact totals as int64, or
+    None when the magnitude bound cannot prove the recombination
+    int64-overflow-free (caller falls back to per-bucket Python big
+    ints). Proof: |sum_i a[h,i] << LIMB_BITS*i| and every prefix partial
+    are <= sum_i max_h|a[h,i]| << LIMB_BITS*i = bound < 2^62."""
+    if a.ndim != 2 or a.size == 0:
+        return None
+    mx = np.abs(a).max(axis=0)
+    bound = sum(int(m) << (exact.LIMB_BITS * i)
+                for i, m in enumerate(mx.tolist()))
+    if bound >= 2 ** 62:
+        return None
+    tot = a[:, 0].astype(np.int64, copy=True)
+    for i in range(1, a.shape[1]):
+        tot += a[:, i].astype(np.int64) << np.int64(exact.LIMB_BITS * i)
+    return tot
+
+
+def _rank_select_rows_lazy(cum, ranks, window_of, G=GROUP):
+    """For each 0-based rank r of each query: the layout row of the
+    (r+1)-th matched row, from an inclusive per-G-row-group match-count
+    prefix cum [B, NG] (int64) and a `window_of(blk [B, K]) -> bool
+    [B, K, G]` recompute callback (no materialized mask). ranks: [B, K]
+    int64 -> rows [B, K] int64. Ranks past the match count (m == 0) give
+    rows the harvest never reads."""
+    targets = ranks + 1
+    blk = torch.searchsorted(cum, targets, side="left")
+    blk = blk.clamp(max=cum.shape[1] - 1)
+    prev = torch.gather(cum, 1, (blk - 1).clamp(min=0))
+    base = torch.where(blk > 0, prev, 0)
+    inner = torch.cumsum(window_of(blk), dim=-1)
+    off = (inner < (targets - base)[..., None]).sum(dim=-1)
+    return blk * G + off
+
+
+def get_program(dindex, query, aggs, config=None) -> Program:
+    return Program(dindex, query, aggs, config=config)

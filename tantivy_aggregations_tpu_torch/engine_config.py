@@ -1,0 +1,38 @@
+"""EngineConfig: the engine's (deliberately small) tuning surface.
+
+The reference has no flag system — everything is typed constructor
+arguments (SURVEY.md §5); this engine keeps that posture and exposes only
+the hardware-mapping knobs that plan-time mode selection uses."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    #: blocked one-hot bucket budget: bucket aggs with a flat slot space up
+    #: to this size use compare-reduce; larger use prefix/scatter paths
+    dense_nb: int = 256
+    #: collect per-query QueryStats on the searcher (last_stats)
+    collect_stats: bool = False
+    #: msearch group cap: same-shape queries per vmapped dispatch; multiple
+    #: groups pipeline (device->host copies overlap later groups' compute).
+    #: 128 measured best on the v5e (re-swept after the Pallas/MXU prefix
+    #: work dropped per-query device time): the link's fixed per-round-trip
+    #: cost amortizes over the group; 64 -> 128 took the streams from
+    #: 0.41 -> 0.11 ms/q (count+sum) and 1.21 -> 1.08 ms/q (percentile mix)
+    max_batch: int = 128
+    #: dedup identical requests inside an msearch group (request-cache
+    #: analog of Elasticsearch's shard request cache): a compiled program
+    #: is a pure function of its extracted params, so equal param sets
+    #: compute once and fan the fruits out. Serving wins; benchmarks that
+    #: want to measure raw compute throughput should turn it off.
+    msearch_dedup: bool = True
+
+    def validate(self) -> "EngineConfig":
+        if self.dense_nb < 1:
+            raise ValueError("dense_nb must be >= 1")
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        return self

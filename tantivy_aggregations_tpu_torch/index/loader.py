@@ -1,0 +1,578 @@
+"""Device index loader: host segments -> device-resident int32 column planes.
+
+The port keeps the JAX package's plane ENCODING unchanged (so the copied
+harvest code and the differential tests read the same numbers):
+
+- Each numeric field maps through the order-preserving int64 "mono" domain
+  (utils/mono.py) and is stored as int32 planes of the offset
+  w = mono - min_mono: one plane `w` when the span fits int32 (narrow), else
+  a lexicographic (hi, lo) monoized pair (wide). Exact sums read the narrow
+  `w` plane directly or signed 26-bit limb planes (utils/exact.py).
+- Single-cardinality keyword fields are DENSE: one int32 global-ordinal
+  column (-1 = missing) aligned with the doc axis.
+- Multi-valued fields keep their value rows on the host and reach the
+  device as per-doc pre-aggregates (metric aggs reduce in doc space).
+- Segments are concatenated on one doc axis padded to PAD_BLOCK.
+- OrderedLayout: a load-time argsort of a column with 32-aligned bucket
+  padding (bucket layouts) or value order (value layouts), the static views
+  the chain kernels scan.
+
+What the port leaves out: the packed host->device transport and device limb
+derivation (the TPU's remote link made bytes expensive; here a plane is one
+`torch.from_numpy(a).to(device)` copy and limb planes are computed on the
+host), sharding, and the cross-process prep cache.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..schema import Cardinality, FieldType, Schema
+from ..utils import exact, mono as mono_mod
+
+#: doc/value axes are padded to a multiple of this (kept from the JAX
+#: package so both engines see the same padded row counts; a multiple of
+#: 128, so every chain-kernel group is whole)
+PAD_BLOCK = 32768
+#: narrow-column span bound: span+1 must stay in int32
+NARROW_MAX_SPAN = 2**31 - 2
+#: OrderedLayout bucket boundaries are aligned to this many rows
+ALIGN = 32
+
+I32 = np.int32
+
+
+def _pad_to(n: int, block: int) -> int:
+    return max(block, ((n + block - 1) // block) * block)
+
+
+def _put(arr, device) -> torch.Tensor:
+    """One host plane -> a device tensor (a single host->device copy)."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _split_wide(w_u64: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """u64 offsets -> (hi, lo) monoized int32 planes (lexicographic order
+    over (hi, lo) == numeric order over w)."""
+    hi = ((w_u64 >> np.uint64(32)).astype(np.int64) - 2**31).astype(I32)
+    lo = ((w_u64 & np.uint64(0xFFFFFFFF)).astype(np.int64) - 2**31).astype(I32)
+    return hi, lo
+
+
+@dataclass
+class OrderedLayout:
+    """Static value-order view of a column (see module docstring)."""
+
+    perm: np.ndarray  # [R] int32: row index (doc or value-row) per position
+    n_rows: int  # padded length R (multiple of PAD_BLOCK, incl. dead pad)
+    #: for bucket layouts: 32-aligned row offsets per bucket id [card+1]
+    bounds: Optional[np.ndarray] = None
+    valid_perm_host: Optional[np.ndarray] = None  # [R] int8: 0 on padding
+    #: for percentile layouts: values in position order (host int64 mono)
+    sorted_mono: Optional[np.ndarray] = None
+    #: permuted device plane cache: key -> [R] tensor
+    cache: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+@dataclass
+class DeviceColumn:
+    """One loaded column. Device planes (`w`/`hi`/`lo`/...) are LAZY: the
+    host plane is built at load, and ships on first use by a program."""
+
+    name: str
+    ftype: FieldType
+    multi: bool  # multi-valued field (value rows, not doc-aligned planes)
+    narrow: bool = True
+    # keyword: `w` holds global ordinals (dense: -1 = missing)
+    terms: Optional[np.ndarray] = None  # global sorted term table (host)
+    # -- static metadata ------------------------------------------------------
+    min_mono: int = 0
+    max_mono: int = 0
+    n_values: int = 0
+    span: int = 0  # max_mono - min_mono (as u64 width)
+    # -- exact-sum plan -------------------------------------------------------
+    sum_direct: bool = True  # narrow ints: sum the w plane directly
+    f64_base_exp: int = 1
+    sum_n_limbs: int = 1
+    _device: object = "cuda"
+    _host_values: Optional[np.ndarray] = None  # user-domain, padded layout
+    _host_valid: Optional[np.ndarray] = None
+    _host_mono: Optional[np.ndarray] = None  # int64 mono, padded layout
+    _orig_docs: Optional[np.ndarray] = None  # multi: global doc per value
+    _orig_values: Optional[np.ndarray] = None  # multi: values, doc order
+    _w_host: Optional[np.ndarray] = None   # int32 [R] (narrow / ordinals)
+    _hi_host: Optional[np.ndarray] = None  # int32 [R] (wide)
+    _lo_host: Optional[np.ndarray] = None
+    #: lazily shipped device tensors, keyed by plane name
+    _dev: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # -- numeric terms dictionary (lazy) --------------------------------------
+    _term_ids_host: Optional[np.ndarray] = None
+    _term_values_mono: Optional[np.ndarray] = None
+    # -- ordered layouts (lazy) -----------------------------------------------
+    _bucket_layout: Optional[OrderedLayout] = None
+    _value_layout: Optional[OrderedLayout] = None
+    # per-doc pre-aggregate planes for CSR metric sub-aggs (lazy, static)
+    _doc_preagg: Optional[dict] = None
+
+    # -- lazy device planes ---------------------------------------------------
+
+    def _ship(self, key: str, host):
+        if host is None:
+            return None
+        if key not in self._dev:
+            self._dev[key] = _put(host, self._device)
+        return self._dev[key]
+
+    @property
+    def w(self):
+        return self._ship("w", self._w_host)
+
+    @property
+    def hi(self):
+        return self._ship("hi", self._hi_host)
+
+    @property
+    def lo(self):
+        return self._ship("lo", self._lo_host)
+
+    # -- exact-sum limb planes ------------------------------------------------
+
+    def sum_limbs(self) -> torch.Tensor:
+        """[T, L] int32 device limb planes (built on the host)."""
+        if "limbs" not in self._dev:
+            self._dev["limbs"] = _put(self.sum_limbs_host(), self._device)
+        return self._dev["limbs"]
+
+    def sum_limbs_host(self) -> np.ndarray:
+        if self.ftype == FieldType.F64:
+            return exact.f64_limb_planes(
+                self._host_values, self.f64_base_exp, self.sum_n_limbs)
+        wu = _w_u64(self._host_mono, self.min_mono)
+        return exact.int_limb_planes(wu.view(np.int64), self.sum_n_limbs)
+
+    # -- lazy numeric terms dictionary ----------------------------------------
+
+    def term_ids(self):
+        """(host int32 term id per row, -1 = none; host sorted distinct
+        monos) of a numeric column."""
+        if self._term_ids_host is None:
+            m = self._host_mono
+            real = m if self._host_valid is None else m[self._host_valid]
+            uniq = np.unique(real) if real.size else np.zeros(1, np.int64)
+            ids = np.clip(np.searchsorted(uniq, m), 0, len(uniq) - 1) \
+                .astype(I32)
+            if self._host_valid is not None:
+                ids = np.where(self._host_valid, ids, -1)
+            self._term_ids_host = ids
+            self._term_values_mono = uniq
+        return self._term_ids_host, self._term_values_mono
+
+    def tid(self) -> torch.Tensor:
+        """Device term-id plane of a numeric column."""
+        return self._ship("tid", self.term_ids()[0])
+
+    @property
+    def card(self) -> int:
+        if self.ftype.is_stringy:
+            return max(1, len(self.terms))
+        self.term_ids()
+        return max(1, len(self._term_values_mono))
+
+    def min_user(self):
+        return mono_mod.scalar_from_mono(self.ftype.value, self.min_mono)
+
+    # -- precomputed histogram bucket ids (host-exact, cached per layout) -----
+    _bid_cache: Optional[dict] = None
+
+    def bucket_id_plane(self, key: str, build_host) -> torch.Tensor:
+        """Cached device int32 plane of per-row bucket ids for a histogram
+        shape (interval/offset static per program), computed host-side with
+        exact integer/rational arithmetic once."""
+        if self._bid_cache is None:
+            self._bid_cache = {}
+        if key not in self._bid_cache:
+            self._bid_cache[key] = _put(build_host().astype(I32),
+                                        self._device)
+        return self._bid_cache[key]
+
+    # -- per-doc pre-aggregates for CSR metric aggs ---------------------------
+
+    def doc_preagg_host(self, T: int) -> dict:
+        if self._doc_preagg is None:
+            docs = self._orig_docs
+            n = docs.shape[0]
+            cnt = np.bincount(docs, minlength=T).astype(I32) if n \
+                else np.zeros(T, I32)
+            # per-doc exact sums -> canonical signed 26-bit limb planes
+            if self.ftype == FieldType.F64:
+                row_planes = exact.f64_limb_planes(
+                    self._orig_values, self.f64_base_exp, self.sum_n_limbs)
+            else:
+                wu = _w_u64(np.asarray(mono_mod.to_mono(
+                    self.ftype.value, self._orig_values), np.int64),
+                    self.min_mono)
+                row_planes = exact.int_limb_planes(
+                    wu.view(np.int64), self.sum_n_limbs)
+            L = row_planes.shape[1]
+            plane_sums = np.zeros((T, L), np.int64)
+            for i in range(L):
+                # integer scatter-add (np.add.at): exact at any magnitude
+                np.add.at(plane_sums[:, i], docs,
+                          row_planes[:, i].astype(np.int64))
+            sum_planes = exact.carry_normalize_planes(plane_sums)
+            # per-doc min/max in mono domain (rows are doc-ascending)
+            offs = np.zeros(T + 1, np.int64)
+            np.cumsum(cnt, out=offs[1:])
+            monos = np.asarray(mono_mod.to_mono(
+                self.ftype.value, self._orig_values), np.int64) if n \
+                else np.zeros(0, np.int64)
+            has = cnt > 0
+            mn = np.full(T, self.min_mono, np.int64)
+            mx = np.full(T, self.min_mono, np.int64)
+            if n:
+                # reduceat needs indices < len(operand): append a duplicate
+                # of the last value so index n is addressable (see the JAX
+                # loader for the fuzz-found reason)
+                ext = np.concatenate([monos, monos[-1:]])
+                mn = np.where(has, np.minimum.reduceat(ext, offs[:-1]),
+                              self.min_mono)
+                mx = np.where(has, np.maximum.reduceat(ext, offs[:-1]),
+                              self.min_mono)
+            _, mnA, mnB = _mono_planes(mn, self.min_mono, self.span)
+            _, mxA, mxB = _mono_planes(mx, self.min_mono, self.span)
+            self._doc_preagg = {"cnt": cnt, "sum": sum_planes,
+                                "minA": mnA, "minB": mnB,
+                                "maxA": mxA, "maxB": mxB}
+        return self._doc_preagg
+
+    # -- ordered layouts ------------------------------------------------------
+
+    def layout_for_ids(self, key: str, ids_host: np.ndarray,
+                       card: int) -> OrderedLayout:
+        """Cached OrderedLayout over arbitrary static per-row bucket ids
+        (e.g. precomputed histogram buckets): rows sorted by id with
+        32-aligned boundaries for prefix-difference reductions."""
+        if self._bid_cache is None:
+            self._bid_cache = {}
+        lkey = ("layout", key)
+        if lkey not in self._bid_cache:
+            ids = np.asarray(ids_host, np.int64)
+            if self._host_valid is not None:
+                ids = np.where(self._host_valid, ids, -1)
+            self._bid_cache[lkey] = _build_bucket_layout(
+                ids.astype(np.int32), card)
+        return self._bid_cache[lkey]
+
+    def bucket_layout(self) -> OrderedLayout:
+        """Rows sorted by bucket id with 32-aligned bucket boundaries, for
+        prefix-difference terms aggs."""
+        if self._bucket_layout is None:
+            if self.ftype.is_stringy:
+                ids = np.where(self._host_valid,
+                               self._host_mono, -1).astype(I32)
+                card = max(1, len(self.terms))
+            else:
+                ids = self.term_ids()[0]
+                card = self.card
+            self._bucket_layout = _build_bucket_layout(ids, card)
+        return self._bucket_layout
+
+    def value_layout(self) -> OrderedLayout:
+        """Doc rows sorted by value (mono order) for rank-selection
+        percentiles; invalid rows sort last."""
+        if self._value_layout is None:
+            m = self._host_mono
+            valid = self._host_valid
+            key = m.copy()
+            if valid is not None:
+                key = np.where(valid, key, np.iinfo(np.int64).max)
+            n = key.shape[0]
+            perm = np.argsort(key, kind="stable").astype(I32)
+            R = _pad_to(n, PAD_BLOCK)
+            perm_p = np.zeros(R, I32)
+            perm_p[:n] = perm
+            vp = np.zeros(R, np.int8)
+            vp[:n] = 1 if valid is None else valid[perm].astype(np.int8)
+            self._value_layout = OrderedLayout(
+                perm=perm_p, n_rows=R, valid_perm_host=vp,
+                sorted_mono=key[perm])
+        return self._value_layout
+
+
+def _bucket_layout_chunk(ids: np.ndarray, card: int):
+    """(perm positions, bounds) for a bucket-sorted layout: row indices
+    sorted by id, each bucket padded to a 32-row multiple so every bucket
+    boundary is 32-aligned. Rows with id < 0 (missing) are excluded.
+    Returns (perm_src, pos, bounds_raw[card+1])."""
+    order = np.argsort(ids, kind="stable").astype(np.int64)
+    sorted_ids = ids[order]
+    start = int(np.searchsorted(sorted_ids, 0))
+    order = order[start:]
+    sorted_ids = sorted_ids[start:]
+    counts = np.bincount(sorted_ids, minlength=card) if sorted_ids.size \
+        else np.zeros(card, np.int64)
+    padded = ((counts + ALIGN - 1) // ALIGN) * ALIGN
+    bounds = np.zeros(card + 1, np.int64)
+    np.cumsum(padded, out=bounds[1:])
+    src_off = np.zeros(card + 1, np.int64)
+    np.cumsum(counts, out=src_off[1:])
+    pos = np.repeat(bounds[:-1], counts) + (
+        np.arange(len(order)) - np.repeat(src_off[:-1], counts))
+    return order, pos, bounds
+
+
+def _build_bucket_layout(ids: np.ndarray, card: int) -> OrderedLayout:
+    """Sort row indices by id with 32-aligned bucket boundaries; `bounds`
+    is [card+1] in 32-row block units."""
+    order, pos, bounds = _bucket_layout_chunk(ids, card)
+    R = _pad_to(int(bounds[-1]), PAD_BLOCK)
+    perm = np.zeros(R, I32)
+    valid = np.zeros(R, np.int8)
+    perm[pos] = order.astype(I32)
+    valid[pos] = 1
+    return OrderedLayout(perm=perm, n_rows=R,
+                         bounds=(bounds // ALIGN).astype(I32),
+                         valid_perm_host=valid)
+
+
+@dataclass
+class DeviceIndex:
+    schema: Schema
+    epoch: int
+    T: int
+    n_docs: int
+    total_values: int
+    columns: Dict[str, DeviceColumn]
+    device: object
+    seg_starts: np.ndarray = field(default_factory=lambda: np.zeros(1, np.int64))
+    #: host alive copy ([T] int8; 0 on padding and deleted docs)
+    alive_host: Optional[np.ndarray] = None
+    _alive_dev: Optional[torch.Tensor] = None
+    #: deferred per-column builders (name -> thunk)
+    _col_builders: Dict[str, object] = field(default_factory=dict)
+    _max_addends: int = 1
+    #: set-type query expansions (query/compile.py match_runs cache)
+    set_query_runs: Dict[tuple, list] = field(default_factory=dict)
+
+    @property
+    def alive(self) -> torch.Tensor:
+        """[T] int8 device mask, shipped on first use."""
+        if self._alive_dev is None:
+            self._alive_dev = _put(self.alive_host, self.device)
+        return self._alive_dev
+
+    def column(self, name: str) -> DeviceColumn:
+        col = self.columns.get(name)
+        if col is not None:
+            return col
+        build = self._col_builders.get(name)
+        if build is None:
+            raise KeyError(f"field {name!r} not loaded (not FAST or unknown)")
+        col = build()
+        if col.ftype.is_numeric:
+            _plan_sums(col, self._max_addends)
+        self.columns[name] = col
+        return col
+
+    def keyword_ord(self, field: str, term: str) -> int:
+        col = self.column(field)
+        i = int(np.searchsorted(col.terms, term))
+        if i < len(col.terms) and col.terms[i] == term:
+            return i
+        return -1
+
+
+def load_device_index(index, device) -> DeviceIndex:
+    """Columns are DEFERRED: this registers a builder per fast field and
+    returns (alive mask + metadata only). Each column's host prep runs on
+    its first `column()` access; its planes ship to `device` on first use."""
+    device = torch.device(device)
+    schema: Schema = index.schema
+    segments = index.segments
+    n_docs = sum(s.max_doc for s in segments)
+    T = _pad_to(max(n_docs, 1), PAD_BLOCK)
+
+    alive = np.zeros(T, dtype=np.int8)
+    pos = 0
+    for s in segments:
+        alive[pos:pos + s.max_doc] = s.alive_mask()
+        pos += s.max_doc
+
+    builders: Dict[str, object] = {}
+    total_values = 0
+    for entry in schema.fields:
+        if not entry.fast:
+            continue
+        nv = sum(int(s.fields[entry.name].values.shape[0]) for s in segments)
+        total_values = max(total_values, nv)
+        if entry.type.is_stringy:
+            if entry.cardinality == Cardinality.SINGLE:
+                builders[entry.name] = (
+                    lambda e=entry: _load_keyword_dense(e, segments, T,
+                                                        device))
+            else:
+                builders[entry.name] = (
+                    lambda e=entry: _load_csr(e, segments, T, device,
+                                              keyword=True))
+        elif any(s.fields[entry.name].offsets is not None for s in segments):
+            builders[entry.name] = (
+                lambda e=entry: _load_csr(e, segments, T, device,
+                                          keyword=False))
+        else:
+            builders[entry.name] = (
+                lambda e=entry: _load_numeric_single(e, segments, T, device))
+
+    if max(total_values, n_docs) >= exact.MAX_ADDENDS:
+        raise ValueError("index exceeds the exact-sum addend bound (2^36)")
+
+    seg_starts = (np.cumsum([0] + [s.max_doc for s in segments])[:-1]
+                  if segments else np.zeros(1))
+    return DeviceIndex(schema=schema, epoch=index.epoch, T=T, n_docs=n_docs,
+                       total_values=total_values, columns={}, device=device,
+                       seg_starts=np.asarray(seg_starts, np.int64),
+                       alive_host=alive, _col_builders=builders,
+                       _max_addends=max(total_values, n_docs))
+
+
+def _plan_sums(col: DeviceColumn, max_addends: int) -> None:
+    if col.ftype == FieldType.F64:
+        col.sum_direct = False
+        real = col._host_values if col._host_valid is None \
+            else col._host_values[col._host_valid]
+        base, n_limbs = exact.f64_sum_plan(real) if real.size else (1, 1)
+        col.f64_base_exp, col.sum_n_limbs = base, n_limbs
+    else:
+        bits = max(1, int(col.span).bit_length())
+        # direct = the narrow w plane itself is the exact addend
+        col.sum_direct = col.narrow
+        col.sum_n_limbs = (bits + exact.LIMB_BITS - 1) // exact.LIMB_BITS
+
+
+def _w_u64(m: np.ndarray, min_mono: int) -> np.ndarray:
+    """Exact unsigned offset w = mono - min_mono (wraparound u64)."""
+    base = np.array(min_mono, np.int64).view(np.uint64)
+    return m.view(np.uint64) - base
+
+
+def _mono_planes(m: np.ndarray, min_mono: int, span: int):
+    """int64 mono values -> (narrow?, w | (hi, lo)) int32 planes."""
+    wu = _w_u64(m, min_mono)
+    if span <= NARROW_MAX_SPAN:
+        return True, wu.astype(np.int64).astype(I32), None
+    hi, lo = _split_wide(wu)
+    return False, hi, lo
+
+
+def _load_numeric_single(entry, segments, T, device) -> DeviceColumn:
+    from .segment import numeric_dtype
+    parts = [s.fields[entry.name].values for s in segments]
+    vals = (np.concatenate(parts) if parts
+            else np.zeros(0, dtype=numeric_dtype(entry.type)))
+    m = np.asarray(mono_mod.to_mono(entry.type.value, vals), dtype=np.int64)
+    n = m.shape[0]
+    min_mono = int(m.min()) if n else 0
+    max_mono = int(m.max()) if n else 0
+    span = ((max_mono - min_mono) % 2**64) if n else 0
+    mono_p = np.full(T, min_mono, np.int64)
+    mono_p[:n] = m
+    host = np.zeros(T, dtype=vals.dtype if n else np.float64)
+    host[:n] = vals
+    if n:
+        host[n:] = mono_mod.from_mono(entry.type.value,
+                                      np.full(T - n, min_mono, np.int64))
+    hvalid = np.zeros(T, bool)
+    hvalid[:n] = True
+    narrow, a, b = _mono_planes(mono_p, min_mono, span)
+    col = DeviceColumn(
+        name=entry.name, ftype=entry.type, multi=False, narrow=narrow,
+        min_mono=min_mono, max_mono=max_mono, span=span, n_values=n,
+        _device=device, _host_values=host, _host_valid=hvalid,
+        _host_mono=mono_p)
+    if narrow:
+        col._w_host = a
+    else:
+        col._hi_host, col._lo_host = a, b
+    return col
+
+
+def _load_keyword_dense(entry, segments, T, device) -> DeviceColumn:
+    """Single-cardinality keyword -> dense int32 global-ordinal column."""
+    name = entry.name
+    gterms = sorted(set().union(*[set(s.fields[name].terms or [])
+                                  for s in segments])) if segments else []
+    gterms = np.asarray(gterms, dtype=object)
+    ords = np.full(T, -1, I32)
+    base = 0
+    for s in segments:
+        fd = s.fields[name]
+        local = np.asarray(fd.terms or [], dtype=object)
+        remap = (np.searchsorted(gterms, local).astype(I32)
+                 if len(local) else np.zeros(0, I32))
+        offs = fd.offsets.astype(np.int64)
+        has = np.diff(offs) > 0
+        docs = np.nonzero(has)[0]
+        ords[base + docs] = remap[fd.values[offs[:-1][has]].astype(np.int64)]
+        base += s.max_doc
+    n = int((ords >= 0).sum())
+    col = DeviceColumn(
+        name=name, ftype=entry.type, multi=False, narrow=True,
+        terms=gterms, n_values=n, _device=device,
+        _host_mono=ords.astype(np.int64), _host_valid=ords >= 0)
+    col._w_host = ords
+    return col
+
+
+def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
+    """Multi-valued field: the value rows in doc order (a doc's values are
+    contiguous) with their doc ids. The port reads them only through the
+    per-doc pre-aggregates (metric aggs in doc space); row planes of
+    multi-valued fields are not ported yet."""
+    from .segment import numeric_dtype
+    name = entry.name
+    if keyword:
+        gterms = sorted(set().union(*[set(s.fields[name].terms or [])
+                                      for s in segments])) if segments else []
+        gterms = np.asarray(gterms, dtype=object)
+    vals_parts, doc_parts = [], []
+    doc_base = 0
+    for s in segments:
+        fd = s.fields[name]
+        offs = fd.offsets.astype(np.int64)
+        reps = np.diff(offs)
+        doc_of_val = np.repeat(np.arange(s.max_doc, dtype=np.int64), reps)
+        if keyword:
+            local = np.asarray(fd.terms or [], dtype=object)
+            remap = (np.searchsorted(gterms, local).astype(np.int64)
+                     if len(local) else np.zeros(0, np.int64))
+            vals_parts.append(remap[fd.values.astype(np.int64)])
+        else:
+            vals_parts.append(fd.values)
+        doc_parts.append(doc_of_val + doc_base)
+        doc_base += s.max_doc
+    if keyword:
+        vals = (np.concatenate(vals_parts) if vals_parts
+                else np.zeros(0, np.int64))
+        m = vals.astype(np.int64)
+    else:
+        vals = (np.concatenate(vals_parts) if vals_parts
+                else np.zeros(0, dtype=numeric_dtype(entry.type)))
+        m = np.asarray(mono_mod.to_mono(entry.type.value, vals), np.int64)
+    docs = (np.concatenate(doc_parts) if doc_parts
+            else np.zeros(0, np.int64))
+    n = m.shape[0]
+    min_mono = int(m.min()) if n else 0
+    max_mono = int(m.max()) if n else 0
+    span = ((max_mono - min_mono) % 2**64) if n else 0
+    if keyword:
+        min_mono, max_mono, span = 0, max_mono, int(max_mono)
+    return DeviceColumn(
+        name=name, ftype=entry.type, multi=True,
+        narrow=keyword or span <= NARROW_MAX_SPAN,
+        terms=gterms if keyword else None,
+        min_mono=min_mono, max_mono=max_mono, span=span, n_values=n,
+        _device=device, _host_values=vals, _host_mono=m,
+        _orig_docs=docs, _orig_values=vals)

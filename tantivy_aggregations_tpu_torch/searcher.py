@@ -1,0 +1,154 @@
+"""Searcher: the engine's `agg_search` entry point (SURVEY.md §2.1 C1/C3).
+
+Reference analog: `AggSearcher::agg_search(query, agg)` — prepare the agg
+tree against the schema, drive collection, merge fruits. Here: load the
+index's columns to the device once (cached per index epoch), compile the
+(query shape, agg tree shape) pair to one batch-first Program (cached,
+LRU), execute, and harvest host-side fruits.
+
+The device is explicit: `Searcher(index, device=...)` defaults to "cuda"
+and never falls back to the CPU; the CPU tests pass device="cpu". A tree
+the port cannot lower raises NotImplementedError from the planner (the
+exact host fallback of the JAX package comes with a later slice).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .aggs import ir as agg_ir
+from .query import ir as query_ir
+
+
+def _copy_fruits(v):
+    """Independent copy of a fruit tree (dicts/lists of scalars — the
+    only shapes harvest produces)."""
+    if isinstance(v, dict):
+        return {k: _copy_fruits(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_copy_fruits(x) for x in v]
+    return v
+
+
+class Searcher:
+    def __init__(self, index, device="cuda", config=None):
+        from .engine_config import EngineConfig
+        self.index = index
+        self.schema = index.schema
+        self.device = device
+        self.config = (config or EngineConfig()).validate()
+        #: QueryStats of the most recent agg_search (when collect_stats)
+        self.last_stats = None
+        self._device_index = None
+        self._device_epoch = None
+        self._programs = {}  # insertion-ordered; pruned LRU-style
+        self._max_programs = 256
+        self._program_was_cached = False
+
+    # -- device index ----------------------------------------------------------
+
+    def _get_device_index(self):
+        from .index.loader import load_device_index
+        if self._device_index is None or self._device_epoch != self.index.epoch:
+            self._device_index = load_device_index(self.index, self.device)
+            self._device_epoch = self.index.epoch
+            self._programs.clear()
+        return self._device_index
+
+    # -- entry point -----------------------------------------------------------
+
+    def _program_for(self, query, aggs):
+        from .aggs.compile import get_program
+        dindex = self._get_device_index()
+        key = (query_ir.structural_key(query), agg_ir.structural_key(aggs))
+        prog = self._programs.pop(key, None)  # re-inserted: LRU refresh
+        self._program_was_cached = prog is not None
+        if prog is None:
+            prog = get_program(dindex, query, aggs, config=self.config)
+        self._programs[key] = prog
+        while len(self._programs) > self._max_programs:
+            self._programs.pop(next(iter(self._programs)))
+        return prog
+
+    def agg_search(self, query: query_ir.Query,
+                   aggs: Dict[str, agg_ir.Agg]) -> Dict[str, dict]:
+        """Run `aggs` over docs matching `query`; returns host-side fruits
+        bit-identical to OracleSearcher.agg_search on the same index."""
+        if not self.config.collect_stats:
+            return self._program_for(query, aggs).run(query, aggs)
+        from .utils.stats import QueryStats, timer
+        t = timer()
+        prog = self._program_for(query, aggs)
+        st = QueryStats(program_cached=self._program_was_cached)
+        st.prepare_ms = t.lap()
+        raw = prog.submit(query, aggs)
+        st.dispatch_ms = t.lap()
+        raw["packed"] = raw["packed"].cpu()  # block: execute + copy
+        st.wait_ms = t.lap()
+        out = prog.finalize(raw, aggs)
+        st.harvest_ms = t.lap()
+        st.device_ms = st.dispatch_ms + st.wait_ms + st.harvest_ms
+        st.total_ms = st.prepare_ms + st.device_ms
+        self.last_stats = st
+        return out
+
+    def agg_search_batch(self, requests) -> list:
+        """Multi-search ("msearch") execution of [(query, aggs), ...].
+
+        Runs of consecutive requests sharing the same (query shape, agg
+        shape) run as ONE [B, P] param-matrix program: plane passes are
+        shared across the group (the chain kernels read each plane once per
+        group), and the fruits of a group come back in one device->host
+        copy. Groups are dispatched back-to-back before any is collected."""
+        submitted = self._submit_batch(requests)
+        results = []
+        for group in submitted:
+            results.extend(self._collect_group(group))
+        return results
+
+    def _submit_batch(self, requests) -> list:
+        """Group consecutive same-shape requests (capped at max_batch) and
+        dispatch every group."""
+        groups = []  # (prog, [queries], aggs)
+        for query, aggs in requests:
+            prog = self._program_for(query, aggs)
+            if (groups and groups[-1][0] is prog and groups[-1][2] is aggs
+                    and len(groups[-1][1]) < self.config.max_batch):
+                groups[-1][1].append(query)
+            else:
+                groups.append((prog, [query], aggs))
+        return [self._submit_group(prog, queries, aggs)
+                for prog, queries, aggs in groups]
+
+    def _collect_group(self, group):
+        prog, queries, aggs, raw, idxmap, nuniq = group
+        uniq_outs = prog.finalize_many(raw, aggs, nuniq)
+        if len(queries) == nuniq:
+            return uniq_outs
+        # duplicated requests: each caller gets its own result object
+        seen = [False] * nuniq
+        out = []
+        for i in idxmap:
+            out.append(uniq_outs[i] if not seen[i]
+                       else _copy_fruits(uniq_outs[i]))
+            seen[i] = True
+        return out
+
+    def _submit_group(self, prog, queries, aggs):
+        # dedup identical requests (config.msearch_dedup): a program is a
+        # pure function of its extracted params — compute each distinct
+        # param set ONCE and fan the fruits out
+        if self.config.msearch_dedup:
+            keymap, uniq, idxmap = {}, [], []
+            for q in queries:
+                k = prog.param_key(q, aggs)
+                j = keymap.get(k)
+                if j is None:
+                    j = keymap[k] = len(uniq)
+                    uniq.append(q)
+                idxmap.append(j)
+        else:
+            uniq = list(queries)
+            idxmap = list(range(len(queries)))
+        raw = prog.submit_many(uniq, aggs)
+        return (prog, queries, aggs, raw, idxmap, len(uniq))
