@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--docs 10000000] [--segments 4] [--seed 42]
+    python3 chip_smoke.py
 
 Drives tantivy_aggregations_tpu_torch's main path — `Searcher.agg_search`
 and `agg_search_batch` over the judged configs c1-c5 on the 10M-doc bench
@@ -12,10 +12,14 @@ index (models/flagship.py, seed 42, 4 segments; built on first use under
 2. builds the port's CUDA kernels from csrc/ (timed);
 3. builds or reuses the bench index;
 4. each kernel against its plain PyTorch version at the main path's shapes
-   (exact `==`), with median CUDA-event times of both;
+   (exact `==`), with median CUDA-event times of both; the chain kernels
+   also under a query whose mask program holds every opcode, on the same
+   layouts;
 5. for each config: agg_search == the port's oracle, agg_search_batch over
-   256 varied requests == the per-query results, distinct varied params ==
-   the oracle; p50 single-query latency and msearch ms/query;
+   256 varied requests == the per-query results (with msearch dedup on and
+   off), distinct varied params == the oracle; p50 single-query latency,
+   and msearch ms/query with dedup on and off beside the number of
+   distinct requests per group;
 6. every kernel was launched by the main path in step 5.
 
 It prints a JSON line of per-kernel records, then, as its last line,
@@ -27,7 +31,7 @@ this script.
 
 from __future__ import annotations
 
-import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,7 +39,11 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent
+#: the bench deployment (models/flagship.py, bench.py): docs, segments, seed
+DOCS, SEGMENTS, SEED = 10_000_000, 4, 42
 SOURCE = "tantivy_aggregations_tpu_torch/csrc/kernels.cu"
 REPLACES = {
     "fused_metrics": "tantivy_aggregations_tpu/ops/pallas_kernels.py:225",
@@ -87,17 +95,17 @@ def phase_build(K) -> None:
                 say("  ptxas:", ln.strip())
 
 
-def phase_index(tt, flagship, docs, segments, seed):
+def phase_index(tt, flagship):
     say("[3] bench index")
-    path = REPO / ".bench_cache" / f"idx_{docs}_{segments}_{seed}"
+    path = REPO / ".bench_cache" / f"idx_{DOCS}_{SEGMENTS}_{SEED}"
     t0 = time.time()
     if (path / "meta.json").exists():
         idx = tt.Index.open(str(path))
         say(f"reused {path} in {time.time() - t0:.1f}s")
     else:
-        idx = flagship.build_bench_index(str(path), docs, seed=seed,
-                                         n_segments=segments)
-        say(f"built {docs} docs x {segments} segments at {path} in "
+        idx = flagship.build_bench_index(str(path), DOCS, seed=SEED,
+                                         n_segments=SEGMENTS)
+        say(f"built {DOCS} docs x {SEGMENTS} segments at {path} in "
             f"{time.time() - t0:.1f}s")
     return idx
 
@@ -130,16 +138,62 @@ def _max_abs_err(torch, got, want) -> int:
     return err
 
 
-def phase_kernels(torch, K, qc, searcher, flagship):
-    """Each kernel vs its plain version on the main path's operands."""
+def every_op_queries(tt, B: int):
+    """B queries of one Boolean shape over the bench schema whose mask
+    program holds every opcode of the kernels' interpreter: EQ32 (keyword
+    term), RANGE32 (narrow range), RANGE_WIDE (f64 range), EQ_WIDE_GUARD and
+    EQ32_GUARD in OR pairs (f64 and narrow terms), NOT, AND and TRUE. Their
+    params are drawn from SEED."""
+    rng = np.random.default_rng(SEED)
+    statuses = ("active", "archived", "deleted", "pending")
+    out = []
+    for b in range(B):
+        lo = int(rng.integers(0, 5000))
+        plo = int(rng.integers(0, 4000)) / 100
+        out.append(tt.BooleanQuery(
+            must=[tt.TermQuery("status", statuses[b % 4]),
+                  tt.RangeQuery("amount", lower=lo, upper=lo + 4000,
+                                include_upper=True),
+                  tt.RangeQuery("price", lower=plo, upper=plo + 40.0)],
+            must_not=[tt.TermQuery("price",
+                                   round(float(rng.lognormal(3.0, 1.0)), 2)),
+                      tt.TermQuery("qty", int(rng.integers(0, 100)))]))
+    return out
+
+
+def _chain_blocks_args(prog, pmat):
+    """chain_blocks operands of a prefix-mode terms agg "t"."""
+    pt = prog.plan[("a", "t")]
+    e, pre = pt["chainp"], pt["prefix"]
+    pay = [prog._arrays[pre + k] for meta in pt["pay_plan"].values()
+           for k in meta["skeys"]]
+    return (prog._chain_pmat(e, pmat), e["ops"],
+            [prog._arrays[pre + k] for k in e["mp"].plane_keys],
+            prog._arrays[pre + "avalid"], pay)
+
+
+def _chain_counts_args(prog, pmat):
+    """chain_counts operands of a rank-mode percentiles agg "p"."""
+    pp = prog.plan[("a", "p")]
+    e, pre = pp["chainp"], pp["prefix"]
+    return (prog._chain_pmat(e, pmat), e["ops"],
+            [prog._arrays[pre + k] for k in e["mp"].plane_keys],
+            prog._arrays[pre + "avalid"])
+
+
+def phase_kernels(torch, K, qc, tt, searcher, flagship):
+    """Each kernel vs its plain version on the main path's operands; the
+    chain kernels also under every opcode, on the same layouts."""
     say("[4] kernels vs plain versions (exact ==)")
     cfgs = {name: (q, aggs) for name, q, aggs in flagship.judged_configs()}
     progs = {n: searcher._program_for(q, a) for n, (q, a) in cfgs.items()}
 
-    def pmat_for(prog, cfg_no, aggs, B):
-        reqs = flagship.varied_requests(cfg_no, aggs, B)
+    def pmat_of(prog, reqs):
         return qc.param_matrix([prog._extract(q, a) for q, a in reqs],
                                prog._pkeys, prog.device)
+
+    def pmat_for(prog, cfg_no, aggs, B):
+        return pmat_of(prog, flagship.varied_requests(cfg_no, aggs, B))
 
     p1 = progs["c1_count_sum"]
     p4 = progs["c4_terms_highcard_nested"]
@@ -147,6 +201,17 @@ def phase_kernels(torch, K, qc, searcher, flagship):
     c5_aggs = cfgs["c5_percentiles_mixed_postfilter"][1]
     c4_aggs = cfgs["c4_terms_highcard_nested"][1]
     amount = p1._arrays["amount:w"]
+    # the c4 and c5 trees under the every-opcode query: the same sku bucket
+    # and price value layouts, with the query's planes permuted onto them
+    every = every_op_queries(tt, 128)
+    p4e = searcher._program_for(every[0], c4_aggs)
+    p5e = searcher._program_for(every[0], c5_aggs)
+    for prog, key in ((p4e, ("a", "t")), (p5e, ("a", "p"))):
+        ops = prog.plan[key]["chainp"]["mp"].ops
+        check(set(ops[:, 0].tolist())
+              == set(range(qc.OP_EQ_WIDE_GUARD + 1)),
+              f"every-opcode chain on {key} has opcodes "
+              f"{sorted(set(ops[:, 0].tolist()))}")
 
     cases = {}
     for B in (1, 128):
@@ -154,32 +219,33 @@ def phase_kernels(torch, K, qc, searcher, flagship):
         pm5 = pmat_for(p5, 5, c5_aggs, B)
         mask = (p5._chain_mask(p5._root, pm5, p5._arrays)
                 & (p5._arrays["alive"] > 0)).contiguous()
-        cases[("fused_metrics", B)] = (
+        cases[("fused_metrics", "c5", B)] = (
             lambda m=mask: K.fused_metrics(m, amount),
             lambda m=mask: K.fused_metrics_plain(m, amount))
         # chain_blocks: c4's sku bucket layout + sum(amount) payload
-        pt = p4.plan[("a", "t")]
-        e, pre = pt["chainp"], pt["prefix"]
-        pay = [p4._arrays[pre + k] for meta in pt["pay_plan"].values()
-               for k in meta["skeys"]]
-        args = (p4._chain_pmat(e, pmat_for(p4, 4, c4_aggs, B)), e["ops"],
-                [p4._arrays[pre + k] for k in e["mp"].plane_keys],
-                p4._arrays[pre + "avalid"], pay)
-        cases[("chain_blocks", B)] = (
+        args = _chain_blocks_args(p4, pmat_for(p4, 4, c4_aggs, B))
+        cases[("chain_blocks", "c4", B)] = (
             lambda a=args: K.chain_blocks(*a),
             lambda a=args: K.chain_blocks_plain(*a))
         # chain_counts: c5's price value layout under the c5 chain
-        pp = p5.plan[("a", "p")]
-        e, pre = pp["chainp"], pp["prefix"]
-        args = (p5._chain_pmat(e, pm5), e["ops"],
-                [p5._arrays[pre + k] for k in e["mp"].plane_keys],
-                p5._arrays[pre + "avalid"])
-        cases[("chain_counts", B)] = (
+        args = _chain_counts_args(p5, pm5)
+        cases[("chain_counts", "c5", B)] = (
+            lambda a=args: K.chain_counts(*a),
+            lambda a=args: K.chain_counts_plain(*a))
+        # both chain kernels under the every-opcode query
+        args = _chain_blocks_args(
+            p4e, pmat_of(p4e, [(q, c4_aggs) for q in every[:B]]))
+        cases[("chain_blocks", "every-op", B)] = (
+            lambda a=args: K.chain_blocks(*a),
+            lambda a=args: K.chain_blocks_plain(*a))
+        args = _chain_counts_args(
+            p5e, pmat_of(p5e, [(q, c5_aggs) for q in every[:B]]))
+        cases[("chain_counts", "every-op", B)] = (
             lambda a=args: K.chain_counts(*a),
             lambda a=args: K.chain_counts_plain(*a))
 
     records = {}
-    for (name, B), (kern, plain) in cases.items():
+    for (name, chain, B), (kern, plain) in cases.items():
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -187,28 +253,38 @@ def phase_kernels(torch, K, qc, searcher, flagship):
         want = want if isinstance(want, tuple) else (want,)
         err = _max_abs_err(torch, got, want)
         check(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"{name} B={B} disagrees with its plain version "
+              f"{name} ({chain}) B={B} disagrees with its plain version "
               f"(max abs err {err})")
+        matched = int(got[0].to(torch.int64).sum())
         ms = _cuda_ms(torch, kern, 10)
         plain_ms = _cuda_ms(torch, plain, 3)
-        say(f"  {name:14s} B={B:<4d} kernel {ms:.3f} ms  plain "
-            f"{plain_ms:.3f} ms  max_abs_err {err}")
+        say(f"  {name:14s} {chain:8s} B={B:<4d} kernel {ms:.3f} ms  plain "
+            f"{plain_ms:.3f} ms  max_abs_err {err}  matched {matched}")
         rec = records.setdefault(name, {"name": name, "route": "cuda",
                                         "source": SOURCE,
                                         "replaces": REPLACES[name],
                                         "launches": 0,
                                         "max_abs_err": 0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if B == 1:
+        if B == 1 and chain != "every-op":
             rec["ms"], rec["plain_ms"] = ms, plain_ms
     del cases
     torch.cuda.empty_cache()
     return records
 
 
+def _msearch_ms_per_q(torch, searcher, reqs) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    searcher.agg_search_batch(reqs)
+    return (time.perf_counter() - t0) * 1e3 / len(reqs)
+
+
 def phase_main_path(torch, K, searcher, oracle, flagship, card):
     say("[5] main path: agg_search / agg_search_batch vs the oracle")
     K.reset_launches()
+    dedup_on = searcher.config
+    dedup_off = dataclasses.replace(dedup_on, msearch_dedup=False)
     lat = {}
     for i, (name, q, aggs) in enumerate(flagship.judged_configs()):
         t0 = time.time()
@@ -217,10 +293,17 @@ def phase_main_path(torch, K, searcher, oracle, flagship, card):
         got = searcher.agg_search(q, aggs)
         check(got == want, f"{name}: agg_search != oracle")
         reqs = flagship.varied_requests(i + 1, aggs, 256)
+        prog = searcher._program_for(q, aggs)
+        group = reqs[:searcher.config.max_batch]
+        distinct = len({prog.param_key(rq, ra) for rq, ra in group})
         batch = searcher.agg_search_batch(reqs)
         check(len(batch) == len(reqs), f"{name}: batch length")
         singles = [searcher.agg_search(rq, ra) for rq, ra in reqs]
         check(batch == singles, f"{name}: agg_search_batch != per-query")
+        searcher.config = dedup_off
+        check(searcher.agg_search_batch(reqs) == singles,
+              f"{name}: agg_search_batch (dedup off) != per-query")
+        searcher.config = dedup_on
         seen = []
         for (rq, ra), res in zip(reqs, batch):
             if any(rq == s for s in seen):
@@ -236,14 +319,16 @@ def phase_main_path(torch, K, searcher, oracle, flagship, card):
             t0 = time.perf_counter()
             searcher.agg_search(rq, ra)
             times.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        searcher.agg_search_batch(reqs)
-        msq = (time.perf_counter() - t0) * 1e3 / len(reqs)
-        lat[name] = (statistics.median(times), msq)
+        msq = _msearch_ms_per_q(torch, searcher, reqs)
+        searcher.config = dedup_off
+        msq_all = _msearch_ms_per_q(torch, searcher, reqs)
+        searcher.config = dedup_on
+        lat[name] = (statistics.median(times), msq, msq_all)
         say(f"  {name}: == oracle ({len(seen)} distinct varied checked; "
             f"oracle {t_oracle:.1f}s)  p50 {lat[name][0]:.3f} ms  "
-            f"msearch {msq:.4f} ms/q  [{card}]")
+            f"msearch {msq:.4f} ms/q dedup on ({distinct} distinct of "
+            f"{len(group)} per group), {msq_all:.4f} ms/q dedup off  "
+            f"[{card}]")
     counts = dict(K.launches)
     say("[6] kernel launches during the main path:", counts)
     for k, n in counts.items():
@@ -251,13 +336,7 @@ def phase_main_path(torch, K, searcher, oracle, flagship, card):
     return counts, lat
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--docs", type=int, default=10_000_000)
-    ap.add_argument("--segments", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=42)
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -278,14 +357,14 @@ def main(argv=None) -> int:
 
     card = phase_versions(torch, K)
     phase_build(K)
-    idx = phase_index(tt, flagship, args.docs, args.segments, args.seed)
+    idx = phase_index(tt, flagship)
     t0 = time.time()
     searcher = idx.searcher(device="cuda")
     for _, q, aggs in flagship.judged_configs():
         searcher._program_for(q, aggs)
     torch.cuda.synchronize()
     say(f"    programs planned + planes shipped in {time.time() - t0:.1f}s")
-    records = phase_kernels(torch, K, qc, searcher, flagship)
+    records = phase_kernels(torch, K, qc, tt, searcher, flagship)
     counts, _ = phase_main_path(torch, K, searcher, idx.oracle_searcher(),
                                 flagship, card)
     for name, rec in records.items():

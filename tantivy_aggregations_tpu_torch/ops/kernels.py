@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..ops.reductions import block32_counts
-from ..query.compile import OP_WIDTH, eval_ops
+from ..query.compile import OP_WIDTH, eval_ops, to_device_async
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -141,9 +141,10 @@ def _need(cond: bool, name: str, what: str) -> None:
 
 def _ptr_array(tensors, device) -> torch.Tensor:
     """Device int64 array of the tensors' data pointers (the kernel's
-    `const int* const*` operand)."""
+    `const int* const*` operand), copied without a stream sync so that
+    back-to-back launches stay queued."""
     ptrs = [t.data_ptr() for t in tensors] or [0]
-    return torch.tensor(ptrs, dtype=torch.int64).to(device)
+    return to_device_async(torch.tensor(ptrs, dtype=torch.int64), device)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +178,9 @@ def fused_metrics(mask, plane):
     _need(T % 4 == 0 and 0 < B <= 65535, name, f"shape {(B, T)}")
     _need(mask.is_contiguous() and plane.is_contiguous(), name,
           "operands must be contiguous")
+    # the kernel reads the plane as int4 and the mask as uchar4
+    _need(plane.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0, name,
+          "plane must be 16-byte and mask 4-byte aligned")
     dev = plane.device
     cnt = torch.zeros(B, dtype=torch.int64, device=dev)
     tot = torch.zeros(B, dtype=torch.int64, device=dev)

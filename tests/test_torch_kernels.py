@@ -159,6 +159,7 @@ def test_fused_metrics_plain_matches_pallas(span):
 def _chain_cases(m, jd):
     """Chain query builders j -> query over module `m`'s IR classes."""
     price = float(_params_value(jd, "price"))
+    qty = int(_params_value(jd, "qty"))
 
     def ranged(j):
         return m.BooleanQuery(
@@ -173,7 +174,22 @@ def _chain_cases(m, jd):
     def empty(j):
         return m.RangeQuery("qty", lower=900 + j, upper=100)
 
-    return [ranged, wide, empty]
+    def every_op(j):
+        # TRUE, AND, NOT, EQ32, RANGE32, RANGE_WIDE; EQ_WIDE_GUARD and
+        # EQ32_GUARD each in an OR pair
+        return m.BooleanQuery(
+            must=[m.TermQuery("cat", f"cat000{j}"),
+                  m.RangeQuery("qty", lower=10 * j, upper=900),
+                  m.RangeQuery("price", lower=-80.0 + j, upper=60.0)],
+            must_not=[m.TermQuery("price", price), m.TermQuery("qty", qty)])
+
+    return [ranged, wide, empty, every_op]
+
+
+def test_every_op_case_emits_every_opcode(dual):
+    jd, pd = dual
+    mp = pqc.mask_program(((_chain_cases(tt, jd)[3](0), ("q",)),), pd)
+    assert set(mp.ops[:, 0].tolist()) == set(range(pqc.OP_EQ_WIDE_GUARD + 1))
 
 
 def _chain_inputs(jd, pd, case, B):
@@ -223,7 +239,7 @@ def _run_jax(fn, pm, B):
         return jax.jit(jax.vmap(fn))(jnp.asarray(pm))
 
 
-@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("case", range(4))
 @pytest.mark.parametrize("B,L", [(1, 1), (4, 3)])
 def test_chain_blocks_plain_matches_pallas(dual, case, B, L):
     jd, pd = dual
@@ -250,7 +266,7 @@ def test_chain_blocks_plain_matches_pallas(dual, case, B, L):
         np.testing.assert_array_equal(sums[:, j].numpy(), tot)
 
 
-@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("case", range(4))
 @pytest.mark.parametrize("B", [1, 4])
 def test_chain_counts_plain_matches_pallas(dual, case, B):
     jd, pd = dual
