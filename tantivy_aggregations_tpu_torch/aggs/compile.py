@@ -6,7 +6,7 @@ metadata (the same choices the JAX package makes with the value-domain
 cube and member operands off and its Pallas gate on); `_run` evaluates the
 whole tree for a [B, P] int32 param matrix — one row per query of an
 msearch group, a single query is B = 1 — with eager torch ops and the
-three CUDA kernels of ops/kernels.py; the copied `harvest` reconstructs
+five CUDA kernels of ops/kernels.py; the copied `harvest` reconstructs
 exact user-domain fruits (bit-identical to the oracle).
 
 The plan does not depend on the device: a program on CPU tensors plans and
@@ -24,16 +24,24 @@ Modes:
 - high-cardinality root-level terms / histograms ("prefix"): bucket-sorted
   OrderedLayout scanned by the chain_blocks kernel (chain mask evaluated
   in-kernel, per-32-row-block counts + int64 payload sums), then per-bucket
-  totals as cumsum differences at the 32-aligned bucket bounds.
+  totals as cumsum differences at the 32-aligned bucket bounds. When the
+  whole chain is one TermQuery on a dense multi-valued field, a MEMBER
+  OPERAND replaces the scan: exact int64 per-(value, bucket) cells built
+  once on the device, of which a query copies one row (gather_rows).
 - percentiles ("rank"): value-sorted OrderedLayout scanned by the
   chain_counts kernel (per-128-row-group counts); integer ranks resolve to
   layout rows through torch.searchsorted over the count prefix plus a lazy
   128-row window recompute — no [R] mask per query.
+- percentiles under dense single-valued bucket ancestors ("slot_rank"):
+  the same value layout scanned by the chain_slot_counts kernel against a
+  static composite ancestor-slot plane (per-32-row-block counts per slot),
+  then the rank selection per slot over 32-row windows.
 
-Every other shape — non-integer percents, percentiles or top_hits under
-buckets, top_hits, facets, set-type / exists / phrase queries,
-multi-valued query or bucket fields, the cube, member operands, sharding —
-raises NotImplementedError at plan time naming the shape.
+Every other shape — non-integer percents, top_hits, facets, set-type /
+exists / phrase queries, multi-valued query chains or bucket fields, the
+cube, sharding — raises NotImplementedError at plan time naming the shape.
+The root query's mask is compiled only when a node reads it, so a chain
+that only a member operand answers needs no mask program.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import numpy as np
 import torch
 
 from ..aggs import ir as A
-from ..index.loader import _put
+from ..index.loader import ALIGN, _put
 from ..ops import kernels as K
 from ..ops import reductions as R
 from ..query import compile as qc
@@ -61,6 +69,8 @@ MAX_HIST_NB_HOST = 1 << 24  # columns spanning more buckets than this are
 
 #: rows per chain_counts group (the lazy rank-selection window)
 GROUP = 128
+#: rows per chain_slot_counts block (the slot_rank selection window)
+SLOT_GROUP = 32
 
 
 def _wrap64(x: int) -> int:
@@ -117,6 +127,18 @@ def _tree_map(fn, tree):
 
 
 class Program:
+    #: slot_rank flat-slot-space admission above the dense budget (up to
+    #: K.PCT_SLOT_CAP slots): the byte bound on one query's [ns, R/32]
+    #: int32 counts
+    BIG_SLOT_MEM = 256 << 20
+    #: byte budget of one [Df_pad, n_cols * card_pad] int64 member operand
+    #: (resident for the layout's life; c7's is ~1.6 GB of the H100's 80 GB)
+    MEMBER_MEM = 2 << 30
+    #: device bytes an msearch group's per-query slot_rank state (the
+    #: [ns, R/32] counts and their cumsum) may take: 8 GiB of the H100's
+    #: 80 GB, the rest holding the resident planes, layouts and operands
+    BATCH_MEM_BUDGET = 8 << 30
+
     def __init__(self, dindex, query: Q.Query, aggs: Dict[str, A.Agg],
                  config=None):
         from ..engine_config import EngineConfig
@@ -137,11 +159,27 @@ class Program:
         self.plan: Dict[tuple, dict] = {}
         self._arrays: Dict[str, torch.Tensor] = {"alive": dindex.alive}
         self._root_chain = ((query, ("q",)),)
-        self._root = self._chain_entry(self._root_chain)
+        #: set by the planner when a node reads the root MaskCtx
+        self._reads_root = False
         self._plan_aggs(aggs, ("a",), in_slot=False, hdims=(), tflat=1,
-                        chain=self._root_chain)
+                        chain=self._root_chain, bchain=())
+        self._root = (self._chain_entry(self._root_chain)
+                      if self._reads_root else None)
+        #: msearch group bound (None: no per-query row-axis state)
+        self.batch_cap = self._batch_cap()
         #: per-query fruit layout of the packed [B, F] int64 output
         self._pack_spec = None
+
+    def _batch_cap(self):
+        """Queries per msearch group whose slot_rank state fits
+        BATCH_MEM_BUDGET, or None when the program keeps no per-query
+        row-axis state."""
+        per_q = sum((p["layout"].n_rows // SLOT_GROUP) * p["nslots"] * 8
+                    for p in self.plan.values()
+                    if p.get("pmode") == "slot_rank")
+        if per_q == 0:
+            return None
+        return max(1, self.BATCH_MEM_BUDGET // per_q)
 
     # ======================================================================
     # public
@@ -276,6 +314,11 @@ class Program:
 
     # -- permuted (layout) views ---------------------------------------------
 
+    def _avalid_host(self, layout) -> np.ndarray:
+        """int8 [R]: the layout row's doc is alive and the row is real."""
+        return ((self.dindex.alive_host[layout.perm] > 0)
+                & (layout.valid_perm_host > 0)).astype(np.int8)
+
     def _build_chain_view(self, layout, prefix, chain, payload_fields=()):
         """Register the untransposed permuted planes a chain kernel scans,
         cached on the layout: the combined alive & valid plane `avalid`
@@ -292,9 +335,7 @@ class Program:
                                          self.device)
             self._need(prefix + key, layout.cache[key])
 
-        cache("avalid", lambda: ((self.dindex.alive_host[perm] > 0)
-                                 & (layout.valid_perm_host > 0))
-              .astype(np.int8))
+        cache("avalid", lambda: self._avalid_host(layout))
 
         def planes_of(keys):
             for key in keys:
@@ -308,71 +349,89 @@ class Program:
         for g in payload_fields:
             if g in pay_plan:
                 continue
-            colg = self._col(g)
-            meta = {"skeys": [], "cnt_key": None,
-                    "direct": colg.sum_direct and not colg.multi}
-            if colg.multi:
-                pre = self._doc_preagg_host(colg)
-                for i in range(pre["sum"].shape[1]):
-                    k = f"pay:{g}:s{i}"
-                    cache(k, lambda pre=pre, i=i: pre["sum"][perm, i])
-                    meta["skeys"].append(k)
-                k = f"pay:{g}:cnt"
-                cache(k, lambda pre=pre: pre["cnt"][perm])
-                meta["cnt_key"] = k
-            elif colg.sum_direct:
-                hp = self._host_planes(colg)
-                cache(f"pay:{g}:s0", lambda hp=hp: hp[0][perm])
-                meta["skeys"] = [f"pay:{g}:s0"]
-            else:
-                limbs = self._sum_limbs_host(colg)
-                for i in range(limbs.shape[1]):
-                    k = f"pay:{g}:s{i}"
-                    cache(k, lambda limbs=limbs, i=i: limbs[perm, i])
-                    meta["skeys"].append(k)
+            meta, planes = self._payload_planes(g, f"pay:{g}:s",
+                                                f"pay:{g}:cnt")
+            for k, ph in planes:
+                cache(k, lambda ph=ph: ph[perm])
             pay_plan[g] = meta
         return entry, pay_plan
 
+    def _payload_planes(self, g, sum_key, cnt_key):
+        """The host planes [T] a bucket's sum(g) payload adds up, under
+        keys `sum_key`+i and `cnt_key`: (meta, [(key, plane)]). Sums are the
+        w plane (a flat sum), the exact limb planes, or a multi-valued
+        field's per-doc pre-aggregate limbs plus its per-doc value count;
+        meta["skeys"] / meta["cnt_key"] name them and meta["direct"] marks
+        the flat-sum shape."""
+        colg = self._col(g)
+        cnt = None
+        if colg.multi:
+            pre = self._doc_preagg_host(colg)
+            sums = [pre["sum"][:, i] for i in range(pre["sum"].shape[1])]
+            cnt = pre["cnt"]
+        elif colg.sum_direct:
+            sums = [self._host_planes(colg)[0]]
+        else:
+            limbs = self._sum_limbs_host(colg)
+            sums = [limbs[:, i] for i in range(limbs.shape[1])]
+        planes = [(f"{sum_key}{i}", ph) for i, ph in enumerate(sums)]
+        meta = {"skeys": [k for k, _ in planes],
+                "cnt_key": None if cnt is None else cnt_key,
+                "direct": colg.sum_direct and not colg.multi}
+        if cnt is not None:
+            planes.append((cnt_key, cnt))
+        return meta, planes
+
     # -- node planners -------------------------------------------------------
 
-    def _plan_aggs(self, node, path, *, in_slot, hdims, tflat, chain):
+    def _plan_aggs(self, node, path, *, in_slot, hdims, tflat, chain,
+                   bchain):
+        """`bchain`: the dense single-valued bucket ancestors a slot_rank
+        percentile descendant composes its slot plane from — (("hist",
+        field, hist plan) | ("terms", field, card), ...) — or None once an
+        ancestor cannot thread a static slot."""
         if isinstance(node, (dict, tuple)):
             items = node.items() if isinstance(node, dict) else node
             for name, sub in items:
                 self._plan_aggs(sub, path + (name,), in_slot=in_slot,
-                                hdims=hdims, tflat=tflat, chain=chain)
+                                hdims=hdims, tflat=tflat, chain=chain,
+                                bchain=bchain)
             return
         if isinstance(node, A.CountAgg):
+            self._reads_root = True
             self.plan[path] = {"kind": "count", "hdims": hdims}
             return
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
                              A.StatsAgg)):
+            self._reads_root = True
             self._plan_metric(node, path, hdims)
             return
         if isinstance(node, A.PercentilesAgg):
             if in_slot:
-                raise NotImplementedError(
-                    "percentiles under bucket aggs (slot_rank) are not "
-                    "ported yet")
-            self._plan_percentiles(node, path, hdims, chain)
+                self._plan_percentiles_slots(node, path, hdims, chain,
+                                             bchain)
+            else:
+                self._plan_percentiles(node, path, hdims, chain)
             return
         if isinstance(node, A.FacetAgg):
             raise NotImplementedError("facet aggs are not ported yet")
         if isinstance(node, A.HistogramAgg):
             self._plan_histogram(node, path, in_slot=in_slot, hdims=hdims,
-                                 tflat=tflat, chain=chain)
+                                 tflat=tflat, chain=chain, bchain=bchain)
             return
         if isinstance(node, A.TermsAgg):
             self._plan_terms(node, path, in_slot=in_slot, hdims=hdims,
-                             tflat=tflat, chain=chain)
+                             tflat=tflat, chain=chain, bchain=bchain)
             return
         if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
+            self._reads_root = True
             sub_chain = chain + ((node.query, path + ("fq",)),)
             self.plan[path] = {
                 "kind": "filter", "hdims": hdims,
                 "fmask": self._chain_entry(((node.query, path + ("fq",)),))}
             self._plan_aggs(node.sub_aggs, path, in_slot=in_slot,
-                            hdims=hdims, tflat=tflat, chain=sub_chain)
+                            hdims=hdims, tflat=tflat, chain=sub_chain,
+                            bchain=bchain)
             return
         if isinstance(node, A.TopHitsAgg):
             raise NotImplementedError("top_hits aggs are not ported yet")
@@ -429,6 +488,84 @@ class Program:
             "hdims": hdims, "pmode": "rank", "int_percents": True,
             "layout": layout, "prefix": prefix, "pallas_counts": True,
             "chainp": entry}
+
+    def _plan_percentiles_slots(self, node, path, hdims, chain, bchain):
+        """slot_rank: per-bucket percentiles under dense single-valued
+        bucket ancestors, counted per (slot, 32-row block) of the field's
+        value layout by the chain_slot_counts kernel against a static
+        composite slot plane (_build_slotcomp)."""
+        col = self._col(node.field)
+        if col.multi:
+            raise NotImplementedError(
+                "percentiles over a multi-valued field under bucket aggs "
+                "are not ported yet")
+        if not all(float(q).is_integer() for q in node.percents):
+            raise NotImplementedError(
+                "non-integer percents under bucket aggs (phase-2 rank "
+                "resolution) are not ported yet")
+        if not bchain:
+            raise NotImplementedError(
+                "percentiles under bucket aggs need dense single-valued "
+                "ancestors")
+        nslots = 1
+        for kind, _, meta in bchain:
+            nslots *= meta["nb"] if kind == "hist" else meta
+        layout = col.value_layout()
+        if not (nslots <= self.dense_nb
+                or (nslots <= K.PCT_SLOT_CAP
+                    and (layout.n_rows // SLOT_GROUP) * nslots * 4
+                    <= self.BIG_SLOT_MEM)):
+            raise NotImplementedError(
+                f"slot_rank percentiles over {nslots} slots exceed the "
+                "device budget")
+        prefix = f"VL:{node.field}#"
+        entry, _ = self._build_chain_view(layout, prefix, chain)
+        self.plan[path] = {
+            "kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
+            "min_mono": col.min_mono, "percents": node.percents,
+            "hdims": hdims, "pmode": "slot_rank", "int_percents": True,
+            "nslots": nslots, "layout": layout, "prefix": prefix,
+            "pallas_slots": True, "chainp": entry,
+            "slotk": self._build_slotcomp(layout, prefix, bchain)}
+
+    def _build_slotcomp(self, layout, prefix, bchain) -> str:
+        """The STATIC composite ancestor-slot plane over the value layout's
+        rows (host-exact, cached on the layout): int32 [R], the flat slot
+        in [0, nslots) row-major over the bchain, or -1 where a terms
+        ancestor has no value. Hist ids come from _host_bucket_ids (the
+        source of the dense bid planes), terms ids from the w / tid host
+        planes. Returns its key (registered under `prefix`)."""
+        perm = layout.perm
+        sig = []
+        for kind, f, meta in bchain:
+            if kind == "terms":
+                sig.append(f"t:{f}:{meta}")
+            else:
+                rb = meta.get("rbounds")
+                sig.append("h:%s:%s:%s:%s:%s:%s" % (
+                    f, meta["hmode"], meta["nb"], meta.get("w_base"),
+                    meta.get("iv"),
+                    None if rb is None else hash(rb.tobytes())))
+        key = "slotcomp@" + "|".join(sig)
+        if key not in layout.cache:
+            slot = np.zeros(len(perm), np.int64)
+            valid = np.ones(len(perm), bool)
+            for kind, f, meta in bchain:
+                colf = self._col(f)
+                if kind == "hist":
+                    bid = self._host_bucket_ids(colf, meta)[perm]
+                    slot = slot * meta["nb"] + bid
+                else:
+                    if colf.ftype.is_stringy:
+                        ids = self._host_planes(colf)[0][perm]
+                    else:
+                        ids = colf.term_ids()[0][perm]
+                    valid &= ids >= 0
+                    slot = slot * meta + np.maximum(ids, 0)
+            layout.cache[key] = _put(
+                np.where(valid, slot, -1).astype(np.int32), self.device)
+        self._need(prefix + key, layout.cache[key])
+        return key
 
     def _hist_layout(self, col, node):
         if col.n_values == 0:
@@ -511,13 +648,26 @@ class Program:
                    for _, s in node.sub_aggs)
 
     def _plan_prefix(self, node, p, layout, prefix, chain, hdims, nb):
-        """Prefix-mode lowering of a root-level bucket agg: the chain_blocks
-        kernel over the bucket layout's permuted view; the metric subs
-        keep only harvest metadata (their sums come from the payloads)."""
+        """Prefix-mode lowering of a root-level bucket agg: a member
+        operand when the chain allows one, else the chain_blocks kernel
+        over the bucket layout's permuted view; the metric subs keep only
+        harvest metadata (their sums come from the payloads)."""
+        p["prefix"] = prefix
+        p["pallas_prefix"] = not self._plan_member_op(node, p, chain, layout,
+                                                      prefix)
+        if p["pallas_prefix"]:
+            self._plan_chain_blocks(node, p, layout, prefix, chain)
+        for name, sub in node.sub_aggs:
+            if isinstance(sub, A.CountAgg):
+                self.plan[p["path"] + (name,)] = {"kind": "count",
+                                                  "hdims": hdims + (nb,)}
+            else:
+                self.plan[p["path"] + (name,)] = self._metric_plan_dict(
+                    sub, hdims + (nb,))
+
+    def _plan_chain_blocks(self, node, p, layout, prefix, chain):
         pay_fields = [s.field for _, s in node.sub_aggs
                       if isinstance(s, (A.SumAgg, A.AvgAgg))]
-        p["prefix"] = prefix
-        p["pallas_prefix"] = True
         p["chainp"], p["pay_plan"] = self._build_chain_view(
             layout, prefix, chain, pay_fields)
         n_pay = sum(len(m["skeys"]) + (m["cnt_key"] is not None)
@@ -528,15 +678,164 @@ class Program:
                 f"{K.MAX_PAYLOADS}")
         self._need(prefix + "bounds32",
                    _put(layout.bounds.astype(np.int64), self.device))
-        for name, sub in node.sub_aggs:
-            if isinstance(sub, A.CountAgg):
-                self.plan[p["path"] + (name,)] = {"kind": "count",
-                                                  "hdims": hdims + (nb,)}
-            else:
-                self.plan[p["path"] + (name,)] = self._metric_plan_dict(
-                    sub, hdims + (nb,))
 
-    def _plan_histogram(self, node, path, *, in_slot, hdims, tflat, chain):
+    # -- member operands (a TermQuery on a dense multi-valued field) --------
+
+    def _member_eligible(self, q) -> bool:
+        """A TermQuery on a dense non-f64 narrow / keyword multi-valued
+        column: a doc matches TermQuery(f, v) iff v is in its value set, so
+        per-(value, bucket) counts and payload sums are precomputable."""
+        if not isinstance(q, Q.TermQuery):
+            return False
+        col = self._col(q.field)
+        if not (col.multi and col.has_multi_planes and not col.has_tail
+                and not col.has_multi_planes_wide
+                and col.ftype != FieldType.F64):
+            return False
+        Df = self._member_domain(col)
+        return 1 <= Df and Df * 8 <= self.MEMBER_MEM
+
+    @staticmethod
+    def _member_domain(col) -> int:
+        """Df: a member value is a global ordinal (keyword) or a w value in
+        [0, Df)."""
+        return len(col.terms) if col.ftype.is_stringy else int(col.span) + 1
+
+    def _member_split(self, chain):
+        """(reduced_chain, member_specs): every POSITIVE CONJUNCTIVE
+        (root-or-must position) eligible TermQuery leaf is replaced by
+        MatchAll in place (params still come from the original query) and
+        recorded as a member spec."""
+        specs = []
+
+        def walk(q, qpath):
+            if self._member_eligible(q):
+                col = self._col(q.field)
+                specs.append({"field": q.field, "pkey": qc._key(qpath),
+                              "stringy": col.ftype.is_stringy,
+                              "Df": self._member_domain(col)})
+                return Q.MatchAllQuery()
+            if isinstance(q, Q.BooleanQuery):
+                must = tuple(walk(c, qpath + ("m", i))
+                             for i, c in enumerate(q.must))
+                if any(m is not c for m, c in zip(must, q.must)):
+                    return Q.BooleanQuery(must=must, should=q.should,
+                                          must_not=q.must_not)
+            return q
+
+        red = tuple((walk(q, qp), qp) for q, qp in chain)
+        return red, tuple(specs)
+
+    @staticmethod
+    def _chain_is_matchall(chain) -> bool:
+        """True when every chain entry matches everything (alive-masked):
+        MatchAll, or a Boolean whose musts all match everything with no
+        must_not (should is a scoring hint under a non-empty must, and an
+        all-matchall empty-should boolean is all-true)."""
+        def all_q(q):
+            if isinstance(q, Q.MatchAllQuery):
+                return True
+            if isinstance(q, Q.BooleanQuery):
+                return (len(q.must) > 0 and not q.must_not
+                        and all(all_q(c) for c in q.must))
+            return False
+        return all(all_q(q) for q, _ in chain)
+
+    def _plan_member_op(self, node, p, chain, layout, prefix) -> bool:
+        """Member operand lowering of a prefix-mode bucket agg whose whole
+        chain is one eligible TermQuery (possibly inside pure must
+        conjunctions): exact int64 cells [Df_pad, n_cols * card_pad] —
+        column 0 the per-(value, bucket) matched count, then one column
+        per payload sum plane (the chain_blocks payload sources) — built
+        once per layout; a query copies the row of its value. Returns True
+        when planned."""
+        rchain, member = self._member_split(chain)
+        if len(member) != 1 or not self._chain_is_matchall(rchain):
+            return False
+        spec = member[0]
+        col = self._col(spec["field"])
+        card = len(layout.bounds) - 1
+        planes = []   # (column key, host plane [T])
+        pay_meta = {}
+        for _, s in node.sub_aggs:
+            if not isinstance(s, (A.SumAgg, A.AvgAgg)) or s.field in pay_meta:
+                continue
+            pay_meta[s.field], sub_planes = self._payload_planes(
+                s.field, f"s:{s.field}:", f"c:{s.field}")
+            planes += sub_planes
+        cols = ["cnt"] + [gk for gk, _ in planes]
+        # rows of 8-byte cells: an even card_pad keeps every row a
+        # multiple of gather_rows' 16-byte words
+        card_pad = card + (card & 1)
+        Df_pad = -(-spec["Df"] // 32) * 32
+        if Df_pad * len(cols) * card_pad * 8 > self.MEMBER_MEM:
+            return False
+        key = f"MOP#{prefix}{spec['field']}#" + "|".join(cols)
+        if key not in layout.cache:
+            layout.cache[key] = self._build_member_op(
+                layout, col, Df_pad, card, card_pad,
+                [ph for _, ph in planes])
+        self._need(key, layout.cache[key])
+        k = spec["pkey"]
+        p["member_op"] = {
+            "spec": spec, "key": key, "card": card, "card_pad": card_pad,
+            "cols": cols, "pay": pay_meta,
+            "tcol": self._pcol[k + (":t" if spec["stringy"] else ":t0")],
+            "tvcol": None if spec["stringy"] else self._pcol[k + ":tv0"]}
+        return True
+
+    def _build_member_op(self, layout, col, Df_pad, card, card_pad,
+                         pay_planes) -> torch.Tensor:
+        """One-time device build of the member operand from the layout's
+        permuted per-position planes: 32 domain values per chunk; a row
+        matches value u when ANY position holds u (so a doc holding u twice
+        counts once), AND alive & valid; 32-row block sums, an int64
+        cumsum, differences at the 32-aligned bucket bounds."""
+        dev = self.device
+        perm = layout.perm
+        mps = [_put(ph[perm], dev) for ph in col.multi_planes_host]
+        avalid = _put(self._avalid_host(layout), dev) > 0
+        pays = [_put(np.asarray(ph[perm], np.int32), dev)
+                for ph in pay_planes]
+        R = len(perm)
+        NB = R // ALIGN  # layout.bounds count ALIGN-row blocks
+        bnd = _put(layout.bounds.astype(np.int64), dev)
+        U = 32
+        op = torch.zeros(Df_pad, 1 + len(pays), card_pad, dtype=torch.int64,
+                         device=dev)
+
+        def cells(blocks):
+            # [U, NB] int64 block sums -> [U, card] bucket totals
+            pref = torch.cumsum(blocks, dim=1)
+            at = torch.cat([torch.zeros(U, 1, dtype=torch.int64, device=dev),
+                            pref], dim=1)[:, bnd]
+            return at[:, 1:] - at[:, :-1]
+
+        for u0 in range(0, Df_pad, U):
+            u = torch.arange(u0, u0 + U, dtype=torch.int32, device=dev)
+            m = torch.zeros(U, R, dtype=torch.bool, device=dev)
+            for mp in mps:
+                m |= mp[None, :] == u[:, None]
+            m &= avalid[None, :]
+            op[u0:u0 + U, 0, :card] = cells(
+                m.reshape(U, NB, ALIGN).sum(dim=-1, dtype=torch.int64))
+            for j, pv in enumerate(pays):
+                op[u0:u0 + U, 1 + j, :card] = cells(
+                    torch.where(m, pv[None, :], 0).reshape(U, NB, ALIGN)
+                    .sum(dim=-1, dtype=torch.int64))
+        return op.reshape(Df_pad, -1)
+
+    def _dense_budget(self, node) -> int:
+        """Dense-mode flat-slot admission of a bucket node: dense_nb,
+        extended to PCT_SLOT_CAP when a percentile descendant needs the
+        bucket in its slot_rank bchain (prefix and scatter ancestors cannot
+        thread a static slot plane)."""
+        if _has_pct_sub(node):
+            return max(self.dense_nb, K.PCT_SLOT_CAP)
+        return self.dense_nb
+
+    def _plan_histogram(self, node, path, *, in_slot, hdims, tflat, chain,
+                        bchain):
         col = self._bucket_field(node)
         p = {"kind": "histogram", "ftype": col.ftype, "multi": False,
              "hdims": hdims, "path": path}
@@ -549,22 +848,28 @@ class Program:
                    else f"{node.field}:bid:{node.interval}:{node.offset}")
         bid_host = self._host_bucket_ids(col, p)
         self.plan[path] = p
-        if tflat * nb > self.dense_nb and not in_slot \
+        budget = self._dense_budget(node)
+        if tflat * nb > budget and not in_slot \
                 and self._sub_kinds_ok(node):
             p["mode"] = "prefix"
             layout = col.layout_for_ids(bid_key, bid_host, nb)
             self._plan_prefix(node, p, layout, f"HL:{bid_key}#", chain,
                               hdims, nb)
             return
-        p["mode"] = "dense" if tflat * nb <= self.dense_nb else "scatter"
+        self._reads_root = True
+        p["mode"] = "dense" if tflat * nb <= budget else "scatter"
         self._need(bid_key, col.bucket_id_plane(bid_key, lambda: bid_host))
         p["bid_key"] = bid_key
+        sub_bchain = (bchain + (("hist", node.field, dict(p)),)
+                      if bchain is not None and p["mode"] == "dense"
+                      else None)
         for name, sub in node.sub_aggs:
             self._plan_aggs(sub, path + (name,), in_slot=True,
                             hdims=hdims + (nb,), tflat=tflat * nb,
-                            chain=chain)
+                            chain=chain, bchain=sub_bchain)
 
-    def _plan_terms(self, node, path, *, in_slot, hdims, tflat, chain):
+    def _plan_terms(self, node, path, *, in_slot, hdims, tflat, chain,
+                    bchain):
         col = self._bucket_field(node)
         p = {"kind": "terms", "ftype": col.ftype, "multi": False,
              "hdims": hdims, "path": path}
@@ -589,22 +894,27 @@ class Program:
         p["sel"] = "topk" if node.order == ("_count", "desc") else "host"
         self.plan[path] = p
         sub_hdims = hdims + ((card if p["sel"] == "host" else p["keff"]),)
-        if tflat * card > self.dense_nb and not in_slot \
+        budget = self._dense_budget(node)
+        if tflat * card > budget and not in_slot \
                 and self._sub_kinds_ok(node):
             p["mode"] = "prefix"
             self._plan_prefix(node, p, col.bucket_layout(),
                               f"BL:{node.field}#", chain, hdims,
                               sub_hdims[-1])
             return
-        p["mode"] = "dense" if tflat * card <= self.dense_nb else "scatter"
+        self._reads_root = True
+        p["mode"] = "dense" if tflat * card <= budget else "scatter"
         if col.ftype.is_stringy:
             self._need(f"{node.field}:w", col.w)
         else:
             self._need(f"{node.field}:tid", col.tid())
+        sub_bchain = (bchain + (("terms", node.field, card),)
+                      if bchain is not None and p["mode"] == "dense"
+                      else None)
         for name, sub in node.sub_aggs:
             self._plan_aggs(sub, path + (name,), in_slot=True,
                             hdims=sub_hdims, tflat=tflat * card,
-                            chain=chain)
+                            chain=chain, bchain=sub_bchain)
 
     def _extract_filter_params(self, node, path, out):
         if isinstance(node, (dict, tuple)):
@@ -627,9 +937,11 @@ class Program:
     def _run(self, pmat):
         arrays = self._arrays
         B, T = pmat.shape[0], self.dindex.T
-        mask = self._chain_mask(self._root, pmat, arrays) \
-            & (arrays["alive"] > 0)
-        ctx = MaskCtx(mask.expand(B, T))
+        ctx = None  # no planned node reads the root mask
+        if self._root is not None:
+            mask = self._chain_mask(self._root, pmat, arrays) \
+                & (arrays["alive"] > 0)
+            ctx = MaskCtx(mask.expand(B, T))
         out = {name: self._eval(agg, ctx, pmat, arrays, ("a", name))
                for name, agg in self.aggs.items()}
         return {"packed": self._pack_outputs(out, self.aggs, B)}
@@ -771,7 +1083,8 @@ class Program:
     def _int_ranks(self, p, m):
         """0-based (lo, hi) rank pairs per percent, exact in int64:
         rank = (q * (m-1)) // 100 for integer q <= 100; matches
-        utils/exact.py percentile_rank. m: [B] -> [B, 2P]."""
+        utils/exact.py percentile_rank. m: [B] (or [B, ns]) -> [B, 2P]
+        (or [B, ns, 2P])."""
         ms = (m - 1).clamp(min=0)
         ranks = []
         for q in p["percents"]:
@@ -780,37 +1093,89 @@ class Program:
             ranks.extend([lo, hi])
         return torch.stack(ranks, dim=-1)
 
-    def _window_mask(self, p, sub_pmat, arrays, blk):
-        """Chain-mask bits of the GROUP-row windows at groups `blk`
-        ([B, K]) -> bool [B, K, GROUP], recomputed from the permuted planes
-        (the kernel never materializes the [R] mask)."""
+    def _window_mask(self, p, sub_pmat, arrays, blk, G):
+        """Chain-mask bits of the G-row windows at groups `blk` ([B, K];
+        slot_rank: [B, ns, K], one row of groups per slot) -> bool
+        [..., K, G], recomputed from the permuted planes (the kernels never
+        materialize the [R] mask); slot_rank keeps each slot's rows only."""
         entry, prefix = p["chainp"], p["prefix"]
-        rows = (blk[..., None] * GROUP
-                + torch.arange(GROUP, device=blk.device))
+        rows = blk[..., None] * G + torch.arange(G, device=blk.device)
         planes = [arrays[prefix + k][rows] for k in entry["mp"].plane_keys]
         m = qc.eval_ops(entry["mp"].ops, planes, sub_pmat,
                         tuple(rows.shape[1:]))
-        return m & (arrays[prefix + "avalid"][rows] > 0)
+        m = m & (arrays[prefix + "avalid"][rows] > 0)
+        if p["pmode"] == "slot_rank":
+            s = torch.arange(p["nslots"], device=blk.device)
+            m = m & (arrays[prefix + p["slotk"]][rows]
+                     == s.reshape(1, -1, 1, 1))
+        return m
 
     def _eval_percentiles(self, pmat, arrays, p):
+        """Rank rows of the integer percents: per-group match counts from a
+        chain kernel (rank: chain_counts per 128-row group -> [B, R/128];
+        slot_rank: chain_slot_counts per slot and 32-row block against the
+        static slot plane -> [B, ns, R/32]), their cumsum along the groups,
+        then the rank rows through searchsorted and a lazy window
+        recompute."""
         entry, prefix = p["chainp"], p["prefix"]
         sub = self._chain_pmat(entry, pmat)
-        counts = K.chain_counts(
-            sub, entry["ops"],
-            [arrays[prefix + k] for k in entry["mp"].plane_keys],
-            arrays[prefix + "avalid"])
-        cum = torch.cumsum(counts, dim=-1, dtype=torch.int64)
-        m = cum[:, -1]
+        planes = [arrays[prefix + k] for k in entry["mp"].plane_keys]
+        avalid = arrays[prefix + "avalid"]
+        if p["pmode"] == "slot_rank":
+            G = SLOT_GROUP
+            counts = K.chain_slot_counts(sub, entry["ops"], planes, avalid,
+                                         arrays[prefix + p["slotk"]],
+                                         p["nslots"])
+            # int32 is exact (totals <= R < 2^31) and halves the [B, ns, G]
+            # state that batch_cap budgets
+            cum = torch.cumsum(counts, dim=-1, dtype=torch.int32)
+        else:
+            G = GROUP
+            counts = K.chain_counts(sub, entry["ops"], planes, avalid)
+            cum = torch.cumsum(counts, dim=-1, dtype=torch.int64)
+        m = cum[..., -1].to(torch.int64)
         rows = _rank_select_rows_lazy(
             cum, self._int_ranks(p, m),
-            lambda blk: self._window_mask(p, sub, arrays, blk))
+            lambda blk: self._window_mask(p, sub, arrays, blk, G), G)
         return {"m": m, "rows": rows}
 
     # -- bucket aggs ---------------------------------------------------------
 
+    def _eval_prefix_member(self, node, pmat, arrays, p):
+        """Prefix-mode bucket totals from ONE row of the member operand per
+        query, copied by the gather_rows kernel: (per-bucket counts
+        [B, card] int64, sub_out). The row index comes straight from the
+        param matrix, clamped on the device (no host sync); the value's
+        validity param zeroes an out-of-domain value's row."""
+        mo = p["member_op"]
+        card, cols = mo["card"], mo["cols"]
+        op = arrays[mo["key"]]
+        t = pmat[:, mo["tcol"]]
+        tv = (t >= 0) if mo["tvcol"] is None else pmat[:, mo["tvcol"]]
+        idx = t.clamp(0, op.shape[0] - 1).contiguous()
+        rows = K.gather_rows(idx, op).reshape(-1, len(cols), mo["card_pad"])
+        rows = rows[..., :card] * tv.to(torch.int64)[:, None, None]
+        groups = {gk: rows[:, j] for j, gk in enumerate(cols)}
+        counts = groups["cnt"]
+        sub_out = {}
+        for name, sub in node.sub_aggs:
+            if isinstance(sub, A.CountAgg):
+                sub_out[name] = {"cnt": counts}
+                continue
+            meta = mo["pay"][sub.field]
+            ssum = torch.stack([groups[sk] for sk in meta["skeys"]], dim=-1)
+            gcnt = groups[meta["cnt_key"]] if meta["cnt_key"] else counts
+            if len(meta["skeys"]) == 1 and meta["direct"]:
+                sub_out[name] = {"cnt": gcnt, "sum": ssum[..., 0]}
+            else:
+                sub_out[name] = {"cnt": gcnt, "sum": ssum}
+        return counts, sub_out
+
     def _eval_prefix_kernel(self, node, pmat, arrays, p):
-        """Prefix-mode bucket totals via the chain_blocks kernel: (per-bucket
-        counts [B, card] int64, sub_out)."""
+        """Prefix-mode bucket totals via the chain_blocks kernel (or the
+        member operand): (per-bucket counts [B, card] int64, sub_out)."""
+        if "member_op" in p:
+            return self._eval_prefix_member(node, pmat, arrays, p)
         entry, prefix = p["chainp"], p["prefix"]
         pay_keys = []
         for meta in p["pay_plan"].values():
@@ -1327,17 +1692,26 @@ def _limb_totals_vec(a: np.ndarray):
     return tot
 
 
-def _rank_select_rows_lazy(cum, ranks, window_of, G=GROUP):
-    """For each 0-based rank r of each query: the layout row of the
-    (r+1)-th matched row, from an inclusive per-G-row-group match-count
-    prefix cum [B, NG] (int64) and a `window_of(blk [B, K]) -> bool
-    [B, K, G]` recompute callback (no materialized mask). ranks: [B, K]
-    int64 -> rows [B, K] int64. Ranks past the match count (m == 0) give
-    rows the harvest never reads."""
+def _has_pct_sub(node) -> bool:
+    """True when any descendant agg is a PercentilesAgg."""
+    for _, sub in getattr(node, "sub_aggs", ()):
+        if isinstance(sub, A.PercentilesAgg) or _has_pct_sub(sub):
+            return True
+    return False
+
+
+def _rank_select_rows_lazy(cum, ranks, window_of, G):
+    """For each 0-based rank r of each query (and slot): the layout row of
+    the (r+1)-th matched row, from an inclusive per-G-row-group
+    match-count prefix cum [..., NG] (int32 or int64) and a
+    `window_of(blk [..., K]) -> bool [..., K, G]` recompute callback (no
+    materialized mask). ranks: [..., K] int64 -> rows [..., K] int64. Ranks
+    past the match count (m == 0) give rows the harvest never reads: the
+    block index is clamped into [0, NG)."""
     targets = ranks + 1
-    blk = torch.searchsorted(cum, targets, side="left")
-    blk = blk.clamp(max=cum.shape[1] - 1)
-    prev = torch.gather(cum, 1, (blk - 1).clamp(min=0))
+    blk = torch.searchsorted(cum, targets.to(cum.dtype), side="left")
+    blk = blk.clamp(max=cum.shape[-1] - 1)
+    prev = torch.gather(cum, -1, (blk - 1).clamp(min=0)).to(torch.int64)
     base = torch.where(blk > 0, prev, 0)
     inner = torch.cumsum(window_of(blk), dim=-1)
     off = (inner < (targets - base)[..., None]).sum(dim=-1)

@@ -12,6 +12,13 @@
 //    int64 payload sums. Replaces _chain_blocks_batched / make_chain_blocks.
 // 3. chain_counts: the same at 128-row groups, counts only (rank
 //    percentiles). Replaces _chain_counts_batched / make_chain_counts.
+// 4. chain_slot_counts: per query, the chain mask's matched rows in each
+//    32-row block split by a static composite slot plane -> [B, ns, R/32]
+//    (slot_rank nested percentiles). Replaces _chain_slot_counts_batched /
+//    make_chain_slot_counts.
+// 5. gather_rows: B whole rows of a row-major operand, picked by an int32
+//    index array in device memory (member operands). Replaces
+//    _gather_rows_batched / make_gather_rows.
 //
 // The chain kernels give each warp one row group: the warp loads the
 // group's plane values ONCE into shared memory and then loops over the B
@@ -160,6 +167,91 @@ __global__ void chain_kernel(const int* __restrict__ pmat, int B, int P,
   }
 }
 
+// chain_slot_counts: chain_kernel<1>'s block walk, with the matched rows of
+// each query split by the block's static slot values. Bound on the H100: one
+// pass over the chain planes + avalid + slot per BATCH, then per query one
+// mask evaluation and ns int32 stores, strided by n_groups (the [B, ns, G]
+// layout the cumsum along G wants; the strided stores are a known cost).
+// The slot ballots sb (lane j of a 32-slot chunk holds the rows of slot
+// base + j) do not depend on the query, so they are built once per block
+// and chunk; past 32 slots the chunk loop re-evaluates each query's mask.
+__global__ void chain_slot_kernel(const int* __restrict__ pmat, int B, int P,
+                                  const int* __restrict__ ops, int n_ops,
+                                  const int* const* __restrict__ planes,
+                                  int n_planes,
+                                  const signed char* __restrict__ avalid,
+                                  const int* __restrict__ slot, int ns,
+                                  long long n_groups, int* __restrict__ counts) {
+  extern __shared__ int smem[];
+  int* s_ops = smem;
+  for (int i = threadIdx.x; i < n_ops * OP_WIDTH; i += blockDim.x)
+    s_ops[i] = ops[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* wv = smem + n_ops * OP_WIDTH + warp * (n_planes * 32);
+
+  for (long long g = static_cast<long long>(blockIdx.x) * WARPS + warp;
+       g < n_groups; g += static_cast<long long>(gridDim.x) * WARPS) {
+    const long long row = g * 32 + lane;
+    const bool av = avalid[row] > 0;
+    const int sv = slot[row];
+    int* vals = wv + lane;
+    for (int p = 0; p < n_planes; ++p) vals[p * 32] = planes[p][row];
+    for (int base = 0; base < ns; base += 32) {
+      const int n_here = min(32, ns - base);
+      unsigned sb = 0u;
+      for (int j = 0; j < n_here; ++j) {
+        const unsigned bj = __ballot_sync(FULL, sv == base + j);
+        if (lane == j) sb = bj;
+      }
+      for (int b = 0; b < B; ++b) {
+        const int* prm = pmat + static_cast<long long>(b) * P;
+        const bool m = av && eval_row(s_ops, n_ops, vals, prm);
+        const unsigned bm = __ballot_sync(FULL, m);
+        if (lane < n_here)
+          counts[(static_cast<long long>(b) * ns + base + lane) * n_groups + g] =
+              __popc(bm & sb);
+      }
+    }
+  }
+}
+
+// gather_rows: out[b] = op[idx[b]] for rows of row_vec 16-byte words.
+// Bound: HBM bytes, 2 x B x row bytes (a read and a write of each row).
+// The grid is (B, row chunks): blockIdx.x walks the batch, so the blocks in
+// flight copy the same chunk of every picked row, and a row picked twice in
+// a batch is read the second time from L2. Each thread makes one pass: it
+// starts GR_UNROLL int4 loads before its stores (several loads in flight
+// per thread), neighbouring threads on neighbouring addresses. The index
+// lives in device memory (the TPU kernel's scalar prefetch) and is clamped
+// into [0, n_rows) so a bad index cannot read outside the operand; callers
+// clamp it already.
+constexpr int GR_THREADS = 256;
+constexpr int GR_UNROLL = 4;
+
+__global__ void gather_rows_kernel(const int* __restrict__ idx,
+                                   const int4* __restrict__ op,
+                                   long long n_rows, long long row_vec,
+                                   int4* __restrict__ out) {
+  const long long b = blockIdx.x;
+  const long long r = min(max(static_cast<long long>(idx[b]), 0LL), n_rows - 1);
+  const int4* src = op + r * row_vec;
+  int4* dst = out + b * row_vec;
+  const long long step = static_cast<long long>(gridDim.y) * blockDim.x;
+  for (long long i0 = static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x;
+       i0 < row_vec; i0 += step * GR_UNROLL) {
+    int4 v[GR_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GR_UNROLL; ++u)
+      if (i0 + u * step < row_vec) v[u] = src[i0 + u * step];
+#pragma unroll
+    for (int u = 0; u < GR_UNROLL; ++u)
+      if (i0 + u * step < row_vec) dst[i0 + u * step] = v[u];
+  }
+}
+
 __global__ void fused_metrics_kernel(const unsigned char* __restrict__ mask,
                                      const int* __restrict__ plane,
                                      long long T,
@@ -246,6 +338,25 @@ int launch_chain(const int* pmat, int B, int P, const int* ops, int n_ops,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_chain_slot(const int* pmat, int B, int P, const int* ops, int n_ops,
+                      const int* const* planes, int n_planes,
+                      const signed char* avalid, const int* slot, int ns,
+                      long long n_groups, int* counts, cudaStream_t stream) {
+  const size_t shmem =
+      sizeof(int) * (static_cast<size_t>(n_ops) * OP_WIDTH +
+                     static_cast<size_t>(WARPS) * n_planes * 32);
+  if (shmem > 48 * 1024) {
+    cudaFuncSetAttribute(chain_slot_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(shmem));
+  }
+  const int grid = grid_for(n_groups, WARPS, 132 * 16);
+  chain_slot_kernel<<<grid, WARPS * 32, shmem, stream>>>(
+      pmat, B, P, ops, n_ops, planes, n_planes, avalid, slot, ns, n_groups,
+      counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -285,6 +396,30 @@ int tat_chain_counts(const void* pmat, int B, int P, const void* ops,
       static_cast<const int* const*>(planes), n_planes,
       static_cast<const signed char*>(avalid), nullptr, 0, n_groups,
       static_cast<int*>(counts), nullptr, static_cast<cudaStream_t>(stream));
+}
+
+int tat_chain_slot_counts(const void* pmat, int B, int P, const void* ops,
+                          int n_ops, const void* planes, int n_planes,
+                          const void* avalid, const void* slot, int ns,
+                          long long n_groups, void* counts, void* stream) {
+  return launch_chain_slot(
+      static_cast<const int*>(pmat), B, P, static_cast<const int*>(ops), n_ops,
+      static_cast<const int* const*>(planes), n_planes,
+      static_cast<const signed char*>(avalid), static_cast<const int*>(slot),
+      ns, n_groups, static_cast<int*>(counts),
+      static_cast<cudaStream_t>(stream));
+}
+
+int tat_gather_rows(const void* idx, int B, const void* op, long long n_rows,
+                    long long row_vec, void* out, void* stream) {
+  // one pass per thread: GR_UNROLL words each (the wrapper keeps the chunk
+  // count within gridDim.y's 65535)
+  const int gy = grid_for(row_vec, GR_THREADS * GR_UNROLL, INT_MAX);
+  dim3 grid(B, gy);
+  gather_rows_kernel<<<grid, GR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const int4*>(op), n_rows,
+      row_vec, static_cast<int4*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -16,12 +16,10 @@ class EngineConfig:
     dense_nb: int = 256
     #: collect per-query QueryStats on the searcher (last_stats)
     collect_stats: bool = False
-    #: msearch group cap: same-shape queries per vmapped dispatch; multiple
-    #: groups pipeline (device->host copies overlap later groups' compute).
-    #: 128 measured best on the v5e (re-swept after the Pallas/MXU prefix
-    #: work dropped per-query device time): the link's fixed per-round-trip
-    #: cost amortizes over the group; 64 -> 128 took the streams from
-    #: 0.41 -> 0.11 ms/q (count+sum) and 1.21 -> 1.08 ms/q (percentile mix)
+    #: msearch group cap: same-shape queries per batched dispatch (one
+    #: [B, P] param matrix; the chain kernels read each plane once per
+    #: group); groups are dispatched back to back before any is collected.
+    #: The default is the JAX package's; it has not been swept on the H100
     max_batch: int = 128
     #: dedup identical requests inside an msearch group (request-cache
     #: analog of Elasticsearch's shard request cache): a compiled program

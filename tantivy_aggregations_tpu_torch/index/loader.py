@@ -11,7 +11,9 @@ harvest code and the differential tests read the same numbers):
 - Single-cardinality keyword fields are DENSE: one int32 global-ordinal
   column (-1 = missing) aligned with the doc axis.
 - Multi-valued fields keep their value rows on the host and reach the
-  device as per-doc pre-aggregates (metric aggs reduce in doc space).
+  device as per-doc pre-aggregates (metric aggs reduce in doc space);
+  narrow and keyword ones also keep DENSE_MULTI_K doc-aligned
+  per-position planes on the host (the member operands' source).
 - Segments are concatenated on one doc axis padded to PAD_BLOCK.
 - OrderedLayout: a load-time argsort of a column with 32-aligned bucket
   padding (bucket layouts) or value order (value layouts), the static views
@@ -42,6 +44,9 @@ PAD_BLOCK = 32768
 NARROW_MAX_SPAN = 2**31 - 2
 #: OrderedLayout bucket boundaries are aligned to this many rows
 ALIGN = 32
+#: dense per-position planes of a narrow / keyword multi-valued field cover
+#: value positions 0..DENSE_MULTI_K-1 of each doc
+DENSE_MULTI_K = 8
 
 I32 = np.int32
 
@@ -117,6 +122,25 @@ class DeviceColumn:
     _value_layout: Optional[OrderedLayout] = None
     # per-doc pre-aggregate planes for CSR metric sub-aggs (lazy, static)
     _doc_preagg: Optional[dict] = None
+    #: narrow / keyword multi-valued fields: doc-aligned int32 [T] planes
+    #: of the value at positions 0..DENSE_MULTI_K-1 of each doc (w values;
+    #: keyword: global ordinals), -1 where the doc has no value there
+    multi_planes_host: Optional[list] = None
+    #: some doc holds more than DENSE_MULTI_K values (the planes miss them)
+    _has_tail: bool = False
+
+    @property
+    def has_multi_planes(self) -> bool:
+        return self.multi_planes_host is not None
+
+    @property
+    def has_multi_planes_wide(self) -> bool:
+        """Wide multi-valued fields get no dense planes in the port yet."""
+        return False
+
+    @property
+    def has_tail(self) -> bool:
+        return self._has_tail
 
     # -- lazy device planes ---------------------------------------------------
 
@@ -528,9 +552,9 @@ def _load_keyword_dense(entry, segments, T, device) -> DeviceColumn:
 
 def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
     """Multi-valued field: the value rows in doc order (a doc's values are
-    contiguous) with their doc ids. The port reads them only through the
-    per-doc pre-aggregates (metric aggs in doc space); row planes of
-    multi-valued fields are not ported yet."""
+    contiguous) with their doc ids, read through the per-doc pre-aggregates
+    (metric aggs in doc space); narrow and keyword fields also get the
+    dense per-position planes (member operands)."""
     from .segment import numeric_dtype
     name = entry.name
     if keyword:
@@ -569,10 +593,33 @@ def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
     span = ((max_mono - min_mono) % 2**64) if n else 0
     if keyword:
         min_mono, max_mono, span = 0, max_mono, int(max_mono)
-    return DeviceColumn(
+    col = DeviceColumn(
         name=name, ftype=entry.type, multi=True,
         narrow=keyword or span <= NARROW_MAX_SPAN,
         terms=gterms if keyword else None,
         min_mono=min_mono, max_mono=max_mono, span=span, n_values=n,
         _device=device, _host_values=vals, _host_mono=m,
         _orig_docs=docs, _orig_values=vals)
+    if col.narrow:
+        _multi_planes(col, m, docs, T, keyword)
+    return col
+
+
+def _multi_planes(col: DeviceColumn, m: np.ndarray, docs: np.ndarray,
+                  T: int, keyword: bool) -> None:
+    """The dense per-position planes of a narrow / keyword multi-valued
+    column (rows of `m` are doc-ascending with their global `docs`)."""
+    n = m.shape[0]
+    cnt = np.bincount(docs, minlength=T) if n else np.zeros(T, np.int64)
+    kmax = int(cnt.max()) if n else 0
+    wvals = m if keyword else _w_u64(m, col.min_mono).astype(np.int64)
+    offs = np.zeros(T + 1, np.int64)
+    np.cumsum(cnt, out=offs[1:])
+    planes = []
+    for k in range(max(min(kmax, DENSE_MULTI_K), 1)):
+        pk = np.full(T, -1, np.int64)
+        has = cnt > k
+        pk[has] = wvals[offs[:-1][has] + k]
+        planes.append(pk.astype(I32))
+    col.multi_planes_host = planes
+    col._has_tail = kmax > DENSE_MULTI_K

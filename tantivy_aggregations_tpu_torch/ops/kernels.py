@@ -27,6 +27,20 @@ chain_blocks — replaces `_chain_blocks_batched` / `make_chain_blocks`.
   a __popc(__ballot_sync), the payload sums int64 warp shuffles.
 chain_counts — replaces `_chain_counts_batched` / `make_chain_counts`.
   Same bound and design at 128-row groups (4 rows per lane), counts only.
+chain_slot_counts — replaces `_chain_slot_counts_batched` /
+  `make_chain_slot_counts`. Bound: one pass over the chain planes, avalid
+  and the static slot plane per batch, plus ns int32 stores per 32 rows per
+  query. Design: chain_blocks' warp per 32-row block; the per-slot row
+  ballots are built once per block (query-independent, the TPU kernel's
+  hoisted one-hots), then each query costs one mask evaluation, one ballot
+  and a __popc per slot. Slots go in chunks of 32, one per lane.
+gather_rows — replaces `_gather_rows_batched` / `make_gather_rows`.
+  Bound: HBM bytes (each picked row read once and written once). Design:
+  a (B, row chunks) grid of 16-byte copies, four loads in flight per
+  thread; the blocks in flight copy one chunk of every picked row, so a
+  row picked twice is read from L2 the second time. The index stays in
+  device memory, so the caller never waits for the card. It copies rows
+  as bytes, whatever the operand's dtype.
 """
 
 from __future__ import annotations
@@ -50,13 +64,19 @@ I32_MIN = -(2**31)
 MAX_PLANES = 8
 MAX_PAYLOADS = 16
 MAX_OPS = 128
+#: slot count bound of chain_slot_counts (the planner's slot_rank cap)
+PCT_SLOT_CAP = 4096
+#: bytes of a row one gather_rows block copies (256 threads x 4 x 16 B);
+#: a row's chunks index gridDim.y, so a row holds at most 65535 of them
+GATHER_CHUNK = 256 * 4 * 16
 
 _ROOT = Path(__file__).resolve().parents[2]
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kernels.cu"
 BUILD_DIR = _ROOT / "build" / "torch_kernels"
 
 #: kernel launches per kernel since the last reset_launches()
-launches = {"fused_metrics": 0, "chain_blocks": 0, "chain_counts": 0}
+launches = {"fused_metrics": 0, "chain_blocks": 0, "chain_counts": 0,
+            "chain_slot_counts": 0, "gather_rows": 0}
 
 _lib = None
 
@@ -104,8 +124,12 @@ def _library():
                                          ll, vp, vp, vp]
         lib.tat_chain_counts.argtypes = [vp, i, i, vp, i, vp, i, vp, ll, vp,
                                          vp]
+        lib.tat_chain_slot_counts.argtypes = [vp, i, i, vp, i, vp, i, vp, vp,
+                                              i, ll, vp, vp]
+        lib.tat_gather_rows.argtypes = [vp, i, vp, ll, ll, vp, vp]
         for fn in (lib.tat_fused_metrics, lib.tat_chain_blocks,
-                   lib.tat_chain_counts):
+                   lib.tat_chain_counts, lib.tat_chain_slot_counts,
+                   lib.tat_gather_rows):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -296,6 +320,84 @@ def chain_counts(pmat, ops, planes, avalid):
     launches[name] += 1
     _check_launch(name, rc)
     return counts
+
+
+def chain_slot_counts_plain(pmat, ops, planes, avalid, slot, ns):
+    B = pmat.shape[0]
+    R = avalid.shape[0]
+    m = _chain_mask_plain(pmat, ops, planes, avalid)
+    counts = torch.empty(B, ns, R // 32, dtype=torch.int32,
+                         device=avalid.device)
+    for s in range(ns):
+        counts[:, s] = (m & (slot == s)).reshape(B, R // 32, 32).sum(
+            dim=-1, dtype=torch.int32)
+    return counts
+
+
+def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
+    """Per query: matched rows of the chain mask (as chain_blocks) in each
+    32-row block, split by the static int32 slot plane `slot` [R] (values
+    in [0, ns); -1 = no slot) -> int32 [B, ns, R/32]."""
+    name = "chain_slot_counts"
+    R = _check_chain(name, pmat, ops, planes, avalid, (), 32)
+    _need(slot.dim() == 1 and slot.shape[0] == R
+          and slot.dtype == torch.int32, name,
+          f"slot {tuple(slot.shape)} {slot.dtype}")
+    _need(0 < ns <= PCT_SLOT_CAP, name, f"ns {ns} outside (0, {PCT_SLOT_CAP}]")
+    if not _route(name, (pmat, ops, avalid, slot, *planes)):
+        return chain_slot_counts_plain(pmat, ops, planes, avalid, slot, ns)
+    _check_chain_cuda(name, pmat, ops, planes, avalid, ())
+    _need(slot.is_contiguous(), name, "operands must be contiguous")
+    B, P = pmat.shape
+    G = R // 32
+    dev = avalid.device
+    counts = torch.empty(B, ns, G, dtype=torch.int32, device=dev)
+    pp = _ptr_array(planes, dev)
+    rc = _library().tat_chain_slot_counts(
+        pmat.data_ptr(), B, P, ops.data_ptr(), ops.shape[0], pp.data_ptr(),
+        len(planes), avalid.data_ptr(), slot.data_ptr(), ns, G,
+        counts.data_ptr(), _stream(avalid))
+    launches[name] += 1
+    _check_launch(name, rc)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# gather_rows
+# ---------------------------------------------------------------------------
+
+def gather_rows_plain(idx, op):
+    return op.index_select(0, idx)
+
+
+def gather_rows(idx, op):
+    """Rows `idx` (int32 [B], each in [0, op.shape[0])) of the contiguous
+    operand `op` ([Df, ...], any dtype, rows a multiple of 16 bytes) ->
+    [B, ...] of op's dtype."""
+    name = "gather_rows"
+    _need(idx.dim() == 1 and idx.dtype == torch.int32, name,
+          f"idx {tuple(idx.shape)} {idx.dtype}")
+    _need(op.dim() >= 2 and op.shape[0] > 0, name,
+          f"operand {tuple(op.shape)}")
+    row_bytes = op[0].numel() * op.element_size()
+    _need(row_bytes % 16 == 0, name,
+          f"row of {row_bytes} bytes is not a multiple of 16")
+    _need(idx.is_contiguous() and op.is_contiguous(), name,
+          "operands must be contiguous")
+    if not _route(name, (idx, op)):
+        return gather_rows_plain(idx, op)
+    B = idx.shape[0]
+    _need(B > 0 and -(-row_bytes // GATHER_CHUNK) <= 65535, name,
+          f"batch {B}, row of {row_bytes} bytes")
+    _need(op.data_ptr() % 16 == 0, name, "operand must be 16-byte aligned")
+    out = torch.empty((B,) + tuple(op.shape[1:]), dtype=op.dtype,
+                      device=op.device)
+    rc = _library().tat_gather_rows(
+        idx.data_ptr(), B, op.data_ptr(), op.shape[0], row_bytes // 16,
+        out.data_ptr(), _stream(op))
+    launches[name] += 1
+    _check_launch(name, rc)
+    return out
 
 
 def ops_tensor(ops: np.ndarray, device) -> torch.Tensor:

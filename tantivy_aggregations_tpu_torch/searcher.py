@@ -107,13 +107,16 @@ class Searcher:
         return results
 
     def _submit_batch(self, requests) -> list:
-        """Group consecutive same-shape requests (capped at max_batch) and
-        dispatch every group."""
+        """Group consecutive same-shape requests (capped at max_batch, and
+        at the program's batch_cap where its per-query device state must
+        fit a memory budget) and dispatch every group."""
         groups = []  # (prog, [queries], aggs)
         for query, aggs in requests:
             prog = self._program_for(query, aggs)
+            cap = min(self.config.max_batch,
+                      prog.batch_cap or self.config.max_batch)
             if (groups and groups[-1][0] is prog and groups[-1][2] is aggs
-                    and len(groups[-1][1]) < self.config.max_batch):
+                    and len(groups[-1][1]) < cap):
                 groups[-1][1].append(query)
             else:
                 groups.append((prog, [query], aggs))

@@ -283,6 +283,48 @@ def test_chain_counts_plain_matches_pallas(dual, case, B):
     np.testing.assert_array_equal(counts.numpy(), jc)
 
 
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("B,ns", [(1, 1), (1, 5), (4, 1), (4, 5)])
+def test_chain_slot_counts_plain_matches_pallas(dual, case, B, ns):
+    jd, pd = dual
+    chain, mp, pkeys, pm, host, avalid = _chain_inputs(jd, pd, case, B)
+    # slot -1 (no bucket) on about 1 row in (ns + 1)
+    slot = np.random.default_rng(ns).integers(-1, ns, jd.T).astype(np.int32)
+    counts = K.chain_slot_counts(
+        torch.from_numpy(pm), K.ops_tensor(mp.ops, "cpu"),
+        [torch.from_numpy(host[k]) for k in mp.plane_keys],
+        torch.from_numpy(avalid), torch.from_numpy(slot), ns)
+    csc = PK.make_chain_slot_counts(_jax_mask_of(jd, chain, pkeys), ns,
+                                    interpret=True)
+    planes = {k: jnp.asarray(PK.transpose_groups(v, 32))
+              for k, v in host.items()}
+    planes["avalid"] = jnp.asarray(PK.transpose_groups(avalid, 32))
+    slot_t = jnp.asarray(PK.transpose_groups(slot, 32))
+    jc = np.asarray(_run_jax(lambda p: csc(p, planes, slot_t), pm, B))
+    np.testing.assert_array_equal(counts.numpy(), jc.reshape(B, ns, -1))
+
+
+# ---------------------------------------------------------------------------
+# gather_rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("idx", [[3], [3, 0, 6, 3]])
+def test_gather_rows_plain_matches_pallas(idx):
+    rng = np.random.default_rng(len(idx))
+    op = rng.integers(-128, 128, (7, 4, 128)).astype(np.int8)
+    ia = np.asarray(idx, np.int32)
+    want = np.asarray(PK._gather_rows_batched(jnp.asarray(ia),
+                                              jnp.asarray(op),
+                                              interpret=True))
+    got = K.gather_rows(torch.from_numpy(ia), torch.from_numpy(op))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the same bytes through the port's 2-D int64 operand view
+    op64 = torch.from_numpy(op).reshape(7, -1).view(torch.int64)
+    got64 = K.gather_rows(torch.from_numpy(ia), op64)
+    np.testing.assert_array_equal(
+        got64.view(torch.int8).reshape(want.shape).numpy(), want)
+
+
 def test_kernel_wrappers_refuse_bad_operands():
     m = torch.zeros(1, 128, dtype=torch.bool)
     with pytest.raises(ValueError):
@@ -291,3 +333,39 @@ def test_kernel_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError):  # rows not a multiple of 128
         K.chain_counts(torch.zeros(1, 1, dtype=torch.int32), ops, [],
                        torch.zeros(96, dtype=torch.int8))
+    pm = torch.zeros(1, 1, dtype=torch.int32)
+    av = torch.zeros(64, dtype=torch.int8)
+    slot = torch.zeros(64, dtype=torch.int32)
+    for bad in (0, K.PCT_SLOT_CAP + 1):  # slot count outside the cap
+        with pytest.raises(ValueError):
+            K.chain_slot_counts(pm, ops, [], av, slot, bad)
+    with pytest.raises(ValueError):  # slot plane dtype
+        K.chain_slot_counts(pm, ops, [], av, slot.to(torch.int64), 2)
+    with pytest.raises(ValueError):  # slot plane length
+        K.chain_slot_counts(pm, ops, [], av, slot[:32], 2)
+    op = torch.zeros(4, 8, dtype=torch.int8)
+    idx = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):  # 8-byte rows: not 16-byte words
+        K.gather_rows(idx, op)
+    with pytest.raises(ValueError):  # index dtype
+        K.gather_rows(idx.to(torch.int64), torch.zeros(4, 16,
+                                                       dtype=torch.int8))
+    with pytest.raises(ValueError):  # non-contiguous operand
+        K.gather_rows(idx, torch.zeros(16, 4, dtype=torch.int8).t())
+
+
+# ---------------------------------------------------------------------------
+# dense multi-valued planes (the member operands' source)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("field", ["counts", "tags", "scores"])
+def test_multi_planes_match_jax_loader(dual, field):
+    jd, pd = dual
+    jc, pc = jd.column(field), pd.column(field)
+    assert pc.has_multi_planes == jc.has_multi_planes
+    assert pc.has_tail == jc.has_tail
+    assert not pc.has_multi_planes_wide  # wide multi planes are not ported
+    if jc.has_multi_planes:
+        assert len(pc.multi_planes_host) == len(jc.multi_planes_host)
+        for a, b in zip(pc.multi_planes_host, jc.multi_planes_host):
+            np.testing.assert_array_equal(a, b)

@@ -9,6 +9,7 @@ the prefix modes, as tests/test_pallas_prefix.py does), and a small
 flagship bench index (models/flagship.py schema, 4 segments) with the
 judged configs themselves at the default config."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -141,8 +142,8 @@ def test_collect_stats(rnd):
 @pytest.mark.parametrize("aggs,query", [
     ({"t": tt.top_hits_agg(size=3)}, tt.MatchAllQuery()),
     ({"p": tt.percentiles_agg("price", (2.5, 50.0))}, tt.MatchAllQuery()),
-    ({"t": tt.terms_agg("cat", sub_aggs={"p": tt.percentiles_agg("qty")})},
-     tt.MatchAllQuery()),
+    ({"t": tt.terms_agg("cat", sub_aggs={
+        "p": tt.percentiles_agg("qty", (2.5, 50.0))})}, tt.MatchAllQuery()),
     ({"t": tt.terms_agg("tags")}, tt.MatchAllQuery()),
     ({"n": tt.count_agg()}, tt.TermSetQuery("cat", ["cat0001"])),
     ({"n": tt.count_agg()}, tt.TermQuery("tags", "t1")),
@@ -196,3 +197,240 @@ def test_flagship_plans_the_kernel_modes(bench):
     assert c5[("a", "pf", "s")]["fused"]
     assert c5[("a", "t")]["mode"] == "dense"
     assert plans["c3_date_histogram_sum"][("a", "h")]["mode"] == "dense"
+
+
+# ---------------------------------------------------------------------------
+# c6-c9: member operands (c7) and slot_rank nested percentiles (c9)
+# ---------------------------------------------------------------------------
+
+EXTRA = [6, 7, 8, 9]
+
+
+def _extra(m, n):
+    """(query, aggs) of extra config `n` built with module `m`'s flagship."""
+    return next((q, a) for i, _, q, a in m.extra_configs() if i == n)
+
+
+@pytest.mark.parametrize("n", EXTRA)
+def test_flagship_extra_configs(bench, n):
+    port, port_oracle, jax_s, jax_oracle = bench
+    jq, jaggs = _extra(jflag, n)
+    pq, paggs = _extra(pflag, n)
+    want = jax_oracle.agg_search(jq, jaggs)
+    assert jax_s.agg_search(jq, jaggs) == want
+    assert port_oracle.agg_search(pq, paggs) == want
+    assert port.agg_search(pq, paggs) == want
+    reqs = pflag.varied_requests(n, paggs, 40)
+    jreqs = jflag.varied_requests(n, jaggs, 40)
+    got = port.agg_search_batch(reqs)
+    for (q, a), (jq2, ja2), g in zip(reqs[:6], jreqs[:6], got[:6]):
+        assert g == port_oracle.agg_search(q, a)
+        assert g == jax_s.agg_search(jq2, ja2)
+    singles = [port.agg_search(q, a) for q, a in reqs]
+    assert got == singles
+    nodedup = port.index.searcher(
+        device="cpu", config=EngineConfig(msearch_dedup=False))
+    assert nodedup.agg_search_batch(reqs) == singles
+
+
+def test_smoke_c6_reference_matches_oracle(bench):
+    """chip_smoke.py holds c6 at 10M docs to a numpy reference (the
+    oracle's order-by-sub-metric path does not finish there); here the
+    reference equals the oracle."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    port, port_oracle, _, _ = bench
+    q, aggs = _extra(pflag, 6)
+    assert smoke.c6_reference(tt, port.index, q, aggs) == \
+        port_oracle.agg_search(q, aggs)
+
+
+def test_flagship_plans_member_op_and_slot_rank(bench):
+    port = bench[0]
+    c7 = port._program_for(*_extra(pflag, 7))
+    mo = c7.plan[("a", "t")]["member_op"]
+    assert mo["cols"] == ["cnt", "s:amount:0"]
+    assert not c7.plan[("a", "t")]["pallas_prefix"]
+    assert c7._root is None  # TermQuery(weights) has no mask program
+    c9 = port._program_for(*_extra(pflag, 9))
+    p = c9.plan[("a", "t", "p")]
+    assert p["pmode"] == "slot_rank" and p["pallas_slots"]
+    assert p["nslots"] == 4
+    assert c9.batch_cap >= EngineConfig().max_batch
+
+
+def _c7_index(path, n_docs=6000):
+    jflag.build_bench_index(path, n_docs, seed=5, n_segments=2)
+    return path
+
+
+def _four_way(path, reqs):
+    """port == port oracle == JAX (cube off, interpret) == JAX oracle for
+    each (jax request, port request) pair; returns the port searcher."""
+    jidx, pidx = tat.Index.open(path), tt.Index.open(path)
+    port = pidx.searcher(device="cpu")
+    jax_s = jidx.searcher(config=JaxConfig(use_cube=False,
+                                           pallas_interpret=True))
+    for (jq, ja), (pq, pa) in reqs:
+        want = jidx.oracle_searcher().agg_search(jq, ja)
+        assert jax_s.agg_search(jq, ja) == want, jq
+        assert pidx.oracle_searcher().agg_search(pq, pa) == want, pq
+        assert port.agg_search(pq, pa) == want, pq
+    assert port.agg_search_batch([r[1] for r in reqs]) == \
+        [port.agg_search(q, a) for _, (q, a) in reqs]
+    return port
+
+
+def _c7_reqs(values):
+    _, ja = _extra(jflag, 7)
+    _, pa = _extra(pflag, 7)
+    return [((tat.TermQuery("weights", v), ja), (tt.TermQuery("weights", v),
+                                                 pa)) for v in values]
+
+
+def test_c7_member_op_with_deletes(tmp_path):
+    path = _c7_index(str(tmp_path / "idx"))
+    w = tt.Index.open(path).writer()
+    w.delete_term("status", "archived")
+    w.commit()
+    port = _four_way(path, _c7_reqs([500, 0, 999, 17]))
+    prog = port._program_for(tt.TermQuery("weights", 500),
+                             _extra(pflag, 7)[1])
+    assert "member_op" in prog.plan[("a", "t")]
+
+
+def test_c7_out_of_domain_value_gives_zeros(tmp_path):
+    port = _four_way(_c7_index(str(tmp_path / "idx")),
+                     _c7_reqs([1000, 10**9, 2**63]))
+    got = port.agg_search(tt.TermQuery("weights", 10**9),
+                          _extra(pflag, 7)[1])
+    assert got["t"] == {"buckets": [], "sum_other_doc_count": 0}
+
+
+def _member_shapes(m):
+    """c7-shaped member-operand requests over the fixture schema: numeric
+    (counts) and keyword (tags: docs may hold a tag twice) member fields,
+    a must-wrapped leaf, and f64 / multi-valued payloads."""
+    aggs = {"t": m.terms_agg("cat", size=6,
+                             sub_aggs={"s": m.sum_agg("qty"),
+                                       "p": m.sum_agg("price"),
+                                       "c": m.avg_agg("counts"),
+                                       "n": m.count_agg()})}
+    return [(m.TermQuery("counts", 42), aggs),
+            (m.TermQuery("counts", 7), aggs),
+            (m.TermQuery("tags", "t3"), aggs),
+            (m.TermQuery("tags", "no-such-tag"), aggs),
+            (m.BooleanQuery(must=[m.TermQuery("counts", 0)]), aggs)]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_member_op_shapes_on_random_index(rnd, i):
+    jq, ja = _member_shapes(tat)[i]
+    pq, pa = _member_shapes(tt)[i]
+    want = rnd["jax_oracle"].agg_search(jq, ja)
+    assert rnd["jax"].agg_search(jq, ja) == want
+    assert rnd["port_oracle"].agg_search(pq, pa) == want
+    assert rnd["port"].agg_search(pq, pa) == want
+    assert "member_op" in rnd["port"]._program_for(pq, pa).plan[("a", "t")]
+
+
+def _slot_shapes(m):
+    """c9-shaped nested percentiles over the fixture schema (dense_nb=8):
+    a terms ancestor (rows without a cat have no slot), a histogram
+    ancestor, histogram > terms (250 composite slots), and a filter under
+    the histogram whose empty slots give null values."""
+    q = m.RangeQuery("qty", lower=50, upper=950, include_upper=True)
+    pct = m.percentiles_agg("price", (1.0, 25.0, 50.0, 99.0))
+    return [
+        (q, {"t": m.terms_agg("cat", size=5, sub_aggs={"p": pct})}),
+        (q, {"h": m.histogram_agg("ts", interval=2_000_000,
+                                  sub_aggs={"p": m.percentiles_agg("qty")})}),
+        (m.MatchAllQuery(),
+         {"h": m.histogram_agg("ts", interval=2_000_000, sub_aggs={
+             "t": m.terms_agg("cat", size=3, sub_aggs={"p": pct})})}),
+        (q, {"h": m.histogram_agg("ts", interval=2_000_000, sub_aggs={
+            "f": m.filter_agg(m.RangeQuery("ts", upper=3_000_000),
+                              sub_aggs={"p": pct})})}),
+    ]
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_slot_rank_shapes_on_random_index(rnd, i):
+    jq, ja = _slot_shapes(tat)[i]
+    pq, pa = _slot_shapes(tt)[i]
+    want = rnd["jax_oracle"].agg_search(jq, ja)
+    assert rnd["jax"].agg_search(jq, ja) == want
+    assert rnd["port_oracle"].agg_search(pq, pa) == want
+    assert rnd["port"].agg_search(pq, pa) == want
+    prog = rnd["port"]._program_for(pq, pa)
+    assert any(p.get("pmode") == "slot_rank" for p in prog.plan.values())
+
+
+def test_slot_rank_empty_slots_are_null(rnd):
+    pq, pa = _slot_shapes(tt)[3]
+    got = rnd["port"].agg_search(pq, pa)
+    nulls = [b["f"]["p"]["values"] for b in got["h"]["buckets"]
+             if b["f"]["doc_count"] == 0]
+    assert nulls and all(v is None for vals in nulls for v in vals.values())
+
+
+def test_batch_cap_splits_groups(rnd, monkeypatch):
+    from tantivy_aggregations_tpu_torch.aggs import compile as pcompile
+    pidx = rnd["port"].index
+    pq, pa = _slot_shapes(tt)[0]
+    reqs = [(tt.RangeQuery("qty", lower=50 + j, upper=950,
+                           include_upper=True), pa) for j in range(5)]
+    want = [rnd["port"].agg_search(q, a) for q, a in reqs]
+    prog = rnd["port"]._program_for(pq, pa)
+    per_q = prog.plan[("a", "t", "p")]["layout"].n_rows // 32 * 50 * 8
+    monkeypatch.setattr(pcompile.Program, "BATCH_MEM_BUDGET", 2 * per_q)
+    s = pidx.searcher(device="cpu", config=EngineConfig(dense_nb=8))
+    assert s._program_for(pq, pa).batch_cap == 2
+    groups = s._submit_batch(reqs)
+    assert [len(g[1]) for g in groups] == [2, 2, 1]
+    assert [r for g in groups for r in s._collect_group(g)] == want
+    assert s.agg_search_batch(reqs) == want
+
+
+# ---------------------------------------------------------------------------
+# device state carried across: the port's operands == the JAX package's
+# ---------------------------------------------------------------------------
+
+def test_member_operand_matches_jax(bench):
+    """The JAX member operand (int8 7-bit pieces, [Df_pad, W/128, 128])
+    decoded by its shift-sum equals the port's exact int64 cells."""
+    port, _, jax_s, _ = bench
+    jprog = jax_s._program_for(*_extra(jflag, 7))
+    pprog = port._program_for(*_extra(pflag, 7))
+    jmo = jprog.plan[("a", "t")]["member_op"]
+    pmo = pprog.plan[("a", "t")]["member_op"]
+    card = jmo["card"]
+    assert pmo["card"] == card
+    assert pmo["cols"] == [gk for gk, _ in jmo["cols"]]
+    jop = np.asarray(jprog._arrays[jmo["key"]])
+    flat = jop.reshape(jop.shape[0], -1).astype(np.int64)
+    decoded, off = [], 0
+    for _, n in jmo["cols"]:
+        sl = flat[:, off * card:(off + n) * card].reshape(-1, n, card)
+        decoded.append(sum(sl[:, i] << (7 * i) for i in range(n)))
+        off += n
+    want = np.stack(decoded, axis=1)  # [Df_pad, n_cols, card]
+    pop = pprog._arrays[pmo["key"]].reshape(
+        -1, len(pmo["cols"]), pmo["card_pad"])[:, :, :card].numpy()
+    np.testing.assert_array_equal(pop, want)
+
+
+def test_slot_plane_matches_jax(bench):
+    port, _, jax_s, _ = bench
+    jprog = jax_s._program_for(*_extra(jflag, 9))
+    pprog = port._program_for(*_extra(pflag, 9))
+    jp = jprog.plan[("a", "t", "p")]
+    pp = pprog.plan[("a", "t", "p")]
+    assert jp["pallas_slots"] and jp["slotk"] == pp["slotk"]
+    np.testing.assert_array_equal(
+        pprog._arrays[pp["prefix"] + pp["slotk"]].numpy(),
+        np.asarray(jprog._arrays[jp["prefix"] + jp["slotk"]]))
