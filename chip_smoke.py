@@ -14,25 +14,43 @@ checks it end to end:
 3. builds or reuses the bench index, then plans c1-c9 (timed: c7's
    member operand and c9's slot plane are built here);
 4. each kernel against its plain PyTorch version at the main path's shapes
-   (exact `==`), with median CUDA-event times of both; the chain kernels
+   (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
+   bound (kernel_bound), the B = 1 device time in torch.profiler and, for
+   gather_rows, the time of `index_select` (library_ms); the chain kernels
    also under a query whose mask program holds every opcode, on the same
-   layouts;
+   layouts, and chain_blocks / chain_counts at B = 31, 33 and 200;
+   4b. chain_blocks and chain_counts edge cases on operands made from SEED
+   (phase_edges: B in {1, 31, 33, 128, 200}, R = 32768 with 8 planes and
+   16 payloads, a tile tail, INT32_MIN / INT32_MAX payloads over fully
+   matched blocks, blocks whose avalid is all 0), each printing its
+   max_abs_err;
 5. the main path of each slice (c1-c5, then c6-c9), each with the launch
    counters set to 0: for each config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
    docs), agg_search_batch over 256 varied requests == the per-query results
    (with msearch dedup on and off), distinct varied params == the oracle;
    p50 single-query latency, and msearch ms/query with dedup on and off
-   beside the number of distinct requests per group;
+   beside the number of distinct requests per group; for c4 and c5 one
+   dedup-off group under torch.profiler (wall, device busy share, top
+   device ops);
 6. each slice's kernels were launched by its own main path in step 5.
 
 Each phase prints its seconds.
 
-It prints a JSON line of per-kernel records, then, as its last line,
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
-no CUDA device, or without the port's package beside it, it exits non-zero
-before printing any result. The port never imports jax, and neither does
-this script.
+It prints a JSON line of per-kernel records (launches in all and per
+path; max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by, library_ms,
+device_ms; B = 128: the same keys suffixed _b128), then, as its last line,
+{"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --against DIR
+
+also times chain_blocks, chain_counts and gather_rows against the kernels
+of the port package in the tree at DIR (say the parent commit, unpacked
+with `git archive`), in turns on the same operands (phase 4c).
+
+Any failure raises and exits non-zero; with no CUDA device, or without the
+port's package beside it, it exits non-zero before printing any result.
+The port never imports jax, and neither does this script.
 """
 
 from __future__ import annotations
@@ -50,6 +68,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 #: the bench deployment (models/flagship.py, bench.py): docs, segments, seed
 DOCS, SEGMENTS, SEED = 10_000_000, 4, 42
+#: the device phase_edges makes its operands on
+DEVICE = "cuda"
 SOURCE = "tantivy_aggregations_tpu_torch/csrc/kernels.cu"
 REPLACES = {
     "fused_metrics": "tantivy_aggregations_tpu/ops/pallas_kernels.py:225",
@@ -59,6 +79,18 @@ REPLACES = {
         "tantivy_aggregations_tpu/ops/pallas_kernels.py:432",
     "gather_rows": "tantivy_aggregations_tpu/ops/pallas_kernels.py:527",
 }
+#: the card's peak rates for kernel_bound: HBM3 of an H100 SXM (NVIDIA's
+#: data sheet), and int32 ALU ops — 132 SMs x 64 INT32 lanes at the 1.98 GHz
+#: boost clock
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+#: the kernels timed against another tree's by --against (gather_rows for
+#: its wrapper's host time, beside index_select)
+AB_KERNELS = ("chain_blocks", "chain_counts", "gather_rows")
+#: configs whose dedup-off msearch group is also profiled (the users of
+#: chain_blocks and chain_counts)
+PROFILED = (4, 5)
 #: the extra configs this script drives beside c1-c5 (c10's set queries
 #: are not ported yet)
 EXTRA = (6, 7, 8, 9)
@@ -71,8 +103,8 @@ PATHS = (
 )
 
 
-def say(*a):
-    print(*a, flush=True)
+def say(*a, **kw):
+    print(*a, flush=True, **kw)
 
 
 def check(cond, what: str) -> None:
@@ -225,9 +257,90 @@ def all_configs(flagship):
     return out + [c for c in flagship.extra_configs() if c[0] in EXTRA]
 
 
-def phase_kernels(torch, K, qc, tt, searcher, flagship):
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_bound(torch, qc, name, args, out):
+    """(bound_ms, bound_by), printing both counts: the least time the card
+    could take for one call — the larger of the bytes the call must move
+    (each input read once, each output written once) over HBM_BYTES_PER_S
+    and the int32 operations it must do on these inputs over
+    INT32_OPS_PER_S. Counted per (query, row): fused_metrics 4 (count,
+    sum, min, max); the chain kernels the compares of each leaf of the mask
+    program and 1 per payload; chain_slot_counts also ns per (query,
+    32-row block). Boolean ops and block counts go 32 rows to a word and
+    are not counted. A leaf costs its compares: RANGE32 2, EQ32 1,
+    EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2. gather_rows reads each
+    distinct picked row once and writes B rows."""
+    if name == "fused_metrics":
+        mask, plane = args
+        ins, ops = _nbytes((mask, plane)), mask.numel() * 4
+    elif name == "gather_rows":
+        idx, op = args
+        row = op.numel() // op.shape[0] * op.element_size()
+        ins, ops = _nbytes((idx,)) + int(torch.unique(idx).numel()) * row, 0
+    else:
+        pmat, ops_t, planes, avalid = args[:4]
+        extra = list(args[4]) if name == "chain_blocks" else (
+            [args[4]] if name == "chain_slot_counts" else [])
+        B, R = pmat.shape[0], avalid.shape[0]
+        leaf_ops = {qc.OP_RANGE32: 2, qc.OP_EQ32: 1, qc.OP_EQ32_GUARD: 1,
+                    qc.OP_RANGE_WIDE: 4, qc.OP_EQ_WIDE_GUARD: 2}
+        leaf = sum(leaf_ops.get(o, 0) for o in ops_t[:, 0].tolist())
+        per_row = leaf + (len(extra) if name == "chain_blocks" else 0)
+        ops = B * R * per_row
+        if name == "chain_slot_counts":
+            ops += B * (R // 32) * args[5]
+        ins = _nbytes((pmat, ops_t, avalid, *planes, *extra))
+    moved = ins + _nbytes(out)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    say(f"  {name:17s} bound of B={args[0].shape[0]}: {moved} bytes "
+        f"({t_bytes:.4f} ms), {ops} int32 ops ({t_ops:.4f} ms)")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _device_ms(torch, fn, iters: int = 20):
+    """Device time of one fn() call in torch.profiler: the summed kernel,
+    fill and copy intervals of `iters` calls over iters; None where the
+    profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    except RuntimeError as exc:  # a profiler without CUPTI tracing
+        say(f"  device time not measured: {exc}")
+        return None
+    return us / 1e3 / iters if us > 0 else None
+
+
+def _outputs(got):
+    return got if isinstance(got, tuple) else (got,)
+
+
+def _check_equal(torch, name, label, got, want) -> int:
+    got, want = _outputs(got), _outputs(want)
+    err = _max_abs_err(torch, got, want)
+    check(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{name} ({label}) disagrees with its plain version "
+          f"(max abs err {err})")
+    return err
+
+
+def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
     """Each kernel vs its plain version on the main path's operands; the
-    chain kernels also under every opcode, on the same layouts."""
+    chain kernels also under every opcode, on the same layouts, and
+    chain_blocks / chain_counts at more batch sizes. With `against` (the
+    kernels module of another tree), the AB_KERNELS are also timed against
+    that tree's, in turns."""
     say("[4] kernels vs plain versions (exact ==)")
     cfgs = {name: (q, aggs) for _, name, q, aggs in all_configs(flagship)}
     progs = {n: searcher._program_for(q, a) for n, (q, a) in cfgs.items()}
@@ -264,80 +377,279 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship):
               f"every-opcode chain on {key} has opcodes "
               f"{sorted(set(ops[:, 0].tolist()))}")
 
+    # (kernel, operands label, B) -> the kernel's arguments
     cases = {}
     for B in (1, 128):
         # fused_metrics: the c5 root masks (B queries) over amount
         pm5 = pmat_for(p5, 5, c5_aggs, B)
         mask = (p5._chain_mask(p5._root, pm5, p5._arrays)
                 & (p5._arrays["alive"] > 0)).contiguous()
-        cases[("fused_metrics", "c5", B)] = (
-            lambda m=mask: K.fused_metrics(m, amount),
-            lambda m=mask: K.fused_metrics_plain(m, amount))
+        cases[("fused_metrics", "c5", B)] = (mask, amount)
         # chain_blocks: c4's sku bucket layout + sum(amount) payload
-        args = _chain_blocks_args(p4, pmat_for(p4, 4, c4_aggs, B))
-        cases[("chain_blocks", "c4", B)] = (
-            lambda a=args: K.chain_blocks(*a),
-            lambda a=args: K.chain_blocks_plain(*a))
+        cases[("chain_blocks", "c4", B)] = _chain_blocks_args(
+            p4, pmat_for(p4, 4, c4_aggs, B))
         # chain_counts: c5's price value layout under the c5 chain
-        args = _chain_counts_args(p5, pm5)
-        cases[("chain_counts", "c5", B)] = (
-            lambda a=args: K.chain_counts(*a),
-            lambda a=args: K.chain_counts_plain(*a))
+        cases[("chain_counts", "c5", B)] = _chain_counts_args(p5, pm5)
         # both chain kernels under the every-opcode query
-        args = _chain_blocks_args(
+        cases[("chain_blocks", "every-op", B)] = _chain_blocks_args(
             p4e, pmat_of(p4e, [(q, c4_aggs) for q in every[:B]]))
-        cases[("chain_blocks", "every-op", B)] = (
-            lambda a=args: K.chain_blocks(*a),
-            lambda a=args: K.chain_blocks_plain(*a))
-        args = _chain_counts_args(
+        cases[("chain_counts", "every-op", B)] = _chain_counts_args(
             p5e, pmat_of(p5e, [(q, c5_aggs) for q in every[:B]]))
-        cases[("chain_counts", "every-op", B)] = (
-            lambda a=args: K.chain_counts(*a),
-            lambda a=args: K.chain_counts_plain(*a))
         # chain_slot_counts: c9's price value layout, Range chain and
         # status slot plane; then under the every-opcode query
-        args = _chain_slot_args(p9, pmat_for(p9, 9, c9_aggs, B))
-        cases[("chain_slot_counts", "c9", B)] = (
-            lambda a=args: K.chain_slot_counts(*a),
-            lambda a=args: K.chain_slot_counts_plain(*a))
-        args = _chain_slot_args(
+        cases[("chain_slot_counts", "c9", B)] = _chain_slot_args(
+            p9, pmat_for(p9, 9, c9_aggs, B))
+        cases[("chain_slot_counts", "every-op", B)] = _chain_slot_args(
             p9e, pmat_of(p9e, [(q, c9_aggs) for q in every[:B]]))
-        cases[("chain_slot_counts", "every-op", B)] = (
-            lambda a=args: K.chain_slot_counts(*a),
-            lambda a=args: K.chain_slot_counts_plain(*a))
         # gather_rows: rows of c7's resident member operand
-        args = _gather_rows_args(p7, pmat_for(p7, 7, c7_aggs, B))
-        cases[("gather_rows", "c7", B)] = (
-            lambda a=args: K.gather_rows(*a),
-            lambda a=args: K.gather_rows_plain(*a))
+        cases[("gather_rows", "c7", B)] = _gather_rows_args(
+            p7, pmat_for(p7, 7, c7_aggs, B))
 
     records = {}
-    for (name, chain, B), (kern, plain) in cases.items():
+    for (name, label, B), args in cases.items():
+        kern = lambda a=args, f=getattr(K, name): f(*a)  # noqa: E731
+        plain = lambda a=args, f=getattr(K, name + "_plain"): f(*a)  # noqa
         got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = _max_abs_err(torch, got, want)
-        check(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"{name} ({chain}) B={B} disagrees with its plain version "
-              f"(max abs err {err})")
+        err = _check_equal(torch, name, f"{label} B={B}", got, plain())
+        got = _outputs(got)
         matched = int(got[0].to(torch.int64).sum())
-        ms = _cuda_ms(torch, kern, 10)
+        # B = 1 times are mostly host time: more runs steady the median
+        iters = 30 if B == 1 else 10
+        ms = _cuda_ms(torch, kern, iters)
         plain_ms = _cuda_ms(torch, plain, 3)
-        say(f"  {name:17s} {chain:8s} B={B:<4d} kernel {ms:.3f} ms  plain "
-            f"{plain_ms:.3f} ms  max_abs_err {err}  matched {matched}")
+        bound_ms, bound_by = kernel_bound(torch, qc, name, args, got)
+        lib_ms = None
+        if name == "gather_rows":  # the one PyTorch call of the same function
+            idx, op = args
+            lib_ms = _cuda_ms(torch, lambda: torch.index_select(op, 0, idx),
+                              iters)
+        say(f"  {name:17s} {label:8s} B={B:<4d} kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
+            + (f"  index_select {lib_ms:.4f} ms" if lib_ms is not None
+               else "")
+            + f"  max_abs_err {err}  matched {matched}")
         rec = records.setdefault(name, {"name": name, "route": "cuda",
                                         "source": SOURCE,
                                         "replaces": REPLACES[name],
                                         "launches": 0,
                                         "max_abs_err": 0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if B == 1 and chain != "every-op":
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
+        if label == "every-op":
+            continue
+        sfx = "" if B == 1 else f"_b{B}"
+        rec["ms" + sfx], rec["plain_ms" + sfx] = ms, plain_ms
+        rec["bound_ms" + sfx], rec["bound_by" + sfx] = bound_ms, bound_by
+        rec["library_ms" + sfx] = lib_ms
+        if B == 1:
+            rec["device_ms"] = _device_ms(torch, kern)
+            say(f"  {name:17s} {label:8s} B=1    device time "
+                f"{rec['device_ms']} ms (torch.profiler)")
+
+    # the query chunking on the 10M layouts: more batch sizes, exact ==
+    for B in (31, 33, 200):
+        for name, args in (
+                ("chain_blocks",
+                 _chain_blocks_args(p4, pmat_for(p4, 4, c4_aggs, B))),
+                ("chain_counts",
+                 _chain_counts_args(p5, pmat_for(p5, 5, c5_aggs, B)))):
+            err = _check_equal(torch, name, f"B={B}", getattr(K, name)(*args),
+                               getattr(K, name + "_plain")(*args))
+            say(f"  {name:17s} 10M      B={B:<4d} max_abs_err {err}")
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                               err)
+    if against is not None:
+        phase_ab(torch, K, against, {k: v for k, v in cases.items()
+                                     if k[0] in AB_KERNELS}, searcher,
+                 flagship)
     del cases
     torch.cuda.empty_cache()
     return records
+
+
+def edge_operands(torch, qc, R: int, B: int, rng):
+    """Operands of a mask program over 8 int32 planes that holds every
+    opcode, 16 payload planes (4 full-range, all INT32_MIN, all INT32_MAX,
+    the two alternating, 9 more full-range), and an avalid plane with
+    whole blocks 0, whole blocks 1 and stray negative bytes; params of B
+    queries, with some ranges empty and some guards off. All from `rng`."""
+    o = qc
+    ops = np.zeros((17, qc.OP_WIDTH), np.int32)
+    prog = [(o.OP_TRUE,), (o.OP_RANGE32, 0, 0, 1), (o.OP_AND,),
+            (o.OP_EQ32, 1, 2), (o.OP_NOT,), (o.OP_AND,),
+            (o.OP_EQ32_GUARD, 2, 3, 4), (o.OP_RANGE32, 3, 5, 6), (o.OP_OR,),
+            (o.OP_AND,), (o.OP_RANGE_WIDE, 4, 5, 7, 8, 9, 10), (o.OP_AND,),
+            (o.OP_EQ_WIDE_GUARD, 6, 7, 11, 12, 13), (o.OP_NOT,),
+            (o.OP_AND,), (o.OP_TRUE,), (o.OP_AND,)]
+    for i, ins in enumerate(prog):
+        ops[i, :len(ins)] = ins
+    small = [rng.integers(0, 16, R) for _ in range(4)]
+    wide = [rng.integers(-2, 3, R), rng.integers(I32_MIN, I32_MAX, R,
+                                                 endpoint=True),
+            rng.integers(-1, 2, R), rng.integers(-3, 4, R)]
+    planes = small + wide
+    alt = np.where(np.arange(R) % 2 == 0, I32_MIN, I32_MAX)
+    pays = [rng.integers(I32_MIN, I32_MAX, R, endpoint=True)
+            for _ in range(4)]
+    pays += [np.full(R, I32_MIN), np.full(R, I32_MAX), alt,
+             alt[::-1].copy()]
+    pays += [rng.integers(I32_MIN, I32_MAX, R, endpoint=True)
+             for _ in range(8)]
+    av = (rng.random(R) < 0.9).astype(np.int8)
+    blocks = av.reshape(-1, 32)
+    blocks[1::7] = 0
+    blocks[2::5] = 1
+    av[rng.random(R) < 0.02] = -1
+    av[rng.random(R) < 0.02] = 2
+    pm = np.zeros((B, 14), np.int32)
+    lo = rng.integers(0, 16, B)
+    pm[:, 0], pm[:, 1] = lo, lo + rng.integers(-2, 12, B)
+    pm[:, 2] = rng.integers(0, 16, B)
+    pm[:, 3], pm[:, 4] = rng.integers(0, 16, B), rng.integers(0, 2, B)
+    lo = rng.integers(0, 16, B)
+    pm[:, 5], pm[:, 6] = lo, lo + rng.integers(-1, 6, B)
+    pm[:, 7] = rng.integers(-2, 1, B)
+    pm[:, 8] = rng.integers(I32_MIN, I32_MAX, B, endpoint=True)
+    pm[:, 9] = rng.integers(0, 3, B)
+    pm[:, 10] = rng.integers(I32_MIN, I32_MAX, B, endpoint=True)
+    pm[:, 11], pm[:, 12] = rng.integers(-1, 2, B), rng.integers(-3, 4, B)
+    pm[:, 13] = rng.integers(0, 2, B)
+
+    def dev(a, dt=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).to(DEVICE)
+
+    return (dev(pm), dev(ops), [dev(p) for p in planes], dev(av, np.int8),
+            [dev(p) for p in pays])
+
+
+def phase_edges(torch, K, qc):
+    """The redesigned chain kernels' edge cases, exact == their plain
+    versions: batch sizes around the warps' query split and past 128, the
+    smallest padded layout (R = 32768) with 8 chain planes and 16 payloads,
+    a tile tail (R = 33152: 12 blocks past the last whole 1024-row tile),
+    and INT32_MIN / INT32_MAX payloads over fully matched blocks (a TRUE
+    program) beside blocks whose avalid is all 0."""
+    say("[4b] chain_blocks / chain_counts edge cases (exact ==)")
+    rng = np.random.default_rng(SEED)
+    out = []
+    for R, Bs in ((32768, (1, 31, 33, 128, 200)), (33152, (1, 33))):
+        for B in Bs:
+            pm, ops, planes, av, pays = edge_operands(torch, qc, R, B, rng)
+            out.append((f"8 planes R={R}", "chain_counts",
+                        (pm, ops, planes, av)))
+            out.append((f"8 planes 16 pays R={R}", "chain_blocks",
+                        (pm, ops, planes, av, pays)))
+    R = 32768
+    true_op = torch.zeros(1, qc.OP_WIDTH, dtype=torch.int32, device=DEVICE)
+    av = torch.ones(R, dtype=torch.int8, device=DEVICE)
+    av.view(-1, 32)[::3] = 0
+    pays = [torch.full((R,), v, dtype=torch.int32, device=DEVICE)
+            for v in (I32_MIN, I32_MAX)]
+    for B in (1, 128):
+        pm = torch.zeros(B, 1, dtype=torch.int32, device=DEVICE)
+        out.append(("extremes, matched", "chain_blocks",
+                    (pm, true_op, [], av, pays)))
+        out.append(("extremes, matched", "chain_counts",
+                    (pm, true_op, [], av)))
+    worst = 0
+    for label, name, args in out:
+        got = getattr(K, name)(*args)
+        err = _check_equal(torch, name, label, got,
+                           getattr(K, name + "_plain")(*args))
+        worst = max(worst, err)
+        c = _outputs(got)[0]
+        full = int((c == (32 if name == "chain_blocks" else 128)).sum())
+        say(f"  {name:13s} {label:24s} B={args[0].shape[0]:<4d} "
+            f"max_abs_err {err}  matched {int(c.to(torch.int64).sum())}  "
+            f"full groups {full}  empty groups {int((c == 0).sum())}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def load_against(path: str):
+    """The kernels module of the port package in another tree (say the
+    parent commit, unpacked with git archive), imported under its own
+    package name; its kernels build into that tree."""
+    import importlib
+    import importlib.util
+    root = Path(path).resolve() / "tantivy_aggregations_tpu_torch"
+    check((root / "__init__.py").exists(), f"no port package under {path}")
+    spec = importlib.util.spec_from_file_location(
+        "tat_against", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["tat_against"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("tat_against.ops.kernels")
+
+
+def phase_ab(torch, K, old, cases, searcher, flagship):
+    """Median CUDA-event ms of the other tree's kernel and this tree's on
+    the same operands, in turns (old, new, new, old; gather_rows with
+    index_select between: old, new, lib, lib, new, old), outputs ==; then
+    c4 end to end through either tree's chain kernels (phase_ab_c4)."""
+    say("[4c] A/B against the other tree's kernels (old, new, new, old)")
+    t0 = time.time()
+    old.build()
+    say(f"  built the other tree's kernels in {time.time() - t0:.1f}s")
+    for (name, label, B), args in cases.items():
+        f_old = lambda a=args, f=getattr(old, name): f(*a)  # noqa: E731
+        f_new = lambda a=args, f=getattr(K, name): f(*a)  # noqa: E731
+        err = _check_equal(torch, name, f"{label} B={B} old vs new",
+                           f_new(), f_old())
+        turns = [f_old, f_new, f_new, f_old]
+        if name == "gather_rows":
+            lib = lambda a=args: torch.index_select(a[1], 0, a[0])  # noqa
+            turns[2:2] = [lib, lib]
+        t = [_cuda_ms(torch, f, 30) for f in turns]
+        new_ms, old_ms = t[1] + t[-2], t[0] + t[-1]
+        say(f"  {name:13s} {label:8s} B={B:<4d} "
+            + " / ".join(f"{n} {x:.4f}" for n, x in zip(
+                ["old", "new", "lib", "lib", "new", "old"] if len(t) == 6
+                else ["old", "new", "new", "old"], t))
+            + f" ms  speed-up {old_ms / new_ms:.2f}x  max_abs_err {err}")
+    phase_ab_c4(torch, K, old, searcher, flagship)
+
+
+def phase_ab_c4(torch, K, old, searcher, flagship, reps: int = 3):
+    """c4 (chain_blocks' main-path user) end to end with the other tree's
+    chain kernels swapped into this tree's kernels module and with its
+    own, in turns (old, new, new, old) `reps` times: msearch ms/q with
+    dedup off (256 requests) and the p50 of 20 single queries, fruits ==;
+    then one dedup-off group of each under torch.profiler."""
+    _, q, aggs = flagship.judged_configs()[3]
+    reqs = flagship.varied_requests(4, aggs, 256)
+    mine = (K.chain_blocks, K.chain_counts)
+    sides = {"old": (old.chain_blocks, old.chain_counts), "new": mine}
+    dedup_on = searcher.config
+    searcher.config = dataclasses.replace(dedup_on, msearch_dedup=False)
+    msq = {"old": [], "new": []}
+    p50 = {"old": [], "new": []}
+    try:
+        want = searcher.agg_search(q, aggs)
+        for side in ("old", "new", "new", "old") * reps:
+            K.chain_blocks, K.chain_counts = sides[side]
+            check(searcher.agg_search(q, aggs) == want,
+                  f"c4 through the {side} kernels != this tree's")
+            msq[side].append(_msearch_ms_per_q(torch, searcher, reqs))
+            times = []
+            for rq, ra in reqs[:20]:
+                t0 = time.perf_counter()
+                searcher.agg_search(rq, ra)
+                times.append((time.perf_counter() - t0) * 1e3)
+            p50[side].append(statistics.median(times))
+        for side in ("old", "new"):
+            K.chain_blocks, K.chain_counts = sides[side]
+            say(f"  c4 {side} kernels:", end="")
+            _profile_group(torch, searcher, reqs[:dedup_on.max_batch])
+    finally:
+        K.chain_blocks, K.chain_counts = mine
+        searcher.config = dedup_on
+    for side in ("old", "new"):
+        say(f"  c4 end to end, {side} kernels: msearch dedup off ms/q "
+            + " ".join(f"{x:.4f}" for x in msq[side])
+            + f" (median {statistics.median(msq[side]):.4f}); p50 single ms "
+            + " ".join(f"{x:.3f}" for x in p50[side])
+            + f" (median {statistics.median(p50[side]):.3f})")
 
 
 def _msearch_ms_per_q(torch, searcher, reqs) -> float:
@@ -380,6 +692,46 @@ def c6_reference(tt, idx, query, aggs) -> dict:
                                "s": {"value": tot[k]}, "n": {"value": cnt[k]}}
                               for k in order[:t.size]],
                   "sum_other_doc_count": sum(cnt[k] for k in order[t.size:])}}
+
+
+def _profile_group(torch, searcher, reqs, top: int = 6) -> None:
+    """One msearch group under torch.profiler: its wall ms (host clock,
+    profiled), the device ms (the summed kernel, fill and copy intervals)
+    and busy share, the device ops that took the most and the port's own
+    kernels; then, unprofiled, the group's submit (host dispatch and the
+    device work, synchronized) and collect (the fruit copy and the host
+    harvest) ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        searcher.agg_search_batch(reqs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    port = [(nm, ms) for nm, ms in ranked
+            if any(k in nm for k in ("chain_", "gather_rows", "fused_"))]
+    t0 = time.perf_counter()
+    groups = searcher._submit_batch(reqs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for g in groups:
+        searcher._collect_group(g)
+    t2 = time.perf_counter()
+    say(f"    profiled group of {len(reqs)} (dedup off): wall {wall:.3f} ms, "
+        f"device {busy:.3f} ms ({busy / wall:.1%} busy); top: "
+        + "; ".join(f"{nm[:48]} {ms:.3f}" for nm, ms in ranked[:top])
+        + "; port kernels: " + ("; ".join(f"{nm[:60]} {ms:.3f}"
+                                          for nm, ms in port) or "none")
+        + f"; unprofiled: submit + device {(t1 - t0) * 1e3:.3f} ms, "
+        f"collect {(t2 - t1) * 1e3:.3f} ms")
 
 
 def phase_main_path(torch, K, tt, idx, searcher, oracle, flagship, card,
@@ -446,6 +798,10 @@ def phase_main_path(torch, K, tt, idx, searcher, oracle, flagship, card,
             f"msearch {msq:.4f} ms/q dedup on ({distinct} distinct of "
             f"{len(group)} per group), {msq_all:.4f} ms/q dedup off  "
             f"[{card}]  ({time.time() - t_cfg:.1f}s)")
+        if n in PROFILED:
+            searcher.config = dedup_off
+            _profile_group(torch, searcher, group)
+            searcher.config = dedup_on
     counts = dict(K.launches)
     say(f"[6] kernel launches during the main path {label}:", counts)
     for k in kernels:
@@ -478,7 +834,14 @@ def phase_plan(torch, searcher, flagship):
         say(f"  {name}: planned in {time.time() - t0:.2f}s{extra}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="also time chain_blocks, chain_counts and "
+                         "gather_rows against the port package of the tree "
+                         "at DIR, in turns")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -518,14 +881,23 @@ def main() -> int:
     phase_plan(torch, searcher, flagship)
     lap("plan", t0)
     t0 = time.time()
-    records = phase_kernels(torch, K, qc, tt, searcher, flagship)
+    against = load_against(args.against) if args.against else None
+    records = phase_kernels(torch, K, qc, tt, searcher, flagship, against)
     lap("kernels", t0)
+    t0 = time.time()
+    worst = phase_edges(torch, K, qc)
+    for name in ("chain_blocks", "chain_counts"):
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           worst)
+    lap("edge cases", t0)
     oracle = idx.oracle_searcher()
     counts = dict.fromkeys(K.launches, 0)
+    by_path = {}
     for path in PATHS:
         t0 = time.time()
-        for k, n in phase_main_path(torch, K, tt, idx, searcher, oracle,
-                                    flagship, card, path).items():
+        by_path[path[0]] = phase_main_path(torch, K, tt, idx, searcher,
+                                           oracle, flagship, card, path)
+        for k, n in by_path[path[0]].items():
             counts[k] += n
         lap(f"main path {path[0]}", t0)
     check(set(records) == set(K.launches),
@@ -534,6 +906,7 @@ def main() -> int:
     for name, rec in records.items():
         check(counts[name] > 0, f"kernel {name} was never launched")
         rec["launches"] = counts[name]
+        rec["launches_by_path"] = {lb: c[name] for lb, c in by_path.items()}
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
     say(f"whole run {time.time() - t_run:.1f}s: " + ", ".join(

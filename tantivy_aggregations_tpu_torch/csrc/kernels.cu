@@ -20,9 +20,7 @@
 //    index array in device memory (member operands). Replaces
 //    _gather_rows_batched / make_gather_rows.
 //
-// The chain kernels give each warp one row group: the warp loads the
-// group's plane values ONCE into shared memory and then loops over the B
-// queries, so HBM traffic is one plane pass per batch, not per query (the
+// Every chain kernel reads each plane once per BATCH, not per query (the
 // point of the TPU kernels' batching rule).
 
 #include <cuda_runtime.h>
@@ -43,11 +41,12 @@ constexpr int OP_EQ_WIDE_GUARD = 8;
 constexpr int OP_WIDTH = 8;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 8;  // warps per block of the chain kernels
+constexpr int WARPS = 8;  // warps per block of chain_slot_kernel
 
-// Evaluate one row's mask. `vals` points at this lane's slot of plane 0 in
-// shared memory; plane p sits 32 ints further per p. `prm` is the query's
-// param row (uniform across the warp, so the loads broadcast).
+// Evaluate one row's mask (chain_slot_kernel). `vals` points at this
+// lane's slot of plane 0 in shared memory; plane p sits 32 ints further per
+// p. `prm` is the query's param row (uniform across the warp, so the loads
+// broadcast).
 __device__ __forceinline__ bool eval_row(const int* ops, int n_ops,
                                          const int* vals,
                                          const int* __restrict__ prm) {
@@ -105,76 +104,353 @@ __device__ __forceinline__ bool eval_row(const int* ops, int n_ops,
   return stack & 1u;
 }
 
-__device__ __forceinline__ long long warp_sum64(long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
-  return v;
+// ---------------------------------------------------------------------------
+// chain_blocks / chain_counts: lane per 32-row block
+// ---------------------------------------------------------------------------
+//
+// Bound on the H100: one pass over the chain planes, the payload planes and
+// avalid per BATCH (HBM bytes; ~0.019 ms for c4's 63.6 MB with the outputs
+// of B = 1), plus per query and row one compare per leaf and one add per
+// payload (int32 ALU at B = 128), plus the per-query outputs (4 bytes per
+// block count, 8 per block sum).
+//
+// Design. A lane owns one 32-row block and builds, per query, its block's
+// mask as a 32-bit word (bit r = row r): Boolean ops are single word ops,
+// the count is __popc(word & avalid word), and the op list is decoded once
+// per (tile, query) uniformly across the warp, not once per row. A CTA
+// stages a tile of 32 consecutive blocks (1024 rows) of every source plane
+// in shared memory with 16-byte cp.async copies, double-buffered so the
+// next tile's copies are in flight while this one's queries run (only for
+// programs whose two stages fit DOUBLE_BUFFER_MAX, ops/kernels.py: a wide
+// program's second stage would halve the resident CTAs, whose copies
+// already overlap each other's queries, so it gets one); its warps
+// share the tile and split the queries (warp w takes b = w, w + W, ...), so
+// shared memory does not grow with the warps and any B works. Each staged
+// block is padded to BLOCK_STRIDE = 36 ints: lane j's 128-bit reads of its
+// own block (8 x 16 B) fall on distinct banks within each quarter warp.
+// avalid blocks are padded to 48 bytes for the same reason. The query's
+// param row is copied into shared memory once per (tile, query). Payload
+// sums, no shuffles: once a tile, the CTA rewrites each staged payload
+// block as byte slices (byte_slice); a lane then sums its block's masked
+// payloads with four __dp4a per 4 rows and recombines the slices in int64
+// (exact for any int32, INT32_MIN and INT32_MAX included), skipping empty
+// words: a fixed 32 __dp4a per block and payload, where a loop over set
+// bits costs up to 32 dependent int64 adds and payload bit-planes 32
+// popcounts. Outputs: lane j writes block g0 + j, so a warp stores 32
+// consecutive counts (128 B) and 32 consecutive sums (256 B) per query and
+// payload. chain_counts keeps the 32-row lane and tile (the wide programs'
+// 8 planes would not double-buffer at 4096-row tiles within 227 KB) and
+// folds four lanes' counts with two shuffles; lane 4k stores group
+// g0/4 + k, 8 consecutive int32 per warp and query. Plane and payload
+// pointers arrive by value in a __grid_constant__ struct (no device
+// pointer array, no per-call copy).
+
+constexpr int MAX_SRC = 24;             // 8 chain planes + 16 payloads
+constexpr int MAX_STACK = 32;           // query/compile.py MAX_STACK
+constexpr int TILE_BLOCKS = 32;         // one 32-row block per lane
+constexpr int TILE_ROWS = TILE_BLOCKS * 32;
+constexpr int BLOCK_STRIDE = 36;        // staged ints per 32-row block
+constexpr int SRC_INTS = TILE_BLOCKS * BLOCK_STRIDE;
+constexpr int AV_STRIDE = 48;           // staged avalid bytes per block
+constexpr int AV_BYTES = TILE_BLOCKS * AV_STRIDE;
+constexpr int CHAIN_THREADS = 256;      // at most 8 warps (ops/kernels.py)
+
+struct ChainSrc {
+  const int* p[MAX_SRC];  // chain planes, then payloads
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
 }
 
-// ROWS rows per lane: a warp owns ROWS*32 consecutive layout rows.
-// ROWS == 1: chain_blocks (counts + payload sums per 32-row block);
-// ROWS == 4: chain_counts (counts per 128-row group, no payloads).
-template <int ROWS>
-__global__ void chain_kernel(const int* __restrict__ pmat, int B, int P,
-                             const int* __restrict__ ops, int n_ops,
-                             const int* const* __restrict__ planes,
-                             int n_planes,
-                             const signed char* __restrict__ avalid,
-                             const int* const* __restrict__ pays, int n_pay,
-                             long long n_groups, int* __restrict__ counts,
-                             long long* __restrict__ sums) {
-  extern __shared__ int smem[];
-  int* s_ops = smem;
-  for (int i = threadIdx.x; i < n_ops * OP_WIDTH; i += blockDim.x)
-    s_ops[i] = ops[i];
-  __syncthreads();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int per_row = n_planes + n_pay;  // ints per row slot, x32 lanes
-  int* wv = smem + n_ops * OP_WIDTH + warp * (ROWS * per_row * 32);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (long long g = static_cast<long long>(blockIdx.x) * WARPS + warp;
-       g < n_groups; g += static_cast<long long>(gridDim.x) * WARPS) {
-    bool av[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const long long row = (g * ROWS + r) * 32 + lane;
-      av[r] = avalid[row] > 0;
-      int* slot = wv + r * per_row * 32 + lane;
-      for (int p = 0; p < n_planes; ++p) slot[p * 32] = planes[p][row];
-      for (int l = 0; l < n_pay; ++l) slot[(n_planes + l) * 32] = pays[l][row];
-    }
-    for (int b = 0; b < B; ++b) {
-      const int* prm = pmat + static_cast<long long>(b) * P;
-      int cnt = 0;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int* slot = wv + r * per_row * 32 + lane;
-        const bool m = av[r] && eval_row(s_ops, n_ops, slot, prm);
-        cnt += __popc(__ballot_sync(FULL, m));
-        if (ROWS == 1) {
-          for (int l = 0; l < n_pay; ++l) {
-            const long long s =
-                warp_sum64(m ? static_cast<long long>(slot[(n_planes + l) * 32])
-                             : 0LL);
-            if (lane == 0) sums[(static_cast<long long>(b) * n_pay + l) * n_groups + g] = s;
-          }
-        }
-      }
-      if (lane == 0) counts[static_cast<long long>(b) * n_groups + g] = cnt;
-    }
+// Copy tile `tile` (blocks tile*32 ...) of every source and of avalid into
+// `buf`; rows past the last block are not copied (the lanes that own them
+// store nothing).
+__device__ __forceinline__ void stage_tile(unsigned char* buf,
+                                           const ChainSrc& src, int n_src,
+                                           const signed char* avalid,
+                                           long long n_blocks,
+                                           long long tile) {
+  const long long row0 = tile * TILE_ROWS;
+  const long long left = (n_blocks - tile * TILE_BLOCKS) * 32;
+  const int rows = left < TILE_ROWS ? static_cast<int>(left) : TILE_ROWS;
+  int* ints = reinterpret_cast<int*>(buf);
+  for (int c = threadIdx.x; c < n_src * (TILE_ROWS / 4); c += blockDim.x) {
+    const int s = c / (TILE_ROWS / 4);
+    const int t = (c % (TILE_ROWS / 4)) * 4;
+    if (t < rows)
+      cp_async16(ints + s * SRC_INTS + (t >> 5) * BLOCK_STRIDE + (t & 31),
+                 src.p[s] + row0 + t);
+  }
+  unsigned char* av = buf + n_src * SRC_INTS * 4;
+  for (int c = threadIdx.x; c < TILE_ROWS / 16; c += blockDim.x) {
+    const int t = c * 16;
+    if (t < rows)
+      cp_async16(av + (c >> 1) * AV_STRIDE + (c & 1) * 16, avalid + row0 + t);
   }
 }
 
-// chain_slot_counts: chain_kernel<1>'s block walk, with the matched rows of
-// each query split by the block's static slot values. Bound on the H100: one
-// pass over the chain planes + avalid + slot per BATCH, then per query one
-// mask evaluation and ns int32 stores, strided by n_groups (the [B, ns, G]
-// layout the cumsum along G wants; the strided stores are a known cost).
-// The slot ballots sb (lane j of a 32-slot chunk holds the rows of slot
-// base + j) do not depend on the query, so they are built once per block
-// and chunk; past 32 slots the chunk loop re-evaluates each query's mask.
+// bit i = (signed byte i of x) > 0, for i < 4
+__device__ __forceinline__ unsigned positive_bytes(unsigned x) {
+  const unsigned m = (__vcmpgts4(x, 0u) >> 7) & 0x01010101u;
+  return (m * 0x10204080u) >> 28;
+}
+
+// 32-bit row word of a staged block: bit r = f(v[r])
+template <class F>
+__device__ __forceinline__ unsigned word_of(const int* v, F f) {
+  const int4* v4 = reinterpret_cast<const int4*>(v);
+  unsigned w = 0u;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int4 x = v4[q];
+    w |= (static_cast<unsigned>(f(x.x)) << (4 * q)) |
+         (static_cast<unsigned>(f(x.y)) << (4 * q + 1)) |
+         (static_cast<unsigned>(f(x.z)) << (4 * q + 2)) |
+         (static_cast<unsigned>(f(x.w)) << (4 * q + 3));
+  }
+  return w;
+}
+
+// the same over two planes: bit r = f(h[r], l[r])
+template <class F>
+__device__ __forceinline__ unsigned word_of2(const int* h, const int* l, F f) {
+  const int4* h4 = reinterpret_cast<const int4*>(h);
+  const int4* l4 = reinterpret_cast<const int4*>(l);
+  unsigned w = 0u;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int4 x = h4[q];
+    const int4 y = l4[q];
+    w |= (static_cast<unsigned>(f(x.x, y.x)) << (4 * q)) |
+         (static_cast<unsigned>(f(x.y, y.y)) << (4 * q + 1)) |
+         (static_cast<unsigned>(f(x.z, y.z)) << (4 * q + 2)) |
+         (static_cast<unsigned>(f(x.w, y.w)) << (4 * q + 3));
+  }
+  return w;
+}
+
+// (hi, lo) as one unsigned key whose order is the signed lexicographic one
+__device__ __forceinline__ unsigned long long wide_key(int hi, int lo) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(hi) ^ 0x80000000u)
+          << 32) |
+         (static_cast<unsigned>(lo) ^ 0x80000000u);
+}
+
+// The mask program over lane's block `blk` (plane p at blk + p * SRC_INTS)
+// under params `prm` -> the block's 32-bit mask word. The op list and the
+// params are uniform across the warp; `top` holds the stack's top word.
+__device__ __forceinline__ unsigned eval_word(const int* ops, int n_ops,
+                                              const int* blk, const int* prm) {
+  unsigned stk[MAX_STACK];
+  unsigned top = 0u;
+  int sp = 0;  // entries, top included
+  for (int i = 0; i < n_ops; ++i) {
+    const int* o = ops + i * OP_WIDTH;
+    const int op = o[0];
+    if (op == OP_AND || op == OP_OR) {
+      const unsigned a = stk[sp - 2];
+      top = op == OP_AND ? (a & top) : (a | top);
+      --sp;
+      continue;
+    }
+    if (op == OP_NOT) {
+      top = ~top;
+      continue;
+    }
+    unsigned r = 0u;
+    switch (op) {
+      case OP_TRUE:
+        r = FULL;
+        break;
+      case OP_RANGE32: {
+        const int lo = prm[o[2]], hi = prm[o[3]];
+        if (lo <= hi) {
+          const unsigned span = static_cast<unsigned>(hi) - static_cast<unsigned>(lo);
+          r = word_of(blk + o[1] * SRC_INTS, [=](int v) {
+            return static_cast<unsigned>(v) - static_cast<unsigned>(lo) <= span;
+          });
+        }
+        break;
+      }
+      case OP_EQ32:
+      case OP_EQ32_GUARD: {
+        const int t = prm[o[2]];
+        if (op == OP_EQ32 || prm[o[3]] > 0)
+          r = word_of(blk + o[1] * SRC_INTS, [=](int v) { return v == t; });
+        break;
+      }
+      case OP_RANGE_WIDE: {
+        const unsigned long long klo = wide_key(prm[o[3]], prm[o[4]]);
+        const unsigned long long khi = wide_key(prm[o[5]], prm[o[6]]);
+        if (klo <= khi) {
+          const unsigned long long span = khi - klo;
+          r = word_of2(blk + o[1] * SRC_INTS, blk + o[2] * SRC_INTS,
+                       [=](int h, int l) { return wide_key(h, l) - klo <= span; });
+        }
+        break;
+      }
+      case OP_EQ_WIDE_GUARD: {
+        const int th = prm[o[3]], tl = prm[o[4]];
+        if (prm[o[5]] > 0)
+          r = word_of2(blk + o[1] * SRC_INTS, blk + o[2] * SRC_INTS,
+                       [=](int h, int l) { return h == th && l == tl; });
+        break;
+      }
+      default:
+        break;
+    }
+    if (sp > 0) stk[sp - 1] = top;
+    top = r;
+    ++sp;
+  }
+  return top;
+}
+
+// Rewrite 4 payload rows (a, b, c, d) in place as their byte slices
+// P_k = [byte k of a, b, c, d], k = 0..3 (query-independent, once a tile).
+__device__ __forceinline__ void byte_slice(int* v) {
+  int4* v4 = reinterpret_cast<int4*>(v);
+  const int4 x = *v4;
+  const unsigned t0 = __byte_perm(x.x, x.y, 0x5140);  // a0 b0 a1 b1
+  const unsigned t1 = __byte_perm(x.z, x.w, 0x5140);  // c0 d0 c1 d1
+  const unsigned t2 = __byte_perm(x.x, x.y, 0x7362);  // a2 b2 a3 b3
+  const unsigned t3 = __byte_perm(x.z, x.w, 0x7362);  // c2 d2 c3 d3
+  *v4 = make_int4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                  __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+}
+
+// Sum of a byte-sliced payload block `v` over the rows set in `w`: per 4
+// rows, the rows' 0/1 mask bytes dotted with each byte slice (__dp4a; the
+// top slice signed). Each slice's sum over 32 rows is under 2^13 in
+// magnitude, so the int64 recombination is exact for any int32.
+__device__ __forceinline__ long long masked_sum(const int* v, unsigned w) {
+  const int4* v4 = reinterpret_cast<const int4*>(v);
+  unsigned s0 = 0u, s1 = 0u, s2 = 0u;
+  int s3 = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int4 p = v4[q];
+    // bit i of the nibble -> byte i (shifted copies 7 bits apart: no carry)
+    const unsigned m = (((w >> (4 * q)) & 0xFu) * 0x00204081u) & 0x01010101u;
+    s0 = __dp4a(static_cast<unsigned>(p.x), m, s0);
+    s1 = __dp4a(static_cast<unsigned>(p.y), m, s1);
+    s2 = __dp4a(static_cast<unsigned>(p.z), m, s2);
+    s3 = __dp4a(p.w, static_cast<int>(m), s3);
+  }
+  return static_cast<long long>(s0) + (static_cast<long long>(s1) << 8) +
+         (static_cast<long long>(s2) << 16) + static_cast<long long>(s3) * (1LL << 24);
+}
+
+// COUNTS_ONLY == false: chain_blocks (counts [B, n_blocks] + sums
+// [B, n_pay, n_blocks]); true: chain_counts (counts [B, n_blocks / 4]).
+template <bool COUNTS_ONLY>
+__global__ void __launch_bounds__(CHAIN_THREADS, 2)
+chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
+                  int n_pay, const int* __restrict__ pmat, int B, int P,
+                  const int* __restrict__ ops, int n_ops,
+                  const signed char* __restrict__ avalid, long long n_blocks,
+                  int stages, int* __restrict__ counts,
+                  long long* __restrict__ sums) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int n_src = n_planes + n_pay;
+  const int stage_bytes = n_src * SRC_INTS * 4 + AV_BYTES;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  int* s_ops = reinterpret_cast<int*>(tile_smem + stages * stage_bytes);
+  int* s_prm = s_ops + n_ops * OP_WIDTH + warp * P;
+  for (int i = threadIdx.x; i < n_ops * OP_WIDTH; i += blockDim.x)
+    s_ops[i] = ops[i];
+
+  const long long n_tiles = (n_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS;
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) stage_tile(tile_smem, src, n_src, avalid, n_blocks, tile);
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const long long next = tile + gridDim.x;
+    if (stages == 2) {
+      if (next < n_tiles)
+        stage_tile(tile_smem + ((it + 1) & 1) * stage_bytes, src, n_src, avalid,
+                   n_blocks, next);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    unsigned char* buf = tile_smem + (stages == 2 ? (it & 1) * stage_bytes : 0);
+    if (n_pay > 0) {
+      int* pv = reinterpret_cast<int*>(buf) + n_planes * SRC_INTS;
+      for (int i = threadIdx.x; i < n_pay * TILE_BLOCKS * 8; i += blockDim.x)
+        byte_slice(pv + (i >> 8) * SRC_INTS + ((i >> 3) & 31) * BLOCK_STRIDE +
+                   (i & 7) * 4);
+      __syncthreads();
+    }
+    const long long g = tile * TILE_BLOCKS + lane;
+    const bool live = g < n_blocks;
+    const uint4* a4 = reinterpret_cast<const uint4*>(
+        buf + n_src * SRC_INTS * 4 + lane * AV_STRIDE);
+    const uint4 a0 = a4[0], a1 = a4[1];
+    const unsigned av =
+        live ? positive_bytes(a0.x) | positive_bytes(a0.y) << 4 |
+                   positive_bytes(a0.z) << 8 | positive_bytes(a0.w) << 12 |
+                   positive_bytes(a1.x) << 16 | positive_bytes(a1.y) << 20 |
+                   positive_bytes(a1.z) << 24 | positive_bytes(a1.w) << 28
+             : 0u;
+    const int* blk = reinterpret_cast<const int*>(buf) + lane * BLOCK_STRIDE;
+    for (int b = warp; b < B; b += n_warps) {
+      for (int i = lane; i < P; i += 32)
+        s_prm[i] = pmat[static_cast<long long>(b) * P + i];
+      __syncwarp();
+      const unsigned w = eval_word(s_ops, n_ops, blk, s_prm) & av;
+      int c = __popc(w);
+      if (COUNTS_ONLY) {
+        c += __shfl_down_sync(FULL, c, 1);
+        c += __shfl_down_sync(FULL, c, 2);
+        if (live && (lane & 3) == 0)
+          counts[static_cast<long long>(b) * (n_blocks >> 2) + (g >> 2)] = c;
+      } else if (live) {
+        counts[static_cast<long long>(b) * n_blocks + g] = c;
+        for (int l = 0; l < n_pay; ++l) {
+          const long long s =
+              w ? masked_sum(blk + (n_planes + l) * SRC_INTS, w) : 0LL;
+          sums[(static_cast<long long>(b) * n_pay + l) * n_blocks + g] = s;
+        }
+      }
+      __syncwarp();  // s_prm is rewritten by the next query
+    }
+    __syncthreads();  // the buffer is restaged next
+    if (stages == 1) {
+      if (next < n_tiles) stage_tile(tile_smem, src, n_src, avalid, n_blocks, next);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// chain_slot_counts: a warp per 32-row block, with the matched rows of
+// each query split by the block's static slot values. Bound on the H100:
+// one pass over the chain planes + avalid + slot per BATCH, then per query
+// one mask evaluation and ns int32 stores, strided by n_groups (the
+// [B, ns, G] layout the cumsum along G wants; the strided stores are a
+// known cost). The slot ballots sb (lane j of a 32-slot chunk holds the
+// rows of slot base + j) do not depend on the query, so they are built once
+// per block and chunk; past 32 slots the chunk loop re-evaluates each
+// query's mask.
 __global__ void chain_slot_kernel(const int* __restrict__ pmat, int B, int P,
                                   const int* __restrict__ ops, int n_ops,
                                   const int* const* __restrict__ planes,
@@ -316,25 +592,48 @@ int grid_for(long long work, int per_block, int cap) {
   return g < 1 ? 1 : static_cast<int>(g);
 }
 
-template <int ROWS>
-int launch_chain(const int* pmat, int B, int P, const int* ops, int n_ops,
-                 const int* const* planes, int n_planes,
-                 const signed char* avalid, const int* const* pays, int n_pay,
-                 long long n_groups, int* counts, long long* sums,
-                 cudaStream_t stream) {
-  const size_t shmem =
-      sizeof(int) * (static_cast<size_t>(n_ops) * OP_WIDTH +
-                     static_cast<size_t>(WARPS) * ROWS * (n_planes + n_pay) * 32);
-  if (shmem > 48 * 1024) {
-    cudaFuncSetAttribute(chain_kernel<ROWS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(shmem));
+// The launch shape (warps, stages, smem bytes) comes from the wrapper
+// (ops/kernels.py chain_plan); the grid is the resident CTAs of the card,
+// each walking tiles tile, tile + grid, ... (the occupancy query is cached
+// per shape).
+template <bool COUNTS_ONLY>
+int launch_chain_tiles(const void* const* srcs, int n_planes, int n_pay,
+                       const int* pmat, int B, int P, const int* ops,
+                       int n_ops, const signed char* avalid,
+                       long long n_blocks, int warps, int stages, int smem,
+                       int* counts, long long* sums, cudaStream_t stream) {
+  if (n_planes < 0 || n_pay < 0 || n_planes + n_pay > MAX_SRC || warps < 1 ||
+      warps * 32 > CHAIN_THREADS || (stages != 1 && stages != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ChainSrc src{};
+  for (int i = 0; i < n_planes + n_pay; ++i)
+    src.p[i] = static_cast<const int*>(srcs[i]);
+  auto kern = chain_tile_kernel<COUNTS_ONLY>;
+  static int smem_attr = 48 * 1024;
+  static int last_warps = -1, last_smem = -1, last_dev = -1, resident = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != last_dev) smem_attr = 48 * 1024;
+  if (smem > smem_attr) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    smem_attr = smem;
   }
-  // 132 SMs: a few resident blocks each; the group loop strides the rest
-  const int grid = grid_for(n_groups, WARPS, 132 * 16);
-  chain_kernel<ROWS><<<grid, WARPS * 32, shmem, stream>>>(
-      pmat, B, P, ops, n_ops, planes, n_planes, avalid, pays, n_pay, n_groups,
-      counts, sums);
+  if (warps != last_warps || smem != last_smem || dev != last_dev) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, warps * 32,
+                                                  smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident = (per_sm > 0 ? per_sm : 1) * sms;
+    last_warps = warps;
+    last_smem = smem;
+    last_dev = dev;
+  }
+  const long long n_tiles = (n_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS;
+  const int grid = grid_for(n_tiles, 1, resident);
+  kern<<<grid, warps * 32, smem, stream>>>(src, n_planes, n_pay, pmat, B, P,
+                                           ops, n_ops, avalid, n_blocks,
+                                           stages, counts, sums);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,28 +672,33 @@ int tat_fused_metrics(const void* mask, const void* plane, int B, long long T,
   return static_cast<int>(cudaGetLastError());
 }
 
-int tat_chain_blocks(const void* pmat, int B, int P, const void* ops,
-                     int n_ops, const void* planes, int n_planes,
-                     const void* avalid, const void* pays, int n_pay,
-                     long long n_groups, void* counts, void* sums,
-                     void* stream) {
-  return launch_chain<1>(
-      static_cast<const int*>(pmat), B, P, static_cast<const int*>(ops), n_ops,
-      static_cast<const int* const*>(planes), n_planes,
-      static_cast<const signed char*>(avalid),
-      static_cast<const int* const*>(pays), n_pay, n_groups,
+// srcs: host array of n_planes chain-plane pointers, then n_pay payload
+// pointers (copied into the kernel's parameter struct)
+int tat_chain_blocks(const void* const* srcs, int n_planes, int n_pay,
+                     const void* pmat, int B, int P, const void* ops,
+                     int n_ops, const void* avalid, long long n_blocks,
+                     int warps, int stages, int smem, void* counts,
+                     void* sums, void* stream) {
+  return launch_chain_tiles<false>(
+      srcs, n_planes, n_pay, static_cast<const int*>(pmat), B, P,
+      static_cast<const int*>(ops), n_ops,
+      static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
       static_cast<int*>(counts), static_cast<long long*>(sums),
       static_cast<cudaStream_t>(stream));
 }
 
-int tat_chain_counts(const void* pmat, int B, int P, const void* ops,
-                     int n_ops, const void* planes, int n_planes,
-                     const void* avalid, long long n_groups, void* counts,
-                     void* stream) {
-  return launch_chain<4>(
-      static_cast<const int*>(pmat), B, P, static_cast<const int*>(ops), n_ops,
-      static_cast<const int* const*>(planes), n_planes,
-      static_cast<const signed char*>(avalid), nullptr, 0, n_groups,
+// the same arguments as tat_chain_blocks; n_pay must be 0 and sums unused
+int tat_chain_counts(const void* const* srcs, int n_planes, int n_pay,
+                     const void* pmat, int B, int P, const void* ops,
+                     int n_ops, const void* avalid, long long n_blocks,
+                     int warps, int stages, int smem, void* counts,
+                     void* sums, void* stream) {
+  if (n_pay != 0 || sums != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_chain_tiles<true>(
+      srcs, n_planes, 0, static_cast<const int*>(pmat), B, P,
+      static_cast<const int*>(ops), n_ops,
+      static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
       static_cast<int*>(counts), nullptr, static_cast<cudaStream_t>(stream));
 }
 

@@ -19,21 +19,28 @@ fused_metrics — replaces the JAX package's ops/pallas_kernels.py
   block reduction, one 64-bit atomicAdd / 32-bit atomicMin/atomicMax per
   block.
 chain_blocks — replaces `_chain_blocks_batched` / `make_chain_blocks`.
-  Bound: one pass over the chain + payload planes per BATCH (4 bytes per
-  plane per row), plus per-query outputs of 4 + 8L bytes per 32 rows. Design:
-  one warp per 32-row block loads the block's planes into shared memory
-  once, then loops over the B queries: the mask bit is the op-list
-  interpreter (query/compile.py mask programs) on each lane's row, the count
-  a __popc(__ballot_sync), the payload sums int64 warp shuffles.
+  Bound: one pass over the chain + payload planes and avalid per BATCH
+  (HBM bytes), plus per query and row one int32 compare per leaf and one
+  add per payload, plus per-query outputs of 4 + 8L bytes per 32 rows.
+  Design (redesigned for Hopper): a lane owns one 32-row block and builds
+  each query's block mask as a 32-bit word, the op list decoded once per
+  (1024-row tile, query); a CTA stages each tile of every plane in shared
+  memory with cp.async copies (double-buffered for narrow programs) and
+  its warps split the queries; payload blocks are byte-sliced once per
+  tile so a lane's masked sum is four __dp4a per 4 rows, recombined
+  exactly in int64; a warp stores 32 consecutive counts and sums.
+  `chain_plan` sizes the launch.
 chain_counts — replaces `_chain_counts_batched` / `make_chain_counts`.
-  Same bound and design at 128-row groups (4 rows per lane), counts only.
+  Same bound and kernel, counts only; four lanes' counts fold into one
+  128-row group by two shuffles.
 chain_slot_counts — replaces `_chain_slot_counts_batched` /
   `make_chain_slot_counts`. Bound: one pass over the chain planes, avalid
   and the static slot plane per batch, plus ns int32 stores per 32 rows per
-  query. Design: chain_blocks' warp per 32-row block; the per-slot row
-  ballots are built once per block (query-independent, the TPU kernel's
-  hoisted one-hots), then each query costs one mask evaluation, one ballot
-  and a __popc per slot. Slots go in chunks of 32, one per lane.
+  query. Design: a warp per 32-row block, a lane per row, the block's
+  planes loaded into shared memory once; the per-slot row ballots are
+  built once per block (query-independent, the TPU kernel's hoisted
+  one-hots), then each query costs one per-row op-list evaluation, one
+  ballot and a __popc per slot. Slots go in chunks of 32, one per lane.
 gather_rows — replaces `_gather_rows_batched` / `make_gather_rows`.
   Bound: HBM bytes (each picked row read once and written once). Design:
   a (B, row chunks) grid of 16-byte copies, four loads in flight per
@@ -46,6 +53,7 @@ gather_rows — replaces `_gather_rows_batched` / `make_gather_rows`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -60,10 +68,27 @@ from ..query.compile import OP_WIDTH, eval_ops, to_device_async
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
+_I32 = torch.int32
 #: kernel-side limits on a mask program / payload list
 MAX_PLANES = 8
 MAX_PAYLOADS = 16
 MAX_OPS = 128
+#: params a chain kernel stages per query (its [B, P] matrix's P)
+MAX_PARAMS = 256
+#: the chain tile kernel's layout (csrc/kernels.cu): 32 blocks of 32 rows
+#: per tile, each staged block padded to 36 ints, its avalid to 48 bytes;
+#: at most 8 warps per CTA, within the 227 KB of shared memory a CTA gets
+TILE_BLOCKS = 32
+TILE_ROWS = TILE_BLOCKS * 32
+BLOCK_STRIDE = 36
+AV_STRIDE = 48
+CHAIN_WARPS = 8
+SMEM_MAX = 232_448
+#: a CTA double-buffers its tiles only within a quarter of an SM's 228 KB,
+#: so four CTAs (the register limit at 8 warps) stay resident: a second
+#: stage of a wide program would halve them, and the resident CTAs' copies
+#: already overlap each other's queries
+DOUBLE_BUFFER_MAX = 57_344
 #: slot count bound of chain_slot_counts (the planner's slot_rank cap)
 PCT_SLOT_CAP = 4096
 #: bytes of a row one gather_rows block copies (256 threads x 4 x 16 B);
@@ -120,10 +145,9 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.tat_fused_metrics.argtypes = [vp, vp, i, ll, vp, vp, vp, vp, vp]
-        lib.tat_chain_blocks.argtypes = [vp, i, i, vp, i, vp, i, vp, vp, i,
-                                         ll, vp, vp, vp]
-        lib.tat_chain_counts.argtypes = [vp, i, i, vp, i, vp, i, vp, ll, vp,
-                                         vp]
+        for fn in (lib.tat_chain_blocks, lib.tat_chain_counts):
+            fn.argtypes = [ctypes.POINTER(vp), i, i, vp, i, i, vp, i, vp, ll,
+                           i, i, i, vp, vp, vp]
         lib.tat_chain_slot_counts.argtypes = [vp, i, i, vp, i, vp, i, vp, vp,
                                               i, ll, vp, vp]
         lib.tat_gather_rows.argtypes = [vp, i, vp, ll, ll, vp, vp]
@@ -136,7 +160,8 @@ def _library():
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check_launch(name: str, rc: int) -> None:
@@ -146,25 +171,32 @@ def _check_launch(name: str, rc: int) -> None:
 
 def _route(name: str, tensors) -> bool:
     """True to launch the kernel (all tensors on one CUDA device), False to
-    run the plain version (all on the CPU); anything else raises."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: operands on several devices {devs}")
-    (dev,) = devs
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
+    run the plain version (all on the CPU); anything else raises. (Reads
+    only `is_cuda` / `get_device()` on the way through: a `.device` object
+    costs more host time than the B = 1 kernel.)"""
+    t0 = tensors[0]
+    if t0.is_cuda:
+        dev = t0.get_device()
+        if all(t.is_cuda and t.get_device() == dev for t in tensors):
+            return True
+    elif all(t.is_cpu for t in tensors):
         return False
-    raise ValueError(f"{name}: unsupported device {dev}")
+    devs = sorted({str(t.device) for t in tensors})
+    if len(devs) > 1:
+        raise ValueError(f"{name}: operands on several devices {devs}")
+    raise ValueError(f"{name}: unsupported device {devs[0]}")
 
 
-def _need(cond: bool, name: str, what: str) -> None:
+def _need(cond: bool, name: str, what) -> None:
+    """Raise ValueError(name: what) unless cond; `what` is a message or a
+    function that makes it (formatted only on failure: the checks run on
+    every launch)."""
     if not cond:
-        raise ValueError(f"{name}: {what}")
+        raise ValueError(f"{name}: {what() if callable(what) else what}")
 
 
 def _ptr_array(tensors, device) -> torch.Tensor:
-    """Device int64 array of the tensors' data pointers (the kernel's
+    """Device int64 array of the tensors' data pointers (chain_slot_counts'
     `const int* const*` operand), copied without a stream sync so that
     back-to-back launches stay queued."""
     ptrs = [t.data_ptr() for t in tensors] or [0]
@@ -192,14 +224,15 @@ def fused_metrics(mask, plane):
     name = "fused_metrics"
     _need(mask.dim() == 2 and plane.dim() == 1
           and mask.shape[1] == plane.shape[0], name,
-          f"shapes {tuple(mask.shape)} / {tuple(plane.shape)}")
+          lambda: f"shapes {tuple(mask.shape)} / {tuple(plane.shape)}")
     _need(mask.dtype in (torch.bool, torch.int8, torch.uint8), name,
-          f"mask dtype {mask.dtype}")
-    _need(plane.dtype == torch.int32, name, f"plane dtype {plane.dtype}")
+          lambda: f"mask dtype {mask.dtype}")
+    _need(plane.dtype == torch.int32, name,
+          lambda: f"plane dtype {plane.dtype}")
     if not _route(name, (mask, plane)):
         return fused_metrics_plain(mask, plane)
     B, T = mask.shape
-    _need(T % 4 == 0 and 0 < B <= 65535, name, f"shape {(B, T)}")
+    _need(T % 4 == 0 and 0 < B <= 65535, name, lambda: f"shape {(B, T)}")
     _need(mask.is_contiguous() and plane.is_contiguous(), name,
           "operands must be contiguous")
     # the kernel reads the plane as int4 and the mask as uchar4
@@ -252,26 +285,66 @@ def chain_counts_plain(pmat, ops, planes, avalid):
 
 def _check_chain(name, pmat, ops, planes, avalid, payloads, group):
     R = avalid.shape[0] if avalid.dim() == 1 else -1
-    _need(pmat.dim() == 2 and pmat.dtype == torch.int32, name,
-          f"pmat {tuple(pmat.shape)} {pmat.dtype}")
-    _need(ops.dim() == 2 and ops.shape[1] == OP_WIDTH
-          and ops.dtype == torch.int32, name, f"ops {tuple(ops.shape)}")
-    _need(avalid.dtype == torch.int8 and R > 0 and R % group == 0, name,
-          f"avalid {tuple(avalid.shape)} {avalid.dtype}")
+    _need(pmat.dim() == 2 and pmat.dtype is _I32, name,
+          lambda: f"pmat {tuple(pmat.shape)} {pmat.dtype}")
+    _need(ops.dim() == 2 and ops.shape[1] == OP_WIDTH and ops.dtype is _I32,
+          name, lambda: f"ops {tuple(ops.shape)}")
+    _need(avalid.dtype is torch.int8 and R > 0 and R % group == 0, name,
+          lambda: f"avalid {tuple(avalid.shape)} {avalid.dtype}")
     for t in (*planes, *payloads):
-        _need(t.dim() == 1 and t.shape[0] == R and t.dtype == torch.int32,
-              name, f"plane {tuple(t.shape)} {t.dtype}")
+        if t.dtype is not _I32 or t.shape != (R,):
+            raise ValueError(f"{name}: plane {tuple(t.shape)} {t.dtype}")
     return R
 
 
 def _check_chain_cuda(name, pmat, ops, planes, avalid, payloads):
     _need(len(planes) <= MAX_PLANES and len(payloads) <= MAX_PAYLOADS
           and ops.shape[0] <= MAX_OPS, name,
-          f"{len(planes)} planes / {len(payloads)} payloads / "
+          lambda: f"{len(planes)} planes / {len(payloads)} payloads / "
           f"{ops.shape[0]} ops exceed the kernel limits")
-    _need(all(t.is_contiguous() for t in (pmat, ops, avalid, *planes,
-                                           *payloads)), name,
+    _need(pmat.is_contiguous() and ops.is_contiguous()
+          and avalid.is_contiguous()
+          and all(t.is_contiguous() for t in (*planes, *payloads)), name,
           "operands must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(n_planes: int, n_pay: int, n_ops: int, P: int, B: int):
+    """Launch shape of the chain tile kernel: (warps, stages, shared-memory
+    bytes). A stage holds one tile (TILE_ROWS rows) of every chain plane and
+    payload plus its avalid bytes; two stages double-buffer the copies when
+    they fit in DOUBLE_BUFFER_MAX beside the op list and each warp's param
+    row, else one. The warps share each tile and split the B queries, so
+    there are no more warps than queries."""
+    warps = max(1, min(CHAIN_WARPS, B))
+    stage = ((n_planes + n_pay) * TILE_BLOCKS * BLOCK_STRIDE * 4
+             + TILE_BLOCKS * AV_STRIDE)
+    fixed = n_ops * OP_WIDTH * 4 + warps * P * 4
+    stages = 2 if 2 * stage + fixed <= DOUBLE_BUFFER_MAX else 1
+    return warps, stages, stages * stage + fixed
+
+
+def _launch_chain(name, fn, pmat, ops, planes, avalid, payloads, out):
+    """Checks of the chain tile kernel's operands, then its launch: the
+    plane and payload pointers go by value (a host array the C launcher
+    copies into the kernel's parameter struct)."""
+    _check_chain_cuda(name, pmat, ops, planes, avalid, payloads)
+    B, P = pmat.shape
+    _need(P <= MAX_PARAMS, name, lambda: f"{P} params exceed {MAX_PARAMS}")
+    ptrs = [t.data_ptr() for t in (*planes, *payloads)]
+    av = avalid.data_ptr()
+    # the kernel stages every source with 16-byte copies
+    _need(av % 16 == 0 and all(p % 16 == 0 for p in ptrs), name,
+          "planes, payloads and avalid must be 16-byte aligned")
+    n_ops = ops.shape[0]
+    warps, stages, smem = chain_plan(len(planes), len(payloads), n_ops, P, B)
+    counts, sums = out
+    rc = fn((ctypes.c_void_p * max(1, len(ptrs)))(*ptrs), len(planes),
+            len(payloads), pmat.data_ptr(), B, P, ops.data_ptr(), n_ops, av,
+            avalid.shape[0] // 32, warps, stages, smem, counts.data_ptr(),
+            0 if sums is None else sums.data_ptr(), _stream(avalid))
+    launches[name] += 1
+    _check_launch(name, rc)
 
 
 def chain_blocks(pmat, ops, planes, avalid, payloads):
@@ -283,20 +356,12 @@ def chain_blocks(pmat, ops, planes, avalid, payloads):
     R = _check_chain(name, pmat, ops, planes, avalid, payloads, 32)
     if not _route(name, (pmat, ops, avalid, *planes, *payloads)):
         return chain_blocks_plain(pmat, ops, planes, avalid, payloads)
-    _check_chain_cuda(name, pmat, ops, planes, avalid, payloads)
-    B, P = pmat.shape
-    G = R // 32
-    dev = avalid.device
-    counts = torch.empty(B, G, dtype=torch.int32, device=dev)
-    sums = torch.empty(B, len(payloads), G, dtype=torch.int64, device=dev)
-    pp = _ptr_array(planes, dev)
-    yp = _ptr_array(payloads, dev)
-    rc = _library().tat_chain_blocks(
-        pmat.data_ptr(), B, P, ops.data_ptr(), ops.shape[0], pp.data_ptr(),
-        len(planes), avalid.data_ptr(), yp.data_ptr(), len(payloads), G,
-        counts.data_ptr(), sums.data_ptr(), _stream(avalid))
-    launches[name] += 1
-    _check_launch(name, rc)
+    B, G = pmat.shape[0], R // 32
+    counts = torch.empty(B, G, dtype=torch.int32, device=avalid.device)
+    sums = torch.empty(B, len(payloads), G, dtype=torch.int64,
+                       device=avalid.device)
+    _launch_chain(name, _library().tat_chain_blocks, pmat, ops, planes,
+                  avalid, payloads, (counts, sums))
     return counts, sums
 
 
@@ -307,18 +372,10 @@ def chain_counts(pmat, ops, planes, avalid):
     R = _check_chain(name, pmat, ops, planes, avalid, (), 128)
     if not _route(name, (pmat, ops, avalid, *planes)):
         return chain_counts_plain(pmat, ops, planes, avalid)
-    _check_chain_cuda(name, pmat, ops, planes, avalid, ())
-    B, P = pmat.shape
-    G = R // 128
-    dev = avalid.device
-    counts = torch.empty(B, G, dtype=torch.int32, device=dev)
-    pp = _ptr_array(planes, dev)
-    rc = _library().tat_chain_counts(
-        pmat.data_ptr(), B, P, ops.data_ptr(), ops.shape[0], pp.data_ptr(),
-        len(planes), avalid.data_ptr(), G, counts.data_ptr(),
-        _stream(avalid))
-    launches[name] += 1
-    _check_launch(name, rc)
+    counts = torch.empty(pmat.shape[0], R // 128, dtype=torch.int32,
+                         device=avalid.device)
+    _launch_chain(name, _library().tat_chain_counts, pmat, ops, planes,
+                  avalid, (), (counts, None))
     return counts
 
 
@@ -342,8 +399,9 @@ def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
     R = _check_chain(name, pmat, ops, planes, avalid, (), 32)
     _need(slot.dim() == 1 and slot.shape[0] == R
           and slot.dtype == torch.int32, name,
-          f"slot {tuple(slot.shape)} {slot.dtype}")
-    _need(0 < ns <= PCT_SLOT_CAP, name, f"ns {ns} outside (0, {PCT_SLOT_CAP}]")
+          lambda: f"slot {tuple(slot.shape)} {slot.dtype}")
+    _need(0 < ns <= PCT_SLOT_CAP, name,
+          lambda: f"ns {ns} outside (0, {PCT_SLOT_CAP}]")
     if not _route(name, (pmat, ops, avalid, slot, *planes)):
         return chain_slot_counts_plain(pmat, ops, planes, avalid, slot, ns)
     _check_chain_cuda(name, pmat, ops, planes, avalid, ())
@@ -375,26 +433,27 @@ def gather_rows(idx, op):
     operand `op` ([Df, ...], any dtype, rows a multiple of 16 bytes) ->
     [B, ...] of op's dtype."""
     name = "gather_rows"
-    _need(idx.dim() == 1 and idx.dtype == torch.int32, name,
-          f"idx {tuple(idx.shape)} {idx.dtype}")
-    _need(op.dim() >= 2 and op.shape[0] > 0, name,
-          f"operand {tuple(op.shape)}")
-    row_bytes = op[0].numel() * op.element_size()
+    _need(idx.dim() == 1 and idx.dtype is _I32, name,
+          lambda: f"idx {tuple(idx.shape)} {idx.dtype}")
+    shape = op.shape
+    _need(len(shape) >= 2 and shape[0] > 0, name,
+          lambda: f"operand {tuple(shape)}")
+    row_bytes = op.nbytes // shape[0]
     _need(row_bytes % 16 == 0, name,
-          f"row of {row_bytes} bytes is not a multiple of 16")
+          lambda: f"row of {row_bytes} bytes is not a multiple of 16")
     _need(idx.is_contiguous() and op.is_contiguous(), name,
           "operands must be contiguous")
     if not _route(name, (idx, op)):
         return gather_rows_plain(idx, op)
     B = idx.shape[0]
     _need(B > 0 and -(-row_bytes // GATHER_CHUNK) <= 65535, name,
-          f"batch {B}, row of {row_bytes} bytes")
-    _need(op.data_ptr() % 16 == 0, name, "operand must be 16-byte aligned")
-    out = torch.empty((B,) + tuple(op.shape[1:]), dtype=op.dtype,
-                      device=op.device)
-    rc = _library().tat_gather_rows(
-        idx.data_ptr(), B, op.data_ptr(), op.shape[0], row_bytes // 16,
-        out.data_ptr(), _stream(op))
+          lambda: f"batch {B}, row of {row_bytes} bytes")
+    ptr = op.data_ptr()
+    _need(ptr % 16 == 0, name, "operand must be 16-byte aligned")
+    out = op.new_empty((B, *shape[1:]))
+    rc = _library().tat_gather_rows(idx.data_ptr(), B, ptr, shape[0],
+                                    row_bytes // 16, out.data_ptr(),
+                                    _stream(op))
     launches[name] += 1
     _check_launch(name, rc)
     return out

@@ -21,6 +21,7 @@ from tantivy_aggregations_tpu.ops import pallas_kernels as PK
 from tantivy_aggregations_tpu.query import compile as jqc
 
 import tantivy_aggregations_tpu_torch as tt
+from tantivy_aggregations_tpu_torch.index.loader import PAD_BLOCK
 from tantivy_aggregations_tpu_torch.index.loader import \
     load_device_index as port_load
 from tantivy_aggregations_tpu_torch.ops import kernels as K
@@ -224,11 +225,18 @@ def _jax_mask_of(jd, chain, pkeys):
 
 def _pays(jd, L):
     """L int32 payload planes: the narrow delta w plane, then f64 limbs of
-    price (signed 26-bit) and a large-span synthetic plane."""
+    price (signed 26-bit) and a large-span synthetic plane; past three, the
+    signed extremes (all INT32_MIN, all INT32_MAX, the two alternating) and
+    full-range int32 planes."""
     rng = np.random.default_rng(L)
     limbs = jd.column("price").sum_limbs_host()
     planes = [jd.column("delta")._w_host, limbs[:, 0],
               rng.integers(-(2**30), 2**30, jd.T).astype(np.int32)]
+    if L > 3:
+        alt = np.where(np.arange(jd.T) % 2 == 0, K.I32_MIN, K.I32_MAX)
+        planes += [np.full(jd.T, K.I32_MIN), np.full(jd.T, K.I32_MAX), alt]
+        planes += [rng.integers(K.I32_MIN, K.I32_MAX, jd.T, endpoint=True)
+                   for _ in range(L - len(planes))]
     return [np.ascontiguousarray(p, np.int32) for p in planes[:L]]
 
 
@@ -240,7 +248,7 @@ def _run_jax(fn, pm, B):
 
 
 @pytest.mark.parametrize("case", range(4))
-@pytest.mark.parametrize("B,L", [(1, 1), (4, 3)])
+@pytest.mark.parametrize("B,L", [(1, 1), (4, 3), (33, 16)])
 def test_chain_blocks_plain_matches_pallas(dual, case, B, L):
     jd, pd = dual
     chain, mp, pkeys, pm, host, avalid = _chain_inputs(jd, pd, case, B)
@@ -267,7 +275,7 @@ def test_chain_blocks_plain_matches_pallas(dual, case, B, L):
 
 
 @pytest.mark.parametrize("case", range(4))
-@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("B", [1, 4, 33])
 def test_chain_counts_plain_matches_pallas(dual, case, B):
     jd, pd = dual
     chain, mp, pkeys, pm, host, avalid = _chain_inputs(jd, pd, case, B)
@@ -281,6 +289,30 @@ def test_chain_counts_plain_matches_pallas(dual, case, B):
     planes["avalid"] = jnp.asarray(PK.transpose_groups(avalid))
     jc = np.asarray(_run_jax(lambda p: cc(p, planes), pm, B)).reshape(B, -1)
     np.testing.assert_array_equal(counts.numpy(), jc)
+
+
+@pytest.mark.parametrize("n_planes", range(K.MAX_PLANES + 1))
+def test_chain_plan_fits_shared_memory(n_planes):
+    """Every launch shape of the chain tile kernel up to the kernel limits
+    fits a CTA's shared memory, double-buffers the narrow programs (the
+    main path's: up to 2 chain planes and payloads), keeps no more warps
+    than queries, and its tile divides every padded layout."""
+    assert PAD_BLOCK % K.TILE_ROWS == 0
+    for n_pay in range(K.MAX_PAYLOADS + 1):
+        for n_ops in (1, K.MAX_OPS):
+            for P in (1, K.MAX_PARAMS):
+                for B in (1, 31, 33, 128, 200):
+                    warps, stages, smem = K.chain_plan(n_planes, n_pay,
+                                                       n_ops, P, B)
+                    assert smem <= K.SMEM_MAX
+                    assert 1 <= warps <= min(B, K.CHAIN_WARPS)
+                    assert stages in (1, 2)
+                    if n_planes + n_pay <= 2:
+                        assert stages == 2
+                    if stages == 2:
+                        assert smem <= K.DOUBLE_BUFFER_MAX
+    for R in (PAD_BLOCK, 306 * PAD_BLOCK):
+        assert R % K.TILE_ROWS == 0
 
 
 @pytest.mark.parametrize("case", range(4))
@@ -323,6 +355,14 @@ def test_gather_rows_plain_matches_pallas(idx):
     got64 = K.gather_rows(torch.from_numpy(ia), op64)
     np.testing.assert_array_equal(
         got64.view(torch.int8).reshape(want.shape).numpy(), want)
+
+
+@pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "meta")])
+def test_kernel_wrappers_refuse_mixed_or_unknown_devices(devices):
+    idx = torch.zeros(2, dtype=torch.int32, device=devices[0])
+    op = torch.zeros(4, 16, dtype=torch.int8, device=devices[1])
+    with pytest.raises(ValueError, match="device"):
+        K.gather_rows(idx, op)
 
 
 def test_kernel_wrappers_refuse_bad_operands():
