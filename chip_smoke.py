@@ -18,12 +18,17 @@ checks it end to end:
    bound (kernel_bound), the B = 1 device time in torch.profiler and, for
    gather_rows, the time of `index_select` (library_ms); the chain kernels
    also under a query whose mask program holds every opcode, on the same
-   layouts, and chain_blocks / chain_counts at B = 31, 33 and 200;
-   4b. chain_blocks and chain_counts edge cases on operands made from SEED
-   (phase_edges: B in {1, 31, 33, 128, 200}, R = 32768 with 8 planes and
-   16 payloads, a tile tail, INT32_MIN / INT32_MAX payloads over fully
-   matched blocks, blocks whose avalid is all 0), each printing its
-   max_abs_err;
+   layouts, and at B = 31, 33 and 200; gather_rows' host time per call,
+   step by step, beside index_select's (gather_host_steps);
+   4b. edge cases on operands made from SEED (phase_edges), each printing
+   its max_abs_err: chain_blocks, chain_counts and chain_slot_counts at
+   B in {1, 31, 33, 128, 200}, R = 32768 with 8 planes (and 16 payloads),
+   a tile tail, INT32_MIN / INT32_MAX payloads over fully matched blocks,
+   blocks whose avalid is all 0; chain_slot_counts at ns in {1, 4, 32, 33}
+   and 4096, over a slot plane with -1 rows and one-slot blocks;
+   gather_rows at B in {1, 128, 200} with repeated indices, rows of one
+   word, one chunk and an odd number of chunks, and the largest row it
+   accepts;
 5. the main path of each slice (c1-c5, then c6-c9), each with the launch
    counters set to 0: for each config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
@@ -44,9 +49,10 @@ device_ms; B = 128: the same keys suffixed _b128), then, as its last line,
 
     python3 chip_smoke.py --against DIR
 
-also times chain_blocks, chain_counts and gather_rows against the kernels
-of the port package in the tree at DIR (say the parent commit, unpacked
-with `git archive`), in turns on the same operands (phase 4c).
+also times the AB_KERNELS against the kernels of the port package in the
+tree at DIR (say the parent commit, unpacked with `git archive`), in turns
+on the same operands, then c4, c9 and c7 end to end through either tree's
+kernels, in turns (phase 4c).
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 port's package beside it, it exits non-zero before printing any result.
@@ -85,9 +91,14 @@ REPLACES = {
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
-#: the kernels timed against another tree's by --against (gather_rows for
-#: its wrapper's host time, beside index_select)
-AB_KERNELS = ("chain_blocks", "chain_counts", "gather_rows")
+#: the kernels timed against another tree's by --against (gather_rows
+#: beside index_select)
+AB_KERNELS = ("chain_blocks", "chain_counts", "chain_slot_counts",
+              "gather_rows")
+#: configs timed end to end by --against, each with the kernels of its main
+#: path that are swapped for the other tree's
+AB_CONFIGS = ((4, ("chain_blocks", "chain_counts")),
+              (9, ("chain_slot_counts",)), (7, ("gather_rows",)))
 #: configs whose dedup-off msearch group is also profiled (the users of
 #: chain_blocks and chain_counts)
 PROFILED = (4, 5)
@@ -178,12 +189,14 @@ def _cuda_ms(torch, fn, iters: int) -> float:
 
 
 def _max_abs_err(torch, got, want) -> int:
+    """Largest |got - want| over the outputs (0 where they are equal,
+    without the int64 copies)."""
     err = 0
     for g, w in zip(got, want):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"kernel/plain output {tuple(g.shape)} {g.dtype} vs "
               f"{tuple(w.shape)} {w.dtype}")
-        if g.numel():
+        if g.numel() and not torch.equal(g, w):
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                                .abs().max()))
     return err
@@ -244,10 +257,12 @@ def _chain_slot_args(prog, pmat):
 
 def _gather_rows_args(prog, pmat):
     """gather_rows operands of a member-operand terms agg "t": the row
-    index as the main path clamps it, and the resident operand."""
+    index as the main path clamps it, and the resident operand's
+    RowOperand (the plan's, as the main path passes it)."""
     mo = prog.plan[("a", "t")]["member_op"]
-    op = prog._arrays[mo["key"]]
-    return pmat[:, mo["tcol"]].clamp(0, op.shape[0] - 1).contiguous(), op
+    rows = mo["rows"]
+    idx = pmat[:, mo["tcol"]].clamp(0, rows.op.shape[0] - 1).contiguous()
+    return idx, rows
 
 
 def all_configs(flagship):
@@ -277,7 +292,7 @@ def kernel_bound(torch, qc, name, args, out):
         mask, plane = args
         ins, ops = _nbytes((mask, plane)), mask.numel() * 4
     elif name == "gather_rows":
-        idx, op = args
+        idx, op = args[0], _operand(torch, args[1])
         row = op.numel() // op.shape[0] * op.element_size()
         ins, ops = _nbytes((idx,)) + int(torch.unique(idx).numel()) * row, 0
     else:
@@ -324,6 +339,11 @@ def _device_ms(torch, fn, iters: int = 20):
 
 def _outputs(got):
     return got if isinstance(got, tuple) else (got,)
+
+
+def _operand(torch, op):
+    """The tensor of a gather_rows operand (a tensor or a RowOperand)."""
+    return op if isinstance(op, torch.Tensor) else op.op
 
 
 def _check_equal(torch, name, label, got, want) -> int:
@@ -420,7 +440,7 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
         bound_ms, bound_by = kernel_bound(torch, qc, name, args, got)
         lib_ms = None
         if name == "gather_rows":  # the one PyTorch call of the same function
-            idx, op = args
+            idx, op = args[0], _operand(torch, args[1])
             lib_ms = _cuda_ms(torch, lambda: torch.index_select(op, 0, idx),
                               iters)
         say(f"  {name:17s} {label:8s} B={B:<4d} kernel {ms:.4f} ms  plain "
@@ -445,18 +465,21 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
             say(f"  {name:17s} {label:8s} B=1    device time "
                 f"{rec['device_ms']} ms (torch.profiler)")
 
-    # the query chunking on the 10M layouts: more batch sizes, exact ==
+    # the query split on the 10M layouts: more batch sizes, exact ==
     for B in (31, 33, 200):
         for name, args in (
                 ("chain_blocks",
                  _chain_blocks_args(p4, pmat_for(p4, 4, c4_aggs, B))),
                 ("chain_counts",
-                 _chain_counts_args(p5, pmat_for(p5, 5, c5_aggs, B)))):
+                 _chain_counts_args(p5, pmat_for(p5, 5, c5_aggs, B))),
+                ("chain_slot_counts",
+                 _chain_slot_args(p9, pmat_for(p9, 9, c9_aggs, B)))):
             err = _check_equal(torch, name, f"B={B}", getattr(K, name)(*args),
                                getattr(K, name + "_plain")(*args))
             say(f"  {name:17s} 10M      B={B:<4d} max_abs_err {err}")
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
                                                err)
+    gather_host_steps(torch, K, *cases[("gather_rows", "c7", 1)], against)
     if against is not None:
         phase_ab(torch, K, against, {k: v for k, v in cases.items()
                                      if k[0] in AB_KERNELS}, searcher,
@@ -464,6 +487,61 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
     del cases
     torch.cuda.empty_cache()
     return records
+
+
+def gather_host_steps(torch, K, idx, rows, old=None, n: int = 10_000):
+    """gather_rows' host time per call at B = 1, step by step: a host clock
+    around n enqueues of each step on the card (after 100 warm-up calls;
+    the device keeps up, so it is the enqueue), in us per call, then the
+    same with the closing synchronize. The steps: index_select; the wrapper
+    on the plan's RowOperand (the main path); the wrapper on the bare
+    tensor (every operand check on every call); the index checks alone;
+    the output allocation (new_empty, torch.empty); the raw stream handle;
+    the ctypes launch alone into a kept output; the same ctypes call with
+    B = 0, which the C launcher refuses before any CUDA call; with `old`,
+    the other tree's wrapper. index_select and the main-path wrapper run again at the
+    end, in reverse order."""
+    op = rows.op
+    B = idx.shape[0]
+    kept = op.new_empty((B, *rows.tail))
+    stream = torch._C._cuda_getCurrentRawStream(rows.dev)
+    steps = [
+        ("index_select", lambda: torch.index_select(op, 0, idx)),
+        ("gather_rows(RowOperand)", lambda: K.gather_rows(idx, rows)),
+        ("gather_rows(tensor)", lambda: K.gather_rows(idx, op)),
+        ("idx checks", lambda: (idx.dim() == 1 and idx.dtype is torch.int32
+                                and idx.is_contiguous() and idx.is_cuda
+                                and idx.get_device() == rows.dev)),
+        ("new_empty", lambda: op.new_empty((B, *rows.tail))),
+        ("torch.empty", lambda: torch.empty((B, *rows.tail), dtype=op.dtype,
+                                            device=op.device)),
+        ("stream handle",
+         lambda: torch._C._cuda_getCurrentRawStream(rows.dev)),
+        ("ctypes launch", lambda: rows.fn(idx.data_ptr(), B, *rows.args,
+                                          kept.data_ptr(), stream)),
+        ("ctypes call, refused (no launch)",
+         lambda: rows.fn(idx.data_ptr(), 0, *rows.args, kept.data_ptr(),
+                         stream)),
+    ]
+    if old is not None:
+        steps.append(("other tree's gather_rows",
+                      lambda: old.gather_rows(idx, op)))
+    steps += [steps[1], steps[0]]
+    out = []
+    for label, fn in steps:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.append(f"{label} {(t1 - t0) / n * 1e6:.2f} "
+                   f"({(t2 - t0) / n * 1e6:.2f})")
+    say(f"  gather_rows host us per call at B={B}, {n} enqueues each "
+        "(with the closing synchronize): " + "; ".join(out))
 
 
 def edge_operands(torch, qc, R: int, B: int, rng):
@@ -521,14 +599,48 @@ def edge_operands(torch, qc, R: int, B: int, rng):
             [dev(p) for p in pays])
 
 
+def slot_plane(torch, rng, R: int, ns: int):
+    """A slot plane [R] of values in [-1, ns) from `rng`: about 1 row in 8
+    at -1 (no slot), block 3 all slot ns - 1, block 4 all slot 0, block 6
+    all -1."""
+    sp = rng.integers(0, ns, R).astype(np.int32)
+    sp[rng.random(R) < 0.125] = -1
+    blocks = sp.reshape(-1, 32)
+    blocks[3], blocks[4], blocks[6] = ns - 1, 0, -1
+    return torch.from_numpy(sp).to(DEVICE)
+
+
+def gather_operands(torch, rng):
+    """(label, idx, op) edge cases of gather_rows from SEED: B in {1, 128,
+    200} with repeated indices over rows of one 16-byte word, of one whole
+    32 KB chunk and of 6149 words (three chunks and a part); then B = 3
+    rows of the largest row the wrapper accepts (GATHER_ROW_MAX bytes)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cases = []
+    for label, shape, dt in (("rows of 1 word", (50, 2), torch.int64),
+                             ("rows of 1 chunk", (40, 4096), torch.int64),
+                             ("rows of 3.002 chunks", (40, 6149 * 4),
+                              torch.int32)):
+        op = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                           dtype=dt, device=DEVICE)
+        for B in (1, 128, 200):
+            idx = torch.from_numpy(rng.integers(0, shape[0], B)
+                                   .astype(np.int32)).to(DEVICE)
+            cases.append((label, idx, op))
+    return cases
+
+
 def phase_edges(torch, K, qc):
-    """The redesigned chain kernels' edge cases, exact == their plain
-    versions: batch sizes around the warps' query split and past 128, the
-    smallest padded layout (R = 32768) with 8 chain planes and 16 payloads,
-    a tile tail (R = 33152: 12 blocks past the last whole 1024-row tile),
-    and INT32_MIN / INT32_MAX payloads over fully matched blocks (a TRUE
-    program) beside blocks whose avalid is all 0."""
-    say("[4b] chain_blocks / chain_counts edge cases (exact ==)")
+    """The redesigned kernels' edge cases, exact == their plain versions:
+    batch sizes around the warps' query split and past 128, the smallest
+    padded layout (R = 32768) with 8 chain planes and 16 payloads, a tile
+    tail (R = 33152: 12 blocks past the last whole 1024-row tile), and
+    INT32_MIN / INT32_MAX payloads over fully matched blocks (a TRUE
+    program) beside blocks whose avalid is all 0; chain_slot_counts at ns
+    around its 32-slot chunk (1, 4, 32, 33) and at the cap (4096, with B
+    past the 128 kept mask words), over slot_plane; gather_rows over
+    gather_operands. Returns each kernel's largest max_abs_err."""
+    say("[4b] edge cases (exact ==)")
     rng = np.random.default_rng(SEED)
     out = []
     for R, Bs in ((32768, (1, 31, 33, 128, 200)), (33152, (1, 33))):
@@ -550,18 +662,53 @@ def phase_edges(torch, K, qc):
                     (pm, true_op, [], av, pays)))
         out.append(("extremes, matched", "chain_counts",
                     (pm, true_op, [], av)))
-    worst = 0
+        out.append(("matched ns=4", "chain_slot_counts",
+                    (pm, true_op, [], av, slot_plane(torch, rng, R, 4), 4)))
+    for R, Bs, nss in ((32768, (1, 31, 33, 128, 200), (1, 4, 32, 33)),
+                       (33152, (1, 33), (4, 33)),
+                       (32768, (1, 33, 200), (4096,))):
+        for B in Bs:
+            pm, ops, planes, av, _ = edge_operands(torch, qc, R,
+                                                   max(B, 32), rng)
+            # the queries that match most first, so that B = 1 matches rows
+            hits = K.chain_counts_plain(pm, ops, planes, av).sum(1)
+            pm = pm[torch.argsort(hits, descending=True, stable=True)[:B]]
+            for ns in nss:
+                out.append((f"8 planes ns={ns} R={R}", "chain_slot_counts",
+                            (pm, ops, planes, av,
+                             slot_plane(torch, rng, R, ns), ns)))
+    worst = dict.fromkeys(("chain_blocks", "chain_counts",
+                           "chain_slot_counts", "gather_rows"), 0)
     for label, name, args in out:
         got = getattr(K, name)(*args)
         err = _check_equal(torch, name, label, got,
                            getattr(K, name + "_plain")(*args))
-        worst = max(worst, err)
+        worst[name] = max(worst[name], err)
         c = _outputs(got)[0]
-        full = int((c == (32 if name == "chain_blocks" else 128)).sum())
-        say(f"  {name:13s} {label:24s} B={args[0].shape[0]:<4d} "
+        full = int((c == (128 if name == "chain_counts" else 32)).sum())
+        say(f"  {name:17s} {label:26s} B={args[0].shape[0]:<4d} "
             f"max_abs_err {err}  matched {int(c.to(torch.int64).sum())}  "
             f"full groups {full}  empty groups {int((c == 0).sum())}")
+        del got, c
+    del out
+    cases = gather_operands(torch, rng)
+    big = torch.randint(-128, 127, (2, K.GATHER_ROW_MAX), dtype=torch.int8,
+                        device=DEVICE)
+    cases.append(("largest row", torch.tensor([1, 0, 1], dtype=torch.int32,
+                                              device=DEVICE), big))
+    for label, idx, op in cases:
+        got = K.gather_rows(idx, op)
+        err = _check_equal(torch, "gather_rows", label, got,
+                           K.gather_rows_plain(idx, op))
+        worst["gather_rows"] = max(worst["gather_rows"], err)
+        say(f"  {'gather_rows':17s} {label:26s} B={idx.shape[0]:<4d} "
+            f"max_abs_err {err}  row bytes "
+            f"{op.numel() // op.shape[0] * op.element_size()}  distinct "
+            f"rows {int(torch.unique(idx).numel())}")
+        del got
+    del cases, big
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -582,54 +729,72 @@ def load_against(path: str):
     return importlib.import_module("tat_against.ops.kernels")
 
 
+def _other_kernel(torch, old, name):
+    """The other tree's kernel `name`, called as the main path calls this
+    tree's (its gather_rows takes the RowOperand's tensor)."""
+    f = getattr(old, name)
+    if name != "gather_rows":
+        return f
+    return lambda idx, op: f(idx, _operand(torch, op))
+
+
 def phase_ab(torch, K, old, cases, searcher, flagship):
     """Median CUDA-event ms of the other tree's kernel and this tree's on
     the same operands, in turns (old, new, new, old; gather_rows with
     index_select between: old, new, lib, lib, new, old), outputs ==; then
-    c4 end to end through either tree's chain kernels (phase_ab_c4)."""
+    the AB_CONFIGS end to end through either tree's kernels
+    (phase_ab_config)."""
     say("[4c] A/B against the other tree's kernels (old, new, new, old)")
     t0 = time.time()
     old.build()
     say(f"  built the other tree's kernels in {time.time() - t0:.1f}s")
     for (name, label, B), args in cases.items():
-        f_old = lambda a=args, f=getattr(old, name): f(*a)  # noqa: E731
+        f_old = lambda a=args, f=_other_kernel(torch, old, name): f(*a)  # noqa
         f_new = lambda a=args, f=getattr(K, name): f(*a)  # noqa: E731
         err = _check_equal(torch, name, f"{label} B={B} old vs new",
                            f_new(), f_old())
         turns = [f_old, f_new, f_new, f_old]
         if name == "gather_rows":
-            lib = lambda a=args: torch.index_select(a[1], 0, a[0])  # noqa
+            lib = lambda a=args: torch.index_select(  # noqa: E731
+                _operand(torch, a[1]), 0, a[0])
             turns[2:2] = [lib, lib]
         t = [_cuda_ms(torch, f, 30) for f in turns]
         new_ms, old_ms = t[1] + t[-2], t[0] + t[-1]
-        say(f"  {name:13s} {label:8s} B={B:<4d} "
+        say(f"  {name:17s} {label:8s} B={B:<4d} "
             + " / ".join(f"{n} {x:.4f}" for n, x in zip(
                 ["old", "new", "lib", "lib", "new", "old"] if len(t) == 6
                 else ["old", "new", "new", "old"], t))
             + f" ms  speed-up {old_ms / new_ms:.2f}x  max_abs_err {err}")
-    phase_ab_c4(torch, K, old, searcher, flagship)
+    for n, names in AB_CONFIGS:
+        phase_ab_config(torch, K, old, searcher, flagship, n, names)
 
 
-def phase_ab_c4(torch, K, old, searcher, flagship, reps: int = 3):
-    """c4 (chain_blocks' main-path user) end to end with the other tree's
-    chain kernels swapped into this tree's kernels module and with its
-    own, in turns (old, new, new, old) `reps` times: msearch ms/q with
-    dedup off (256 requests) and the p50 of 20 single queries, fruits ==;
-    then one dedup-off group of each under torch.profiler."""
-    _, q, aggs = flagship.judged_configs()[3]
-    reqs = flagship.varied_requests(4, aggs, 256)
-    mine = (K.chain_blocks, K.chain_counts)
-    sides = {"old": (old.chain_blocks, old.chain_counts), "new": mine}
+def phase_ab_config(torch, K, old, searcher, flagship, n, names,
+                    reps: int = 3):
+    """Config n end to end with the other tree's kernels `names` swapped
+    into this tree's kernels module and with its own, in turns (old, new,
+    new, old) `reps` times: msearch ms/q with dedup off (256 requests) and
+    the p50 of 20 single queries, fruits ==; then one dedup-off group of
+    each under torch.profiler."""
+    _, label, q, aggs = {c[0]: c for c in all_configs(flagship)}[n]
+    reqs = flagship.varied_requests(n, aggs, 256)
+    sides = {"old": {k: _other_kernel(torch, old, k) for k in names},
+             "new": {k: getattr(K, k) for k in names}}
     dedup_on = searcher.config
     searcher.config = dataclasses.replace(dedup_on, msearch_dedup=False)
     msq = {"old": [], "new": []}
     p50 = {"old": [], "new": []}
     try:
         want = searcher.agg_search(q, aggs)
+        batch = searcher.agg_search_batch(reqs)
         for side in ("old", "new", "new", "old") * reps:
-            K.chain_blocks, K.chain_counts = sides[side]
+            for k, f in sides[side].items():
+                setattr(K, k, f)
             check(searcher.agg_search(q, aggs) == want,
-                  f"c4 through the {side} kernels != this tree's")
+                  f"c{n} through the {side} kernels != this tree's")
+            if side == "old" and not msq["old"]:
+                check(searcher.agg_search_batch(reqs) == batch,
+                      f"c{n} msearch through the old kernels != this tree's")
             msq[side].append(_msearch_ms_per_q(torch, searcher, reqs))
             times = []
             for rq, ra in reqs[:20]:
@@ -637,15 +802,19 @@ def phase_ab_c4(torch, K, old, searcher, flagship, reps: int = 3):
                 searcher.agg_search(rq, ra)
                 times.append((time.perf_counter() - t0) * 1e3)
             p50[side].append(statistics.median(times))
+        cap = min(dedup_on.max_batch, searcher._program_for(q, aggs).batch_cap
+                  or dedup_on.max_batch)
         for side in ("old", "new"):
-            K.chain_blocks, K.chain_counts = sides[side]
-            say(f"  c4 {side} kernels:", end="")
-            _profile_group(torch, searcher, reqs[:dedup_on.max_batch])
+            for k, f in sides[side].items():
+                setattr(K, k, f)
+            say(f"  c{n} {side} kernels:", end="")
+            _profile_group(torch, searcher, reqs[:cap])
     finally:
-        K.chain_blocks, K.chain_counts = mine
+        for k, f in sides["new"].items():
+            setattr(K, k, f)
         searcher.config = dedup_on
     for side in ("old", "new"):
-        say(f"  c4 end to end, {side} kernels: msearch dedup off ms/q "
+        say(f"  {label} end to end, {side} kernels: msearch dedup off ms/q "
             + " ".join(f"{x:.4f}" for x in msq[side])
             + f" (median {statistics.median(msq[side]):.4f}); p50 single ms "
             + " ".join(f"{x:.3f}" for x in p50[side])
@@ -838,9 +1007,9 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="also time chain_blocks, chain_counts and "
-                         "gather_rows against the port package of the tree "
-                         "at DIR, in turns")
+                    help="also time the AB_KERNELS, and c4, c9 and c7 end "
+                         "to end, against the port package of the tree at "
+                         "DIR, in turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -885,10 +1054,8 @@ def main(argv=None) -> int:
     records = phase_kernels(torch, K, qc, tt, searcher, flagship, against)
     lap("kernels", t0)
     t0 = time.time()
-    worst = phase_edges(torch, K, qc)
-    for name in ("chain_blocks", "chain_counts"):
-        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
-                                           worst)
+    for name, err in phase_edges(torch, K, qc).items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     lap("edge cases", t0)
     oracle = idx.oracle_searcher()
     counts = dict.fromkeys(K.launches, 0)

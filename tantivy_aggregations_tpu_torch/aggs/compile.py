@@ -780,6 +780,8 @@ class Program:
         p["member_op"] = {
             "spec": spec, "key": key, "card": card, "card_pad": card_pad,
             "cols": cols, "pay": pay_meta,
+            # checked once here, so a query's gather checks only its index
+            "rows": K.RowOperand(layout.cache[key]),
             "tcol": self._pcol[k + (":t" if spec["stringy"] else ":t0")],
             "tvcol": None if spec["stringy"] else self._pcol[k + ":tv0"]}
         return True
@@ -1149,10 +1151,10 @@ class Program:
         validity param zeroes an out-of-domain value's row."""
         mo = p["member_op"]
         card, cols = mo["card"], mo["cols"]
-        op = arrays[mo["key"]]
+        op = mo["rows"]
         t = pmat[:, mo["tcol"]]
         tv = (t >= 0) if mo["tvcol"] is None else pmat[:, mo["tvcol"]]
-        idx = t.clamp(0, op.shape[0] - 1).contiguous()
+        idx = t.clamp(0, op.op.shape[0] - 1).contiguous()
         rows = K.gather_rows(idx, op).reshape(-1, len(cols), mo["card_pad"])
         rows = rows[..., :card] * tv.to(torch.int64)[:, None, None]
         groups = {gk: rows[:, j] for j, gk in enumerate(cols)}

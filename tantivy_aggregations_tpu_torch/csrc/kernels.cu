@@ -15,7 +15,7 @@
 // 4. chain_slot_counts: per query, the chain mask's matched rows in each
 //    32-row block split by a static composite slot plane -> [B, ns, R/32]
 //    (slot_rank nested percentiles). Replaces _chain_slot_counts_batched /
-//    make_chain_slot_counts.
+//    make_chain_slot_counts. The same tile kernel as 2 and 3.
 // 5. gather_rows: B whole rows of a row-major operand, picked by an int32
 //    index array in device memory (member operands). Replaces
 //    _gather_rows_batched / make_gather_rows.
@@ -41,71 +41,9 @@ constexpr int OP_EQ_WIDE_GUARD = 8;
 constexpr int OP_WIDTH = 8;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 8;  // warps per block of chain_slot_kernel
-
-// Evaluate one row's mask (chain_slot_kernel). `vals` points at this
-// lane's slot of plane 0 in shared memory; plane p sits 32 ints further per
-// p. `prm` is the query's param row (uniform across the warp, so the loads
-// broadcast).
-__device__ __forceinline__ bool eval_row(const int* ops, int n_ops,
-                                         const int* vals,
-                                         const int* __restrict__ prm) {
-  unsigned stack = 0u;
-  int sp = 0;
-  for (int i = 0; i < n_ops; ++i) {
-    const int* o = ops + i * OP_WIDTH;
-    bool r;
-    switch (o[0]) {
-      case OP_TRUE:
-        r = true;
-        break;
-      case OP_AND:
-      case OP_OR: {
-        const bool b = (stack >> (sp - 1)) & 1u;
-        const bool a = (stack >> (sp - 2)) & 1u;
-        sp -= 2;
-        r = (o[0] == OP_AND) ? (a && b) : (a || b);
-        break;
-      }
-      case OP_NOT:
-        sp -= 1;
-        r = !((stack >> sp) & 1u);
-        break;
-      case OP_RANGE32: {
-        const int v = vals[o[1] * 32];
-        r = (v >= prm[o[2]]) && (v <= prm[o[3]]);
-        break;
-      }
-      case OP_EQ32:
-        r = vals[o[1] * 32] == prm[o[2]];
-        break;
-      case OP_EQ32_GUARD:
-        r = (vals[o[1] * 32] == prm[o[2]]) && (prm[o[3]] > 0);
-        break;
-      case OP_RANGE_WIDE: {
-        const int hi = vals[o[1] * 32];
-        const int lo = vals[o[2] * 32];
-        const bool ge = (hi > prm[o[3]]) || (hi == prm[o[3]] && lo >= prm[o[4]]);
-        const bool le = (hi < prm[o[5]]) || (hi == prm[o[5]] && lo <= prm[o[6]]);
-        r = ge && le;
-        break;
-      }
-      case OP_EQ_WIDE_GUARD:
-        r = (vals[o[1] * 32] == prm[o[3]]) && (vals[o[2] * 32] == prm[o[4]]) &&
-            (prm[o[5]] > 0);
-        break;
-      default:
-        r = false;
-        break;
-    }
-    stack = (stack & ~(1u << sp)) | (static_cast<unsigned>(r) << sp);
-    ++sp;
-  }
-  return stack & 1u;
-}
 
 // ---------------------------------------------------------------------------
-// chain_blocks / chain_counts: lane per 32-row block
+// chain_blocks / chain_counts / chain_slot_counts: lane per 32-row block
 // ---------------------------------------------------------------------------
 //
 // Bound on the H100: one pass over the chain planes, the payload planes and
@@ -144,6 +82,22 @@ __device__ __forceinline__ bool eval_row(const int* ops, int n_ops,
 // g0/4 + k, 8 consecutive int32 per warp and query. Plane and payload
 // pointers arrive by value in a __grid_constant__ struct (no device
 // pointer array, no per-call copy).
+//
+// chain_slot_counts (SLOTS) on the same tile. Bound: one pass over the
+// chain planes, the slot plane and avalid per batch, plus ns int32 stores
+// per query and 32-row block ([B, ns, R/32], most of the bytes at B = 128).
+// The slot plane is staged as one more source of the tile. Slot words are
+// query-independent (the TPU kernel's hoisted one-hots): for a chunk of up
+// to SLOT_CHUNK slots, word j of lane l's block has bit r set where row r
+// holds slot base + j; the CTA builds them in shared memory once per tile
+// and chunk (zeroed, then each thread ORs in 4 rows of one block with
+// shared atomicOr; lanes sit on distinct blocks, so distinct banks). Per
+// query a lane evaluates w = eval_word(...) & avalid word once per tile;
+// for each slot j it stores __popc(w & word j) at block g0 + lane, so a
+// warp's stores are 32 consecutive int32 (128 B) per (query, slot). When
+// ns spans several chunks, each query's word is kept in shared memory
+// (qb queries at a time) and the chunks loop over the kept words, so the
+// mask is still evaluated once per (tile, query).
 
 constexpr int MAX_SRC = 24;             // 8 chain planes + 16 payloads
 constexpr int MAX_STACK = 32;           // query/compile.py MAX_STACK
@@ -154,9 +108,13 @@ constexpr int SRC_INTS = TILE_BLOCKS * BLOCK_STRIDE;
 constexpr int AV_STRIDE = 48;           // staged avalid bytes per block
 constexpr int AV_BYTES = TILE_BLOCKS * AV_STRIDE;
 constexpr int CHAIN_THREADS = 256;      // at most 8 warps (ops/kernels.py)
+constexpr int SLOT_CHUNK = 32;          // slots whose words a CTA holds
+
+// what a chain tile kernel computes
+enum ChainMode { BLOCKS = 0, COUNTS = 1, SLOTS = 2 };
 
 struct ChainSrc {
-  const int* p[MAX_SRC];  // chain planes, then payloads
+  const int* p[MAX_SRC];  // chain planes, then payloads or the slot plane
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -354,24 +312,63 @@ __device__ __forceinline__ long long masked_sum(const int* v, unsigned w) {
          (static_cast<long long>(s2) << 16) + static_cast<long long>(s3) * (1LL << 24);
 }
 
-// COUNTS_ONLY == false: chain_blocks (counts [B, n_blocks] + sums
-// [B, n_pay, n_blocks]); true: chain_counts (counts [B, n_blocks / 4]).
-template <bool COUNTS_ONLY>
-__global__ void __launch_bounds__(CHAIN_THREADS, 2)
+// Slot words of the staged slot blocks `sv` for slots [base, base + n):
+// s_sw[j * 32 + l] has bit r set where row r of block l holds slot
+// base + j. The whole CTA builds them (it must reach this call together).
+__device__ __forceinline__ void slot_words(unsigned* s_sw, const int* sv,
+                                           int base, int n) {
+  for (int i = threadIdx.x; i < n * 32; i += blockDim.x) s_sw[i] = 0u;
+  __syncthreads();
+  const int l = threadIdx.x & 31;
+  const int4* v4 = reinterpret_cast<const int4*>(sv + l * BLOCK_STRIDE);
+  for (int q = threadIdx.x >> 5; q < 8; q += blockDim.x >> 5) {
+    const int4 x = v4[q];
+    const int v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // unsigned: slot -1, and what a dead tail block holds, fall outside
+      const unsigned j =
+          static_cast<unsigned>(v[k]) - static_cast<unsigned>(base);
+      if (j < static_cast<unsigned>(n))
+        atomicOr(s_sw + j * 32 + l, 1u << (4 * q + k));
+    }
+  }
+  __syncthreads();
+}
+
+// The query's param row into the warp's s_prm (the caller syncs the warp).
+__device__ __forceinline__ void load_params(int* s_prm, const int* pmat,
+                                            int b, int P, int lane) {
+  for (int i = lane; i < P; i += 32)
+    s_prm[i] = pmat[static_cast<long long>(b) * P + i];
+}
+
+// MODE BLOCKS: chain_blocks (counts [B, n_blocks] + sums [B, n_aux,
+// n_blocks]; n_aux payloads). COUNTS: chain_counts (counts
+// [B, n_blocks / 4]; n_aux 0). SLOTS: chain_slot_counts (counts
+// [B, ns, n_blocks]; n_aux 1, the slot plane; qb queries' words kept at a
+// time when ns > SLOT_CHUNK). Four CTAs of 8 warps an SM: the bounds keep
+// every mode within 64 registers a thread (SLOTS spills a few bytes).
+template <int MODE>
+__global__ void __launch_bounds__(CHAIN_THREADS, 4)
 chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
-                  int n_pay, const int* __restrict__ pmat, int B, int P,
+                  int n_aux, const int* __restrict__ pmat, int B, int P,
                   const int* __restrict__ ops, int n_ops,
                   const signed char* __restrict__ avalid, long long n_blocks,
-                  int stages, int* __restrict__ counts,
+                  int stages, int ns, int qb, int* __restrict__ counts,
                   long long* __restrict__ sums) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
-  const int n_src = n_planes + n_pay;
+  const int n_src = n_planes + n_aux;
   const int stage_bytes = n_src * SRC_INTS * 4 + AV_BYTES;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   int* s_ops = reinterpret_cast<int*>(tile_smem + stages * stage_bytes);
   int* s_prm = s_ops + n_ops * OP_WIDTH + warp * P;
+  // SLOTS: the chunk's slot words, then the kept query words
+  unsigned* s_sw =
+      reinterpret_cast<unsigned*>(s_ops + n_ops * OP_WIDTH + n_warps * P);
+  unsigned* s_qw = s_sw + SLOT_CHUNK * 32;
   for (int i = threadIdx.x; i < n_ops * OP_WIDTH; i += blockDim.x)
     s_ops[i] = ops[i];
 
@@ -393,9 +390,9 @@ chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
     __syncthreads();
 
     unsigned char* buf = tile_smem + (stages == 2 ? (it & 1) * stage_bytes : 0);
-    if (n_pay > 0) {
+    if (MODE == BLOCKS && n_aux > 0) {
       int* pv = reinterpret_cast<int*>(buf) + n_planes * SRC_INTS;
-      for (int i = threadIdx.x; i < n_pay * TILE_BLOCKS * 8; i += blockDim.x)
+      for (int i = threadIdx.x; i < n_aux * TILE_BLOCKS * 8; i += blockDim.x)
         byte_slice(pv + (i >> 8) * SRC_INTS + ((i >> 3) & 31) * BLOCK_STRIDE +
                    (i & 7) * 4);
       __syncthreads();
@@ -412,26 +409,64 @@ chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
                    positive_bytes(a1.z) << 24 | positive_bytes(a1.w) << 28
              : 0u;
     const int* blk = reinterpret_cast<const int*>(buf) + lane * BLOCK_STRIDE;
-    for (int b = warp; b < B; b += n_warps) {
-      for (int i = lane; i < P; i += 32)
-        s_prm[i] = pmat[static_cast<long long>(b) * P + i];
-      __syncwarp();
-      const unsigned w = eval_word(s_ops, n_ops, blk, s_prm) & av;
-      int c = __popc(w);
-      if (COUNTS_ONLY) {
-        c += __shfl_down_sync(FULL, c, 1);
-        c += __shfl_down_sync(FULL, c, 2);
-        if (live && (lane & 3) == 0)
-          counts[static_cast<long long>(b) * (n_blocks >> 2) + (g >> 2)] = c;
-      } else if (live) {
-        counts[static_cast<long long>(b) * n_blocks + g] = c;
-        for (int l = 0; l < n_pay; ++l) {
-          const long long s =
-              w ? masked_sum(blk + (n_planes + l) * SRC_INTS, w) : 0LL;
-          sums[(static_cast<long long>(b) * n_pay + l) * n_blocks + g] = s;
+    if (MODE == SLOTS) {
+      const int* sv = reinterpret_cast<const int*>(buf) + n_planes * SRC_INTS;
+      const bool keep = ns > SLOT_CHUNK;
+      for (int q0 = 0; q0 < B; q0 += qb) {
+        const int q1 = min(B, q0 + qb);
+        if (keep) {  // this warp's queries of the group, read back by it
+          for (int b = q0 + warp; b < q1; b += n_warps) {
+            load_params(s_prm, pmat, b, P, lane);
+            __syncwarp();
+            s_qw[(b - q0) * 32 + lane] =
+                eval_word(s_ops, n_ops, blk, s_prm) & av;
+            __syncwarp();
+          }
+        }
+        for (int base = 0; base < ns; base += SLOT_CHUNK) {
+          const int n_here = min(SLOT_CHUNK, ns - base);
+          slot_words(s_sw, sv, base, n_here);
+          for (int b = q0 + warp; b < q1; b += n_warps) {
+            unsigned w;
+            if (keep) {
+              w = s_qw[(b - q0) * 32 + lane];
+            } else {
+              load_params(s_prm, pmat, b, P, lane);
+              __syncwarp();
+              w = eval_word(s_ops, n_ops, blk, s_prm) & av;
+              __syncwarp();
+            }
+            if (live) {
+              int* out =
+                  counts + (static_cast<long long>(b) * ns + base) * n_blocks + g;
+              for (int j = 0; j < n_here; ++j)
+                out[j * n_blocks] = __popc(w & s_sw[j * 32 + lane]);
+            }
+          }
+          __syncthreads();  // s_sw is rebuilt for the next chunk
         }
       }
-      __syncwarp();  // s_prm is rewritten by the next query
+    } else {
+      for (int b = warp; b < B; b += n_warps) {
+        load_params(s_prm, pmat, b, P, lane);
+        __syncwarp();
+        const unsigned w = eval_word(s_ops, n_ops, blk, s_prm) & av;
+        int c = __popc(w);
+        if (MODE == COUNTS) {
+          c += __shfl_down_sync(FULL, c, 1);
+          c += __shfl_down_sync(FULL, c, 2);
+          if (live && (lane & 3) == 0)
+            counts[static_cast<long long>(b) * (n_blocks >> 2) + (g >> 2)] = c;
+        } else if (live) {
+          counts[static_cast<long long>(b) * n_blocks + g] = c;
+          for (int l = 0; l < n_aux; ++l) {
+            const long long s =
+                w ? masked_sum(blk + (n_planes + l) * SRC_INTS, w) : 0LL;
+            sums[(static_cast<long long>(b) * n_aux + l) * n_blocks + g] = s;
+          }
+        }
+        __syncwarp();  // s_prm is rewritten by the next query
+      }
     }
     __syncthreads();  // the buffer is restaged next
     if (stages == 1) {
@@ -442,89 +477,47 @@ chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
   cp_async_wait<0>();
 }
 
-// chain_slot_counts: a warp per 32-row block, with the matched rows of
-// each query split by the block's static slot values. Bound on the H100:
-// one pass over the chain planes + avalid + slot per BATCH, then per query
-// one mask evaluation and ns int32 stores, strided by n_groups (the
-// [B, ns, G] layout the cumsum along G wants; the strided stores are a
-// known cost). The slot ballots sb (lane j of a 32-slot chunk holds the
-// rows of slot base + j) do not depend on the query, so they are built once
-// per block and chunk; past 32 slots the chunk loop re-evaluates each
-// query's mask.
-__global__ void chain_slot_kernel(const int* __restrict__ pmat, int B, int P,
-                                  const int* __restrict__ ops, int n_ops,
-                                  const int* const* __restrict__ planes,
-                                  int n_planes,
-                                  const signed char* __restrict__ avalid,
-                                  const int* __restrict__ slot, int ns,
-                                  long long n_groups, int* __restrict__ counts) {
-  extern __shared__ int smem[];
-  int* s_ops = smem;
-  for (int i = threadIdx.x; i < n_ops * OP_WIDTH; i += blockDim.x)
-    s_ops[i] = ops[i];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int* wv = smem + n_ops * OP_WIDTH + warp * (n_planes * 32);
-
-  for (long long g = static_cast<long long>(blockIdx.x) * WARPS + warp;
-       g < n_groups; g += static_cast<long long>(gridDim.x) * WARPS) {
-    const long long row = g * 32 + lane;
-    const bool av = avalid[row] > 0;
-    const int sv = slot[row];
-    int* vals = wv + lane;
-    for (int p = 0; p < n_planes; ++p) vals[p * 32] = planes[p][row];
-    for (int base = 0; base < ns; base += 32) {
-      const int n_here = min(32, ns - base);
-      unsigned sb = 0u;
-      for (int j = 0; j < n_here; ++j) {
-        const unsigned bj = __ballot_sync(FULL, sv == base + j);
-        if (lane == j) sb = bj;
-      }
-      for (int b = 0; b < B; ++b) {
-        const int* prm = pmat + static_cast<long long>(b) * P;
-        const bool m = av && eval_row(s_ops, n_ops, vals, prm);
-        const unsigned bm = __ballot_sync(FULL, m);
-        if (lane < n_here)
-          counts[(static_cast<long long>(b) * ns + base + lane) * n_groups + g] =
-              __popc(bm & sb);
-      }
-    }
-  }
-}
-
 // gather_rows: out[b] = op[idx[b]] for rows of row_vec 16-byte words.
-// Bound: HBM bytes, 2 x B x row bytes (a read and a write of each row).
-// The grid is (B, row chunks): blockIdx.x walks the batch, so the blocks in
-// flight copy the same chunk of every picked row, and a row picked twice in
-// a batch is read the second time from L2. Each thread makes one pass: it
-// starts GR_UNROLL int4 loads before its stores (several loads in flight
-// per thread), neighbouring threads on neighbouring addresses. The index
-// lives in device memory (the TPU kernel's scalar prefetch) and is clamped
-// into [0, n_rows) so a bad index cannot read outside the operand; callers
+// Bound on the H100: HBM bytes, each distinct picked row read once and B
+// rows written (c7 at B = 128: 51 MB read, 205 MB written). Design: one
+// CTA per work item of GR_CHUNK words (16 KB), items chunk-major: CTA i
+// copies chunk i / B of row idx[i % B], so the CTAs in flight copy one
+// stretch of every picked row and a row picked twice is read the second
+// time from L2. A thread starts GR_UNROLL 16-byte loads on the read-only
+// path before its stores, neighbouring threads on neighbouring words. The
+// stores are streaming (st.global.cs, evict-first), so the B written rows
+// do not push the picked rows out of the 50 MB L2. (A persistent grid of
+// the resident CTAs walking the same items, and 1-D bulk copies through
+// shared memory, both copied slower on the card.) The index lives in
+// device memory (the TPU kernel's scalar prefetch) and is clamped into
+// [0, n_rows), so a bad index cannot read outside the operand; callers
 // clamp it already.
 constexpr int GR_THREADS = 256;
 constexpr int GR_UNROLL = 4;
+constexpr int GR_CHUNK = GR_THREADS * GR_UNROLL;
 
-__global__ void gather_rows_kernel(const int* __restrict__ idx,
-                                   const int4* __restrict__ op,
-                                   long long n_rows, long long row_vec,
-                                   int4* __restrict__ out) {
-  const long long b = blockIdx.x;
-  const long long r = min(max(static_cast<long long>(idx[b]), 0LL), n_rows - 1);
+__global__ void __launch_bounds__(GR_THREADS)
+gather_rows_kernel(const int* __restrict__ idx, int B,
+                   const int4* __restrict__ op, long long n_rows,
+                   long long row_vec, int4* __restrict__ out) {
+  const long long c = blockIdx.x / B;
+  const int b = static_cast<int>(blockIdx.x - c * B);
+  const long long r =
+      min(max(static_cast<long long>(__ldg(idx + b)), 0LL), n_rows - 1);
   const int4* src = op + r * row_vec;
   int4* dst = out + b * row_vec;
-  const long long step = static_cast<long long>(gridDim.y) * blockDim.x;
-  for (long long i0 = static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x;
-       i0 < row_vec; i0 += step * GR_UNROLL) {
-    int4 v[GR_UNROLL];
+  const long long end = min((c + 1) * GR_CHUNK, row_vec);
+  const long long w0 = c * GR_CHUNK + threadIdx.x;
+  int4 v[GR_UNROLL];
 #pragma unroll
-    for (int u = 0; u < GR_UNROLL; ++u)
-      if (i0 + u * step < row_vec) v[u] = src[i0 + u * step];
+  for (int u = 0; u < GR_UNROLL; ++u) {
+    const long long w = w0 + u * GR_THREADS;
+    if (w < end) v[u] = __ldg(src + w);
+  }
 #pragma unroll
-    for (int u = 0; u < GR_UNROLL; ++u)
-      if (i0 + u * step < row_vec) dst[i0 + u * step] = v[u];
+  for (int u = 0; u < GR_UNROLL; ++u) {
+    const long long w = w0 + u * GR_THREADS;
+    if (w < end) __stcs(dst + w, v[u]);
   }
 }
 
@@ -592,67 +585,73 @@ int grid_for(long long work, int per_block, int cap) {
   return g < 1 ? 1 : static_cast<int>(g);
 }
 
-// The launch shape (warps, stages, smem bytes) comes from the wrapper
-// (ops/kernels.py chain_plan); the grid is the resident CTAs of the card,
-// each walking tiles tile, tile + grid, ... (the occupancy query is cached
-// per shape).
-template <bool COUNTS_ONLY>
-int launch_chain_tiles(const void* const* srcs, int n_planes, int n_pay,
+// Resident CTAs of `kern` on the current device at (threads, smem), with
+// the dynamic shared memory attribute raised first where smem needs it;
+// cached per shape in `c`, one Occupancy per kernel.
+struct Occupancy {
+  int smem_attr = 48 * 1024, threads = -1, smem = -1, dev = -1, resident = 0;
+};
+
+template <class K>
+int resident_ctas(Occupancy& c, K kern, int threads, int smem) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != c.dev) c.smem_attr = 48 * 1024;
+  if (smem > c.smem_attr) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    c.smem_attr = smem;
+  }
+  if (threads != c.threads || smem != c.smem || dev != c.dev) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    c.resident = (per_sm > 0 ? per_sm : 1) * sms;
+    c.threads = threads;
+    c.smem = smem;
+    c.dev = dev;
+  }
+  return c.resident;
+}
+
+// The launch shape (warps, stages, smem bytes, and for SLOTS the kept
+// query words qb) comes from the wrapper (ops/kernels.py chain_plan /
+// slot_plan); the grid is the resident CTAs of the card, each walking
+// tiles tile, tile + grid, ...
+template <int MODE>
+int launch_chain_tiles(const void* const* srcs, int n_planes, int n_aux,
                        const int* pmat, int B, int P, const int* ops,
                        int n_ops, const signed char* avalid,
                        long long n_blocks, int warps, int stages, int smem,
-                       int* counts, long long* sums, cudaStream_t stream) {
-  if (n_planes < 0 || n_pay < 0 || n_planes + n_pay > MAX_SRC || warps < 1 ||
-      warps * 32 > CHAIN_THREADS || (stages != 1 && stages != 2))
+                       int ns, int qb, int* counts, long long* sums,
+                       cudaStream_t stream) {
+  if (n_planes < 0 || n_aux < 0 || n_planes + n_aux > MAX_SRC || warps < 1 ||
+      warps * 32 > CHAIN_THREADS || (stages != 1 && stages != 2) ||
+      (MODE == SLOTS && (n_aux != 1 || ns < 1 || qb < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   ChainSrc src{};
-  for (int i = 0; i < n_planes + n_pay; ++i)
+  for (int i = 0; i < n_planes + n_aux; ++i)
     src.p[i] = static_cast<const int*>(srcs[i]);
-  auto kern = chain_tile_kernel<COUNTS_ONLY>;
-  static int smem_attr = 48 * 1024;
-  static int last_warps = -1, last_smem = -1, last_dev = -1, resident = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != last_dev) smem_attr = 48 * 1024;
-  if (smem > smem_attr) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    smem_attr = smem;
-  }
-  if (warps != last_warps || smem != last_smem || dev != last_dev) {
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, warps * 32,
-                                                  smem);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    resident = (per_sm > 0 ? per_sm : 1) * sms;
-    last_warps = warps;
-    last_smem = smem;
-    last_dev = dev;
-  }
+  static Occupancy occ;
+  auto kern = chain_tile_kernel<MODE>;
+  const int resident = resident_ctas(occ, kern, warps * 32, smem);
   const long long n_tiles = (n_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS;
   const int grid = grid_for(n_tiles, 1, resident);
-  kern<<<grid, warps * 32, smem, stream>>>(src, n_planes, n_pay, pmat, B, P,
+  kern<<<grid, warps * 32, smem, stream>>>(src, n_planes, n_aux, pmat, B, P,
                                            ops, n_ops, avalid, n_blocks,
-                                           stages, counts, sums);
+                                           stages, ns, qb, counts, sums);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_chain_slot(const int* pmat, int B, int P, const int* ops, int n_ops,
-                      const int* const* planes, int n_planes,
-                      const signed char* avalid, const int* slot, int ns,
-                      long long n_groups, int* counts, cudaStream_t stream) {
-  const size_t shmem =
-      sizeof(int) * (static_cast<size_t>(n_ops) * OP_WIDTH +
-                     static_cast<size_t>(WARPS) * n_planes * 32);
-  if (shmem > 48 * 1024) {
-    cudaFuncSetAttribute(chain_slot_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(shmem));
-  }
-  const int grid = grid_for(n_groups, WARPS, 132 * 16);
-  chain_slot_kernel<<<grid, WARPS * 32, shmem, stream>>>(
-      pmat, B, P, ops, n_ops, planes, n_planes, avalid, slot, ns, n_groups,
-      counts);
+// One CTA per (chunk, row) item; the wrapper keeps the items within
+// gridDim.x's 2^31 - 1.
+int launch_gather(const int* idx, int B, const int4* op, long long n_rows,
+                  long long row_vec, int4* out, cudaStream_t stream) {
+  const long long items = (row_vec + GR_CHUNK - 1) / GR_CHUNK * B;
+  if (B < 1 || n_rows < 1 || row_vec < 1 || items > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gather_rows_kernel<<<static_cast<unsigned>(items), GR_THREADS, 0, stream>>>(
+      idx, B, op, n_rows, row_vec, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -679,11 +678,11 @@ int tat_chain_blocks(const void* const* srcs, int n_planes, int n_pay,
                      int n_ops, const void* avalid, long long n_blocks,
                      int warps, int stages, int smem, void* counts,
                      void* sums, void* stream) {
-  return launch_chain_tiles<false>(
+  return launch_chain_tiles<BLOCKS>(
       srcs, n_planes, n_pay, static_cast<const int*>(pmat), B, P,
       static_cast<const int*>(ops), n_ops,
       static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
-      static_cast<int*>(counts), static_cast<long long*>(sums),
+      0, 0, static_cast<int*>(counts), static_cast<long long*>(sums),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -695,35 +694,34 @@ int tat_chain_counts(const void* const* srcs, int n_planes, int n_pay,
                      void* sums, void* stream) {
   if (n_pay != 0 || sums != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_chain_tiles<true>(
+  return launch_chain_tiles<COUNTS>(
       srcs, n_planes, 0, static_cast<const int*>(pmat), B, P,
       static_cast<const int*>(ops), n_ops,
       static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
-      static_cast<int*>(counts), nullptr, static_cast<cudaStream_t>(stream));
+      0, 0, static_cast<int*>(counts), nullptr,
+      static_cast<cudaStream_t>(stream));
 }
 
-int tat_chain_slot_counts(const void* pmat, int B, int P, const void* ops,
-                          int n_ops, const void* planes, int n_planes,
-                          const void* avalid, const void* slot, int ns,
-                          long long n_groups, void* counts, void* stream) {
-  return launch_chain_slot(
-      static_cast<const int*>(pmat), B, P, static_cast<const int*>(ops), n_ops,
-      static_cast<const int* const*>(planes), n_planes,
-      static_cast<const signed char*>(avalid), static_cast<const int*>(slot),
-      ns, n_groups, static_cast<int*>(counts),
+// srcs: host array of n_planes chain-plane pointers, then the slot plane's
+int tat_chain_slot_counts(const void* const* srcs, int n_planes,
+                          const void* pmat, int B, int P, const void* ops,
+                          int n_ops, const void* avalid, long long n_blocks,
+                          int warps, int stages, int smem, int ns, int qb,
+                          void* counts, void* stream) {
+  return launch_chain_tiles<SLOTS>(
+      srcs, n_planes, 1, static_cast<const int*>(pmat), B, P,
+      static_cast<const int*>(ops), n_ops,
+      static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
+      ns, qb, static_cast<int*>(counts), nullptr,
       static_cast<cudaStream_t>(stream));
 }
 
 int tat_gather_rows(const void* idx, int B, const void* op, long long n_rows,
                     long long row_vec, void* out, void* stream) {
-  // one pass per thread: GR_UNROLL words each (the wrapper keeps the chunk
-  // count within gridDim.y's 65535)
-  const int gy = grid_for(row_vec, GR_THREADS * GR_UNROLL, INT_MAX);
-  dim3 grid(B, gy);
-  gather_rows_kernel<<<grid, GR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const int4*>(op), n_rows,
-      row_vec, static_cast<int4*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather(static_cast<const int*>(idx), B,
+                       static_cast<const int4*>(op), n_rows, row_vec,
+                       static_cast<int4*>(out),
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -36,18 +36,27 @@ chain_counts — replaces `_chain_counts_batched` / `make_chain_counts`.
 chain_slot_counts — replaces `_chain_slot_counts_batched` /
   `make_chain_slot_counts`. Bound: one pass over the chain planes, avalid
   and the static slot plane per batch, plus ns int32 stores per 32 rows per
-  query. Design: a warp per 32-row block, a lane per row, the block's
-  planes loaded into shared memory once; the per-slot row ballots are
-  built once per block (query-independent, the TPU kernel's hoisted
-  one-hots), then each query costs one per-row op-list evaluation, one
-  ballot and a __popc per slot. Slots go in chunks of 32, one per lane.
+  query (the [B, ns, R/32] output, most of the bytes at B = 128). Design
+  (redesigned for Hopper on chain_blocks' tile kernel): the slot plane is
+  staged as one more source of the tile; per tile the CTA builds each
+  block's slot words (bit r = row r holds slot s: the TPU kernel's hoisted
+  one-hots) in shared memory, 32 slots at a time; per query a lane builds
+  its block's mask word once per tile and stores __popc(mask & slot word)
+  per slot, so a warp writes 32 consecutive counts per (query, slot).
+  Past 32 slots the mask words of up to QWORD_BATCH queries are kept in
+  shared memory while the slot chunks loop. `slot_plan` sizes the launch;
+  the pointers go by value, as for chain_blocks.
 gather_rows — replaces `_gather_rows_batched` / `make_gather_rows`.
-  Bound: HBM bytes (each picked row read once and written once). Design:
-  a (B, row chunks) grid of 16-byte copies, four loads in flight per
-  thread; the blocks in flight copy one chunk of every picked row, so a
-  row picked twice is read from L2 the second time. The index stays in
-  device memory, so the caller never waits for the card. It copies rows
-  as bytes, whatever the operand's dtype.
+  Bound: HBM bytes (each distinct picked row read once, B rows written).
+  Design (redesigned for Hopper): one CTA per 16 KB (chunk, query) item,
+  items chunk-major, so the CTAs in flight copy one stretch of every
+  picked row and a row picked twice is read from L2; four 16-byte
+  read-only loads in flight per thread, and streaming (evict-first) stores
+  that leave the picked rows in L2. The index stays in device memory, so
+  the caller never waits for the card. It copies rows as bytes, whatever
+  the operand's dtype. Host side: `RowOperand` checks a resident operand
+  once and keeps what a launch needs, so a call on it checks only the
+  index, allocates the output and launches.
 """
 
 from __future__ import annotations
@@ -64,7 +73,7 @@ import numpy as np
 import torch
 
 from ..ops.reductions import block32_counts
-from ..query.compile import OP_WIDTH, eval_ops, to_device_async
+from ..query.compile import OP_WIDTH, eval_ops
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -91,8 +100,15 @@ SMEM_MAX = 232_448
 DOUBLE_BUFFER_MAX = 57_344
 #: slot count bound of chain_slot_counts (the planner's slot_rank cap)
 PCT_SLOT_CAP = 4096
-#: bytes of a row one gather_rows block copies (256 threads x 4 x 16 B);
-#: a row's chunks index gridDim.y, so a row holds at most 65535 of them
+#: chain_slot_counts keeps the slot words of SLOT_CHUNK slots at a time
+#: (4 KB), and past one chunk the mask words of up to QWORD_BATCH queries
+#: (16 KB), in shared memory
+SLOT_CHUNK = 32
+QWORD_BATCH = 128
+#: the largest gather_rows row, in bytes (the card's edge cases cover it),
+#: and the bytes of a row one CTA copies (256 threads x 4 x 16 B); a
+#: launch's (chunk, query) items index gridDim.x, so they stay under 2^31
+GATHER_ROW_MAX = 1 << 30
 GATHER_CHUNK = 256 * 4 * 16
 
 _ROOT = Path(__file__).resolve().parents[2]
@@ -148,8 +164,9 @@ def _library():
         for fn in (lib.tat_chain_blocks, lib.tat_chain_counts):
             fn.argtypes = [ctypes.POINTER(vp), i, i, vp, i, i, vp, i, vp, ll,
                            i, i, i, vp, vp, vp]
-        lib.tat_chain_slot_counts.argtypes = [vp, i, i, vp, i, vp, i, vp, vp,
-                                              i, ll, vp, vp]
+        lib.tat_chain_slot_counts.argtypes = [ctypes.POINTER(vp), i, vp, i,
+                                              i, vp, i, vp, ll, i, i, i, i,
+                                              i, vp, vp]
         lib.tat_gather_rows.argtypes = [vp, i, vp, ll, ll, vp, vp]
         for fn in (lib.tat_fused_metrics, lib.tat_chain_blocks,
                    lib.tat_chain_counts, lib.tat_chain_slot_counts,
@@ -193,14 +210,6 @@ def _need(cond: bool, name: str, what) -> None:
     every launch)."""
     if not cond:
         raise ValueError(f"{name}: {what() if callable(what) else what}")
-
-
-def _ptr_array(tensors, device) -> torch.Tensor:
-    """Device int64 array of the tensors' data pointers (chain_slot_counts'
-    `const int* const*` operand), copied without a stream sync so that
-    back-to-back launches stay queued."""
-    ptrs = [t.data_ptr() for t in tensors] or [0]
-    return to_device_async(torch.tensor(ptrs, dtype=torch.int64), device)
 
 
 # ---------------------------------------------------------------------------
@@ -309,39 +318,62 @@ def _check_chain_cuda(name, pmat, ops, planes, avalid, payloads):
 
 
 @functools.lru_cache(maxsize=None)
-def chain_plan(n_planes: int, n_pay: int, n_ops: int, P: int, B: int):
+def chain_plan(n_planes: int, n_pay: int, n_ops: int, P: int, B: int,
+               extra: int = 0):
     """Launch shape of the chain tile kernel: (warps, stages, shared-memory
     bytes). A stage holds one tile (TILE_ROWS rows) of every chain plane and
     payload plus its avalid bytes; two stages double-buffer the copies when
-    they fit in DOUBLE_BUFFER_MAX beside the op list and each warp's param
-    row, else one. The warps share each tile and split the B queries, so
-    there are no more warps than queries."""
+    they fit in DOUBLE_BUFFER_MAX beside the op list, each warp's param row
+    and `extra` bytes (slot_plan's words), else one. The warps share each
+    tile and split the B queries, so there are no more warps than
+    queries."""
     warps = max(1, min(CHAIN_WARPS, B))
     stage = ((n_planes + n_pay) * TILE_BLOCKS * BLOCK_STRIDE * 4
              + TILE_BLOCKS * AV_STRIDE)
-    fixed = n_ops * OP_WIDTH * 4 + warps * P * 4
+    fixed = n_ops * OP_WIDTH * 4 + warps * P * 4 + extra
     stages = 2 if 2 * stage + fixed <= DOUBLE_BUFFER_MAX else 1
     return warps, stages, stages * stage + fixed
 
 
-def _launch_chain(name, fn, pmat, ops, planes, avalid, payloads, out):
-    """Checks of the chain tile kernel's operands, then its launch: the
-    plane and payload pointers go by value (a host array the C launcher
-    copies into the kernel's parameter struct)."""
-    _check_chain_cuda(name, pmat, ops, planes, avalid, payloads)
-    B, P = pmat.shape
+@functools.lru_cache(maxsize=None)
+def slot_plan(n_planes: int, n_ops: int, P: int, B: int, ns: int):
+    """Launch shape of chain_slot_counts' tile kernel: (warps, stages, qb,
+    shared-memory bytes). chain_plan's, with the slot plane as one more
+    source, plus one chunk of slot words (SLOT_CHUNK x 32 x 4 bytes) and,
+    where ns spans several chunks, the mask words of qb = min(B,
+    QWORD_BATCH) queries at a time (qb = B otherwise, nothing kept)."""
+    qb = B if ns <= SLOT_CHUNK else min(B, QWORD_BATCH)
+    words = SLOT_CHUNK + (qb if ns > SLOT_CHUNK else 0)
+    warps, stages, smem = chain_plan(n_planes, 1, n_ops, P, B, words * 32 * 4)
+    return warps, stages, qb, smem
+
+
+def _chain_sources(name, pmat, ops, planes, avalid, aux):
+    """Checks of the chain tile kernel's operands; returns the host array
+    of source pointers (the planes, then `aux`: payloads or the slot plane)
+    that the C launcher copies into the kernel's parameter struct."""
+    _check_chain_cuda(name, pmat, ops, planes, avalid, aux)
+    P = pmat.shape[1]
     _need(P <= MAX_PARAMS, name, lambda: f"{P} params exceed {MAX_PARAMS}")
-    ptrs = [t.data_ptr() for t in (*planes, *payloads)]
-    av = avalid.data_ptr()
+    ptrs = [t.data_ptr() for t in (*planes, *aux)]
     # the kernel stages every source with 16-byte copies
-    _need(av % 16 == 0 and all(p % 16 == 0 for p in ptrs), name,
-          "planes, payloads and avalid must be 16-byte aligned")
+    _need(avalid.data_ptr() % 16 == 0 and all(p % 16 == 0 for p in ptrs),
+          name, "planes, payloads, slot plane and avalid must be 16-byte "
+          "aligned")
+    return (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+
+
+def _launch_chain(name, fn, pmat, ops, planes, avalid, payloads, out):
+    """chain_blocks' or chain_counts' launch: the plane and payload pointers
+    go by value."""
+    srcs = _chain_sources(name, pmat, ops, planes, avalid, payloads)
+    B, P = pmat.shape
     n_ops = ops.shape[0]
     warps, stages, smem = chain_plan(len(planes), len(payloads), n_ops, P, B)
     counts, sums = out
-    rc = fn((ctypes.c_void_p * max(1, len(ptrs)))(*ptrs), len(planes),
-            len(payloads), pmat.data_ptr(), B, P, ops.data_ptr(), n_ops, av,
-            avalid.shape[0] // 32, warps, stages, smem, counts.data_ptr(),
+    rc = fn(srcs, len(planes), len(payloads), pmat.data_ptr(), B, P,
+            ops.data_ptr(), n_ops, avalid.data_ptr(), avalid.shape[0] // 32,
+            warps, stages, smem, counts.data_ptr(),
             0 if sums is None else sums.data_ptr(), _stream(avalid))
     launches[name] += 1
     _check_launch(name, rc)
@@ -404,16 +436,15 @@ def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
           lambda: f"ns {ns} outside (0, {PCT_SLOT_CAP}]")
     if not _route(name, (pmat, ops, avalid, slot, *planes)):
         return chain_slot_counts_plain(pmat, ops, planes, avalid, slot, ns)
-    _check_chain_cuda(name, pmat, ops, planes, avalid, ())
-    _need(slot.is_contiguous(), name, "operands must be contiguous")
+    srcs = _chain_sources(name, pmat, ops, planes, avalid, (slot,))
     B, P = pmat.shape
-    G = R // 32
-    dev = avalid.device
-    counts = torch.empty(B, ns, G, dtype=torch.int32, device=dev)
-    pp = _ptr_array(planes, dev)
+    n_ops = ops.shape[0]
+    warps, stages, qb, smem = slot_plan(len(planes), n_ops, P, B, ns)
+    counts = torch.empty(B, ns, R // 32, dtype=torch.int32,
+                         device=avalid.device)
     rc = _library().tat_chain_slot_counts(
-        pmat.data_ptr(), B, P, ops.data_ptr(), ops.shape[0], pp.data_ptr(),
-        len(planes), avalid.data_ptr(), slot.data_ptr(), ns, G,
+        srcs, len(planes), pmat.data_ptr(), B, P, ops.data_ptr(), n_ops,
+        avalid.data_ptr(), R // 32, warps, stages, smem, ns, qb,
         counts.data_ptr(), _stream(avalid))
     launches[name] += 1
     _check_launch(name, rc)
@@ -424,36 +455,66 @@ def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
 # gather_rows
 # ---------------------------------------------------------------------------
 
+class RowOperand:
+    """A gather_rows operand checked once: a contiguous tensor [Df, ...] of
+    any dtype whose rows are a positive multiple of 16 bytes (at most
+    GATHER_ROW_MAX) and, on the card, 16-byte aligned. It keeps what a
+    launch needs (its device, the kernel's entry point, and the pointer,
+    row count and 16-byte words per row as ctypes arguments), so that a
+    gather_rows call on it checks only the index. aggs/compile.py builds
+    one per resident member operand at plan time; the tensor must not be
+    resized or moved while its RowOperand is in use."""
+
+    __slots__ = ("op", "cuda", "dev", "tail", "chunks", "fn", "args")
+
+    def __init__(self, op: torch.Tensor):
+        name = "gather_rows"
+        shape = op.shape
+        _need(len(shape) >= 2 and shape[0] > 0, name,
+              lambda: f"operand {tuple(shape)}")
+        row_bytes = op.nbytes // shape[0]
+        _need(row_bytes % 16 == 0 and 0 < row_bytes <= GATHER_ROW_MAX, name,
+              lambda: f"row of {row_bytes} bytes is not a positive multiple "
+              f"of 16 up to {GATHER_ROW_MAX}")
+        _need(op.is_contiguous(), name, "operands must be contiguous")
+        self.op = op
+        self.cuda = _route(name, (op,))
+        self.dev = op.get_device()
+        self.tail = tuple(shape[1:])
+        self.chunks = -(-row_bytes // GATHER_CHUNK)
+        self.fn = self.args = None
+        if self.cuda:
+            _need(op.data_ptr() % 16 == 0, name,
+                  "operand must be 16-byte aligned")
+            self.fn = _library().tat_gather_rows
+            self.args = (ctypes.c_void_p(op.data_ptr()),
+                         ctypes.c_longlong(shape[0]),
+                         ctypes.c_longlong(row_bytes // 16))
+
+
 def gather_rows_plain(idx, op):
+    if type(op) is RowOperand:
+        op = op.op
     return op.index_select(0, idx)
 
 
 def gather_rows(idx, op):
-    """Rows `idx` (int32 [B], each in [0, op.shape[0])) of the contiguous
-    operand `op` ([Df, ...], any dtype, rows a multiple of 16 bytes) ->
-    [B, ...] of op's dtype."""
+    """Rows `idx` (int32 [B], each in [0, Df)) of the operand `op` [Df, ...]
+    -> [B, ...] of op's dtype. `op` is a RowOperand, or a tensor that is
+    checked as one on this call."""
     name = "gather_rows"
-    _need(idx.dim() == 1 and idx.dtype is _I32, name,
-          lambda: f"idx {tuple(idx.shape)} {idx.dtype}")
-    shape = op.shape
-    _need(len(shape) >= 2 and shape[0] > 0, name,
-          lambda: f"operand {tuple(shape)}")
-    row_bytes = op.nbytes // shape[0]
-    _need(row_bytes % 16 == 0, name,
-          lambda: f"row of {row_bytes} bytes is not a multiple of 16")
-    _need(idx.is_contiguous() and op.is_contiguous(), name,
-          "operands must be contiguous")
-    if not _route(name, (idx, op)):
-        return gather_rows_plain(idx, op)
+    h = op if type(op) is RowOperand else RowOperand(op)
+    _need(idx.dim() == 1 and idx.dtype is _I32 and idx.is_contiguous(), name,
+          lambda: f"idx {tuple(idx.shape)} {idx.dtype} is not a contiguous "
+          "int32 [B]")
+    if not (h.cuda and idx.is_cuda and idx.get_device() == h.dev):
+        _route(name, (idx, h.op))  # raises unless both lie on the CPU
+        return gather_rows_plain(idx, h.op)
     B = idx.shape[0]
-    _need(B > 0 and -(-row_bytes // GATHER_CHUNK) <= 65535, name,
-          lambda: f"batch {B}, row of {row_bytes} bytes")
-    ptr = op.data_ptr()
-    _need(ptr % 16 == 0, name, "operand must be 16-byte aligned")
-    out = op.new_empty((B, *shape[1:]))
-    rc = _library().tat_gather_rows(idx.data_ptr(), B, ptr, shape[0],
-                                    row_bytes // 16, out.data_ptr(),
-                                    _stream(op))
+    _need(0 < B and h.chunks * B <= I32_MAX, name,
+          lambda: f"batch of {B} rows of {h.chunks} chunks")
+    out = h.op.new_empty((B, *h.tail))
+    rc = h.fn(idx.data_ptr(), B, *h.args, out.data_ptr(), _stream(idx))
     launches[name] += 1
     _check_launch(name, rc)
     return out

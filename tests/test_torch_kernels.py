@@ -315,8 +315,40 @@ def test_chain_plan_fits_shared_memory(n_planes):
         assert R % K.TILE_ROWS == 0
 
 
-@pytest.mark.parametrize("case", range(4))
-@pytest.mark.parametrize("B,ns", [(1, 1), (1, 5), (4, 1), (4, 5)])
+@pytest.mark.parametrize("n_planes", range(K.MAX_PLANES + 1))
+def test_slot_plan_fits_shared_memory(n_planes):
+    """Every launch shape of chain_slot_counts' tile kernel (the chain
+    planes and the slot plane as sources) fits a CTA's shared memory for
+    any slot count up to the cap and any batch: the mask words kept past
+    one slot chunk are capped at QWORD_BATCH queries; the main path's
+    narrow programs (c9: one chain plane, ns = 4) double-buffer."""
+    assert n_planes + 1 <= 24  # csrc/kernels.cu MAX_SRC
+    for n_ops in (1, K.MAX_OPS):
+        for P in (1, K.MAX_PARAMS):
+            for ns in (1, 32, 33, K.PCT_SLOT_CAP):
+                for B in (1, 33, 128, 200):
+                    warps, stages, qb, smem = K.slot_plan(n_planes, n_ops, P,
+                                                          B, ns)
+                    assert smem <= K.SMEM_MAX
+                    assert 1 <= warps <= min(B, K.CHAIN_WARPS)
+                    assert stages in (1, 2)
+                    if ns <= K.SLOT_CHUNK:
+                        assert qb == B
+                    else:
+                        assert 1 <= qb <= min(B, K.QWORD_BATCH)
+                    if stages == 2:
+                        assert smem <= K.DOUBLE_BUFFER_MAX
+    if n_planes <= 2:
+        assert K.slot_plan(n_planes, 8, 4, 128, 4)[1] == 2
+
+
+@pytest.mark.parametrize(
+    "B,ns,case",
+    [(B, ns, case) for case in range(4)
+     for B, ns in ((1, 1), (1, 5), (4, 1), (4, 5))]
+    # the kernel's 32-slot chunk edge at B = 33 (the Pallas kernel unrolls
+    # B x ns in its trace, ~25 s a case): a ranged chain and every opcode
+    + [(33, ns, case) for case in (0, 3) for ns in (32, 33)])
 def test_chain_slot_counts_plain_matches_pallas(dual, case, B, ns):
     jd, pd = dual
     chain, mp, pkeys, pm, host, avalid = _chain_inputs(jd, pd, case, B)
@@ -355,6 +387,49 @@ def test_gather_rows_plain_matches_pallas(idx):
     got64 = K.gather_rows(torch.from_numpy(ia), op64)
     np.testing.assert_array_equal(
         got64.view(torch.int8).reshape(want.shape).numpy(), want)
+
+
+@pytest.mark.parametrize("idx", [[3], [3, 0, 6, 3, 6]])
+def test_gather_rows_row_operand_matches_index_select(idx):
+    """A RowOperand (checked once, as the planner builds it) gives
+    index_select's rows, as the bare tensor does, call after call."""
+    op = torch.from_numpy(np.random.default_rng(len(idx)).integers(
+        -2**40, 2**40, (7, 6))).to(torch.int64)
+    rows = K.RowOperand(op)
+    assert not rows.cuda and rows.tail == (6,) and rows.chunks == 1
+    ia = torch.tensor(idx, dtype=torch.int32)
+    for _ in range(2):
+        assert torch.equal(K.gather_rows(ia, rows), op.index_select(0, ia))
+    assert torch.equal(K.gather_rows(ia, op), op.index_select(0, ia))
+    assert torch.equal(K.gather_rows_plain(ia, rows), K.gather_rows(ia, op))
+
+
+@pytest.mark.parametrize("bad", ["row bytes", "row too large", "empty rows",
+                                 "1-D", "non-contiguous", "unknown device"])
+def test_row_operand_refuses_bad_operands(bad):
+    op = {"row bytes": lambda: torch.zeros(4, 8, dtype=torch.int8),
+          "row too large": lambda: torch.empty(
+              2, K.GATHER_ROW_MAX + 16, dtype=torch.int8, device="meta"),
+          "empty rows": lambda: torch.zeros(4, 0, dtype=torch.int64),
+          "1-D": lambda: torch.zeros(16, dtype=torch.int64),
+          "non-contiguous": lambda: torch.zeros(16, 4, dtype=torch.int32).t(),
+          "unknown device": lambda: torch.zeros(4, 16, dtype=torch.int8,
+                                                device="meta")}[bad]()
+    with pytest.raises(ValueError):
+        K.RowOperand(op)
+
+
+@pytest.mark.parametrize("idx_device", ["meta", "cpu-int64", "cpu-2d"])
+def test_gather_rows_row_operand_refuses_bad_index(idx_device):
+    """A RowOperand still refuses an index on another device, or not a
+    contiguous int32 [B]."""
+    rows = K.RowOperand(torch.zeros(4, 16, dtype=torch.int8))
+    idx = {"meta": torch.zeros(2, dtype=torch.int32, device="meta"),
+           "cpu-int64": torch.zeros(2, dtype=torch.int64),
+           "cpu-2d": torch.zeros(2, 1, dtype=torch.int32)}[idx_device]
+    with pytest.raises(ValueError, match="device" if idx_device == "meta"
+                       else "idx"):
+        K.gather_rows(idx, rows)
 
 
 @pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "meta")])
