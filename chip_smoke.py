@@ -15,11 +15,13 @@ checks it end to end:
    member operand and c9's slot plane are built here);
 4. each kernel against its plain PyTorch version at the main path's shapes
    (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
-   bound (kernel_bound), the B = 1 device time in torch.profiler and, for
-   gather_rows, the time of `index_select` (library_ms); the chain kernels
-   also under a query whose mask program holds every opcode, on the same
-   layouts, and at B = 31, 33 and 200; gather_rows' host time per call,
-   step by step, beside index_select's (gather_host_steps);
+   bound (kernel_bound), the device time in torch.profiler and, for
+   gather_rows, the time of `index_select` (library_ms); fused_metrics
+   also with min and max, and on c1's shared MatchAll mask at B = 128 (a
+   batch-stride-0 view); the chain kernels also under a query whose mask
+   program holds every opcode, on the same layouts, and at B = 31, 33 and
+   200; gather_rows' host time per call, step by step, beside
+   index_select's (gather_host_steps);
    4b. edge cases on operands made from SEED (phase_edges), each printing
    its max_abs_err: chain_blocks, chain_counts and chain_slot_counts at
    B in {1, 31, 33, 128, 200}, R = 32768 with 8 planes (and 16 payloads),
@@ -28,15 +30,18 @@ checks it end to end:
    and 4096, over a slot plane with -1 rows and one-slot blocks;
    gather_rows at B in {1, 128, 200} with repeated indices, rows of one
    word, one chunk and an odd number of chunks, and the largest row it
-   accepts;
+   accepts; fused_metrics (fused_operands) with and without min and max
+   at B in {1, 31, 33, 128, 200}, T below a tile and with a tile tail,
+   int8 masks holding -1, 2, 127, -128, all-0 masks, INT32_MIN /
+   INT32_MAX planes under full masks over 10M rows, stride-0 masks;
 5. the main path of each slice (c1-c5, then c6-c9), each with the launch
    counters set to 0: for each config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
    docs), agg_search_batch over 256 varied requests == the per-query results
    (with msearch dedup on and off), distinct varied params == the oracle;
    p50 single-query latency, and msearch ms/query with dedup on and off
-   beside the number of distinct requests per group; for c4 and c5 one
-   dedup-off group under torch.profiler (wall, device busy share, top
+   beside the number of distinct requests per group; for c1, c4 and c5
+   one dedup-off group under torch.profiler (wall, device busy share, top
    device ops);
 6. each slice's kernels were launched by its own main path in step 5.
 
@@ -44,15 +49,16 @@ Each phase prints its seconds.
 
 It prints a JSON line of per-kernel records (launches in all and per
 path; max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by, library_ms,
-device_ms; B = 128: the same keys suffixed _b128), then, as its last line,
+device_ms; B = 128: the same keys suffixed _b128; fused_metrics' other
+operands under "variants"), then, as its last line,
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --against DIR
 
 also times the AB_KERNELS against the kernels of the port package in the
 tree at DIR (say the parent commit, unpacked with `git archive`), in turns
-on the same operands, then c4, c9 and c7 end to end through either tree's
-kernels, in turns (phase 4c).
+on the same operands, then c1, c5, c4, c9 and c7 end to end through either
+tree's kernels, in turns (phase 4c).
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 port's package beside it, it exits non-zero before printing any result.
@@ -93,15 +99,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 #: the kernels timed against another tree's by --against (gather_rows
 #: beside index_select)
-AB_KERNELS = ("chain_blocks", "chain_counts", "chain_slot_counts",
-              "gather_rows")
+AB_KERNELS = ("fused_metrics", "chain_blocks", "chain_counts",
+              "chain_slot_counts", "gather_rows")
 #: configs timed end to end by --against, each with the kernels of its main
 #: path that are swapped for the other tree's
-AB_CONFIGS = ((4, ("chain_blocks", "chain_counts")),
+AB_CONFIGS = ((1, ("fused_metrics",)), (5, ("fused_metrics",)),
+              (4, ("chain_blocks", "chain_counts")),
               (9, ("chain_slot_counts",)), (7, ("gather_rows",)))
 #: configs whose dedup-off msearch group is also profiled (the users of
-#: chain_blocks and chain_counts)
-PROFILED = (4, 5)
+#: fused_metrics, chain_blocks and chain_counts)
+PROFILED = (1, 4, 5)
 #: the extra configs this script drives beside c1-c5 (c10's set queries
 #: are not ported yet)
 EXTRA = (6, 7, 8, 9)
@@ -193,6 +200,9 @@ def _max_abs_err(torch, got, want) -> int:
     without the int64 copies)."""
     err = 0
     for g, w in zip(got, want):
+        check((g is None) == (w is None), "kernel/plain output missing")
+        if g is None:  # fused_metrics' min and max without minmax
+            continue
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"kernel/plain output {tuple(g.shape)} {g.dtype} vs "
               f"{tuple(w.shape)} {w.dtype}")
@@ -273,7 +283,7 @@ def all_configs(flagship):
 
 
 def _nbytes(ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def kernel_bound(torch, qc, name, args, out):
@@ -281,16 +291,21 @@ def kernel_bound(torch, qc, name, args, out):
     could take for one call — the larger of the bytes the call must move
     (each input read once, each output written once) over HBM_BYTES_PER_S
     and the int32 operations it must do on these inputs over
-    INT32_OPS_PER_S. Counted per (query, row): fused_metrics 4 (count,
-    sum, min, max); the chain kernels the compares of each leaf of the mask
+    INT32_OPS_PER_S. Counted per (query, row): fused_metrics 2 (count,
+    sum) and 2 more with minmax (min, max), a mask of batch stride 0
+    (one row shared by every query) counted as one row and one query;
+    the chain kernels the compares of each leaf of the mask
     program and 1 per payload; chain_slot_counts also ns per (query,
     32-row block). Boolean ops and block counts go 32 rows to a word and
     are not counted. A leaf costs its compares: RANGE32 2, EQ32 1,
     EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2. gather_rows reads each
     distinct picked row once and writes B rows."""
     if name == "fused_metrics":
-        mask, plane = args
-        ins, ops = _nbytes((mask, plane)), mask.numel() * 4
+        mask, plane = args[:2]
+        minmax = args[2] if len(args) > 2 else True
+        rows = 1 if mask.stride(0) == 0 else mask.shape[0]
+        ins = rows * mask.shape[1] * mask.element_size() + _nbytes((plane,))
+        ops = rows * mask.shape[1] * (4 if minmax else 2)
     elif name == "gather_rows":
         idx, op = args[0], _operand(torch, args[1])
         row = op.numel() // op.shape[0] * op.element_size()
@@ -349,7 +364,8 @@ def _operand(torch, op):
 def _check_equal(torch, name, label, got, want) -> int:
     got, want = _outputs(got), _outputs(want)
     err = _max_abs_err(torch, got, want)
-    check(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+    check(err == 0 and all(g is None or torch.equal(g, w)
+                           for g, w in zip(got, want)),
           f"{name} ({label}) disagrees with its plain version "
           f"(max abs err {err})")
     return err
@@ -400,11 +416,13 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
     # (kernel, operands label, B) -> the kernel's arguments
     cases = {}
     for B in (1, 128):
-        # fused_metrics: the c5 root masks (B queries) over amount
+        # fused_metrics: the c5 root masks (B queries) over amount, count
+        # and sum as the main path asks; then with min and max
         pm5 = pmat_for(p5, 5, c5_aggs, B)
         mask = (p5._chain_mask(p5._root, pm5, p5._arrays)
                 & (p5._arrays["alive"] > 0)).contiguous()
-        cases[("fused_metrics", "c5", B)] = (mask, amount)
+        cases[("fused_metrics", "c5", B)] = (mask, amount, False)
+        cases[("fused_metrics", "c5 minmax", B)] = (mask, amount, True)
         # chain_blocks: c4's sku bucket layout + sum(amount) payload
         cases[("chain_blocks", "c4", B)] = _chain_blocks_args(
             p4, pmat_for(p4, 4, c4_aggs, B))
@@ -424,6 +442,10 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
         # gather_rows: rows of c7's resident member operand
         cases[("gather_rows", "c7", B)] = _gather_rows_args(
             p7, pmat_for(p7, 7, c7_aggs, B))
+    # fused_metrics on c1's MatchAll root mask at B = 128: alive, one row
+    # shared by the batch (batch stride 0), as aggs/compile.py hands it over
+    cases[("fused_metrics", "c1 shared", 128)] = (
+        (p1._arrays["alive"] > 0)[None].expand(128, -1), amount, False)
 
     records = {}
     for (name, label, B), args in cases.items():
@@ -443,7 +465,7 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
             idx, op = args[0], _operand(torch, args[1])
             lib_ms = _cuda_ms(torch, lambda: torch.index_select(op, 0, idx),
                               iters)
-        say(f"  {name:17s} {label:8s} B={B:<4d} kernel {ms:.4f} ms  plain "
+        say(f"  {name:17s} {label:10s} B={B:<4d} kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})"
             + (f"  index_select {lib_ms:.4f} ms" if lib_ms is not None
                else "")
@@ -456,14 +478,20 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if label == "every-op":
             continue
+        dev_ms = _device_ms(torch, kern)
+        say(f"  {name:17s} {label:10s} B={B:<4d} device time {dev_ms} ms "
+            "(torch.profiler)")
+        if label in ("c5 minmax", "c1 shared"):  # fused_metrics' variants
+            rec.setdefault("variants", []).append(
+                {"label": label, "B": B, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by})
+            continue
         sfx = "" if B == 1 else f"_b{B}"
         rec["ms" + sfx], rec["plain_ms" + sfx] = ms, plain_ms
         rec["bound_ms" + sfx], rec["bound_by" + sfx] = bound_ms, bound_by
         rec["library_ms" + sfx] = lib_ms
-        if B == 1:
-            rec["device_ms"] = _device_ms(torch, kern)
-            say(f"  {name:17s} {label:8s} B=1    device time "
-                f"{rec['device_ms']} ms (torch.profiler)")
+        rec["device_ms" + sfx] = dev_ms
 
     # the query split on the 10M layouts: more batch sizes, exact ==
     for B in (31, 33, 200):
@@ -630,6 +658,49 @@ def gather_operands(torch, rng):
     return cases
 
 
+def fused_operands(torch, rng):
+    """(label, mask, plane) edge cases of fused_metrics from `rng`: T below
+    one 4096-row tile (1000), whole tiles (32768) and a tile tail whose
+    rows are not 16-byte aligned (12308, T % 16 == 4) at B in {1, 31, 33,
+    128, 200}, over int8 masks whose selected bytes include -1, 2, 127 and
+    -128 with query 0's mask all 0 (the sentinels), and planes over the
+    whole int32 range; INT32_MIN and INT32_MAX planes under full masks
+    over the bench's 10,027,008 rows (sums far past 2^31); masks of batch
+    stride 0 (one row shared by B = 33, 128, 200 queries; bool, uint8, and
+    an all-0 row)."""
+    vals = np.array([0, 0, 0, 1, -1, 2, 127, -128], np.int8)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    out = []
+    for T, Bs in ((1000, (1, 33)), (32768, (1, 31, 33, 128, 200)),
+                  (12308, (1, 33, 200))):
+        plane = dev(rng.integers(I32_MIN, I32_MAX, T, endpoint=True)
+                    .astype(np.int32))
+        for B in Bs:
+            m = rng.choice(vals, (B, T))
+            m[0] = 0
+            out.append((f"int8 T={T}", dev(m), plane))
+    T = 10_027_008
+    full = torch.ones(2, T, dtype=torch.bool, device=DEVICE)
+    for v in (I32_MIN, I32_MAX):
+        out.append((f"full, all {v}", full,
+                    torch.full((T,), v, dtype=torch.int32, device=DEVICE)))
+    T = 32768
+    plane = dev(rng.integers(I32_MIN, I32_MAX, T, endpoint=True)
+                .astype(np.int32))
+    row = dev(rng.random(T) < 0.3)
+    for B in (33, 128, 200):
+        out.append(("stride 0, bool", row[None].expand(B, T), plane))
+    out.append(("stride 0, uint8", row.to(torch.uint8)[None].expand(128, T),
+                plane))
+    out.append(("stride 0, all 0", torch.zeros(1, T, dtype=torch.bool,
+                                               device=DEVICE).expand(33, T),
+                plane))
+    return out
+
+
 def phase_edges(torch, K, qc):
     """The redesigned kernels' edge cases, exact == their plain versions:
     batch sizes around the warps' query split and past 128, the smallest
@@ -639,7 +710,8 @@ def phase_edges(torch, K, qc):
     program) beside blocks whose avalid is all 0; chain_slot_counts at ns
     around its 32-slot chunk (1, 4, 32, 33) and at the cap (4096, with B
     past the 128 kept mask words), over slot_plane; gather_rows over
-    gather_operands. Returns each kernel's largest max_abs_err."""
+    gather_operands; fused_metrics over fused_operands, with and without
+    min and max. Returns each kernel's largest max_abs_err."""
     say("[4b] edge cases (exact ==)")
     rng = np.random.default_rng(SEED)
     out = []
@@ -677,8 +749,19 @@ def phase_edges(torch, K, qc):
                 out.append((f"8 planes ns={ns} R={R}", "chain_slot_counts",
                             (pm, ops, planes, av,
                              slot_plane(torch, rng, R, ns), ns)))
-    worst = dict.fromkeys(("chain_blocks", "chain_counts",
+    worst = dict.fromkeys(("fused_metrics", "chain_blocks", "chain_counts",
                            "chain_slot_counts", "gather_rows"), 0)
+    for label, mask, plane in fused_operands(torch, rng):
+        for minmax in (False, True):
+            got = K.fused_metrics(mask, plane, minmax)
+            err = _check_equal(torch, "fused_metrics", label, got,
+                               K.fused_metrics_plain(mask, plane, minmax))
+            worst["fused_metrics"] = max(worst["fused_metrics"], err)
+            say(f"  {'fused_metrics':17s} {label:26s} B={mask.shape[0]:<4d} "
+                f"minmax {int(minmax)} max_abs_err {err}  selected "
+                f"{int(got[0].sum())}  sum of sums {int(got[1].sum())}  "
+                f"empty {int((got[0] == 0).sum())}")
+        del got
     for label, name, args in out:
         got = getattr(K, name)(*args)
         err = _check_equal(torch, name, label, got,
@@ -731,11 +814,18 @@ def load_against(path: str):
 
 def _other_kernel(torch, old, name):
     """The other tree's kernel `name`, called as the main path calls this
-    tree's (its gather_rows takes the RowOperand's tensor)."""
+    tree's (its gather_rows takes the RowOperand's tensor; a fused_metrics
+    without `minmax` gets a contiguous mask, as its caller made one, and
+    its min and max are dropped where they are not asked for)."""
     f = getattr(old, name)
-    if name != "gather_rows":
-        return f
-    return lambda idx, op: f(idx, _operand(torch, op))
+    if name == "gather_rows":
+        return lambda idx, op: f(idx, _operand(torch, op))
+    if name == "fused_metrics" and "minmax" not in f.__code__.co_varnames:
+        def fused(mask, plane, minmax=True):
+            cnt, tot, mn, mx = f(mask.contiguous(), plane)
+            return (cnt, tot, mn, mx) if minmax else (cnt, tot, None, None)
+        return fused
+    return f
 
 
 def phase_ab(torch, K, old, cases, searcher, flagship):
@@ -760,7 +850,7 @@ def phase_ab(torch, K, old, cases, searcher, flagship):
             turns[2:2] = [lib, lib]
         t = [_cuda_ms(torch, f, 30) for f in turns]
         new_ms, old_ms = t[1] + t[-2], t[0] + t[-1]
-        say(f"  {name:17s} {label:8s} B={B:<4d} "
+        say(f"  {name:17s} {label:10s} B={B:<4d} "
             + " / ".join(f"{n} {x:.4f}" for n, x in zip(
                 ["old", "new", "lib", "lib", "new", "old"] if len(t) == 6
                 else ["old", "new", "new", "old"], t))
@@ -1007,7 +1097,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="also time the AB_KERNELS, and c4, c9 and c7 end "
+                    help="also time the AB_KERNELS, and the AB_CONFIGS end "
                          "to end, against the port package of the tree at "
                          "DIR, in turns")
     args = ap.parse_args(argv)

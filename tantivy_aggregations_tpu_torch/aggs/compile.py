@@ -79,7 +79,7 @@ def _wrap64(x: int) -> int:
 
 @dataclass
 class MaskCtx:
-    mask: torch.Tensor  # [B, T] bool
+    mask: torch.Tensor  # [B, T] bool; batch stride 0 where one row is shared
 
 
 @dataclass
@@ -941,8 +941,14 @@ class Program:
         B, T = pmat.shape[0], self.dindex.T
         ctx = None  # no planned node reads the root mask
         if self._root is not None:
-            mask = self._chain_mask(self._root, pmat, arrays) \
-                & (arrays["alive"] > 0)
+            mask = self._chain_mask(self._root, pmat, arrays)
+            alive = arrays["alive"] > 0
+            if B > 1 and mask.stride(0) == 0:
+                # a param-free root (MatchAll): one row shared by the batch
+                # stays one row (a broadcast view, batch stride 0)
+                mask = mask[:1] & alive
+            else:
+                mask = mask & alive
             ctx = MaskCtx(mask.expand(B, T))
         out = {name: self._eval(agg, ctx, pmat, arrays, ("a", name))
                for name, agg in self.aggs.items()}
@@ -1033,8 +1039,8 @@ class Program:
             return out
 
         if p.get("fused"):
-            cnt, tot, mn, mx = K.fused_metrics(valid.contiguous(),
-                                               arrays[f"{field}:w"])
+            cnt, tot, mn, mx = K.fused_metrics(valid, arrays[f"{field}:w"],
+                                               minmax=need_min or need_max)
             out["cnt"] = cnt
             if need_min:
                 out["min"] = mn

@@ -3,9 +3,10 @@
 // enqueues on the caller's stream, allocates nothing (the wrapper passes
 // every output) and returns cudaGetLastError() as an int.
 //
-// 1. fused_metrics: one pass over (mask [B, T] bytes, plane [T] int32) per
-//    query -> exact count, int64 sum, min and max. Replaces the JAX
-//    package's ops/pallas_kernels.py fused_metrics + _kernel.
+// 1. fused_metrics: per query of a mask [B, T] of bytes, the exact count,
+//    int64 sum and (optionally) min and max of an int32 plane [T] over the
+//    selected rows. Replaces the JAX package's ops/pallas_kernels.py
+//    fused_metrics + _kernel. A tile kernel and a fold.
 // 2. chain_blocks: per query of a [B, P] param matrix, the chain mask
 //    (a mask program, query/compile.py) evaluated in-kernel over a
 //    bucket-sorted layout's planes -> per-32-row-block matched counts and
@@ -20,8 +21,8 @@
 //    index array in device memory (member operands). Replaces
 //    _gather_rows_batched / make_gather_rows.
 //
-// Every chain kernel reads each plane once per BATCH, not per query (the
-// point of the TPU kernels' batching rule).
+// fused_metrics and every chain kernel read each plane once per BATCH, not
+// per query (the point of the TPU kernels' batching rule).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -277,17 +278,21 @@ __device__ __forceinline__ unsigned eval_word(const int* ops, int n_ops,
   return top;
 }
 
-// Rewrite 4 payload rows (a, b, c, d) in place as their byte slices
-// P_k = [byte k of a, b, c, d], k = 0..3 (query-independent, once a tile).
-__device__ __forceinline__ void byte_slice(int* v) {
-  int4* v4 = reinterpret_cast<int4*>(v);
-  const int4 x = *v4;
+// The byte slices of 4 rows x = (a, b, c, d): P_k = [byte k of a, b, c,
+// d], k = 0..3 (query-independent, once a tile).
+__device__ __forceinline__ int4 sliced(int4 x) {
   const unsigned t0 = __byte_perm(x.x, x.y, 0x5140);  // a0 b0 a1 b1
   const unsigned t1 = __byte_perm(x.z, x.w, 0x5140);  // c0 d0 c1 d1
   const unsigned t2 = __byte_perm(x.x, x.y, 0x7362);  // a2 b2 a3 b3
   const unsigned t3 = __byte_perm(x.z, x.w, 0x7362);  // c2 d2 c3 d3
-  *v4 = make_int4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                  __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+  return make_int4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                   __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+}
+
+// Rewrite 4 staged payload rows in place as their byte slices.
+__device__ __forceinline__ void byte_slice(int* v) {
+  int4* v4 = reinterpret_cast<int4*>(v);
+  *v4 = sliced(*v4);
 }
 
 // Sum of a byte-sliced payload block `v` over the rows set in `w`: per 4
@@ -521,60 +526,316 @@ gather_rows_kernel(const int* __restrict__ idx, int B,
   }
 }
 
-__global__ void fused_metrics_kernel(const unsigned char* __restrict__ mask,
-                                     const int* __restrict__ plane,
-                                     long long T,
-                                     unsigned long long* __restrict__ cnt,
-                                     unsigned long long* __restrict__ sum,
-                                     int* __restrict__ mn,
-                                     int* __restrict__ mx) {
-  const int b = blockIdx.y;
-  const uchar4* m4 = reinterpret_cast<const uchar4*>(mask + b * T);
-  const int4* v4 = reinterpret_cast<const int4*>(plane);
-  const long long n4 = T / 4;
+// fused_metrics: per query b of a [B, T] byte mask, the exact count, int64
+// sum, min and max of an int32 plane [T] over the rows whose mask byte is
+// nonzero.
+//
+// Bound on the H100: HBM bytes, each of the B mask rows and the plane read
+// once per batch (c5 at B = 128: 1.32 GB, 0.395 ms), beside 2 int32 ops per
+// (row, query) for count and sum and 2 more for min and max.
+//
+// Design. A persistent grid of the card's resident CTAs walks 4096-row
+// tiles of the plane (tile, tile + grid, ...). A tile is staged once in
+// shared memory by 16-byte cp.async copies, FM_STAGES - 1 tiles ahead (a
+// ring, so a small batch still keeps the plane's bytes in flight), and
+// rewritten once as byte slices (sliced); then the CTA loops the B queries
+// over it, so the plane is read once per batch (per FM_QB queries past
+// 512). Warp w takes the units u = w, w + 8, ...: a unit is one query over
+// the tile, or where B < 8 one of S = 2, 4 or 8 segments of it, so small
+// batches still use most warps. Lane l reads 16 consecutive mask bytes
+// with one 16-byte streaming load (4-byte loads where T % 16 != 0 or in a
+// tile tail), so a warp reads 512 consecutive bytes of the query's row; a
+// unit's loads are all issued before its math, and the next unit's before
+// this one's warp reduction, so loads stay in flight across units. Per 4
+// rows: nonzero_bytes turns the 4 mask bytes into 0x80 / 0x00 (three
+// integer ops; nonzero = selected for bool, int8 and uint8 masks), one
+// __dp4a against 0x01010101 counts them, and four __dp4a dot them with the
+// rows' byte slices. No int64 add per row: the slice sums stay in 32 bits
+// until the unit ends (bounds below), are summed across the warp with
+// redux.sync (__reduce_add_sync) and recombined in int64 once per (tile,
+// query) by lane 0 into the unit's slot in shared memory (each slot is
+// owned by one warp: no atomics). min / max only in the MINMAX
+// instantiation: the selected bytes' sign fans out into a row mask (prmt),
+// one lop3 per row and side puts the sentinel on unselected rows, and
+// Hopper's three-way __vimin3_s32 / __vimax3_s32 fold two rows per
+// instruction. No float anywhere. Tile, stages and occupancy were chosen
+// on the card among 1024-4096-row tiles, 3-8 stages and 3-4 CTAs an SM
+// (scripts/torch_fused_variants.py): 4096 rows and 3 stages read B = 1
+// fastest at the same B = 128 time.
+//
+// Exactness bounds (the 0x80 mask bytes scale every dot by 128): per 4 rows
+// an unsigned slice dot is at most 4 * 255 * 128 = 130,560 and the signed
+// top slice's at most 4 * 128 * 128 = 65,536 in magnitude (its mask bytes
+// read as -128, so it holds minus the slice sum); a lane covers at most
+// FM_STEPS * 4 = 32 groups of 4 rows per unit, so across the warp the
+// unsigned sums stay at most 32 * 32 * 130,560 < 2^27, the signed one at
+// most 32 * 32 * 65,536 = 2^26 in magnitude, and the count dot (at most
+// 512 per 4 rows) at most 2^19. 128 * the unit's sum is then recombined in
+// int64 and shifted right by 7 (exact: a multiple of 128). A CTA's count
+// stays below T < 2^31, so its slots and partials hold it in int32.
+//
+// Reduction across CTAs without fills or atomics on pre-set outputs: at the
+// end each CTA writes one partial per query into a scratch [B, grid] (int64
+// sums, int32 counts, mins and maxes); a second small launch folds each
+// query's partials (one warp per query) and writes the four outputs,
+// sentinels included, `rep` times each (a shared mask run once at B = 1
+// writes its result to all of the batch's rows).
+constexpr int FM_THREADS = 256;
+constexpr int FM_WARPS = FM_THREADS / 32;
+constexpr int FM_TILE = 4096;             // plane rows staged per tile
+constexpr int FM_STEPS = FM_TILE / 512;   // 16-row chunks per lane per unit
+constexpr int FM_QB = 512;                // queries whose slots a CTA holds
+constexpr int FM_STAGES = 3;             // plane tiles in flight per CTA
+constexpr int FM_SMEM = (FM_STAGES + 1) * FM_TILE * 4 + FM_QB * 20;
+
+// 0x80 in each byte of m that is nonzero, 0 elsewhere
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned m) {
+  return (((m & 0x7f7f7f7fu) + 0x7f7f7f7fu) | m) & 0x80808080u;
+}
+
+// 0xffffffff where byte SEL - 8 of n has its top bit set, else 0 (prmt's
+// sign-replicating selector)
+template <unsigned SEL>
+__device__ __forceinline__ int fan_out(unsigned n) {
+  unsigned r;
+  asm("prmt.b32 %0, %1, %2, %3;"
+      : "=r"(r)
+      : "r"(n), "r"(0u), "n"(SEL * 0x1111u));
+  return static_cast<int>(r);
+}
+
+// Shared-memory slot of 16-byte group g of a tile (4 rows): lane l of a
+// quarter warp reads group 4l + k, so the xor spreads the 8 lanes over the 8
+// bank quads.
+__device__ __forceinline__ int fm_swz(int g) { return g ^ ((g >> 3) & 3); }
+
+// Copy tile `tile` of the plane into `dst` (swizzled groups); groups past T
+// are not copied (their mask bytes are read as 0).
+__device__ __forceinline__ void stage_plane(int* dst, const int* plane,
+                                            long long T, long long tile) {
+  const long long row0 = tile * FM_TILE;
+  const long long left = T - row0;
+  const int rows = left < FM_TILE ? static_cast<int>(left) : FM_TILE;
+  for (int g = threadIdx.x; g * 4 < rows; g += blockDim.x)
+    cp_async16(dst + fm_swz(g) * 4, plane + row0 + g * 4);
+}
+
+// Lane's 16-byte mask chunks of unit u (query q0 + u / S, segment u % S
+// of the tile at row0): one streaming 16-byte load each, or 4-byte loads
+// where the rows are not 16-byte aligned or the tile ends; 0 past T.
+__device__ __forceinline__ void load_unit(uint4 (&mv)[FM_STEPS],
+                                          const unsigned char* mask,
+                                          long long T, long long row0,
+                                          int rows, int q0, int u, int S,
+                                          int steps, int lane, bool vec16) {
+  const unsigned char* mrow =
+      mask + static_cast<long long>(q0 + u / S) * T + row0;
+  const int seg = u % S;
+#pragma unroll
+  for (int jj = 0; jj < FM_STEPS; ++jj) {
+    mv[jj] = make_uint4(0u, 0u, 0u, 0u);
+    if (jj >= steps) continue;
+    const int r = (seg * steps + jj) * 512 + lane * 16;
+    if (vec16 && r + 16 <= rows) {
+      mv[jj] = __ldcs(reinterpret_cast<const uint4*>(mrow + r));
+    } else {
+      const unsigned* m32 = reinterpret_cast<const unsigned*>(mrow + r);
+      if (r < rows) mv[jj].x = __ldcs(m32);
+      if (r + 4 < rows) mv[jj].y = __ldcs(m32 + 1);
+      if (r + 8 < rows) mv[jj].z = __ldcs(m32 + 2);
+      if (r + 12 < rows) mv[jj].w = __ldcs(m32 + 3);
+    }
+  }
+}
+
+template <bool MINMAX>
+__global__ void __launch_bounds__(FM_THREADS, 3)
+fused_metrics_kernel(const unsigned char* __restrict__ mask,
+                     const int* __restrict__ plane, long long T, int B,
+                     int S, bool vec16, long long* __restrict__ part_sum,
+                     int* __restrict__ part_cnt, int* __restrict__ part_mn,
+                     int* __restrict__ part_mx) {
+  extern __shared__ __align__(16) unsigned char fm_smem[];
+  int* raw = reinterpret_cast<int*>(fm_smem);  // FM_STAGES stages
+  int4* sl = reinterpret_cast<int4*>(fm_smem + FM_STAGES * FM_TILE * 4);
+  long long* s_sum =
+      reinterpret_cast<long long*>(fm_smem + (FM_STAGES + 1) * FM_TILE * 4);
+  int* s_cnt = reinterpret_cast<int*>(s_sum + FM_QB);
+  int* s_mn = s_cnt + FM_QB;
+  int* s_mx = s_mn + FM_QB;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long n_tiles = (T + FM_TILE - 1) / FM_TILE;
+  const int steps = FM_STEPS / S;
+
+  for (int q0 = 0; q0 < B; q0 += FM_QB) {
+    const int nu = min(FM_QB, B - q0) * S;
+    for (int i = threadIdx.x; i < nu; i += blockDim.x) {
+      s_sum[i] = 0;
+      s_cnt[i] = 0;
+      s_mn[i] = INT_MAX;
+      s_mx[i] = INT_MIN;
+    }
+    long long tile = blockIdx.x;
+    // the first FM_STAGES - 1 tiles in flight, then one more per tile
+#pragma unroll
+    for (int k = 0; k < FM_STAGES - 1; ++k) {
+      const long long t = tile + static_cast<long long>(k) * gridDim.x;
+      if (t < n_tiles) stage_plane(raw + k * FM_TILE, plane, T, t);
+      cp_async_commit();
+    }
+    for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+      const long long ahead =
+          tile + static_cast<long long>(FM_STAGES - 1) * gridDim.x;
+      if (ahead < n_tiles)
+        stage_plane(raw + ((it + FM_STAGES - 1) % FM_STAGES) * FM_TILE,
+                    plane, T, ahead);
+      cp_async_commit();
+      const long long row0 = tile * FM_TILE;
+      const long long left = T - row0;
+      const int rows = left < FM_TILE ? static_cast<int>(left) : FM_TILE;
+      // a unit's mask chunks are loaded before any is used (the warp's first
+      // unit's while the tile lands), and the next unit's are in flight
+      // during this unit's warp reduction
+      uint4 mv[FM_STEPS];
+      if (warp < nu) load_unit(mv, mask, T, row0, rows, q0, warp, S, steps,
+                               lane, vec16);
+      cp_async_wait<FM_STAGES - 1>();
+      __syncthreads();
+      const int4* rv =
+          reinterpret_cast<const int4*>(raw + (it % FM_STAGES) * FM_TILE);
+      for (int g = threadIdx.x; g < FM_TILE / 4; g += blockDim.x)
+        sl[g] = sliced(rv[g]);
+      __syncthreads();
+
+      for (int u = warp; u < nu; u += FM_WARPS) {
+        const int seg = u % S;
+        unsigned c = 0u, a0 = 0u, a1 = 0u, a2 = 0u;
+        int a3 = 0, lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+        for (int jj = 0; jj < FM_STEPS; ++jj) {
+          if (jj >= steps) break;
+          const int r = (seg * steps + jj) * 512 + lane * 16;
+          const unsigned w4[4] = {mv[jj].x, mv[jj].y, mv[jj].z, mv[jj].w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const unsigned n = nonzero_bytes(w4[k]);
+            const int g = fm_swz((r >> 2) + k);
+            const int4 p = sl[g];
+            c = __dp4a(n, 0x01010101u, c);
+            a0 = __dp4a(static_cast<unsigned>(p.x), n, a0);
+            a1 = __dp4a(static_cast<unsigned>(p.y), n, a1);
+            a2 = __dp4a(static_cast<unsigned>(p.z), n, a2);
+            a3 = __dp4a(p.w, static_cast<int>(n), a3);
+            if (MINMAX) {
+              const int4 v = rv[g];
+              const int f0 = fan_out<8>(n), f1 = fan_out<9>(n);
+              const int f2 = fan_out<10>(n), f3 = fan_out<11>(n);
+              lo = __vimin3_s32(lo, (v.x & f0) | (INT_MAX & ~f0),
+                                (v.y & f1) | (INT_MAX & ~f1));
+              lo = __vimin3_s32(lo, (v.z & f2) | (INT_MAX & ~f2),
+                                (v.w & f3) | (INT_MAX & ~f3));
+              hi = __vimax3_s32(hi, (v.x & f0) | (INT_MIN & ~f0),
+                                (v.y & f1) | (INT_MIN & ~f1));
+              hi = __vimax3_s32(hi, (v.z & f2) | (INT_MIN & ~f2),
+                                (v.w & f3) | (INT_MIN & ~f3));
+            }
+          }
+        }
+        if (u + FM_WARPS < nu)
+          load_unit(mv, mask, T, row0, rows, q0, u + FM_WARPS, S, steps, lane,
+                    vec16);
+        c = __reduce_add_sync(FULL, c);
+        a0 = __reduce_add_sync(FULL, a0);
+        a1 = __reduce_add_sync(FULL, a1);
+        a2 = __reduce_add_sync(FULL, a2);
+        a3 = __reduce_add_sync(FULL, a3);
+        if (MINMAX) {
+          lo = __reduce_min_sync(FULL, lo);
+          hi = __reduce_max_sync(FULL, hi);
+        }
+        if (lane == 0) {
+          // 128 * the unit's sum; a3 holds minus 128 * the top slice's sum
+          const long long t128 = static_cast<long long>(a0) +
+                                 (static_cast<long long>(a1) << 8) +
+                                 (static_cast<long long>(a2) << 16) -
+                                 static_cast<long long>(a3) * (1LL << 24);
+          s_sum[u] += t128 >> 7;
+          s_cnt[u] += static_cast<int>(c >> 7);
+          if (MINMAX) {
+            s_mn[u] = min(s_mn[u], lo);
+            s_mx[u] = max(s_mx[u], hi);
+          }
+        }
+      }
+      __syncthreads();  // the stage and the slices are rewritten next
+    }
+    cp_async_wait<0>();
+    // the CTA's partial per query, its segments folded in order
+    for (int i = threadIdx.x; i * S < nu; i += blockDim.x) {
+      long long s = 0;
+      int c = 0, lo = INT_MAX, hi = INT_MIN;
+      for (int k = i * S; k < (i + 1) * S; ++k) {
+        s += s_sum[k];
+        c += s_cnt[k];
+        lo = min(lo, s_mn[k]);
+        hi = max(hi, s_mx[k]);
+      }
+      const long long o =
+          static_cast<long long>(q0 + i) * gridDim.x + blockIdx.x;
+      part_sum[o] = s;
+      part_cnt[o] = c;
+      if (MINMAX) {
+        part_mn[o] = lo;
+        part_mx[o] = hi;
+      }
+    }
+    __syncthreads();  // the slots are reset for the next queries
+  }
+}
+
+// One warp per query: fold its n_part partials and write the outputs at
+// b * rep ... b * rep + rep - 1.
+template <bool MINMAX>
+__global__ void __launch_bounds__(FM_THREADS)
+fused_metrics_fold(const long long* __restrict__ part_sum,
+                   const int* __restrict__ part_cnt,
+                   const int* __restrict__ part_mn,
+                   const int* __restrict__ part_mx, int n_part, int B,
+                   int rep, long long* __restrict__ cnt,
+                   long long* __restrict__ sum, int* __restrict__ mn,
+                   int* __restrict__ mx) {
+  const int lane = threadIdx.x & 31;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * FM_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  const long long base = b * n_part;
   long long c = 0, s = 0;
   int lo = INT_MAX, hi = INT_MIN;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const uchar4 m = m4[i];
-    const int4 v = v4[i];
-    if (m.x) { ++c; s += v.x; lo = min(lo, v.x); hi = max(hi, v.x); }
-    if (m.y) { ++c; s += v.y; lo = min(lo, v.y); hi = max(hi, v.y); }
-    if (m.z) { ++c; s += v.z; lo = min(lo, v.z); hi = max(hi, v.z); }
-    if (m.w) { ++c; s += v.w; lo = min(lo, v.w); hi = max(hi, v.w); }
+  for (int i = lane; i < n_part; i += 32) {
+    c += part_cnt[base + i];
+    s += part_sum[base + i];
+    if (MINMAX) {
+      lo = min(lo, part_mn[base + i]);
+      hi = max(hi, part_mx[base + i]);
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    c += __shfl_down_sync(FULL, c, off);
-    s += __shfl_down_sync(FULL, s, off);
-    lo = min(lo, __shfl_down_sync(FULL, lo, off));
-    hi = max(hi, __shfl_down_sync(FULL, hi, off));
-  }
-  __shared__ long long sc[32], ss[32];
-  __shared__ int slo[32], shi[32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) { sc[warp] = c; ss[warp] = s; slo[warp] = lo; shi[warp] = hi; }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    c = lane < nw ? sc[lane] : 0;
-    s = lane < nw ? ss[lane] : 0;
-    lo = lane < nw ? slo[lane] : INT_MAX;
-    hi = lane < nw ? shi[lane] : INT_MIN;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      c += __shfl_down_sync(FULL, c, off);
-      s += __shfl_down_sync(FULL, s, off);
-      lo = min(lo, __shfl_down_sync(FULL, lo, off));
-      hi = max(hi, __shfl_down_sync(FULL, hi, off));
+    c += __shfl_xor_sync(FULL, c, off);
+    s += __shfl_xor_sync(FULL, s, off);
+    if (MINMAX) {
+      lo = min(lo, __shfl_xor_sync(FULL, lo, off));
+      hi = max(hi, __shfl_xor_sync(FULL, hi, off));
     }
-    if (lane == 0 && c > 0) {
-      // two's-complement wraparound makes the unsigned add an exact signed add
-      atomicAdd(cnt + b, static_cast<unsigned long long>(c));
-      atomicAdd(sum + b, static_cast<unsigned long long>(s));
-      atomicMin(mn + b, lo);
-      atomicMax(mx + b, hi);
+  }
+  for (int r = lane; r < rep; r += 32) {
+    const long long o = b * rep + r;
+    cnt[o] = c;
+    sum[o] = s;
+    if (MINMAX) {
+      mn[o] = lo;
+      mx[o] = hi;
     }
   }
 }
@@ -655,20 +916,76 @@ int launch_gather(const int* idx, int B, const int4* op, long long n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool MINMAX>
+int fused_resident() {
+  static Occupancy occ;
+  return resident_ctas(occ, fused_metrics_kernel<MINMAX>, FM_THREADS,
+                       FM_SMEM);
+}
+
+// The tile kernel on `grid` CTAs, then the fold (one warp per query). A
+// batch under 8 queries splits each tile into S = 2, 4 or 8 segments.
+template <bool MINMAX>
+int launch_fused(const unsigned char* mask, const int* plane, int B,
+                 long long T, int grid, int rep, void* scratch,
+                 long long* cnt, long long* sum, int* mn, int* mx,
+                 cudaStream_t stream) {
+  const long long n_tiles = (T + FM_TILE - 1) / FM_TILE;
+  if (B < 1 || T < 4 || T % 4 != 0 || T > INT_MAX || grid < 1 ||
+      grid > n_tiles || rep < 1 ||
+      static_cast<long long>(B) * rep > LLONG_MAX / 8 ||
+      reinterpret_cast<unsigned long long>(plane) % 16 != 0 ||
+      reinterpret_cast<unsigned long long>(mask) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int S = 1;
+  while (S < FM_STEPS && B <= FM_WARPS / (2 * S)) S *= 2;
+  const bool vec16 =
+      T % 16 == 0 && reinterpret_cast<unsigned long long>(mask) % 16 == 0;
+  const long long n_part = static_cast<long long>(B) * grid;
+  long long* part_sum = static_cast<long long*>(scratch);
+  int* part_cnt = reinterpret_cast<int*>(part_sum + n_part);
+  int* part_mn = part_cnt + n_part;
+  int* part_mx = part_mn + n_part;
+  fused_resident<MINMAX>();
+  fused_metrics_kernel<MINMAX><<<grid, FM_THREADS, FM_SMEM, stream>>>(
+      mask, plane, T, B, S, vec16, part_sum, part_cnt, part_mn, part_mx);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long folds = (static_cast<long long>(B) + FM_WARPS - 1) / FM_WARPS;
+  fused_metrics_fold<MINMAX><<<static_cast<unsigned>(folds), FM_THREADS, 0,
+                               stream>>>(part_sum, part_cnt, part_mn, part_mx,
+                                         grid, B, rep, cnt, sum, mn, mx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
+// The grid of fused_metrics' tile kernel over T rows on the current
+// device: its resident CTAs, at most one per tile (the wrapper sizes the
+// scratch by it).
+int tat_fused_metrics_grid(long long T, int minmax) {
+  const long long n_tiles = (T + FM_TILE - 1) / FM_TILE;
+  const int resident =
+      minmax ? fused_resident<true>() : fused_resident<false>();
+  return n_tiles < resident ? static_cast<int>(n_tiles) : resident;
+}
+
+// mask [B, T] bytes (rows T apart, 4-byte aligned), plane [T] int32
+// (16-byte aligned), T % 4 == 0; grid <= the tile count; scratch holds
+// B * grid partials (int64 sums, then int32 counts, and with minmax int32
+// mins and maxes); cnt, sum [B * rep] int64, mn, mx [B * rep] int32 (unused
+// without minmax).
 int tat_fused_metrics(const void* mask, const void* plane, int B, long long T,
-                      void* cnt, void* sum, void* mn, void* mx, void* stream) {
-  const int threads = 256;
-  const int gx = grid_for(T / 4, threads, (132 * 8 + B - 1) / B);
-  dim3 grid(gx, B);
-  fused_metrics_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(mask), static_cast<const int*>(plane), T,
-      static_cast<unsigned long long*>(cnt), static_cast<unsigned long long*>(sum),
-      static_cast<int*>(mn), static_cast<int*>(mx));
-  return static_cast<int>(cudaGetLastError());
+                      int grid, int rep, int minmax, void* scratch, void* cnt,
+                      void* sum, void* mn, void* mx, void* stream) {
+  auto launch = minmax ? launch_fused<true> : launch_fused<false>;
+  return launch(static_cast<const unsigned char*>(mask),
+                static_cast<const int*>(plane), B, T, grid, rep, scratch,
+                static_cast<long long*>(cnt), static_cast<long long*>(sum),
+                static_cast<int*>(mn), static_cast<int*>(mx),
+                static_cast<cudaStream_t>(stream));
 }
 
 // srcs: host array of n_planes chain-plane pointers, then n_pay payload

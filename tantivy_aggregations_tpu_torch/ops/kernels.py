@@ -13,11 +13,23 @@ The shared library is built from the checkout's sources at first use with
 
 fused_metrics — replaces the JAX package's ops/pallas_kernels.py
   `fused_metrics` + `_kernel` (13-bit split int32 partials). Bound on the
-  H100: HBM bytes of one pass over the mask and the plane (5 bytes per row
-  per query). Design: a grid-stride pass with 16-byte plane loads and
-  4-byte mask loads per thread, int64 accumulators, warp-shuffle + shared
-  block reduction, one 64-bit atomicAdd / 32-bit atomicMin/atomicMax per
-  block.
+  H100: HBM bytes, the B mask rows and the plane read once per batch (a
+  stride-0 mask counts once), beside 2 int32 ops per (row, query) for
+  count and sum and 2 more for min and max. Design (redesigned for
+  Hopper): a persistent grid of the resident CTAs walks 4096-row tiles;
+  each tile of the plane is staged once in shared memory (cp.async, two
+  tiles ahead) and byte-sliced once, and the CTA's warps loop the B
+  queries over it, so the plane is read once per batch. Per 4 rows and
+  query: three integer ops turn the mask bytes into 0x80 / 0 (nonzero =
+  selected), one __dp4a counts them and four __dp4a dot them with the
+  byte slices; the 32-bit slice sums are summed across the warp
+  (redux.sync) and recombined in int64 once per (tile, query), so no row
+  costs an int64 add. min / max only where asked (`minmax`), with the
+  DPX three-way __vimin3_s32 / __vimax3_s32. Each CTA writes one partial
+  per query into a scratch; a second launch folds them and writes the
+  outputs: no fill launch, no atomics. A mask whose rows are one shared
+  row (batch stride 0) runs once at B = 1 and its result is written to
+  every row.
 chain_blocks — replaces `_chain_blocks_batched` / `make_chain_blocks`.
   Bound: one pass over the chain + payload planes and avalid per BATCH
   (HBM bytes), plus per query and row one int32 compare per leaf and one
@@ -160,7 +172,9 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tat_fused_metrics.argtypes = [vp, vp, i, ll, vp, vp, vp, vp, vp]
+        lib.tat_fused_metrics.argtypes = [vp, vp, i, ll, i, i, i, vp, vp, vp,
+                                          vp, vp, vp]
+        lib.tat_fused_metrics_grid.argtypes = [ll, i]
         for fn in (lib.tat_chain_blocks, lib.tat_chain_counts):
             fn.argtypes = [ctypes.POINTER(vp), i, i, vp, i, i, vp, i, vp, ll,
                            i, i, i, vp, vp, vp]
@@ -168,7 +182,8 @@ def _library():
                                               i, vp, i, vp, ll, i, i, i, i,
                                               i, vp, vp]
         lib.tat_gather_rows.argtypes = [vp, i, vp, ll, ll, vp, vp]
-        for fn in (lib.tat_fused_metrics, lib.tat_chain_blocks,
+        for fn in (lib.tat_fused_metrics, lib.tat_fused_metrics_grid,
+                   lib.tat_chain_blocks,
                    lib.tat_chain_counts, lib.tat_chain_slot_counts,
                    lib.tat_gather_rows):
             fn.restype = ctypes.c_int
@@ -216,20 +231,34 @@ def _need(cond: bool, name: str, what) -> None:
 # fused_metrics
 # ---------------------------------------------------------------------------
 
-def fused_metrics_plain(mask, plane):
+def fused_metrics_plain(mask, plane, minmax: bool = True):
     """(count i64 [B], sum i64 [B], min i32 [B], max i32 [B]) of a masked
-    int32 plane; empty masks give the I32_MAX / I32_MIN sentinels."""
+    int32 plane; empty masks give the I32_MAX / I32_MIN sentinels; min and
+    max are None unless `minmax`."""
     m = mask.to(torch.bool)
     cnt = m.sum(dim=-1, dtype=torch.int64)
     tot = torch.where(m, plane, 0).sum(dim=-1, dtype=torch.int64)
+    if not minmax:
+        return cnt, tot, None, None
     mn = torch.where(m, plane, I32_MAX).amin(dim=-1)
     mx = torch.where(m, plane, I32_MIN).amax(dim=-1)
     return cnt, tot, mn, mx
 
 
-def fused_metrics(mask, plane):
-    """mask: bool/int8/uint8 [B, T] (nonzero = selected); plane: int32 [T];
-    T % 4 == 0 (loader-padded). Returns fused_metrics_plain's tuple."""
+@functools.lru_cache(maxsize=None)
+def _fused_grid(dev: int, T: int, minmax: bool) -> int:
+    """CTAs of fused_metrics' tile kernel over T rows on CUDA device `dev`
+    (its resident CTAs, at most one per tile)."""
+    with torch.cuda.device(dev):
+        return _library().tat_fused_metrics_grid(T, int(minmax))
+
+
+def fused_metrics(mask, plane, minmax: bool = True):
+    """mask: bool/int8/uint8 [B, T] (nonzero = selected), its rows T apart
+    or all one row (batch stride 0, as `expand` makes it); plane: int32
+    [T]; T % 4 == 0 (loader-padded). Returns fused_metrics_plain's tuple.
+    A stride-0 mask is run once, at B = 1, and its results are written to
+    all B rows."""
     name = "fused_metrics"
     _need(mask.dim() == 2 and plane.dim() == 1
           and mask.shape[1] == plane.shape[0], name,
@@ -238,25 +267,44 @@ def fused_metrics(mask, plane):
           lambda: f"mask dtype {mask.dtype}")
     _need(plane.dtype == torch.int32, name,
           lambda: f"plane dtype {plane.dtype}")
-    if not _route(name, (mask, plane)):
-        return fused_metrics_plain(mask, plane)
     B, T = mask.shape
-    _need(T % 4 == 0 and 0 < B <= 65535, name, lambda: f"shape {(B, T)}")
+    rep = 1
+    if B > 1 and mask.stride(0) == 0:  # one row shared by the batch
+        mask, rep = mask[:1], B
+    if not _route(name, (mask, plane)):
+        out = fused_metrics_plain(mask, plane, minmax)
+        if rep == 1:
+            return out
+        return tuple(None if x is None else x.expand(rep).contiguous()
+                     for x in out)
+    Bq = mask.shape[0]
+    _need(T % 4 == 0 and 0 < T <= I32_MAX and Bq > 0, name,
+          lambda: f"shape {(B, T)}")
     _need(mask.is_contiguous() and plane.is_contiguous(), name,
-          "operands must be contiguous")
-    # the kernel reads the plane as int4 and the mask as uchar4
+          "mask rows must be T apart (or one shared row) and the plane "
+          "contiguous")
+    # the kernel reads the plane with 16-byte copies and the mask in words
     _need(plane.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0, name,
           "plane must be 16-byte and mask 4-byte aligned")
-    dev = plane.device
-    cnt = torch.zeros(B, dtype=torch.int64, device=dev)
-    tot = torch.zeros(B, dtype=torch.int64, device=dev)
-    mn = torch.full((B,), I32_MAX, dtype=torch.int32, device=dev)
-    mx = torch.full((B,), I32_MIN, dtype=torch.int32, device=dev)
+    grid = _fused_grid(plane.get_device(), T, minmax)
+    Bo = Bq * rep
+    rows = 3 if minmax else 2
+    # one allocation: counts, sums (and mins | maxes) [Bo] each, then the
+    # scratch of Bq * grid partials (20 or 12 bytes each)
+    part = -(-Bq * grid * (20 if minmax else 12) // 8)
+    buf = plane.new_empty(rows * Bo + part, dtype=torch.int64)
+    base = buf.data_ptr()
     rc = _library().tat_fused_metrics(
-        mask.data_ptr(), plane.data_ptr(), B, T, cnt.data_ptr(),
-        tot.data_ptr(), mn.data_ptr(), mx.data_ptr(), _stream(plane))
+        mask.data_ptr(), plane.data_ptr(), Bq, T, grid, rep, int(minmax),
+        base + 8 * rows * Bo, base, base + 8 * Bo, base + 16 * Bo,
+        base + 20 * Bo, _stream(plane))
     launches[name] += 1
     _check_launch(name, rc)
+    if not minmax:
+        cnt, tot, _ = buf.split_with_sizes((Bo, Bo, part))
+        return cnt, tot, None, None
+    cnt, tot, mm, _ = buf.split_with_sizes((Bo, Bo, Bo, part))
+    mn, mx = mm.view(torch.int32).split(Bo)
     return cnt, tot, mn, mx
 
 

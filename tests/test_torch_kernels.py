@@ -153,6 +153,90 @@ def test_fused_metrics_plain_matches_pallas(span):
             tuple(int(x) for x in ref), b
 
 
+#: rows of the fused_metrics edge cases (Pallas tiles any int32 plane at
+#: 32-row blocks of 128 lanes: a multiple of 4096)
+FUSED_N = 8192
+
+
+def _pallas_fused(row, vals):
+    """Pallas fused_metrics (interpret mode) of one mask row over any int32
+    plane. The port selects nonzero mask bytes; Pallas selects positive
+    ones, so it is handed the row as bool."""
+    ref = PK.fused_metrics(jnp.asarray(np.asarray(row) != 0),
+                           jnp.asarray(vals), interpret=True,
+                           max_abs=2**31)
+    return tuple(int(x) for x in ref)
+
+
+def _fused_edge(case, rng):
+    """(masks [B, n], plane [n]) of a fused_metrics edge case."""
+    vals = rng.integers(-2**31, 2**31, FUSED_N).astype(np.int32)
+    if case == "int8":  # -1, 2, 127 and -128 select like 1
+        masks = rng.choice(np.array([0, 0, 1, -1, 2, 127, -128], np.int8),
+                           (5, FUSED_N))
+    elif case == "all-zero":  # the I32_MAX / I32_MIN sentinels
+        masks = np.zeros((3, FUSED_N), np.int8)
+    else:  # a plane at one int32 extreme, every row selected
+        vals = np.full(FUSED_N, -2**31 if case == "int32-min" else 2**31 - 1,
+                       np.int32)
+        masks = np.ones((2, FUSED_N), bool)
+    return masks, vals
+
+
+@pytest.mark.parametrize("minmax", [True, False])
+@pytest.mark.parametrize("case", ["int8", "all-zero", "int32-min",
+                                  "int32-max"])
+def test_fused_metrics_edges_match_pallas(case, minmax):
+    masks, vals = _fused_edge(case, np.random.default_rng(12))
+    got = K.fused_metrics(torch.from_numpy(masks), torch.from_numpy(vals),
+                          minmax=minmax)
+    assert (got[2] is None and got[3] is None) == (not minmax)
+    for b in range(masks.shape[0]):
+        ref = _pallas_fused(masks[b], vals)
+        mine = tuple(int(x[b]) for x in got if x is not None)
+        assert mine == (ref if minmax else ref[:2]), b
+    if case == "all-zero" and minmax:
+        assert got[2].tolist() == [K.I32_MAX] * 3
+        assert got[3].tolist() == [K.I32_MIN] * 3
+
+
+@pytest.mark.parametrize("minmax", [True, False])
+@pytest.mark.parametrize("B", [1, 3, 33])
+def test_fused_metrics_shared_mask_matches_pallas(B, minmax):
+    """A mask of batch stride 0 (one row shared by B queries, as `expand`
+    makes it) gives B contiguous copies of the row's result."""
+    rng = np.random.default_rng(B)
+    row = rng.random(FUSED_N) < 0.4
+    vals = rng.integers(-2**31, 2**31, FUSED_N).astype(np.int32)
+    mask = torch.from_numpy(row)[None].expand(B, -1)
+    got = K.fused_metrics(mask, torch.from_numpy(vals), minmax=minmax)
+    ref = _pallas_fused(row, vals)
+    outs = [x for x in got if x is not None]
+    assert len(outs) == (4 if minmax else 2)
+    for x, want in zip(outs, ref):
+        assert x.shape == (B,) and x.is_contiguous()
+        assert x.tolist() == [want] * B
+
+
+def test_fused_metrics_runs_a_shared_mask_once(monkeypatch):
+    """The shared-row logic sits before the device routing: the plain
+    version (on the card, the kernel) sees the one row, at B = 1."""
+    seen = []
+    plain = K.fused_metrics_plain
+
+    def spy(mask, plane, minmax=True):
+        seen.append(tuple(mask.shape))
+        return plain(mask, plane, minmax)
+
+    monkeypatch.setattr(K, "fused_metrics_plain", spy)
+    mask = torch.ones(1, 128, dtype=torch.bool).expand(7, -1)
+    cnt, tot, mn, mx = K.fused_metrics(mask, torch.arange(128,
+                                                          dtype=torch.int32))
+    assert seen == [(1, 128)]
+    assert cnt.tolist() == [128] * 7 and tot.tolist() == [8128] * 7
+    assert mn.tolist() == [0] * 7 and mx.tolist() == [127] * 7
+
+
 # ---------------------------------------------------------------------------
 # chain_blocks / chain_counts over real chains and index planes
 # ---------------------------------------------------------------------------

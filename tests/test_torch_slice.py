@@ -185,6 +185,32 @@ def test_flagship_judged_configs(bench, i):
     assert got == [port.agg_search(q, a) for q, a in reqs]
 
 
+@pytest.mark.parametrize("i", [0, 2, 3])
+def test_matchall_root_stays_one_row(bench, monkeypatch, i):
+    """c1, c3 and c4 (MatchAll roots) at B = 4 without msearch dedup: the
+    root mask that reaches fused_metrics (c1) is one row shared by the
+    batch (batch stride 0), and every fruit == the JAX package's."""
+    from tantivy_aggregations_tpu_torch.ops import kernels as K
+    port, _, jax_s, _ = bench
+    _, jq, jaggs = jflag.judged_configs()[i]
+    _, pq, paggs = pflag.judged_configs()[i]
+    seen = []
+    fused = K.fused_metrics
+
+    def spy(mask, plane, minmax=True):
+        seen.append((tuple(mask.shape), mask.stride(0), minmax))
+        return fused(mask, plane, minmax)
+
+    monkeypatch.setattr(K, "fused_metrics", spy)
+    s = port.index.searcher(device="cpu",
+                            config=EngineConfig(msearch_dedup=False))
+    got = s.agg_search_batch([(pq, paggs)] * 4)
+    assert got == [jax_s.agg_search(jq, jaggs)] * 4
+    if i == 0:
+        T = s._program_for(pq, paggs).dindex.T
+        assert seen == [((4, T), 0, False)]
+
+
 def test_flagship_plans_the_kernel_modes(bench):
     port = bench[0]
     plans = {}
