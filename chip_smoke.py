@@ -5,26 +5,31 @@
 
 Drives tantivy_aggregations_tpu_torch's main path — `Searcher.agg_search`
 and `agg_search_batch` over the judged configs c1-c5 and the extra configs
-c6-c9 on the 10M-doc bench index (models/flagship.py, seed 42, 4 segments;
+c6-c10 on the 10M-doc bench index (models/flagship.py, seed 42, 4 segments;
 built on first use under .bench_cache/, the path bench.py uses) — and
 checks it end to end:
 
 1. versions of torch, CUDA and nvcc, and the card's name and power limit;
 2. builds the port's CUDA kernels from csrc/ (timed);
-3. builds or reuses the bench index, then plans c1-c9 (timed: c7's
-   member operand and c9's slot plane are built here);
+3. builds or reuses the bench index, then plans c1-c10 (timed: c7's
+   member operand and c9's slot plane are built here), each a device
+   Program, never the host fallback;
 4. each kernel against its plain PyTorch version at the main path's shapes
    (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
    bound (kernel_bound), the device time in torch.profiler and, for
    gather_rows, the time of `index_select` (library_ms); fused_metrics
    also with min and max, and on c1's shared MatchAll mask at B = 128 (a
    batch-stride-0 view); the chain kernels also under a query whose mask
-   program holds every opcode, on the same layouts, and at B = 31, 33 and
-   200; gather_rows' host time per call, step by step, beside
-   index_select's (gather_host_steps);
+   program holds every opcode (the set opcodes through a TermSet over sku
+   and one over f64 prices), on the same layouts, and at B = 31, 33 and
+   200; chain_blocks on c4's layout under a 64-price TermSet and a range
+   (wide_set_queries: more than 256 params); gather_rows' host time per
+   call, step by step, beside index_select's (gather_host_steps);
    4b. edge cases on operands made from SEED (phase_edges), each printing
    its max_abs_err: chain_blocks, chain_counts and chain_slot_counts at
-   B in {1, 31, 33, 128, 200}, R = 32768 with 8 planes (and 16 payloads),
+   B in {1, 31, 33, 128, 200}, R = 32768 with 8 planes (and 16 payloads)
+   under a program holding every opcode, and with 16 planes and 3228
+   params (wide_edge_operands),
    a tile tail, INT32_MIN / INT32_MAX payloads over fully matched blocks,
    blocks whose avalid is all 0; chain_slot_counts at ns in {1, 4, 32, 33}
    and 4096, over a slot plane with -1 rows and one-slot blocks;
@@ -34,15 +39,20 @@ checks it end to end:
    at B in {1, 31, 33, 128, 200}, T below a tile and with a tile tail,
    int8 masks holding -1, 2, 127, -128, all-0 masks, INT32_MIN /
    INT32_MAX planes under full masks over 10M rows, stride-0 masks;
-5. the main path of each slice (c1-c5, then c6-c9), each with the launch
-   counters set to 0: for each config, agg_search == the port's oracle
+5. the main path of each slice (c1-c5, then c6-c9, then c10), each with
+   the launch counters set to 0: for each config, agg_search == the port's
+   oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
    docs), agg_search_batch over 256 varied requests == the per-query results
    (with msearch dedup on and off), distinct varied params == the oracle;
    p50 single-query latency, and msearch ms/query with dedup on and off
-   beside the number of distinct requests per group; for c1, c4 and c5
-   one dedup-off group under torch.profiler (wall, device busy share, top
-   device ops);
+   beside the number of distinct requests per group; for c1, c4, c5 and
+   c10 one dedup-off group under torch.profiler (wall, device busy share,
+   top device ops);
+   5b. a RegexQuery over sku whose runs fit the 64 regex slots answers on
+   a device Program, one whose runs exceed them on the exact host path,
+   both == the oracle, and the Program stays cached; the host answer also
+   == its three fitting thirds' device answers, merged;
 6. each slice's kernels were launched by its own main path in step 5.
 
 Each phase prints its seconds.
@@ -57,8 +67,9 @@ operands under "variants"), then, as its last line,
 
 also times the AB_KERNELS against the kernels of the port package in the
 tree at DIR (say the parent commit, unpacked with `git archive`), in turns
-on the same operands, then c1, c5, c4, c9 and c7 end to end through either
-tree's kernels, in turns (phase 4c).
+on the same operands (those cases the other tree's kernels can run), then
+c1, c5, c4, c9 and c7 end to end through either tree's kernels, in turns
+(phase 4c), and prints the other tree's ptxas report.
 
 Any failure raises and exits non-zero; with no CUDA device, or without the
 port's package beside it, it exits non-zero before printing any result.
@@ -107,17 +118,17 @@ AB_CONFIGS = ((1, ("fused_metrics",)), (5, ("fused_metrics",)),
               (4, ("chain_blocks", "chain_counts")),
               (9, ("chain_slot_counts",)), (7, ("gather_rows",)))
 #: configs whose dedup-off msearch group is also profiled (the users of
-#: fused_metrics, chain_blocks and chain_counts)
-PROFILED = (1, 4, 5)
-#: the extra configs this script drives beside c1-c5 (c10's set queries
-#: are not ported yet)
-EXTRA = (6, 7, 8, 9)
+#: fused_metrics, chain_blocks and chain_counts, and c10's set query)
+PROFILED = (1, 4, 5, 10)
+#: the extra configs this script drives beside c1-c5 (all of them)
+EXTRA = (6, 7, 8, 9, 10)
 #: the main path of each slice of the port: its configs, and the kernels
 #: that path must launch (each path runs with the counters set to 0)
 PATHS = (
     ("c1-c5", (1, 2, 3, 4, 5),
      ("fused_metrics", "chain_blocks", "chain_counts")),
-    ("c6-c9", EXTRA, ("chain_slot_counts", "gather_rows")),
+    ("c6-c9", (6, 7, 8, 9), ("chain_slot_counts", "gather_rows")),
+    ("c10", (10,), ("fused_metrics",)),
 )
 
 
@@ -152,16 +163,23 @@ def phase_versions(torch, K) -> str:
     return card
 
 
+def _say_ptxas(lib) -> None:
+    """ptxas's report of each kernel in the build log kept beside `lib`:
+    its registers, stack frame and spills."""
+    log = lib.with_name(lib.name + ".log")
+    if log.exists():
+        for ln in log.read_text().splitlines():
+            if any(k in ln for k in ("registers", "Compiling entry",
+                                     "stack frame")):
+                say("  ptxas:", ln.strip())
+
+
 def phase_build(K) -> None:
     say("[2] kernel build")
     t0 = time.time()
     lib = K.build()
     say(f"built {lib.name} in {time.time() - t0:.1f}s")
-    log = lib.with_name(lib.name + ".log")
-    if log.exists():
-        for ln in log.read_text().splitlines():
-            if "registers" in ln or "Compiling entry" in ln:
-                say("  ptxas:", ln.strip())
+    _say_ptxas(lib)
 
 
 def phase_index(tt, flagship):
@@ -216,7 +234,9 @@ def every_op_queries(tt, B: int):
     """B queries of one Boolean shape over the bench schema whose mask
     program holds every opcode of the kernels' interpreter: EQ32 (keyword
     term), RANGE32 (narrow range), RANGE_WIDE (f64 range), EQ_WIDE_GUARD and
-    EQ32_GUARD in OR pairs (f64 and narrow terms), NOT, AND and TRUE. Their
+    EQ32_GUARD in OR pairs (f64 and narrow terms), SET32 (a TermSet of
+    three skus, two of the most frequent among them: 4 run slots), SET_WIDE
+    (a TermSet of four f64 prices: 4 slots), NOT, AND and TRUE. Their
     params are drawn from SEED."""
     rng = np.random.default_rng(SEED)
     statuses = ("active", "archived", "deleted", "pending")
@@ -224,6 +244,10 @@ def every_op_queries(tt, B: int):
     for b in range(B):
         lo = int(rng.integers(0, 5000))
         plo = int(rng.integers(0, 4000)) / 100
+        skus = [f"sku{1 + b % 3:07d}", f"sku{5 + b % 7:07d}",
+                f"sku{int(rng.integers(1, 2000)):07d}"]
+        prices = [round(plo + float(x), 2)
+                  for x in rng.integers(0, 4000, 4) / 100]
         out.append(tt.BooleanQuery(
             must=[tt.TermQuery("status", statuses[b % 4]),
                   tt.RangeQuery("amount", lower=lo, upper=lo + 4000,
@@ -231,7 +255,26 @@ def every_op_queries(tt, B: int):
                   tt.RangeQuery("price", lower=plo, upper=plo + 40.0)],
             must_not=[tt.TermQuery("price",
                                    round(float(rng.lognormal(3.0, 1.0)), 2)),
-                      tt.TermQuery("qty", int(rng.integers(0, 100)))]))
+                      tt.TermQuery("qty", int(rng.integers(0, 100))),
+                      tt.TermSetQuery("sku", skus),
+                      tt.TermSetQuery("price", prices)]))
+    return out
+
+
+def wide_set_queries(tt, B: int):
+    """B queries of one shape whose chain holds more than 256 params: a
+    TermSet of 64 f64 prices (64 wide run slots, 256 params) AND an amount
+    range, params from SEED."""
+    rng = np.random.default_rng(SEED + 1)
+    out = []
+    for _ in range(B):
+        prices = sorted(round(float(x), 2) for x in
+                        (rng.choice(99_900, 64, replace=False) + 100) / 100)
+        lo = int(rng.integers(0, 5000))
+        out.append(tt.BooleanQuery(must=[
+            tt.TermSetQuery("price", prices),
+            tt.RangeQuery("amount", lower=lo, upper=lo + 4000,
+                          include_upper=True)]))
     return out
 
 
@@ -286,6 +329,29 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def set_leaf_compares(qc, ops, pm) -> np.ndarray:
+    """Compares per row of each query's mask program (kernel_bound's leaf
+    costs) under the [B, P] params `pm`: int64 [B]."""
+    fixed = {qc.OP_RANGE32: 2, qc.OP_EQ32: 1, qc.OP_EQ32_GUARD: 1,
+             qc.OP_RANGE_WIDE: 4, qc.OP_EQ_WIDE_GUARD: 2}
+    pm = pm.astype(np.int64)
+    out = np.zeros(pm.shape[0], np.int64)
+    for o in ops.tolist():
+        if o[0] in fixed:
+            out += fixed[o[0]]
+        elif o[0] == qc.OP_SET32:
+            p0, S = o[2], o[3]
+            slots = pm[:, p0:p0 + 2 * S].reshape(-1, S, 2)
+            out += 2 * (slots[..., 0] <= slots[..., 1]).sum(axis=1)
+        elif o[0] == qc.OP_SET_WIDE:
+            p0, S = o[3], o[4]
+            s = pm[:, p0:p0 + 4 * S].reshape(-1, S, 4)
+            lo = (s[..., 0] << 32) + s[..., 1]  # order of (hi, lo) pairs
+            hi = (s[..., 2] << 32) + s[..., 3]
+            out += 4 * (lo <= hi).sum(axis=1)
+    return out
+
+
 def kernel_bound(torch, qc, name, args, out):
     """(bound_ms, bound_by), printing both counts: the least time the card
     could take for one call — the larger of the bytes the call must move
@@ -298,8 +364,10 @@ def kernel_bound(torch, qc, name, args, out):
     program and 1 per payload; chain_slot_counts also ns per (query,
     32-row block). Boolean ops and block counts go 32 rows to a word and
     are not counted. A leaf costs its compares: RANGE32 2, EQ32 1,
-    EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2. gather_rows reads each
-    distinct picked row once and writes B rows."""
+    EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2; a set leaf 2 (SET32) or 4
+    (SET_WIDE) per run slot that is not empty in the query's params (the
+    kernel skips empty slots). gather_rows reads each distinct picked row
+    once and writes B rows."""
     if name == "fused_metrics":
         mask, plane = args[:2]
         minmax = args[2] if len(args) > 2 else True
@@ -315,11 +383,9 @@ def kernel_bound(torch, qc, name, args, out):
         extra = list(args[4]) if name == "chain_blocks" else (
             [args[4]] if name == "chain_slot_counts" else [])
         B, R = pmat.shape[0], avalid.shape[0]
-        leaf_ops = {qc.OP_RANGE32: 2, qc.OP_EQ32: 1, qc.OP_EQ32_GUARD: 1,
-                    qc.OP_RANGE_WIDE: 4, qc.OP_EQ_WIDE_GUARD: 2}
-        leaf = sum(leaf_ops.get(o, 0) for o in ops_t[:, 0].tolist())
-        per_row = leaf + (len(extra) if name == "chain_blocks" else 0)
-        ops = B * R * per_row
+        ops = B * R * (len(extra) if name == "chain_blocks" else 0)
+        ops += R * int(set_leaf_compares(qc, ops_t.cpu().numpy(),
+                                         pmat.cpu().numpy()).sum())
         if name == "chain_slot_counts":
             ops += B * (R // 32) * args[5]
         ins = _nbytes((pmat, ops_t, avalid, *planes, *extra))
@@ -409,9 +475,16 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
                       (p9e, ("a", "t", "p"))):
         ops = prog.plan[key]["chainp"]["mp"].ops
         check(set(ops[:, 0].tolist())
-              == set(range(qc.OP_EQ_WIDE_GUARD + 1)),
+              == set(range(qc.OP_SET_WIDE + 1)),
               f"every-opcode chain on {key} has opcodes "
               f"{sorted(set(ops[:, 0].tolist()))}")
+    # chain_blocks on c4's sku layout under a chain of more than 256 params
+    wide = wide_set_queries(tt, 128)
+    p4w = searcher._program_for(wide[0], c4_aggs)
+    n_prm = len(p4w.plan[("a", "t")]["chainp"]["mp"].param_keys)
+    check(type(p4w).__name__ == "Program" and n_prm > 256,
+          f"the wide-set chain planned {type(p4w).__name__} with {n_prm} "
+          "params")
 
     # (kernel, operands label, B) -> the kernel's arguments
     cases = {}
@@ -433,6 +506,8 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
             p4e, pmat_of(p4e, [(q, c4_aggs) for q in every[:B]]))
         cases[("chain_counts", "every-op", B)] = _chain_counts_args(
             p5e, pmat_of(p5e, [(q, c5_aggs) for q in every[:B]]))
+        cases[("chain_blocks", "wide-set", B)] = _chain_blocks_args(
+            p4w, pmat_of(p4w, [(q, c4_aggs) for q in wide[:B]]))
         # chain_slot_counts: c9's price value layout, Range chain and
         # status slot plane; then under the every-opcode query
         cases[("chain_slot_counts", "c9", B)] = _chain_slot_args(
@@ -476,7 +551,7 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
                                         "launches": 0,
                                         "max_abs_err": 0})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if label == "every-op":
+        if label in ("every-op", "wide-set"):
             continue
         dev_ms = _device_ms(torch, kern)
         say(f"  {name:17s} {label:10s} B={B:<4d} device time {dev_ms} ms "
@@ -577,15 +652,18 @@ def edge_operands(torch, qc, R: int, B: int, rng):
     opcode, 16 payload planes (4 full-range, all INT32_MIN, all INT32_MAX,
     the two alternating, 9 more full-range), and an avalid plane with
     whole blocks 0, whole blocks 1 and stray negative bytes; params of B
-    queries, with some ranges empty and some guards off. All from `rng`."""
+    queries, with some ranges and set run slots empty and some guards off.
+    All from `rng`."""
     o = qc
-    ops = np.zeros((17, qc.OP_WIDTH), np.int32)
     prog = [(o.OP_TRUE,), (o.OP_RANGE32, 0, 0, 1), (o.OP_AND,),
             (o.OP_EQ32, 1, 2), (o.OP_NOT,), (o.OP_AND,),
             (o.OP_EQ32_GUARD, 2, 3, 4), (o.OP_RANGE32, 3, 5, 6), (o.OP_OR,),
             (o.OP_AND,), (o.OP_RANGE_WIDE, 4, 5, 7, 8, 9, 10), (o.OP_AND,),
             (o.OP_EQ_WIDE_GUARD, 6, 7, 11, 12, 13), (o.OP_NOT,),
-            (o.OP_AND,), (o.OP_TRUE,), (o.OP_AND,)]
+            (o.OP_AND,), (o.OP_TRUE,), (o.OP_AND,),
+            (o.OP_SET32, 0, 14, 3), (o.OP_NOT,), (o.OP_AND,),
+            (o.OP_SET_WIDE, 6, 7, 20, 2), (o.OP_OR,)]
+    ops = np.zeros((len(prog), qc.OP_WIDTH), np.int32)
     for i, ins in enumerate(prog):
         ops[i, :len(ins)] = ins
     small = [rng.integers(0, 16, R) for _ in range(4)]
@@ -606,7 +684,7 @@ def edge_operands(torch, qc, R: int, B: int, rng):
     blocks[2::5] = 1
     av[rng.random(R) < 0.02] = -1
     av[rng.random(R) < 0.02] = 2
-    pm = np.zeros((B, 14), np.int32)
+    pm = np.zeros((B, 28), np.int32)
     lo = rng.integers(0, 16, B)
     pm[:, 0], pm[:, 1] = lo, lo + rng.integers(-2, 12, B)
     pm[:, 2] = rng.integers(0, 16, B)
@@ -619,12 +697,47 @@ def edge_operands(torch, qc, R: int, B: int, rng):
     pm[:, 10] = rng.integers(I32_MIN, I32_MAX, B, endpoint=True)
     pm[:, 11], pm[:, 12] = rng.integers(-1, 2, B), rng.integers(-3, 4, B)
     pm[:, 13] = rng.integers(0, 2, B)
+    for j in range(14, 20, 2):  # 3 run slots over plane 0 (0..15)
+        pm[:, j] = rng.integers(0, 16, B)
+        pm[:, j + 1] = pm[:, j] + rng.integers(-3, 4, B)
+    for j in range(20, 28, 4):  # 2 lexicographic slots over planes 6, 7
+        pm[:, j], pm[:, j + 1] = rng.integers(-1, 2, B), rng.integers(-3, 4, B)
+        pm[:, j + 2] = pm[:, j] + rng.integers(-1, 2, B)
+        pm[:, j + 3] = rng.integers(-3, 4, B)
 
     def dev(a, dt=np.int32):
         return torch.from_numpy(np.ascontiguousarray(a, dt)).to(DEVICE)
 
     return (dev(pm), dev(ops), [dev(p) for p in planes], dev(av, np.int8),
             [dev(p) for p in pays])
+
+
+def wide_edge_operands(torch, qc, R: int, B: int, rng):
+    """edge_operands' program and operands, with 8 more planes (values
+    0-63) and its top ORed with a chain of 8 OP_SET32 leaves of 200 run
+    slots each over those planes (ORs and ANDs in turn): 16 planes and 16
+    payloads (32 sources) and 3228 params, so that chain_blocks' CTA holds
+    fewer than 8 warps' param rows at B > 5. Most slots are empty
+    (lo > hi); all from `rng`."""
+    pm, ops, planes, av, pays = edge_operands(torch, qc, R, B, rng)
+    S, p0 = 200, pm.shape[1]
+    planes += [torch.from_numpy(rng.integers(0, 64, R).astype(np.int32))
+               .to(DEVICE) for _ in range(8)]
+    lo = rng.integers(0, 64, (B, 8 * S))
+    hi = lo + rng.integers(-40, 3, (B, 8 * S))
+    slots = np.stack([lo, hi], -1).reshape(B, -1).astype(np.int32)
+    prog = []
+    for j in range(8):
+        prog.append((qc.OP_SET32, 8 + j, p0 + 2 * S * j, S))
+        if j:
+            prog.append((qc.OP_OR if j % 2 else qc.OP_AND,))
+    prog.append((qc.OP_OR,))
+    more = np.zeros((len(prog), qc.OP_WIDTH), np.int32)
+    for i, ins in enumerate(prog):
+        more[i, :len(ins)] = ins
+    return (torch.cat([pm, torch.from_numpy(slots).to(DEVICE)], 1),
+            torch.cat([ops, torch.from_numpy(more).to(DEVICE)]), planes, av,
+            pays)
 
 
 def slot_plane(torch, rng, R: int, ns: int):
@@ -704,8 +817,10 @@ def fused_operands(torch, rng):
 def phase_edges(torch, K, qc):
     """The redesigned kernels' edge cases, exact == their plain versions:
     batch sizes around the warps' query split and past 128, the smallest
-    padded layout (R = 32768) with 8 chain planes and 16 payloads, a tile
-    tail (R = 33152: 12 blocks past the last whole 1024-row tile), and
+    padded layout (R = 32768) with 8 chain planes and 16 payloads, and with
+    16 chain planes and 3228 params (wide_edge_operands: fewer warps), a
+    tile tail (R = 33152: 12 blocks past the last whole 1024-row tile),
+    and
     INT32_MIN / INT32_MAX payloads over fully matched blocks (a TRUE
     program) beside blocks whose avalid is all 0; chain_slot_counts at ns
     around its 32-slot chunk (1, 4, 32, 33) and at the cap (4096, with B
@@ -749,6 +864,16 @@ def phase_edges(torch, K, qc):
                 out.append((f"8 planes ns={ns} R={R}", "chain_slot_counts",
                             (pm, ops, planes, av,
                              slot_plane(torch, rng, R, ns), ns)))
+    for R, Bs in ((32768, (1, 33, 200)), (33152, (33,))):
+        for B in Bs:
+            pm, ops, planes, av, pays = wide_edge_operands(torch, qc, R, B,
+                                                           rng)
+            label = f"16 planes, 3228 prm R={R}"
+            out.append((label, "chain_blocks", (pm, ops, planes, av, pays)))
+            out.append((label, "chain_counts", (pm, ops, planes, av)))
+            out.append((label + " ns=33", "chain_slot_counts",
+                        (pm, ops, planes, av, slot_plane(torch, rng, R, 33),
+                         33)))
     worst = dict.fromkeys(("fused_metrics", "chain_blocks", "chain_counts",
                            "chain_slot_counts", "gather_rows"), 0)
     for label, mask, plane in fused_operands(torch, rng):
@@ -795,21 +920,20 @@ def phase_edges(torch, K, qc):
     return worst
 
 
-def load_against(path: str):
+def load_against(path: str, name: str = "tat_against"):
     """The kernels module of the port package in another tree (say the
-    parent commit, unpacked with git archive), imported under its own
-    package name; its kernels build into that tree."""
+    parent commit, unpacked with git archive), imported under the package
+    name `name`; its kernels build into that tree."""
     import importlib
     import importlib.util
     root = Path(path).resolve() / "tantivy_aggregations_tpu_torch"
     check((root / "__init__.py").exists(), f"no port package under {path}")
     spec = importlib.util.spec_from_file_location(
-        "tat_against", root / "__init__.py",
-        submodule_search_locations=[str(root)])
+        name, root / "__init__.py", submodule_search_locations=[str(root)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["tat_against"] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("tat_against.ops.kernels")
+    return importlib.import_module(f"{name}.ops.kernels")
 
 
 def _other_kernel(torch, old, name):
@@ -836,8 +960,17 @@ def phase_ab(torch, K, old, cases, searcher, flagship):
     (phase_ab_config)."""
     say("[4c] A/B against the other tree's kernels (old, new, new, old)")
     t0 = time.time()
-    old.build()
+    lib = old.build()
     say(f"  built the other tree's kernels in {time.time() - t0:.1f}s")
+    _say_ptxas(lib)
+    # the other tree's interpreter may lack the set opcodes of this tree's
+    # every-opcode query
+    old_qc = sys.modules[old.__name__.rsplit(".", 2)[0] + ".query.compile"]
+    if not hasattr(old_qc, "OP_SET_WIDE"):
+        cases = {k: v for k, v in cases.items() if k[1] != "every-op"}
+    # ... and may refuse param rows past 256 (its wrappers' old limit)
+    if not hasattr(old, "chain_fits"):
+        cases = {k: v for k, v in cases.items() if k[1] != "wide-set"}
     for (name, label, B), args in cases.items():
         f_old = lambda a=args, f=_other_kernel(torch, old, name): f(*a)  # noqa
         f_new = lambda a=args, f=getattr(K, name): f(*a)  # noqa: E731
@@ -1070,15 +1203,21 @@ def phase_main_path(torch, K, tt, idx, searcher, oracle, flagship, card,
 
 
 def phase_plan(torch, searcher, flagship):
-    """Plan every config (layouts, planes and operands ship here). c7 is
-    planned after c4 and c9 after c5, so their plan seconds are the build
-    of what they add: c7's member operand (on c4's sku layout) and c9's
-    slot plane (on c5's price layout, under the same chain planes)."""
-    say("[3b] planning c1-c9")
+    """Plan every config (layouts, planes and operands ship here), each a
+    device Program: the exact host fallback must never stand in for the
+    device path. c7 is planned after c4 and c9 after c5, so their plan
+    seconds are the build of what they add: c7's member operand (on c4's
+    sku layout) and c9's slot plane (on c5's price layout, under the same
+    chain planes)."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    say("[3b] planning c1-c10")
     for n, name, q, aggs in all_configs(flagship):
         t0 = time.time()
         prog = searcher._program_for(q, aggs)
         torch.cuda.synchronize()
+        check(type(prog) is Program,
+              f"{name} planned {type(prog).__name__}, not a device Program "
+              f"({getattr(prog, 'reason', '')})")
         extra = ""
         mo = prog.plan.get(("a", "t"), {}).get("member_op")
         if mo is not None:
@@ -1091,6 +1230,70 @@ def phase_plan(torch, searcher, flagship):
                      f"{pp['layout'].n_rows} rows, ns {pp['nslots']}; "
                      f"batch_cap {prog.batch_cap})")
         say(f"  {name}: planned in {time.time() - t0:.2f}s{extra}")
+
+
+def _merged_fruits(fruits) -> dict:
+    """c10's fruits of disjoint queries merged into their union's: counts
+    and sums added, histogram doc counts added per key (empty buckets
+    dropped)."""
+    hist = {}
+    for f in fruits:
+        for b in f["h"]["buckets"]:
+            hist[b["key"]] = hist.get(b["key"], 0) + b["doc_count"]
+    return {"n": sum(f["n"]["value"] for f in fruits),
+            "s": sum(f["s"]["value"] for f in fruits),
+            "h": {k: c for k, c in sorted(hist.items()) if c}}
+
+
+def phase_set_overflow(tt, searcher, oracle, flagship, card):
+    """Phase 5b on the 10M index, under c10's aggs: a RegexQuery over sku
+    whose runs fit the 64 regex slots answers on the device Program, one
+    whose runs exceed them (the even skus 100-398 between odd ones: 150
+    runs) on the exact host path (a routing check: that path is the
+    oracle), then the fitting one again; each == the oracle, and the
+    Program stays cached. The overflowing answer is also held against the
+    device Program's answers for its three fitting thirds (the even skus
+    100-198, 200-298, 300-398: 50 runs each), merged (_merged_fruits)."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    from tantivy_aggregations_tpu_torch.query.compile import match_runs
+    from tantivy_aggregations_tpu_torch.searcher import _HostFallback
+    say("[5b] set-query run overflow: device and host paths vs the oracle")
+    aggs = {c[0]: c for c in all_configs(flagship)}[10][3]
+    fitting = tt.RegexQuery("sku", "sku00000[1-3].")
+    over = tt.RegexQuery("sku", "sku0000[1-3][0-9][02468]")
+    thirds = [tt.RegexQuery("sku", f"sku0000{d}[0-9][02468]")
+              for d in "123"]
+    dindex = searcher._get_device_index()
+    runs = {q.pattern: len(match_runs(dindex, q))
+            for q in (fitting, over, *thirds)}
+    check(max(runs[q.pattern] for q in (fitting, *thirds)) <= 64
+          < runs[over.pattern], f"regex runs {runs} do not straddle the 64 "
+          "slots")
+    progs, fruits = [], {}
+    for q, host in ((fitting, False), (over, True), (fitting, False),
+                    *((t, False) for t in thirds)):
+        prog = searcher._program_for(q, aggs)
+        check(isinstance(prog, _HostFallback) == host
+              and (host or type(prog) is Program),
+              f"{q!r} planned {type(prog).__name__}")
+        progs.append(prog)
+        t0 = time.perf_counter()
+        got = fruits[q.pattern] = searcher.agg_search(q, aggs)
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.time()
+        want = oracle.agg_search(q, aggs)
+        check(got == want, f"{q!r}: agg_search != oracle")
+        say(f"  {q.pattern}: {runs[q.pattern]} runs, "
+            f"{'host path' if host else 'device Program'}, == oracle "
+            f"(oracle {time.time() - t0:.1f}s)  agg_search {ms:.3f} ms  "
+            f"[{card}]")
+    check(all(p is progs[0] for p in progs[2:]),
+          "the overflow evicted the device Program")
+    merged = _merged_fruits([fruits[t.pattern] for t in thirds])
+    check(_merged_fruits([fruits[over.pattern]]) == merged,
+          "the host path's overflowing regex != its thirds on the device")
+    say(f"  {over.pattern} on the host path == its three thirds on the "
+        f"device, merged (count {merged['n']}, {len(merged['h'])} buckets)")
 
 
 def main(argv=None) -> int:
@@ -1157,6 +1360,9 @@ def main(argv=None) -> int:
         for k, n in by_path[path[0]].items():
             counts[k] += n
         lap(f"main path {path[0]}", t0)
+    t0 = time.time()
+    phase_set_overflow(tt, searcher, oracle, flagship, card)
+    lap("set-query overflow", t0)
     check(set(records) == set(K.launches),
           f"kernel records {sorted(records)} != kernels "
           f"{sorted(K.launches)}")

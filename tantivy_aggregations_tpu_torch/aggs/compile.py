@@ -37,18 +37,26 @@ Modes:
   static composite ancestor-slot plane (per-32-row-block counts per slot),
   then the rank selection per slot over 32-row windows.
 
-Every other shape — non-integer percents, top_hits, facets, set-type /
-exists / phrase queries, multi-valued query chains or bucket fields, the
-cube, sharding — raises NotImplementedError at plan time naming the shape.
-The root query's mask is compiled only when a node reads it, so a chain
-that only a member operand answers needs no mask program.
+Set-type queries (TermSet / Fuzzy / Regex) compile to one run-slot opcode
+of the mask program, so they take every mode above; `accepts` tells the
+searcher when a request's runs exceed the compiled slots.
+
+Every other shape — non-integer percents, top_hits, facets, exists /
+phrase queries, multi-valued query chains or bucket fields, a kernel
+chain whose planes, payloads, ops and params overflow the chain tile
+kernel's shared memory (K.chain_fits: about 50 planes, or tens of
+thousands of params), the cube, sharding —
+raises NotImplementedError at plan time naming the shape, and the searcher
+answers it on the exact host path. The root query's mask is compiled only
+when a node reads it, so a chain that only a member operand answers needs
+no mask program.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from fractions import Fraction
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +88,13 @@ def _wrap64(x: int) -> int:
 @dataclass
 class MaskCtx:
     mask: torch.Tensor  # [B, T] bool; batch stride 0 where one row is shared
+    #: the mask's exact [B] int64 counts, once a node has them
+    cnt: Optional[torch.Tensor] = None
+
+    def count(self) -> torch.Tensor:
+        if self.cnt is None:
+            self.cnt = R.ts_count(self.mask)
+        return self.cnt
 
 
 @dataclass
@@ -99,25 +114,28 @@ class SlotCtx:
         return n
 
 
-def _has_set_query(query, aggs) -> bool:
-    """True when the outer query or any filter/post_filter query holds a
-    set-type query (TermSet/Fuzzy/Regex)."""
+def _iter_set_queries(query, aggs):
+    """Yield every set-type query node (TermSet/Fuzzy/Regex) reachable from
+    the outer query and the agg tree's filter/post_filter queries."""
     def walk_q(q):
         if isinstance(q, (Q.TermSetQuery, Q.FuzzyTermQuery, Q.RegexQuery)):
-            return True
-        if isinstance(q, Q.BooleanQuery):
-            return any(walk_q(c) for c in (*q.must, *q.should, *q.must_not))
-        return False
+            yield q
+        elif isinstance(q, Q.BooleanQuery):
+            for c in (*q.must, *q.should, *q.must_not):
+                yield from walk_q(c)
 
     def walk_a(node):
         if isinstance(node, dict):
-            return any(walk_a(v) for v in node.values())
-        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)) \
-                and walk_q(node.query):
-            return True
-        return any(walk_a(sub) for _, sub in getattr(node, "sub_aggs", ()))
+            for v in node.values():
+                yield from walk_a(v)
+            return
+        if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
+            yield from walk_q(node.query)
+        for _, sub in getattr(node, "sub_aggs", ()):
+            yield from walk_a(sub)
 
-    return walk_q(query) or walk_a(aggs)
+    yield from walk_q(query)
+    yield from walk_a(aggs)
 
 
 def _tree_map(fn, tree):
@@ -143,9 +161,17 @@ class Program:
                  config=None):
         from ..engine_config import EngineConfig
         A.validate_agg_tree(dindex.schema, aggs)
-        if _has_set_query(query, aggs):
-            raise NotImplementedError(
-                "set-type queries (TermSet/Fuzzy/Regex) are not ported yet")
+        # set-type queries: prepare-time type/param validation (TypeError/
+        # ValueError, matching the oracle). Run-count overflow is NOT a
+        # construction error — the program's run-slot shape is valid for
+        # every fitting same-shape request; the searcher's accepts() gate
+        # routes individual overflowing requests to the exact host path.
+        from ..utils import termmatch
+        self._set_shape = False
+        for n in _iter_set_queries(query, aggs):
+            self._set_shape = True
+            termmatch.check_set_query_field(dindex.schema.field(n.field).type,
+                                            n)
         self.dindex = dindex
         self.query = query
         self.aggs = aggs
@@ -197,6 +223,22 @@ class Program:
         repeated queries of a group ONCE (searcher._submit_group)."""
         return tuple(sorted((k, int(v))
                             for k, v in self._extract(query, aggs).items()))
+
+    def accepts(self, query, aggs) -> bool:
+        """True when this program can answer `query` exactly: a same-shape
+        request whose set-type query expansions (if any) fit the compiled
+        run slots. The searcher routes rejected requests to the exact host
+        path without evicting the program."""
+        if not self._set_shape:
+            return True
+        return Program.accepts_on(self.dindex, query, aggs)
+
+    @staticmethod
+    def accepts_on(dindex, query, aggs) -> bool:
+        for n in _iter_set_queries(query, aggs):
+            if len(qc.match_runs(dindex, n)) > Q.run_slots(n):
+                return False
+        return True
 
     def submit(self, query, aggs):
         return self.submit_many([query], aggs)
@@ -256,16 +298,25 @@ class Program:
                 self._need_col_planes(self._col(key.rsplit(":", 1)[0]))
         else:
             planes_of(mp.plane_keys)
-        if len(mp.plane_keys) > K.MAX_PLANES or len(mp.ops) > K.MAX_OPS:
-            raise NotImplementedError(
-                f"query chain needs {len(mp.plane_keys)} planes / "
-                f"{len(mp.ops)} ops (kernel limits {K.MAX_PLANES} / "
-                f"{K.MAX_OPS})")
         cols = [self._pcol[k] for k in mp.param_keys]
         return {"mp": mp, "prefix": prefix,
                 "ops": K.ops_tensor(mp.ops, self.device),
                 "cols": torch.tensor(cols, dtype=torch.int64,
                                      device=self.device)}
+
+    @staticmethod
+    def _need_chain_fit(entry, n_aux=0, ns=0):
+        """Refuse at plan time a chain that the chain tile kernel cannot
+        take with n_aux payloads (or the slot plane of ns slots): its one
+        limit is a CTA's shared memory (K.chain_fits)."""
+        mp = entry["mp"]
+        if not K.chain_fits(len(mp.plane_keys), n_aux, len(mp.ops),
+                            len(mp.param_keys), ns):
+            raise NotImplementedError(
+                f"query chain of {len(mp.plane_keys)} planes, {n_aux} "
+                f"payload or slot planes, {len(mp.ops)} ops and "
+                f"{len(mp.param_keys)} params exceeds the chain tile "
+                f"kernel's shared memory ({K.SMEM_MAX} bytes)")
 
     def _chain_pmat(self, entry, pmat):
         """The [B, Pc] param sub-matrix a chain's mask program reads (one
@@ -482,6 +533,7 @@ class Program:
         layout = col.value_layout()
         prefix = f"VL:{node.field}#"
         entry, _ = self._build_chain_view(layout, prefix, chain)
+        self._need_chain_fit(entry)
         self.plan[path] = {
             "kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
             "min_mono": col.min_mono, "percents": node.percents,
@@ -520,6 +572,7 @@ class Program:
                 "device budget")
         prefix = f"VL:{node.field}#"
         entry, _ = self._build_chain_view(layout, prefix, chain)
+        self._need_chain_fit(entry, 1, nslots)
         self.plan[path] = {
             "kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
             "min_mono": col.min_mono, "percents": node.percents,
@@ -672,10 +725,7 @@ class Program:
             layout, prefix, chain, pay_fields)
         n_pay = sum(len(m["skeys"]) + (m["cnt_key"] is not None)
                     for m in p["pay_plan"].values())
-        if n_pay > K.MAX_PAYLOADS:
-            raise NotImplementedError(
-                f"{n_pay} payload planes exceed the chain_blocks limit "
-                f"{K.MAX_PAYLOADS}")
+        self._need_chain_fit(p["chainp"], n_pay)
         self._need(prefix + "bounds32",
                    _put(layout.bounds.astype(np.int64), self.device))
 
@@ -950,15 +1000,30 @@ class Program:
             else:
                 mask = mask & alive
             ctx = MaskCtx(mask.expand(B, T))
-        out = {name: self._eval(agg, ctx, pmat, arrays, ("a", name))
-               for name, agg in self.aggs.items()}
+        out = self._eval_level(self.aggs.items(), ctx, pmat, arrays, ("a",))
         return {"packed": self._pack_outputs(out, self.aggs, B)}
+
+    def _eval_level(self, items, ctx, pmat, arrays, path):
+        """{name: fruit} of sibling aggs over one context. The metrics the
+        fused_metrics kernel answers go first: the counts it returns are
+        their mask's, which a sibling count, and a filter's own doc count,
+        then take (MaskCtx.count) instead of counting the mask again."""
+        items = list(items)
+        fused = [(self.plan.get(path + (n,)) or {}).get("fused", False)
+                 for n, _ in items]
+        out = {}
+        for first in (True, False):
+            for (name, agg), f in zip(items, fused):
+                if f == first:
+                    out[name] = self._eval(agg, ctx, pmat, arrays,
+                                           path + (name,))
+        return {name: out[name] for name, _ in items}
 
     def _eval(self, node, ctx, pmat, arrays, path):
         p = self.plan.get(path)
         if isinstance(node, A.CountAgg):
             if isinstance(ctx, MaskCtx):
-                return {"cnt": R.ts_count(ctx.mask)}
+                return {"cnt": ctx.count()}
             return {"cnt": R.dense_bucket_counts(ctx.bid, ctx.valid,
                                                  ctx.nslots)}
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
@@ -974,14 +1039,14 @@ class Program:
             fmask = self._chain_mask(p["fmask"], pmat, arrays)
             if isinstance(ctx, MaskCtx):
                 sub_ctx = MaskCtx(ctx.mask & fmask)
-                out = {"cnt": R.ts_count(sub_ctx.mask)}
-            else:
-                sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims)
-                out = {"cnt": R.dense_bucket_counts(
-                    sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots)}
-            for name, sub in node.sub_aggs:
-                out[name] = self._eval(sub, sub_ctx, pmat, arrays,
-                                       path + (name,))
+                subs = self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
+                                        path)
+                return {"cnt": sub_ctx.count(), **subs}
+            sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims)
+            out = {"cnt": R.dense_bucket_counts(
+                sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots)}
+            out.update(self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
+                                        path))
             return out
         raise TypeError(f"unknown agg {type(node)!r}")
 
@@ -1041,6 +1106,8 @@ class Program:
         if p.get("fused"):
             cnt, tot, mn, mx = K.fused_metrics(valid, arrays[f"{field}:w"],
                                                minmax=need_min or need_max)
+            if not slot and ctx.cnt is None:
+                ctx.cnt = cnt
             out["cnt"] = cnt
             if need_min:
                 out["min"] = mn
@@ -1056,7 +1123,7 @@ class Program:
             return out
 
         out["cnt"] = (R.dense_bucket_counts(ctx.bid, valid, ctx.nslots)
-                      if slot else R.ts_count(valid))
+                      if slot else ctx.count())
         if need_min or need_max:
             if col.narrow:
                 v = arrays[f"{field}:w"]

@@ -39,6 +39,8 @@ constexpr int OP_EQ32 = 5;
 constexpr int OP_EQ32_GUARD = 6;
 constexpr int OP_RANGE_WIDE = 7;
 constexpr int OP_EQ_WIDE_GUARD = 8;
+constexpr int OP_SET32 = 9;
+constexpr int OP_SET_WIDE = 10;
 constexpr int OP_WIDTH = 8;
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -68,7 +70,8 @@ constexpr unsigned FULL = 0xffffffffu;
 // block is padded to BLOCK_STRIDE = 36 ints: lane j's 128-bit reads of its
 // own block (8 x 16 B) fall on distinct banks within each quarter warp.
 // avalid blocks are padded to 48 bytes for the same reason. The query's
-// param row is copied into shared memory once per (tile, query). Payload
+// param row is copied into shared memory once per (tile, query): the
+// launch keeps fewer warps where the rows of 8 would not fit. Payload
 // sums, no shuffles: once a tile, the CTA rewrites each staged payload
 // block as byte slices (byte_slice); a lane then sums its block's masked
 // payloads with four __dp4a per 4 rows and recombines the slices in int64
@@ -100,7 +103,9 @@ constexpr unsigned FULL = 0xffffffffu;
 // (qb queries at a time) and the chunks loop over the kept words, so the
 // mask is still evaluated once per (tile, query).
 
-constexpr int MAX_SRC = 24;             // 8 chain planes + 16 payloads
+// sources (chain planes, then payloads or the slot plane): the most whose
+// staged tile fits 227 KB of shared memory (ops/kernels.py MAX_SOURCES)
+constexpr int MAX_SRC = 50;
 constexpr int MAX_STACK = 32;           // query/compile.py MAX_STACK
 constexpr int TILE_BLOCKS = 32;         // one 32-row block per lane
 constexpr int TILE_ROWS = TILE_BLOCKS * 32;
@@ -208,9 +213,45 @@ __device__ __forceinline__ unsigned long long wide_key(int hi, int lo) {
          (static_cast<unsigned>(lo) ^ 0x80000000u);
 }
 
+// A set opcode's word (OP_SET32 / OP_SET_WIDE at op list entry `o`): the
+// OR of its S run slots' RANGE32 (or RANGE_WIDE) compare words; an empty
+// slot (lo > hi: extract_params pads the runs with (1, 0)) is skipped by a
+// branch uniform across the warp.
+__device__ __forceinline__ unsigned set_word(const int* o, const int* blk,
+                                             const int* prm) {
+  unsigned r = 0u;
+  if (o[0] == OP_SET32) {
+    const int* v = blk + o[1] * SRC_INTS;
+    for (int s = 0; s < o[3]; ++s) {
+      const int lo = prm[o[2] + 2 * s], hi = prm[o[2] + 2 * s + 1];
+      if (lo > hi) continue;
+      const unsigned span = static_cast<unsigned>(hi) - static_cast<unsigned>(lo);
+      r |= word_of(v, [=](int x) {
+        return static_cast<unsigned>(x) - static_cast<unsigned>(lo) <= span;
+      });
+    }
+    return r;
+  }
+  const int* h = blk + o[1] * SRC_INTS;
+  const int* l = blk + o[2] * SRC_INTS;
+  for (int s = 0; s < o[4]; ++s) {
+    const int* q = prm + o[3] + 4 * s;
+    const unsigned long long klo = wide_key(q[0], q[1]);
+    const unsigned long long khi = wide_key(q[2], q[3]);
+    if (klo > khi) continue;
+    const unsigned long long span = khi - klo;
+    r |= word_of2(h, l, [=](int a, int b) { return wide_key(a, b) - klo <= span; });
+  }
+  return r;
+}
+
 // The mask program over lane's block `blk` (plane p at blk + p * SRC_INTS)
 // under params `prm` -> the block's 32-bit mask word. The op list and the
 // params are uniform across the warp; `top` holds the stack's top word.
+// SETS: the program may hold set opcodes (set_word). A program without
+// them runs the SETS = false instance, which carries no set code: the set
+// loops cost the other chains registers and 2-5% of their time (PERF.md).
+template <bool SETS>
 __device__ __forceinline__ unsigned eval_word(const int* ops, int n_ops,
                                               const int* blk, const int* prm) {
   unsigned stk[MAX_STACK];
@@ -230,46 +271,50 @@ __device__ __forceinline__ unsigned eval_word(const int* ops, int n_ops,
       continue;
     }
     unsigned r = 0u;
-    switch (op) {
-      case OP_TRUE:
-        r = FULL;
-        break;
-      case OP_RANGE32: {
-        const int lo = prm[o[2]], hi = prm[o[3]];
-        if (lo <= hi) {
-          const unsigned span = static_cast<unsigned>(hi) - static_cast<unsigned>(lo);
-          r = word_of(blk + o[1] * SRC_INTS, [=](int v) {
-            return static_cast<unsigned>(v) - static_cast<unsigned>(lo) <= span;
-          });
+    if (SETS && op >= OP_SET32) {
+      r = set_word(o, blk, prm);
+    } else {
+      switch (op) {
+        case OP_TRUE:
+          r = FULL;
+          break;
+        case OP_RANGE32: {
+          const int lo = prm[o[2]], hi = prm[o[3]];
+          if (lo <= hi) {
+            const unsigned span = static_cast<unsigned>(hi) - static_cast<unsigned>(lo);
+            r = word_of(blk + o[1] * SRC_INTS, [=](int v) {
+              return static_cast<unsigned>(v) - static_cast<unsigned>(lo) <= span;
+            });
+          }
+          break;
         }
-        break;
-      }
-      case OP_EQ32:
-      case OP_EQ32_GUARD: {
-        const int t = prm[o[2]];
-        if (op == OP_EQ32 || prm[o[3]] > 0)
-          r = word_of(blk + o[1] * SRC_INTS, [=](int v) { return v == t; });
-        break;
-      }
-      case OP_RANGE_WIDE: {
-        const unsigned long long klo = wide_key(prm[o[3]], prm[o[4]]);
-        const unsigned long long khi = wide_key(prm[o[5]], prm[o[6]]);
-        if (klo <= khi) {
-          const unsigned long long span = khi - klo;
-          r = word_of2(blk + o[1] * SRC_INTS, blk + o[2] * SRC_INTS,
-                       [=](int h, int l) { return wide_key(h, l) - klo <= span; });
+        case OP_EQ32:
+        case OP_EQ32_GUARD: {
+          const int t = prm[o[2]];
+          if (op == OP_EQ32 || prm[o[3]] > 0)
+            r = word_of(blk + o[1] * SRC_INTS, [=](int v) { return v == t; });
+          break;
         }
-        break;
+        case OP_RANGE_WIDE: {
+          const unsigned long long klo = wide_key(prm[o[3]], prm[o[4]]);
+          const unsigned long long khi = wide_key(prm[o[5]], prm[o[6]]);
+          if (klo <= khi) {
+            const unsigned long long span = khi - klo;
+            r = word_of2(blk + o[1] * SRC_INTS, blk + o[2] * SRC_INTS,
+                         [=](int h, int l) { return wide_key(h, l) - klo <= span; });
+          }
+          break;
+        }
+        case OP_EQ_WIDE_GUARD: {
+          const int th = prm[o[3]], tl = prm[o[4]];
+          if (prm[o[5]] > 0)
+            r = word_of2(blk + o[1] * SRC_INTS, blk + o[2] * SRC_INTS,
+                         [=](int h, int l) { return h == th && l == tl; });
+          break;
+        }
+        default:
+          break;
       }
-      case OP_EQ_WIDE_GUARD: {
-        const int th = prm[o[3]], tl = prm[o[4]];
-        if (prm[o[5]] > 0)
-          r = word_of2(blk + o[1] * SRC_INTS, blk + o[2] * SRC_INTS,
-                       [=](int h, int l) { return h == th && l == tl; });
-        break;
-      }
-      default:
-        break;
     }
     if (sp > 0) stk[sp - 1] = top;
     top = r;
@@ -354,7 +399,7 @@ __device__ __forceinline__ void load_params(int* s_prm, const int* pmat,
 // [B, ns, n_blocks]; n_aux 1, the slot plane; qb queries' words kept at a
 // time when ns > SLOT_CHUNK). Four CTAs of 8 warps an SM: the bounds keep
 // every mode within 64 registers a thread (SLOTS spills a few bytes).
-template <int MODE>
+template <int MODE, bool SETS>
 __global__ void __launch_bounds__(CHAIN_THREADS, 4)
 chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
                   int n_aux, const int* __restrict__ pmat, int B, int P,
@@ -424,7 +469,7 @@ chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
             load_params(s_prm, pmat, b, P, lane);
             __syncwarp();
             s_qw[(b - q0) * 32 + lane] =
-                eval_word(s_ops, n_ops, blk, s_prm) & av;
+                eval_word<SETS>(s_ops, n_ops, blk, s_prm) & av;
             __syncwarp();
           }
         }
@@ -438,7 +483,7 @@ chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
             } else {
               load_params(s_prm, pmat, b, P, lane);
               __syncwarp();
-              w = eval_word(s_ops, n_ops, blk, s_prm) & av;
+              w = eval_word<SETS>(s_ops, n_ops, blk, s_prm) & av;
               __syncwarp();
             }
             if (live) {
@@ -455,7 +500,7 @@ chain_tile_kernel(const __grid_constant__ ChainSrc src, int n_planes,
       for (int b = warp; b < B; b += n_warps) {
         load_params(s_prm, pmat, b, P, lane);
         __syncwarp();
-        const unsigned w = eval_word(s_ops, n_ops, blk, s_prm) & av;
+        const unsigned w = eval_word<SETS>(s_ops, n_ops, blk, s_prm) & av;
         int c = __popc(w);
         if (MODE == COUNTS) {
           c += __shfl_down_sync(FULL, c, 1);
@@ -877,14 +922,15 @@ int resident_ctas(Occupancy& c, K kern, int threads, int smem) {
 
 // The launch shape (warps, stages, smem bytes, and for SLOTS the kept
 // query words qb) comes from the wrapper (ops/kernels.py chain_plan /
-// slot_plan); the grid is the resident CTAs of the card, each walking
-// tiles tile, tile + grid, ...
+// slot_plan), and so does `sets` (the op list holds a set opcode: the
+// SETS = true instance); the grid is the resident CTAs of the card, each
+// walking tiles tile, tile + grid, ...
 template <int MODE>
 int launch_chain_tiles(const void* const* srcs, int n_planes, int n_aux,
                        const int* pmat, int B, int P, const int* ops,
                        int n_ops, const signed char* avalid,
                        long long n_blocks, int warps, int stages, int smem,
-                       int ns, int qb, int* counts, long long* sums,
+                       int sets, int ns, int qb, int* counts, long long* sums,
                        cudaStream_t stream) {
   if (n_planes < 0 || n_aux < 0 || n_planes + n_aux > MAX_SRC || warps < 1 ||
       warps * 32 > CHAIN_THREADS || (stages != 1 && stages != 2) ||
@@ -893,9 +939,10 @@ int launch_chain_tiles(const void* const* srcs, int n_planes, int n_aux,
   ChainSrc src{};
   for (int i = 0; i < n_planes + n_aux; ++i)
     src.p[i] = static_cast<const int*>(srcs[i]);
-  static Occupancy occ;
-  auto kern = chain_tile_kernel<MODE>;
-  const int resident = resident_ctas(occ, kern, warps * 32, smem);
+  static Occupancy occ[2];
+  auto kern =
+      sets ? chain_tile_kernel<MODE, true> : chain_tile_kernel<MODE, false>;
+  const int resident = resident_ctas(occ[sets != 0], kern, warps * 32, smem);
   const long long n_tiles = (n_blocks + TILE_BLOCKS - 1) / TILE_BLOCKS;
   const int grid = grid_for(n_tiles, 1, resident);
   kern<<<grid, warps * 32, smem, stream>>>(src, n_planes, n_aux, pmat, B, P,
@@ -993,13 +1040,13 @@ int tat_fused_metrics(const void* mask, const void* plane, int B, long long T,
 int tat_chain_blocks(const void* const* srcs, int n_planes, int n_pay,
                      const void* pmat, int B, int P, const void* ops,
                      int n_ops, const void* avalid, long long n_blocks,
-                     int warps, int stages, int smem, void* counts,
-                     void* sums, void* stream) {
+                     int warps, int stages, int smem, int sets,
+                     void* counts, void* sums, void* stream) {
   return launch_chain_tiles<BLOCKS>(
       srcs, n_planes, n_pay, static_cast<const int*>(pmat), B, P,
       static_cast<const int*>(ops), n_ops,
       static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
-      0, 0, static_cast<int*>(counts), static_cast<long long*>(sums),
+      sets, 0, 0, static_cast<int*>(counts), static_cast<long long*>(sums),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -1007,15 +1054,15 @@ int tat_chain_blocks(const void* const* srcs, int n_planes, int n_pay,
 int tat_chain_counts(const void* const* srcs, int n_planes, int n_pay,
                      const void* pmat, int B, int P, const void* ops,
                      int n_ops, const void* avalid, long long n_blocks,
-                     int warps, int stages, int smem, void* counts,
-                     void* sums, void* stream) {
+                     int warps, int stages, int smem, int sets,
+                     void* counts, void* sums, void* stream) {
   if (n_pay != 0 || sums != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_chain_tiles<COUNTS>(
       srcs, n_planes, 0, static_cast<const int*>(pmat), B, P,
       static_cast<const int*>(ops), n_ops,
       static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
-      0, 0, static_cast<int*>(counts), nullptr,
+      sets, 0, 0, static_cast<int*>(counts), nullptr,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -1023,13 +1070,13 @@ int tat_chain_counts(const void* const* srcs, int n_planes, int n_pay,
 int tat_chain_slot_counts(const void* const* srcs, int n_planes,
                           const void* pmat, int B, int P, const void* ops,
                           int n_ops, const void* avalid, long long n_blocks,
-                          int warps, int stages, int smem, int ns, int qb,
-                          void* counts, void* stream) {
+                          int warps, int stages, int smem, int sets,
+                          int ns, int qb, void* counts, void* stream) {
   return launch_chain_tiles<SLOTS>(
       srcs, n_planes, 1, static_cast<const int*>(pmat), B, P,
       static_cast<const int*>(ops), n_ops,
       static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
-      ns, qb, static_cast<int*>(counts), nullptr,
+      sets, ns, qb, static_cast<int*>(counts), nullptr,
       static_cast<cudaStream_t>(stream));
 }
 

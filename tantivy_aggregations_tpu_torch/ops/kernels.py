@@ -41,7 +41,11 @@ chain_blocks — replaces `_chain_blocks_batched` / `make_chain_blocks`.
   its warps split the queries; payload blocks are byte-sliced once per
   tile so a lane's masked sum is four __dp4a per 4 rows, recombined
   exactly in int64; a warp stores 32 consecutive counts and sums.
-  `chain_plan` sizes the launch.
+  `chain_plan` sizes the launch (fewer warps where eight param rows
+  would not fit). The set opcodes (OP_SET32, OP_SET_WIDE: TermSet / Fuzzy
+  / Regex) loop their run slots in `eval_word`, a range compare's word per
+  non-empty slot, ORed; the three chain kernels share it, and an op list
+  without them runs the kernel instance that carries no set code.
 chain_counts — replaces `_chain_counts_batched` / `make_chain_counts`.
   Same bound and kernel, counts only; four lanes' counts fold into one
   128-row group by two shuffles.
@@ -84,18 +88,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops.reductions import block32_counts
-from ..query.compile import OP_WIDTH, eval_ops
+from ..ops.reductions import block32_counts, shared_row
+from ..query.compile import OP_SET32, OP_WIDTH, eval_ops
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 _I32 = torch.int32
-#: kernel-side limits on a mask program / payload list
-MAX_PLANES = 8
-MAX_PAYLOADS = 16
-MAX_OPS = 128
-#: params a chain kernel stages per query (its [B, P] matrix's P)
-MAX_PARAMS = 256
 #: the chain tile kernel's layout (csrc/kernels.cu): 32 blocks of 32 rows
 #: per tile, each staged block padded to 36 ints, its avalid to 48 bytes;
 #: at most 8 warps per CTA, within the 227 KB of shared memory a CTA gets
@@ -105,6 +103,12 @@ BLOCK_STRIDE = 36
 AV_STRIDE = 48
 CHAIN_WARPS = 8
 SMEM_MAX = 232_448
+#: the chain tile kernel's one limit is that shared memory: a stage of its
+#: sources (chain planes, then payloads or the slot plane), the op list,
+#: chain_slot_counts' words and one warp's param row must fit
+#: (`chain_fits`); its source struct holds MAX_SOURCES pointers, the most
+#: whose stage fits
+MAX_SOURCES = 50
 #: a CTA double-buffers its tiles only within a quarter of an SM's 228 KB,
 #: so four CTAs (the register limit at 8 warps) stay resident: a second
 #: stage of a wide program would halve them, and the resident CTAs' copies
@@ -177,10 +181,10 @@ def _library():
         lib.tat_fused_metrics_grid.argtypes = [ll, i]
         for fn in (lib.tat_chain_blocks, lib.tat_chain_counts):
             fn.argtypes = [ctypes.POINTER(vp), i, i, vp, i, i, vp, i, vp, ll,
-                           i, i, i, vp, vp, vp]
+                           i, i, i, i, vp, vp, vp]
         lib.tat_chain_slot_counts.argtypes = [ctypes.POINTER(vp), i, vp, i,
                                               i, vp, i, vp, ll, i, i, i, i,
-                                              i, vp, vp]
+                                              i, i, vp, vp]
         lib.tat_gather_rows.argtypes = [vp, i, vp, ll, ll, vp, vp]
         for fn in (lib.tat_fused_metrics, lib.tat_fused_metrics_grid,
                    lib.tat_chain_blocks,
@@ -268,9 +272,7 @@ def fused_metrics(mask, plane, minmax: bool = True):
     _need(plane.dtype == torch.int32, name,
           lambda: f"plane dtype {plane.dtype}")
     B, T = mask.shape
-    rep = 1
-    if B > 1 and mask.stride(0) == 0:  # one row shared by the batch
-        mask, rep = mask[:1], B
+    mask, rep = shared_row(mask)
     if not _route(name, (mask, plane)):
         out = fused_metrics_plain(mask, plane, minmax)
         if rep == 1:
@@ -354,15 +356,31 @@ def _check_chain(name, pmat, ops, planes, avalid, payloads, group):
     return R
 
 
-def _check_chain_cuda(name, pmat, ops, planes, avalid, payloads):
-    _need(len(planes) <= MAX_PLANES and len(payloads) <= MAX_PAYLOADS
-          and ops.shape[0] <= MAX_OPS, name,
-          lambda: f"{len(planes)} planes / {len(payloads)} payloads / "
-          f"{ops.shape[0]} ops exceed the kernel limits")
-    _need(pmat.is_contiguous() and ops.is_contiguous()
-          and avalid.is_contiguous()
-          and all(t.is_contiguous() for t in (*planes, *payloads)), name,
-          "operands must be contiguous")
+def _stage_bytes(n_src: int) -> int:
+    """Shared-memory bytes of one stage: a tile of n_src sources and its
+    avalid bytes."""
+    return n_src * TILE_BLOCKS * BLOCK_STRIDE * 4 + TILE_BLOCKS * AV_STRIDE
+
+
+def _slot_word_bytes(ns: int, qb: int) -> int:
+    """chain_slot_counts' words in shared memory: one chunk of slot words
+    and, where ns spans several chunks, the mask words of qb queries."""
+    return (SLOT_CHUNK + (qb if ns > SLOT_CHUNK else 0)) * 32 * 4
+
+
+def chain_fits(n_planes: int, n_aux: int, n_ops: int, P: int,
+               ns: int = 0) -> bool:
+    """True when the chain tile kernel takes a mask program of n_ops ops
+    and P params over n_planes planes with n_aux payloads (chain_blocks)
+    or, with ns slots, the slot plane (chain_slot_counts), at every batch
+    size: one stage of its sources, the op list, the slot words and one
+    warp's param row fit SMEM_MAX (chain_plan keeps fewer warps where
+    eight param rows would not)."""
+    n_src = n_planes + n_aux
+    extra = _slot_word_bytes(ns, QWORD_BATCH) if ns else 0
+    return (n_src <= MAX_SOURCES
+            and _stage_bytes(n_src) + n_ops * OP_WIDTH * 4 + extra
+            + max(P, 1) * 4 <= SMEM_MAX)
 
 
 @functools.lru_cache(maxsize=None)
@@ -373,12 +391,14 @@ def chain_plan(n_planes: int, n_pay: int, n_ops: int, P: int, B: int,
     payload plus its avalid bytes; two stages double-buffer the copies when
     they fit in DOUBLE_BUFFER_MAX beside the op list, each warp's param row
     and `extra` bytes (slot_plan's words), else one. The warps share each
-    tile and split the B queries, so there are no more warps than
-    queries."""
+    tile and split the B queries, so there are no more warps than queries,
+    and no more than fit their param rows beside one stage in SMEM_MAX."""
+    stage = _stage_bytes(n_planes + n_pay)
+    base = n_ops * OP_WIDTH * 4 + extra
     warps = max(1, min(CHAIN_WARPS, B))
-    stage = ((n_planes + n_pay) * TILE_BLOCKS * BLOCK_STRIDE * 4
-             + TILE_BLOCKS * AV_STRIDE)
-    fixed = n_ops * OP_WIDTH * 4 + warps * P * 4 + extra
+    while warps > 1 and stage + base + warps * P * 4 > SMEM_MAX:
+        warps -= 1
+    fixed = base + warps * P * 4
     stages = 2 if 2 * stage + fixed <= DOUBLE_BUFFER_MAX else 1
     return warps, stages, stages * stage + fixed
 
@@ -391,18 +411,32 @@ def slot_plan(n_planes: int, n_ops: int, P: int, B: int, ns: int):
     where ns spans several chunks, the mask words of qb = min(B,
     QWORD_BATCH) queries at a time (qb = B otherwise, nothing kept)."""
     qb = B if ns <= SLOT_CHUNK else min(B, QWORD_BATCH)
-    words = SLOT_CHUNK + (qb if ns > SLOT_CHUNK else 0)
-    warps, stages, smem = chain_plan(n_planes, 1, n_ops, P, B, words * 32 * 4)
+    warps, stages, smem = chain_plan(n_planes, 1, n_ops, P, B,
+                                     _slot_word_bytes(ns, qb))
     return warps, stages, qb, smem
 
 
-def _chain_sources(name, pmat, ops, planes, avalid, aux):
+def _has_sets(ops) -> bool:
+    """Whether an op list holds a set opcode: the flag `ops_tensor` keeps
+    on the tensors it makes (so the main path never reads its op list
+    back), else read from the tensor."""
+    flag = getattr(ops, "has_sets", None)
+    return bool((ops[:, 0] >= OP_SET32).any()) if flag is None else flag
+
+
+def _chain_sources(name, pmat, ops, planes, avalid, aux, ns=0):
     """Checks of the chain tile kernel's operands; returns the host array
     of source pointers (the planes, then `aux`: payloads or the slot plane)
     that the C launcher copies into the kernel's parameter struct."""
-    _check_chain_cuda(name, pmat, ops, planes, avalid, aux)
-    P = pmat.shape[1]
-    _need(P <= MAX_PARAMS, name, lambda: f"{P} params exceed {MAX_PARAMS}")
+    _need(chain_fits(len(planes), len(aux), ops.shape[0], pmat.shape[1],
+                     ns), name,
+          lambda: f"{len(planes)} planes / {len(aux)} payloads or slot "
+          f"planes / {ops.shape[0]} ops / {pmat.shape[1]} params exceed the "
+          "kernel's shared memory")
+    _need(pmat.is_contiguous() and ops.is_contiguous()
+          and avalid.is_contiguous()
+          and all(t.is_contiguous() for t in (*planes, *aux)), name,
+          "operands must be contiguous")
     ptrs = [t.data_ptr() for t in (*planes, *aux)]
     # the kernel stages every source with 16-byte copies
     _need(avalid.data_ptr() % 16 == 0 and all(p % 16 == 0 for p in ptrs),
@@ -421,7 +455,7 @@ def _launch_chain(name, fn, pmat, ops, planes, avalid, payloads, out):
     counts, sums = out
     rc = fn(srcs, len(planes), len(payloads), pmat.data_ptr(), B, P,
             ops.data_ptr(), n_ops, avalid.data_ptr(), avalid.shape[0] // 32,
-            warps, stages, smem, counts.data_ptr(),
+            warps, stages, smem, int(_has_sets(ops)), counts.data_ptr(),
             0 if sums is None else sums.data_ptr(), _stream(avalid))
     launches[name] += 1
     _check_launch(name, rc)
@@ -484,7 +518,7 @@ def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
           lambda: f"ns {ns} outside (0, {PCT_SLOT_CAP}]")
     if not _route(name, (pmat, ops, avalid, slot, *planes)):
         return chain_slot_counts_plain(pmat, ops, planes, avalid, slot, ns)
-    srcs = _chain_sources(name, pmat, ops, planes, avalid, (slot,))
+    srcs = _chain_sources(name, pmat, ops, planes, avalid, (slot,), ns)
     B, P = pmat.shape
     n_ops = ops.shape[0]
     warps, stages, qb, smem = slot_plan(len(planes), n_ops, P, B, ns)
@@ -492,7 +526,8 @@ def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
                          device=avalid.device)
     rc = _library().tat_chain_slot_counts(
         srcs, len(planes), pmat.data_ptr(), B, P, ops.data_ptr(), n_ops,
-        avalid.data_ptr(), R // 32, warps, stages, smem, ns, qb,
+        avalid.data_ptr(), R // 32, warps, stages, smem, int(_has_sets(ops)),
+        ns, qb,
         counts.data_ptr(), _stream(avalid))
     launches[name] += 1
     _check_launch(name, rc)
@@ -569,5 +604,9 @@ def gather_rows(idx, op):
 
 
 def ops_tensor(ops: np.ndarray, device) -> torch.Tensor:
-    """A mask program's op list as the [n, OP_WIDTH] int32 operand."""
-    return torch.from_numpy(np.ascontiguousarray(ops, np.int32)).to(device)
+    """A mask program's op list as the [n, OP_WIDTH] int32 operand, with
+    its `has_sets` flag (it holds a set opcode) read here, on the host."""
+    ops = np.ascontiguousarray(ops, np.int32)
+    t = torch.from_numpy(ops).to(device)
+    t.has_sets = bool((ops[:, 0] >= OP_SET32).any())
+    return t

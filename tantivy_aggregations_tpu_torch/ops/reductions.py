@@ -13,7 +13,8 @@ planes; out-of-range ids (e.g. -1) match nothing.
 
 [B, rows]-sized int64 temporaries are built a few queries at a time
 (`_query_chunks`), so a 128-query group over 10M rows stays within a
-bounded working set.
+bounded working set. A mask whose rows are one shared row (batch stride
+0, as `expand` makes it) is counted once (`shared_row`).
 """
 
 from __future__ import annotations
@@ -40,9 +41,25 @@ def _rows(x, sl):
     return x if x.dim() == 1 else x[sl]
 
 
+def shared_row(mask):
+    """(mask, rep): a [B, rows] mask whose rows are one shared row (batch
+    stride 0, as `expand` makes it) as that row [1, rows] and B; any other
+    mask as itself and 1."""
+    if mask.shape[0] > 1 and mask.stride(0) == 0:
+        return mask[:1], mask.shape[0]
+    return mask, 1
+
+
 def ts_count(mask) -> torch.Tensor:
-    """[B, rows] bool -> [B] int64 exact counts."""
-    return mask.sum(dim=-1, dtype=torch.int64)
+    """[B, rows] bool -> [B] int64 exact counts. A batch-stride-0 mask is
+    reduced once, as one row; any other in `_query_chunks` slices (the
+    int64 sum casts its slice of the mask)."""
+    mask, rep = shared_row(mask)
+    B, rows = mask.shape
+    out = torch.empty(B, dtype=torch.int64, device=mask.device)
+    for sl in _query_chunks(B, rows):
+        out[sl] = mask[sl].sum(dim=-1, dtype=torch.int64)
+    return out if rep == 1 else out.expand(rep).contiguous()
 
 
 def ts_sum_plane(plane, mask) -> torch.Tensor:

@@ -13,10 +13,12 @@ same list with torch ops over [B, ...] masks (the plain versions of those
 kernels, and every other mask in the port). This replaces the JAX
 package's trace-time `eval_mask` closures.
 
-Covered: MatchAll, Term, Range, Prefix and Boolean must/should/must_not
-over single-valued dense columns (narrow, wide (hi, lo) lexicographic, and
-stringy ordinals). Exists, Phrase, set-type queries and multi-valued query
-fields raise NotImplementedError naming the shape.
+Covered: MatchAll, Term, Range, Prefix, the set-type TermSet / Fuzzy /
+Regex (one opcode that loops the query's run slots) and Boolean
+must/should/must_not over single-valued dense columns (narrow, wide
+(hi, lo) lexicographic, and stringy ordinals). Exists, Phrase and
+multi-valued query fields raise NotImplementedError naming the shape (the
+searcher answers those on the exact host path).
 
 Exactness notes (kept from the JAX package):
 - Exclusive range bounds are normalized to inclusive in the mono domain
@@ -356,9 +358,16 @@ OP_EQ32_GUARD = 6     # plane, pt, ptv: plane == p[pt] and p[ptv] > 0
 OP_RANGE_WIDE = 7     # hi, lo, ploh, plol, phih, phil: lexicographic range
 OP_EQ_WIDE_GUARD = 8  # hi, lo, pth, ptl, ptv: (hi, lo) == (p[pth], p[ptl])
 #                       and p[ptv] > 0
+OP_SET32 = 9          # plane, p0, S: for some slot i < S,
+#                       p[p0+2i] <= plane <= p[p0+2i+1]
+OP_SET_WIDE = 10      # hi, lo, p0, S: for some slot i < S, (hi, lo) in the
+#                       lexicographic range (p[p0+4i], p[p0+4i+1]) ..
+#                       (p[p0+4i+2], p[p0+4i+3])
 OP_WIDTH = 8
 #: bool stack depth the kernels carry (one bit per entry of a uint32)
 MAX_STACK = 32
+#: the set-type queries: a disjunction of run-slot range compares
+SET_QUERIES = (Q.TermSetQuery, Q.FuzzyTermQuery, Q.RegexQuery)
 
 
 class MaskProgram(NamedTuple):
@@ -397,6 +406,18 @@ def mask_program(chain, dindex) -> MaskProgram:
         depth[0] += 1 - pops
         depth[1] = max(depth[1], depth[0])
 
+    def set_slots(q, k, names):
+        """(p0, S) of a set query: extract_params lays its S run slots'
+        params out consecutively, slot i's `names` from p0 + len(names) * i
+        on."""
+        S = Q.run_slots(q)
+        p0 = pidx[f"{k}:s0{names[0]}"]
+        for i in range(S):
+            for j, nm in enumerate(names):
+                assert pidx[f"{k}:s{i}{nm}"] == p0 + len(names) * i + j, \
+                    (k, i, nm)
+        return p0, S
+
     def leaf(q, path):
         col = dindex.column(q.field)
         if col.multi:
@@ -406,9 +427,12 @@ def mask_program(chain, dindex) -> MaskProgram:
         k = _key(path)
         p = lambda s: pidx[k + s]  # noqa: E731
         stringy = col.ftype.is_stringy
+        is_set = isinstance(q, SET_QUERIES)
         if stringy or col.narrow:
             w = plane(f"{q.field}:w")
-            if isinstance(q, Q.TermQuery) and stringy:
+            if is_set:
+                emit(OP_SET32, w, *set_slots(q, k, ("l", "h")))
+            elif isinstance(q, Q.TermQuery) and stringy:
                 emit(OP_EQ32, w, p(":t"))
             elif isinstance(q, Q.TermQuery):
                 emit(OP_EQ32_GUARD, w, p(":t0"), p(":tv0"))
@@ -418,7 +442,10 @@ def mask_program(chain, dindex) -> MaskProgram:
                 emit(OP_RANGE32, w, p(":lo"), p(":hi"))
             return
         hi, lo = plane(f"{q.field}:hi"), plane(f"{q.field}:lo")
-        if isinstance(q, Q.TermQuery):
+        if is_set:
+            emit(OP_SET_WIDE, hi, lo,
+                 *set_slots(q, k, ("lh", "ll", "hh", "hl")))
+        elif isinstance(q, Q.TermQuery):
             emit(OP_EQ_WIDE_GUARD, hi, lo, p(":th0"), p(":tl0"), p(":tv0"))
             emit(OP_EQ_WIDE_GUARD, hi, lo, p(":th1"), p(":tl1"), p(":tv1"))
             emit(OP_OR, pops=2)
@@ -429,7 +456,8 @@ def mask_program(chain, dindex) -> MaskProgram:
     def walk(q, path):
         if isinstance(q, Q.MatchAllQuery):
             emit(OP_TRUE)
-        elif isinstance(q, (Q.TermQuery, Q.RangeQuery, Q.PrefixQuery)):
+        elif isinstance(q, (Q.TermQuery, Q.RangeQuery, Q.PrefixQuery,
+                            *SET_QUERIES)):
             leaf(q, path)
         elif isinstance(q, Q.BooleanQuery):
             emit(OP_TRUE)
@@ -472,6 +500,14 @@ def eval_ops(ops, planes, pmat, shape) -> torch.Tensor:
     B = pmat.shape[0]
     lead = (B,) + (1,) * len(shape)
     prm = [pmat[:, j].reshape(lead) for j in range(pmat.shape[1])]
+
+    def wide_in(hi, lo, lh, ll, hh, hl):
+        """(hi, lo) in the lexicographic range (p[lh], p[ll]) .. (p[hh],
+        p[hl])."""
+        ge = (hi > prm[lh]) | ((hi == prm[lh]) & (lo >= prm[ll]))
+        le = (hi < prm[hh]) | ((hi == prm[hh]) & (lo <= prm[hl]))
+        return ge & le
+
     stack = []
     for o in np.asarray(ops).tolist():
         op = o[0]
@@ -491,14 +527,23 @@ def eval_ops(ops, planes, pmat, shape) -> torch.Tensor:
         elif op == OP_EQ32_GUARD:
             stack.append((planes[o[1]] == prm[o[2]]) & (prm[o[3]] > 0))
         elif op == OP_RANGE_WIDE:
-            hi, lo = planes[o[1]], planes[o[2]]
-            ge = (hi > prm[o[3]]) | ((hi == prm[o[3]]) & (lo >= prm[o[4]]))
-            le = (hi < prm[o[5]]) | ((hi == prm[o[5]]) & (lo <= prm[o[6]]))
-            stack.append(ge & le)
+            stack.append(wide_in(planes[o[1]], planes[o[2]], *o[3:7]))
         elif op == OP_EQ_WIDE_GUARD:
             hi, lo = planes[o[1]], planes[o[2]]
             stack.append((hi == prm[o[3]]) & (lo == prm[o[4]])
                          & (prm[o[5]] > 0))
+        elif op == OP_SET32:
+            v, p0 = planes[o[1]], o[2]
+            m = (v >= prm[p0]) & (v <= prm[p0 + 1])
+            for i in range(1, o[3]):
+                m |= (v >= prm[p0 + 2 * i]) & (v <= prm[p0 + 2 * i + 1])
+            stack.append(m)
+        elif op == OP_SET_WIDE:
+            hi, lo, p0 = planes[o[1]], planes[o[2]], o[3]
+            m = wide_in(hi, lo, *range(p0, p0 + 4))
+            for j in range(p0 + 4, p0 + 4 * o[4], 4):
+                m |= wide_in(hi, lo, *range(j, j + 4))
+            stack.append(m)
         else:
             raise ValueError(f"unknown mask opcode {op}")
     (m,) = stack

@@ -8,8 +8,12 @@ LRU), execute, and harvest host-side fruits.
 
 The device is explicit: `Searcher(index, device=...)` defaults to "cuda"
 and never falls back to the CPU; the CPU tests pass device="cpu". A tree
-the port cannot lower raises NotImplementedError from the planner (the
-exact host fallback of the JAX package comes with a later slice).
+the planner cannot lower (it raises NotImplementedError) answers through
+the exact host path (`_HostFallback` over the index's oracle), with one
+warning on the package logger, and so does a request whose set-query runs
+exceed its program's run slots; the program stays cached for the requests
+of its shape that fit. Nothing else falls back: a kernel that fails
+raises.
 """
 
 from __future__ import annotations
@@ -30,6 +34,22 @@ def _copy_fruits(v):
     return v
 
 
+class _HostFallback:
+    """Exact host execution for the rare agg-tree shapes the device planner
+    cannot lower yet (SURVEY.md §2.1: the spec defines semantics for every
+    tree; the engine must never refuse one). The oracle IS the engine's
+    host path — same index, same exact arithmetic — so results are
+    identical by construction. Carries just enough of the Program protocol
+    for the msearch/stream drivers to pass groups through synchronously."""
+
+    def __init__(self, oracle, reason: str):
+        self.oracle = oracle
+        self.reason = reason
+
+    def run(self, query, aggs):
+        return self.oracle.agg_search(query, aggs)
+
+
 class Searcher:
     def __init__(self, index, device="cuda", config=None):
         from .engine_config import EngineConfig
@@ -44,6 +64,7 @@ class Searcher:
         self._programs = {}  # insertion-ordered; pruned LRU-style
         self._max_programs = 256
         self._program_was_cached = False
+        self._overflow_fb = None  # host path for set-query run overflow
 
     # -- device index ----------------------------------------------------------
 
@@ -58,17 +79,47 @@ class Searcher:
     # -- entry point -----------------------------------------------------------
 
     def _program_for(self, query, aggs):
-        from .aggs.compile import get_program
+        """The cached Program of the request's shape (planned on a miss), a
+        `_HostFallback` where the planner has no device lowering for the
+        shape (cached like a program), or the overflow fallback where this
+        request's set-query runs exceed the slots of its shape."""
+        from .aggs.compile import Program, get_program
         dindex = self._get_device_index()
         key = (query_ir.structural_key(query), agg_ir.structural_key(aggs))
         prog = self._programs.pop(key, None)  # re-inserted: LRU refresh
         self._program_was_cached = prog is not None
         if prog is None:
-            prog = get_program(dindex, query, aggs, config=self.config)
+            if not Program.accepts_on(dindex, query, aggs):
+                # the planner extracts this request's params, which do not
+                # fit the slots: plan nothing, so that the first fitting
+                # request of the shape plans its program
+                return self._overflow()
+            try:
+                prog = get_program(dindex, query, aggs, config=self.config)
+            except NotImplementedError as e:
+                from .utils.stats import log
+                log.warning("agg tree has no device lowering (%s); "
+                            "running the exact host path", e)
+                prog = _HostFallback(self.index.oracle_searcher(), str(e))
         self._programs[key] = prog
         while len(self._programs) > self._max_programs:
             self._programs.pop(next(iter(self._programs)))
+        if (not isinstance(prog, _HostFallback)
+                and not prog.accepts(query, aggs)):
+            # same shape, but THIS request's set-query expansion exceeds
+            # the compiled run slots: answer it on the exact host path
+            # without evicting the program (fitting requests keep using it)
+            return self._overflow()
         return prog
+
+    def _overflow(self):
+        from .utils.stats import log
+        log.warning("set query expansion exceeds the program's run "
+                    "slots; running the exact host path")
+        if self._overflow_fb is None:
+            self._overflow_fb = _HostFallback(
+                self.index.oracle_searcher(), "set-query run overflow")
+        return self._overflow_fb
 
     def agg_search(self, query: query_ir.Query,
                    aggs: Dict[str, agg_ir.Agg]) -> Dict[str, dict]:
@@ -81,13 +132,17 @@ class Searcher:
         prog = self._program_for(query, aggs)
         st = QueryStats(program_cached=self._program_was_cached)
         st.prepare_ms = t.lap()
-        raw = prog.submit(query, aggs)
-        st.dispatch_ms = t.lap()
-        raw["packed"] = raw["packed"].cpu()  # block: execute + copy
-        st.wait_ms = t.lap()
-        out = prog.finalize(raw, aggs)
-        st.harvest_ms = t.lap()
-        st.device_ms = st.dispatch_ms + st.wait_ms + st.harvest_ms
+        if isinstance(prog, _HostFallback):
+            out = prog.run(query, aggs)
+            st.device_ms = t.lap()
+        else:
+            raw = prog.submit(query, aggs)
+            st.dispatch_ms = t.lap()
+            raw["packed"] = raw["packed"].cpu()  # block: execute + copy
+            st.wait_ms = t.lap()
+            out = prog.finalize(raw, aggs)
+            st.harvest_ms = t.lap()
+            st.device_ms = st.dispatch_ms + st.wait_ms + st.harvest_ms
         st.total_ms = st.prepare_ms + st.device_ms
         self.last_stats = st
         return out
@@ -114,7 +169,8 @@ class Searcher:
         for query, aggs in requests:
             prog = self._program_for(query, aggs)
             cap = min(self.config.max_batch,
-                      prog.batch_cap or self.config.max_batch)
+                      getattr(prog, "batch_cap", None)
+                      or self.config.max_batch)
             if (groups and groups[-1][0] is prog and groups[-1][2] is aggs
                     and len(groups[-1][1]) < cap):
                 groups[-1][1].append(query)
@@ -125,6 +181,8 @@ class Searcher:
 
     def _collect_group(self, group):
         prog, queries, aggs, raw, idxmap, nuniq = group
+        if isinstance(prog, _HostFallback):
+            return [prog.run(q, aggs) for q in queries]
         uniq_outs = prog.finalize_many(raw, aggs, nuniq)
         if len(queries) == nuniq:
             return uniq_outs
@@ -138,6 +196,8 @@ class Searcher:
         return out
 
     def _submit_group(self, prog, queries, aggs):
+        if isinstance(prog, _HostFallback):  # answered at collect
+            return (prog, queries, aggs, None, None, 0)
         # dedup identical requests (config.msearch_dedup): a program is a
         # pure function of its extracted params — compute each distinct
         # param set ONCE and fan the fruits out

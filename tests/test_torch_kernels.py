@@ -85,6 +85,18 @@ def _queries(m, jd):
             should=[m.RangeQuery("delta", lower=0),
                     m.TermQuery("price", price)])],
             must_not=[m.RangeQuery("ts", upper=5_000_000)]),
+        # set-type queries: OP_SET32 (stringy, narrow) and OP_SET_WIDE
+        m.TermSetQuery("cat", ["cat0003", "cat0004", "cat0010",
+                               "no-such-term"]),
+        m.TermSetQuery("qty", [qty, qty + 1, 5, 999, 10**12]),
+        m.TermSetQuery("delta", [-500, -499, 0, 17]),
+        m.TermSetQuery("price", [price, 0.0, -1.5, 1e300]),  # +-0 pair
+        m.TermSetQuery("price", []),
+        m.FuzzyTermQuery("cat", "cat0010"),
+        m.RegexQuery("cat", "cat00[0-3][13579]"),
+        m.BooleanQuery(must=[m.TermSetQuery("cat", ["cat0001", "cat0002"])],
+                       must_not=[m.RegexQuery("cat", "cat000[2-9]")],
+                       should=[m.TermSetQuery("qty", [qty])]),
     ]
 
 
@@ -120,7 +132,7 @@ def test_mask_program_matches_jax_eval_mask(dual):
 @pytest.mark.parametrize("q", [
     tt.ExistsQuery("cat"),
     tt.TermQuery("tags", "t1"),           # multi-valued field
-    tt.TermSetQuery("cat", ["cat0001"]),
+    tt.TermSetQuery("tags", ["t1", "t3"]),  # a set over a multi-valued one
 ])
 def test_mask_program_refuses_unported_shapes(dual, q):
     _, pd = dual
@@ -237,6 +249,35 @@ def test_fused_metrics_runs_a_shared_mask_once(monkeypatch):
     assert mn.tolist() == [0] * 7 and mx.tolist() == [127] * 7
 
 
+def test_ts_count_chunks_and_reduces_a_shared_mask_once(monkeypatch):
+    """ts_count (the root and filter `count`) casts at most _TMP_ELEMS
+    mask elements to int64 at a time, and reduces a batch-stride-0 mask
+    as its one row; the counts are exact int64."""
+    from tantivy_aggregations_tpu_torch.ops import reductions as R
+    rows = 1000
+    mask = torch.from_numpy(np.random.default_rng(3).random((7, rows))
+                            < 0.4)
+    monkeypatch.setattr(R, "_TMP_ELEMS", 2 * rows)
+    seen = []
+    chunks = R._query_chunks
+
+    def spy(B, n):
+        sl = list(chunks(B, n))
+        seen.append((B, n, [(s.start, s.stop) for s in sl]))
+        return iter(sl)
+
+    monkeypatch.setattr(R, "_query_chunks", spy)
+    got = R.ts_count(mask)
+    assert got.dtype == torch.int64
+    assert got.tolist() == mask.numpy().sum(axis=1).tolist()
+    assert seen == [(7, rows, [(0, 2), (2, 4), (4, 6), (6, 7)])]
+    seen.clear()
+    row = mask[3:4]
+    got = R.ts_count(row.expand(7, rows))
+    assert seen == [(1, rows, [(0, 1)])]
+    assert got.is_contiguous() and got.tolist() == [int(row.sum())] * 7
+
+
 # ---------------------------------------------------------------------------
 # chain_blocks / chain_counts over real chains and index planes
 # ---------------------------------------------------------------------------
@@ -259,22 +300,48 @@ def _chain_cases(m, jd):
     def empty(j):
         return m.RangeQuery("qty", lower=900 + j, upper=100)
 
+    # stored prices, so that the wide sets match rows
+    prices = [float(_params_value(jd, "price", r)) for r in range(7, 47)]
+
     def every_op(j):
         # TRUE, AND, NOT, EQ32, RANGE32, RANGE_WIDE; EQ_WIDE_GUARD and
-        # EQ32_GUARD each in an OR pair
+        # EQ32_GUARD each in an OR pair; SET32 and SET_WIDE
         return m.BooleanQuery(
             must=[m.TermQuery("cat", f"cat000{j}"),
                   m.RangeQuery("qty", lower=10 * j, upper=900),
                   m.RangeQuery("price", lower=-80.0 + j, upper=60.0)],
-            must_not=[m.TermQuery("price", price), m.TermQuery("qty", qty)])
+            must_not=[m.TermQuery("price", price), m.TermQuery("qty", qty),
+                      m.TermSetQuery("qty", [qty + 1, qty + 2, 3 * j]),
+                      m.TermSetQuery("price", [prices[j], 0.0])])
 
-    return [ranged, wide, empty, every_op]
+    def set32(j):  # stringy and narrow sets
+        return m.BooleanQuery(should=[
+            m.TermSetQuery("cat", [f"cat{(7 * j + 3 * i) % 50:04d}"
+                                   for i in range(5)]),
+            m.TermSetQuery("qty", [qty, 10 * j, 500 + j, 501 + j])])
+
+    def set_wide(j):  # f64 values, the +-0 pair among them
+        return m.TermSetQuery("price", prices[j:j + 5] + [0.0])
+
+    def fuzzy(j):
+        return m.FuzzyTermQuery("cat", f"cat00{10 + j}")
+
+    def regex(j):
+        return m.RegexQuery("cat", f"cat00[{j % 4}-4][13579]")
+
+    return [ranged, wide, empty, every_op, set32, set_wide, fuzzy, regex]
+
+
+#: the chain cases (_chain_cases) every chain kernel is held to here; the
+#: set cases 4-7 run in test_torch_set_chains.py, a file of their own so
+#: that a parallel run splits their Pallas interpret time
+CHAIN_CASES = range(4)
 
 
 def test_every_op_case_emits_every_opcode(dual):
     jd, pd = dual
     mp = pqc.mask_program(((_chain_cases(tt, jd)[3](0), ("q",)),), pd)
-    assert set(mp.ops[:, 0].tolist()) == set(range(pqc.OP_EQ_WIDE_GUARD + 1))
+    assert set(mp.ops[:, 0].tolist()) == set(range(pqc.OP_SET_WIDE + 1))
 
 
 def _chain_inputs(jd, pd, case, B):
@@ -331,7 +398,7 @@ def _run_jax(fn, pm, B):
         return jax.jit(jax.vmap(fn))(jnp.asarray(pm))
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", CHAIN_CASES)
 @pytest.mark.parametrize("B,L", [(1, 1), (4, 3), (33, 16)])
 def test_chain_blocks_plain_matches_pallas(dual, case, B, L):
     jd, pd = dual
@@ -358,7 +425,7 @@ def test_chain_blocks_plain_matches_pallas(dual, case, B, L):
         np.testing.assert_array_equal(sums[:, j].numpy(), tot)
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", CHAIN_CASES)
 @pytest.mark.parametrize("B", [1, 4, 33])
 def test_chain_counts_plain_matches_pallas(dual, case, B):
     jd, pd = dual
@@ -375,23 +442,42 @@ def test_chain_counts_plain_matches_pallas(dual, case, B):
     np.testing.assert_array_equal(counts.numpy(), jc)
 
 
-@pytest.mark.parametrize("n_planes", range(K.MAX_PLANES + 1))
+#: param counts of the plan tests: the main path's few, a 64-slot wide
+#: TermSet's 256, past that, and a chain long enough that eight warps'
+#: param rows do not fit beside a wide stage
+PLAN_PARAMS = (1, 256, 257, 5000)
+
+
+def _warps_ok(warps, B, fits8):
+    """chain_plan keeps min(B, 8) warps where their param rows fit, else
+    fewer, but at least one."""
+    full = min(B, K.CHAIN_WARPS)
+    return warps == full if fits8 else 1 <= warps < full
+
+
+@pytest.mark.parametrize("n_planes", range(9))
 def test_chain_plan_fits_shared_memory(n_planes):
-    """Every launch shape of the chain tile kernel up to the kernel limits
-    fits a CTA's shared memory, double-buffers the narrow programs (the
-    main path's: up to 2 chain planes and payloads), keeps no more warps
-    than queries, and its tile divides every padded layout."""
+    """Every launch shape of the chain tile kernel that chain_fits accepts
+    (here up to 8 chain planes, 16 payloads and 128 ops, params up to a
+    few thousand) fits a CTA's shared memory, keeps no more warps than
+    queries and only as many as fit their param rows, double-buffers the
+    narrow programs (the main path's: up to 2 chain planes and payloads),
+    and its tile divides every padded layout."""
     assert PAD_BLOCK % K.TILE_ROWS == 0
-    for n_pay in range(K.MAX_PAYLOADS + 1):
-        for n_ops in (1, K.MAX_OPS):
-            for P in (1, K.MAX_PARAMS):
+    for n_pay in range(17):
+        stage = K._stage_bytes(n_planes + n_pay)
+        for n_ops in (1, 128):
+            for P in PLAN_PARAMS:
+                assert K.chain_fits(n_planes, n_pay, n_ops, P)
                 for B in (1, 31, 33, 128, 200):
                     warps, stages, smem = K.chain_plan(n_planes, n_pay,
                                                        n_ops, P, B)
                     assert smem <= K.SMEM_MAX
-                    assert 1 <= warps <= min(B, K.CHAIN_WARPS)
+                    fits8 = (stage + n_ops * K.OP_WIDTH * 4
+                             + min(B, K.CHAIN_WARPS) * P * 4 <= K.SMEM_MAX)
+                    assert _warps_ok(warps, B, fits8)
                     assert stages in (1, 2)
-                    if n_planes + n_pay <= 2:
+                    if n_planes + n_pay <= 2 and P <= 256:
                         assert stages == 2
                     if stages == 2:
                         assert smem <= K.DOUBLE_BUFFER_MAX
@@ -399,22 +485,25 @@ def test_chain_plan_fits_shared_memory(n_planes):
         assert R % K.TILE_ROWS == 0
 
 
-@pytest.mark.parametrize("n_planes", range(K.MAX_PLANES + 1))
+@pytest.mark.parametrize("n_planes", range(9))
 def test_slot_plan_fits_shared_memory(n_planes):
     """Every launch shape of chain_slot_counts' tile kernel (the chain
     planes and the slot plane as sources) fits a CTA's shared memory for
-    any slot count up to the cap and any batch: the mask words kept past
-    one slot chunk are capped at QWORD_BATCH queries; the main path's
-    narrow programs (c9: one chain plane, ns = 4) double-buffer."""
-    assert n_planes + 1 <= 24  # csrc/kernels.cu MAX_SRC
-    for n_ops in (1, K.MAX_OPS):
-        for P in (1, K.MAX_PARAMS):
-            for ns in (1, 32, 33, K.PCT_SLOT_CAP):
+    any slot count up to the cap, params up to a few thousand and any
+    batch: the mask words kept past one slot chunk are capped at
+    QWORD_BATCH queries; the main path's narrow programs (c9: one chain
+    plane, ns = 4) double-buffer."""
+    for n_ops in (1, 128):
+        for ns in (1, 32, 33, K.PCT_SLOT_CAP):
+            for P in PLAN_PARAMS:
+                assert K.chain_fits(n_planes, 1, n_ops, P, ns)
                 for B in (1, 33, 128, 200):
                     warps, stages, qb, smem = K.slot_plan(n_planes, n_ops, P,
                                                           B, ns)
                     assert smem <= K.SMEM_MAX
                     assert 1 <= warps <= min(B, K.CHAIN_WARPS)
+                    if P <= 256:
+                        assert warps == min(B, K.CHAIN_WARPS)
                     assert stages in (1, 2)
                     if ns <= K.SLOT_CHUNK:
                         assert qb == B
@@ -426,9 +515,46 @@ def test_slot_plan_fits_shared_memory(n_planes):
         assert K.slot_plan(n_planes, 8, 4, 128, 4)[1] == 2
 
 
+@pytest.mark.parametrize("ns", [0, 4, 33, K.PCT_SLOT_CAP])
+def test_chain_fits_is_the_shared_memory_edge(ns):
+    """chain_fits accepts a program exactly while one stage, the op list,
+    the slot words and one warp's param row fit SMEM_MAX, and never more
+    sources than the kernel's source struct holds (MAX_SOURCES, sized to
+    that edge); the plans of the largest accepted programs fit at every
+    batch size, with fewer warps where eight param rows would not."""
+    aux = 1 if ns else 0
+    for n_ops in (1, 128, 1000):
+        for P in PLAN_PARAMS:
+            n = max(p for p in range(K.MAX_SOURCES + 2)
+                    if K.chain_fits(p, aux, n_ops, P, ns))
+            assert n + aux <= K.MAX_SOURCES
+            assert not K.chain_fits(n + 1, aux, n_ops, P, ns)
+            for B in (1, 128, 200):
+                plan = (K.slot_plan(n, n_ops, P, B, ns) if ns
+                        else K.chain_plan(n, 0, n_ops, P, B))
+                assert plan[-1] <= K.SMEM_MAX and plan[0] >= 1
+    assert K.chain_fits(K.MAX_SOURCES, 0, 1, 1)
+    assert not K.chain_fits(K.MAX_SOURCES + 1, 0, 1, 1)
+    # the params alone: a row of P ints beside a small program's stage
+    big = (K.SMEM_MAX - K._stage_bytes(2) - 8 * K.OP_WIDTH * 4) // 4
+    assert K.chain_fits(1, 1, 8, big) and not K.chain_fits(1, 1, 8, big + 1)
+
+
+def test_ops_tensor_flags_set_opcodes():
+    """ops_tensor records on the host whether an op list holds a set
+    opcode (the kernel instance it runs), and the wrappers read an op list
+    that lacks the flag from the tensor."""
+    plain = np.array([[pqc.OP_TRUE] + [0] * 7], np.int32)
+    sets = np.array([[pqc.OP_SET32, 0, 0, 2] + [0] * 4], np.int32)
+    assert not K.ops_tensor(plain, "cpu").has_sets
+    assert K.ops_tensor(sets, "cpu").has_sets
+    assert K._has_sets(torch.from_numpy(sets))
+    assert not K._has_sets(torch.from_numpy(plain))
+
+
 @pytest.mark.parametrize(
     "B,ns,case",
-    [(B, ns, case) for case in range(4)
+    [(B, ns, case) for case in CHAIN_CASES
      for B, ns in ((1, 1), (1, 5), (4, 1), (4, 5))]
     # the kernel's 32-slot chunk edge at B = 33 (the Pallas kernel unrolls
     # B x ns in its trace, ~25 s a case): a ranged chain and every opcode

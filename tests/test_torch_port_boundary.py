@@ -73,6 +73,21 @@ def test_copied_functions_match_jax_originals():
         inspect.getsource(jcompile._limb_totals_vec)
 
 
+def test_copied_host_path_matches_jax_originals():
+    """The exact host path and the set-query acceptance gate are copies:
+    `_HostFallback`, `_iter_set_queries`, `Program.accepts` and
+    `Program.accepts_on`."""
+    from tantivy_aggregations_tpu import searcher as jsearcher
+    from tantivy_aggregations_tpu_torch import searcher as psearcher
+    assert inspect.getsource(psearcher._HostFallback) == \
+        inspect.getsource(jsearcher._HostFallback)
+    assert inspect.getsource(pcompile._iter_set_queries) == \
+        inspect.getsource(jcompile._iter_set_queries)
+    for name in ("accepts", "accepts_on"):
+        assert inspect.getsource(getattr(pcompile.Program, name)) == \
+            inspect.getsource(getattr(jcompile.Program, name)), name
+
+
 def test_engine_config_keeps_the_serving_knobs():
     """The port keeps the JAX EngineConfig's serving knobs with the same
     defaults and drops the cube, member-op, MXU and Pallas knobs."""

@@ -20,6 +20,7 @@ from tantivy_aggregations_tpu.models import flagship as jflag
 import tantivy_aggregations_tpu_torch as tt
 from tantivy_aggregations_tpu_torch.engine_config import EngineConfig
 from tantivy_aggregations_tpu_torch.models import flagship as pflag
+from tantivy_aggregations_tpu_torch.query import compile as pqc
 
 from fixtures import random_index
 
@@ -139,19 +140,266 @@ def test_collect_stats(rnd):
     assert s.last_stats.program_cached
 
 
-@pytest.mark.parametrize("aggs,query", [
-    ({"t": tt.top_hits_agg(size=3)}, tt.MatchAllQuery()),
-    ({"p": tt.percentiles_agg("price", (2.5, 50.0))}, tt.MatchAllQuery()),
-    ({"t": tt.terms_agg("cat", sub_aggs={
-        "p": tt.percentiles_agg("qty", (2.5, 50.0))})}, tt.MatchAllQuery()),
-    ({"t": tt.terms_agg("tags")}, tt.MatchAllQuery()),
-    ({"n": tt.count_agg()}, tt.TermSetQuery("cat", ["cat0001"])),
-    ({"n": tt.count_agg()}, tt.TermQuery("tags", "t1")),
-    ({"n": tt.count_agg()}, tt.ExistsQuery("cat")),
-])
-def test_unported_shapes_raise(rnd, aggs, query):
-    with pytest.raises(NotImplementedError):
-        rnd["port"].agg_search(query, aggs)
+def test_collect_stats_on_the_host_path(rnd):
+    pidx = rnd["port"].index
+    s = pidx.searcher(device="cpu",
+                      config=EngineConfig(dense_nb=8, collect_stats=True))
+    q, aggs = tt.ExistsQuery("cat"), {"n": tt.count_agg()}
+    assert s.agg_search(q, aggs) == rnd["port_oracle"].agg_search(q, aggs)
+    st = s.last_stats
+    assert st.device_ms > 0 and st.wait_ms == 0 and st.harvest_ms == 0
+    assert st.total_ms == st.prepare_ms + st.device_ms
+
+
+def _unlowered(m):
+    """(aggs, query) with module `m`'s IR: six shapes the port's planner
+    does not lower (top_hits, non-integer percents at the root and under
+    buckets, terms over a multi-valued field, a term query on one, exists)
+    and a TermSet query, which it does."""
+    return [
+        ({"t": m.top_hits_agg(size=3)}, m.MatchAllQuery()),
+        ({"p": m.percentiles_agg("price", (2.5, 50.0))}, m.MatchAllQuery()),
+        ({"t": m.terms_agg("cat", sub_aggs={
+            "p": m.percentiles_agg("qty", (2.5, 50.0))})}, m.MatchAllQuery()),
+        ({"t": m.terms_agg("tags")}, m.MatchAllQuery()),
+        ({"n": m.count_agg()}, m.TermSetQuery("cat", ["cat0001"])),
+        ({"n": m.count_agg()}, m.TermQuery("tags", "t1")),
+        ({"n": m.count_agg()}, m.ExistsQuery("cat")),
+    ]
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_unlowered_shapes_answer_exactly(rnd, i):
+    """agg_search never raises NotImplementedError: a shape the planner
+    refuses answers on the exact host path, == the port's oracle == the
+    JAX package; the TermSet query plans a device Program."""
+    from tantivy_aggregations_tpu_torch.searcher import _HostFallback
+    jaggs, jq = _unlowered(tat)[i]
+    aggs, q = _unlowered(tt)[i]
+    want = rnd["port_oracle"].agg_search(q, aggs)
+    assert want == rnd["jax_oracle"].agg_search(jq, jaggs)
+    assert rnd["jax"].agg_search(jq, jaggs) == want
+    assert rnd["port"].agg_search(q, aggs) == want
+    prog = rnd["port"]._program_for(q, aggs)
+    assert isinstance(prog, _HostFallback) == \
+        (not isinstance(q, tt.TermSetQuery)), prog
+
+
+# ---------------------------------------------------------------------------
+# set-type queries (TermSet / Fuzzy / Regex): the run-slot opcodes
+# ---------------------------------------------------------------------------
+
+def _set_shapes(m):
+    """(query, aggs, plan checks) of set-query requests with module `m`'s
+    IR over the fixture schema (dense_nb=8): TermSet on stringy, narrow
+    and f64 (+-0) fields, Fuzzy and Regex on the keyword field, sets inside
+    a BooleanQuery and a filter_agg, and sets under a prefix terms agg
+    (chain_blocks), rank percentiles (chain_counts) and slot_rank
+    percentiles (chain_slot_counts)."""
+    metrics = {"n": m.count_agg(), "s": m.sum_agg("qty"),
+               "st": m.stats_agg("price"), "d": m.min_agg("delta")}
+    pct = m.percentiles_agg("qty", (1.0, 50.0, 99.0))
+    return [
+        (m.TermSetQuery("cat", ["cat0003", "cat0004", "cat0010", "nope"]),
+         metrics, ()),
+        (m.TermSetQuery("qty", [3, 4, 5, 999, 10**12]), metrics, ()),
+        (m.TermSetQuery("price", [0.0, 12.5, -1.25, 1e300]), metrics, ()),
+        (m.TermSetQuery("price", [-0.0]), metrics, ()),
+        (m.FuzzyTermQuery("cat", "cat0010"), metrics, ()),
+        (m.RegexQuery("cat", "cat00[1-3][02468]"), metrics, ()),
+        (m.BooleanQuery(must=[m.TermSetQuery("cat", ["cat0001", "cat0002",
+                                                     "cat0007"])],
+                        must_not=[m.RegexQuery("cat", "cat000[2-5]")],
+                        should=[m.TermSetQuery("qty", [1, 2])]),
+         metrics, ()),
+        (m.MatchAllQuery(),
+         {"f": m.filter_agg(m.TermSetQuery("qty", list(range(0, 600, 13))),
+                            sub_aggs={"s": m.sum_agg("delta"),
+                                      "h": m.histogram_agg("delta",
+                                                           interval=100)})},
+         ()),
+        (m.RegexQuery("cat", "cat00[0-4][13579]"),
+         {"t": m.terms_agg("cat", size=5, sub_aggs={"s": m.sum_agg("qty")})},
+         ((("a", "t"), "pallas_prefix"),)),
+        (m.TermSetQuery("price", [0.0, 12.5, -1.25, 33.33]),
+         {"p": pct}, ((("a", "p"), "pallas_counts"),)),
+        (m.FuzzyTermQuery("cat", "cat0021"),
+         {"t": m.terms_agg("cat", size=3, sub_aggs={"p": pct})},
+         ((("a", "t", "p"), "pallas_slots"),)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(11))
+def test_set_queries_match_jax_and_oracles(rnd, i):
+    jq, jaggs, _ = _set_shapes(tat)[i]
+    pq, paggs, modes = _set_shapes(tt)[i]
+    want = rnd["jax_oracle"].agg_search(jq, jaggs)
+    assert rnd["jax"].agg_search(jq, jaggs) == want
+    assert rnd["port_oracle"].agg_search(pq, paggs) == want
+    assert rnd["port"].agg_search(pq, paggs) == want
+    prog = rnd["port"]._program_for(pq, paggs)
+    assert prog._set_shape
+    for path, key in modes:
+        assert prog.plan[path].get(key), (path, key, prog.plan[path])
+
+
+def _build(path, docs):
+    """A one-segment index of `docs` over fixtures.basic_schema, written by
+    the JAX package's writer."""
+    from fixtures import basic_schema
+    idx = tat.Index.create(path, basic_schema())
+    w = idx.writer()
+    for d in docs:
+        w.add_document(d)
+    w.commit()
+    return path
+
+
+def test_set_queries_on_a_wide_integer_field(tmp_path):
+    """OP_SET_WIDE over a u64 column spanning past 2^32 (a wide (hi, lo)
+    plane pair), at the root and under a prefix terms agg."""
+    big = [0, 5, 2**32 - 1, 2**32, 2**40 + 3, 2**62 + 7, 2**63 - 3]
+    docs = [{"qty": big[i % len(big)] + (i // len(big)) % 3,
+             "cat": f"c{i % 40:02d}", "delta": i} for i in range(600)]
+    path = _build(str(tmp_path / "idx"), docs)
+    reqs = []
+    for m in (tat, tt):
+        aggs = {"n": m.count_agg(), "s": m.sum_agg("delta"),
+                "t": m.terms_agg("cat", size=4,
+                                 sub_aggs={"s": m.sum_agg("delta")})}
+        reqs.append([(m.TermSetQuery("qty", vals), aggs) for vals in (
+            [2**32, 2**32 + 1, 2**62 + 8], [0, 6, 2**63 - 1, 2**63 - 2],
+            [2**40 + 4, 1, 12345], [2**64 - 1, 3, 2**32 - 1])])
+    port = _four_way(path, list(zip(*reqs)), EngineConfig(dense_nb=8))
+    prog = port._program_for(*reqs[1][0])
+    assert not prog.dindex.column("qty").narrow
+    assert prog.plan[("a", "t")]["pallas_prefix"]
+    ops = prog.plan[("a", "t")]["chainp"]["mp"].ops
+    assert set(ops[:, 0].tolist()) == {pqc.OP_SET_WIDE}
+
+
+@pytest.fixture(scope="module")
+def scatter(tmp_path_factory):
+    """200 keyword terms, every other one ending in "x": a regex over the
+    "x" terms matches 100 runs, past the 64 regex slots."""
+    docs = [{"cat": f"t{i:03d}x" if i % 2 else f"t{i:03d}", "qty": i}
+            for i in range(200)]
+    path = _build(str(tmp_path_factory.mktemp("scatter") / "idx"), docs)
+    return tat.Index.open(path), tt.Index.open(path)
+
+
+def _scatter_aggs(m):
+    return {"n": m.count_agg(), "s": m.sum_agg("qty")}
+
+
+def test_regex_run_overflow_host_path(scatter):
+    """An overflowing regex answers exactly on the host path, before and
+    after a fitting regex of the same shape planned its Program, and the
+    Program stays cached."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    from tantivy_aggregations_tpu_torch.searcher import _HostFallback
+    jidx, pidx = scatter
+    s = pidx.searcher(device="cpu")
+    aggs = _scatter_aggs(tt)
+    fitting = tt.RegexQuery("cat", "t00.*")
+    overflowing = tt.RegexQuery("cat", "t\\d{3}x")
+    for q in (overflowing, fitting, overflowing, fitting):
+        want = pidx.oracle_searcher().agg_search(q, aggs)
+        assert want == jidx.oracle_searcher().agg_search(
+            tat.RegexQuery(q.field, q.pattern), _scatter_aggs(tat))
+        assert s.agg_search(q, aggs) == want
+    dindex = s._get_device_index()
+    assert len(pqc.match_runs(dindex, overflowing)) > 64
+    assert len(pqc.match_runs(dindex, fitting)) <= 64
+    prog = s._program_for(fitting, aggs)
+    assert isinstance(prog, Program) and prog.accepts(fitting, aggs)
+    assert not prog.accepts(overflowing, aggs)
+    fb = s._program_for(overflowing, aggs)
+    assert isinstance(fb, _HostFallback) and fb is s._overflow_fb
+    assert s._program_for(fitting, aggs) is prog
+
+
+def test_msearch_mixes_fitting_and_overflowing_sets(scatter):
+    _, pidx = scatter
+    aggs = _scatter_aggs(tt)
+    # fitting, overflowing (100 runs), fitting x 2 (one group), overflowing,
+    # fitting (50 runs)
+    qs = [tt.RegexQuery("cat", "t00.*"), tt.RegexQuery("cat", "t\\d{3}x"),
+          tt.RegexQuery("cat", "t01[0-9]x?"), tt.RegexQuery("cat", "t00.*"),
+          tt.RegexQuery("cat", "t[01]\\d{2}x"),
+          tt.RegexQuery("cat", "t1\\d{2}x")]
+    oracle = pidx.oracle_searcher()
+    want = [oracle.agg_search(q, aggs) for q in qs]
+    for dedup in (True, False):
+        s = pidx.searcher(device="cpu",
+                          config=EngineConfig(msearch_dedup=dedup))
+        got = s.agg_search_batch([(q, aggs) for q in qs])
+        assert got == want
+        groups = s._submit_batch([(q, aggs) for q in qs])
+        assert [len(g[1]) for g in groups] == [1, 1, 2, 1, 1]
+
+
+@pytest.mark.parametrize("q", [tt.MatchAllQuery(),
+                               tt.TermQuery("cat", "cat0003")])
+def test_counts_beside_fused_metrics_reuse_their_counts(rnd, monkeypatch, q):
+    """A root count and a filter's doc count beside a metric that the
+    fused_metrics kernel answers take its counts of the same mask: the
+    mask is not counted again (ts_count is not called), and every fruit
+    == the port's oracle."""
+    from tantivy_aggregations_tpu_torch.ops import reductions as R
+    aggs = {"n": tt.count_agg(), "s": tt.sum_agg("qty"),
+            "f": tt.filter_agg(tt.RangeQuery("qty", lower=5, upper=400),
+                               sub_aggs={"st": tt.stats_agg("qty"),
+                                         "n": tt.count_agg()})}
+    want = rnd["port_oracle"].agg_search(q, aggs)
+
+    def no_count(mask):
+        raise AssertionError("the mask was counted again")
+
+    monkeypatch.setattr(R, "ts_count", no_count)
+    assert rnd["port"].agg_search(q, aggs) == want
+    assert rnd["port"].agg_search_batch([(q, aggs)] * 3) == [want] * 3
+
+
+def _many_params(m):
+    """(query, aggs, plan check) with module `m`'s IR: a 64-value f64
+    TermSet (64 wide run slots, 256 params) and a range, at the root and
+    as the chain of a prefix terms agg (chain_blocks) and of a rank
+    percentiles agg (chain_counts)."""
+    q = m.BooleanQuery(must=[
+        m.TermSetQuery("price", [0.5 * (i + 1) for i in range(64)]),
+        m.RangeQuery("qty", lower=10)])
+    return [
+        (q, {"n": m.count_agg(), "s": m.sum_agg("qty")}, None),
+        (q, {"t": m.terms_agg("cat", size=5,
+                              sub_aggs={"s": m.sum_agg("qty")})},
+         (("a", "t"), "pallas_prefix")),
+        (q, {"p": m.percentiles_agg("qty", (1.0, 50.0, 99.0))},
+         (("a", "p"), "pallas_counts")),
+    ]
+
+
+@pytest.mark.parametrize("i", range(3))
+def test_chain_of_many_params_runs_on_the_device_path(rnd, i):
+    """A chain past 256 params plans a device Program (the chain kernels
+    read param rows too long to stage in place, so P has no limit) and
+    answers == the port's oracle == the JAX package."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    port = rnd["port"]
+    jq, jaggs, _ = _many_params(tat)[i]
+    q, aggs, mode = _many_params(tt)[i]
+    dindex = port._get_device_index()
+    assert len(pqc.chain_param_keys(((q, ("q",)),), dindex)) > 256
+    want = rnd["port_oracle"].agg_search(q, aggs)
+    assert want == rnd["jax_oracle"].agg_search(jq, jaggs)
+    assert rnd["jax"].agg_search(jq, jaggs) == want
+    assert port.agg_search(q, aggs) == want
+    prog = port._program_for(q, aggs)
+    assert type(prog) is Program
+    if mode is not None:
+        path, key = mode
+        assert prog.plan[path].get(key), prog.plan[path]
+        assert len(prog.plan[path]["chainp"]["mp"].param_keys) > 256
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +474,11 @@ def test_flagship_plans_the_kernel_modes(bench):
 
 
 # ---------------------------------------------------------------------------
-# c6-c9: member operands (c7) and slot_rank nested percentiles (c9)
+# c6-c10: member operands (c7), slot_rank nested percentiles (c9) and a
+# TermSet query (c10)
 # ---------------------------------------------------------------------------
 
-EXTRA = [6, 7, 8, 9]
+EXTRA = [6, 7, 8, 9, 10]
 
 
 def _extra(m, n):
@@ -294,11 +543,11 @@ def _c7_index(path, n_docs=6000):
     return path
 
 
-def _four_way(path, reqs):
+def _four_way(path, reqs, config=None):
     """port == port oracle == JAX (cube off, interpret) == JAX oracle for
     each (jax request, port request) pair; returns the port searcher."""
     jidx, pidx = tat.Index.open(path), tt.Index.open(path)
-    port = pidx.searcher(device="cpu")
+    port = pidx.searcher(device="cpu", config=config)
     jax_s = jidx.searcher(config=JaxConfig(use_cube=False,
                                            pallas_interpret=True))
     for (jq, ja), (pq, pa) in reqs:
