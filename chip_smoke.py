@@ -7,13 +7,20 @@ Drives tantivy_aggregations_tpu_torch's main path — `Searcher.agg_search`
 and `agg_search_batch` over the judged configs c1-c5 and the extra configs
 c6-c10 on the 10M-doc bench index (models/flagship.py, seed 42, 4 segments;
 built on first use under .bench_cache/, the path bench.py uses) — and
-checks it end to end:
+checks it end to end. Two searchers share the device index: one in row
+modes (EngineConfig use_cube=False, dense_mxu=False: the chain kernels'
+paths) and one at the default EngineConfig (the JAX package's: the
+value-domain cube and the dense products on).
 
 1. versions of torch, CUDA and nvcc, and the card's name and power limit;
 2. builds the port's CUDA kernels from csrc/ (timed);
-3. builds or reuses the bench index, then plans c1-c10 (timed: c7's
-   member operand and c9's slot plane are built here), each a device
-   Program, never the host fallback;
+3. builds or reuses the bench index, then plans c1-c10 in row modes
+   (timed: c7's member operand and c9's slot plane are built here), each
+   a device Program, never the host fallback; then at the default config
+   (the cube's operands and block histograms, the dense products'
+   operands built here), printing each plan's modes, which must be
+   DEFAULT_MODES: c2, c5, c8, c9, c10 on the cube (c5 a pcube, c9 a
+   scube), c3 the dense products, c1, c4, c6, c7 none;
 4. each kernel against its plain PyTorch version at the main path's shapes
    (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
    bound (kernel_bound), the device time in torch.profiler and, for
@@ -39,28 +46,45 @@ checks it end to end:
    at B in {1, 31, 33, 128, 200}, T below a tile and with a tile tail,
    int8 masks holding -1, 2, 127, -128, all-0 masks, INT32_MIN /
    INT32_MAX planes under full masks over 10M rows, stride-0 masks;
-5. the main path of each slice (c1-c5, then c6-c9, then c10), each with
-   the launch counters set to 0: for each config, agg_search == the port's
-   oracle
+4p. the matrix products against their plain versions (phase_products),
+   exact ==, on the main path's operands at B in {1, 17, 31, 128, 200}:
+   cube_dots on c5's post-filter sites (and their count and sum(qty) ==
+   the row reduction under the same chain), block_counts on c5's pcube
+   (== chain_counts' per-128-row counts summed to G), slot_block_counts on
+   c9's scube (== chain_slot_counts' summed), the dense products on c3's
+   histogram (its shared MatchAll mask, B = 1 and 128) and on c5's
+   post-filter histogram of qty (B distinct masks) against index_add_,
+   masked_sum_planes_mm on c2's avg(weights) pre-aggregates, and
+   cube_dots with Dprod 1003 and K 13; CUDA-event and torch.profiler ms,
+   the plain version's, and the bound (product_bound: bytes at 3.35 TB/s
+   or tensor operations at the int8 / bf16 dense peak); for c3 also its
+   operand built per row chunk and one int8 torch._int_mm of the product,
+   for c8 the cube product on a row-major operand;
+5. the main path of each slice (c1-c5, then c6-c9, then c10, in row
+   modes; then "default": c1-c10 at the default config, msearch timed 3
+   times but c6 once), each with the launch and product counters set to 0: for each
+   config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
    docs), agg_search_batch over 256 varied requests == the per-query results
    (with msearch dedup on and off), distinct varied params == the oracle;
    p50 single-query latency, and msearch ms/query with dedup on and off
    beside the number of distinct requests per group; for c1, c4, c5 and
-   c10 one dedup-off group under torch.profiler (wall, device busy share,
-   top device ops);
+   c10 (the default path: c3, c5, c9, c10) one dedup-off group under
+   torch.profiler (wall, device busy share, top device ops);
    5b. a RegexQuery over sku whose runs fit the 64 regex slots answers on
    a device Program, one whose runs exceed them on the exact host path,
    both == the oracle, and the Program stays cached; the host answer also
    == its three fitting thirds' device answers, merged;
-6. each slice's kernels were launched by its own main path in step 5.
+6. each slice's kernels (and the default path's products) were launched
+   by its own main path in step 5.
 
 Each phase prints its seconds.
 
-It prints a JSON line of per-kernel records (launches in all and per
-path; max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by, library_ms,
-device_ms; B = 128: the same keys suffixed _b128; fused_metrics' other
-operands under "variants"), then, as its last line,
+It prints a JSON line of per-product records (the same keys; launches
+from the default path), a JSON line of per-kernel records (launches in
+all and per path; max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by,
+library_ms, device_ms; B = 128: the same keys suffixed _b128;
+fused_metrics' other operands under "variants"), then, as its last line,
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --against DIR
@@ -122,14 +146,56 @@ AB_CONFIGS = ((1, ("fused_metrics",)), (5, ("fused_metrics",)),
 PROFILED = (1, 4, 5, 10)
 #: the extra configs this script drives beside c1-c5 (all of them)
 EXTRA = (6, 7, 8, 9, 10)
-#: the main path of each slice of the port: its configs, and the kernels
-#: that path must launch (each path runs with the counters set to 0)
+#: the main path of each slice of the port: its configs, the kernels and
+#: the matrix products that path must launch (each path runs with the
+#: counters set to 0), and its EngineConfig switches. The slices c1-c5,
+#: c6-c9 and c10 run in row modes (the cube and the dense products off),
+#: so that chain_counts and chain_slot_counts stay on a main path; the
+#: "default" path runs c1-c10 at the JAX package's default EngineConfig.
+ROW_MODES = {"use_cube": False, "dense_mxu": False}
 PATHS = (
     ("c1-c5", (1, 2, 3, 4, 5),
-     ("fused_metrics", "chain_blocks", "chain_counts")),
-    ("c6-c9", (6, 7, 8, 9), ("chain_slot_counts", "gather_rows")),
-    ("c10", (10,), ("fused_metrics",)),
+     ("fused_metrics", "chain_blocks", "chain_counts"), (), ROW_MODES),
+    ("c6-c9", (6, 7, 8, 9), ("chain_slot_counts", "gather_rows"), (),
+     ROW_MODES),
+    ("c10", (10,), ("fused_metrics",), (), ROW_MODES),
+    ("default", (1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
+     ("fused_metrics", "chain_blocks", "gather_rows"),
+     ("cube_dots", "block_counts", "slot_block_counts",
+      "dense_bucket_counts_mm", "dense_bucket_sum_mm"), {}),
 )
+#: the modes the default path's plans must carry, per config (phase 3b):
+#: c2, c5, c8, c9 and c10 on the cube (c5 a pcube, c9 a scube), c3 the
+#: dense products, c1, c4, c6 and c7 none
+DEFAULT_MODES = {1: set(), 2: {"cube"}, 3: {"dense_mm"},
+                 4: set(), 5: {"cube", "pcube"}, 6: set(), 7: set(),
+                 8: {"cube"}, 9: {"cube", "scube"}, 10: {"cube"}}
+#: configs whose dedup-off group is profiled on the default path
+PROFILED_DEFAULT = (3, 5, 9, 10)
+#: the matrix products (ops/cube.py, ops/reductions.py): their source, the
+#: JAX function each replaces, and how the card runs it
+PRODUCTS = {
+    "cube_dots": ("tantivy_aggregations_tpu_torch/ops/cube.py",
+                  "tantivy_aggregations_tpu/ops/cube.py:310", "int8"),
+    "block_counts": ("tantivy_aggregations_tpu_torch/ops/cube.py",
+                     "tantivy_aggregations_tpu/ops/cube.py:357", "int8"),
+    "slot_block_counts": ("tantivy_aggregations_tpu_torch/ops/cube.py",
+                          "tantivy_aggregations_tpu/ops/cube.py:395",
+                          "int8"),
+    "dense_bucket_counts_mm": (
+        "tantivy_aggregations_tpu_torch/ops/reductions.py",
+        "tantivy_aggregations_tpu/ops/reductions.py:242", "bf16"),
+    "dense_bucket_sum_mm": (
+        "tantivy_aggregations_tpu_torch/ops/reductions.py",
+        "tantivy_aggregations_tpu/ops/reductions.py:258", "bf16"),
+    "masked_sum_planes_mm": (
+        "tantivy_aggregations_tpu_torch/ops/reductions.py",
+        "tantivy_aggregations_tpu/ops/reductions.py:286", "bf16"),
+}
+#: the H100 SXM's dense tensor-core peaks (NVIDIA's data sheet): int8 for
+#: the cube's torch._int_mm products, bf16 for the dense products' batched
+#: bf16 products
+TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 
 
 def say(*a, **kw):
@@ -920,6 +986,301 @@ def phase_edges(torch, K, qc):
     return worst
 
 
+def product_bound(name, B, rows, K, in_bytes, out_bytes):
+    """(bound_ms, bound_by) of one product call, printing both counts: the
+    larger of the bytes it must move (its indicator or mask, its operand,
+    its output) over HBM_BYTES_PER_S and its 2 * B * rows * K tensor
+    operations over the card's dense peak for the product's type
+    (TENSOR_OPS_PER_S: int8 for the cube's, bf16 for the dense ones). A
+    mask of batch stride 0 counts as one row."""
+    moved = in_bytes + out_bytes
+    ops = 2 * B * rows * K
+    kind = PRODUCTS[name][2]
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / TENSOR_OPS_PER_S[kind] * 1e3
+    say(f"  {name:22s} bound of B={B}: {moved} bytes ({t_bytes:.4f} ms), "
+        f"{ops} {kind} tensor ops ({t_ops:.4f} ms)")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _digits_plain(torch, ind, hist, M):
+    """Plain version of block_counts / slot_block_counts' product: the
+    indicator by the two-digit histogram as a float64 product (exact: each
+    dot < 2^24), digits combined -> int32 [B, M]."""
+    D = ind.shape[1]
+    d = (ind.to(torch.float64) @ hist[:2 * M, :D].t().to(torch.float64)
+         ).to(torch.int32)
+    return d[:, :M] + (d[:, M:2 * M] << 7)
+
+
+def phase_products(torch, K, C, R, qc, row, dflt, flagship):
+    """[4p] The matrix products against their plain versions, exact ==,
+    on the main path's operands at B = 1 and 128 (and 17, 31, 200):
+    cube_dots on c5's post-filter site (and its count / sum(qty) against
+    the row reduction under the same chain); block_counts on c5's pcube
+    against chain_counts' per-128-row counts summed to G; slot_block_counts
+    on c9's scube against chain_slot_counts' per-32-row counts summed to
+    G; the dense products on c3's histogram (a shared MatchAll mask) and
+    on c5's post-filter histogram of qty (the row-mode c5's node; B
+    distinct masks), against index_add_; masked_sum_planes_mm on c2's
+    avg(weights) pre-aggregates. Then cube_dots with Dprod 1003 and K 13
+    (neither a multiple of 8) on seeded operands. Prints CUDA-event median
+    ms, the plain version's, torch.profiler device ms and the bound; for
+    c3 also the per-chunk operand build and one int8 torch._int_mm of the
+    same product (the formulation the dense products do not take), and
+    for c8 the cube product on a [Dprod, K] row-major operand. Returns the
+    product records (launches filled in later)."""
+    say("[4p] matrix products vs plain versions (exact ==)")
+    cfgs = {n: (q, a) for n, _, q, a in all_configs(flagship)}
+
+    def pmat_for(prog, n, B):
+        reqs = flagship.varied_requests(n, cfgs[n][1], B)
+        return qc.param_matrix([prog._extract(q, a) for q, a in reqs],
+                               prog._pkeys, prog.device)
+
+    d5, r5 = dflt._program_for(*cfgs[5]), row._program_for(*cfgs[5])
+    d9, r9 = dflt._program_for(*cfgs[9]), row._program_for(*cfgs[9])
+    d3, d8 = dflt._program_for(*cfgs[3]), dflt._program_for(*cfgs[8])
+    r2 = row._program_for(*cfgs[2])
+    records = {}
+
+    def run(name, label, B, fn, plain, bound_args, iters=None, also=None):
+        got = fn()
+        err = _check_equal(torch, name, f"{label} B={B}", got, plain())
+        for what, want in (also or ()):
+            e2 = _check_equal(torch, name, f"{label} B={B} vs {what}",
+                              got, want)
+            err = max(err, e2)
+        iters = iters or (30 if B == 1 else 10)
+        ms = _cuda_ms(torch, fn, iters)
+        plain_ms = _cuda_ms(torch, plain, 3)
+        bound_ms, bound_by = product_bound(name, *bound_args)
+        rec = records.setdefault(name, {
+            "name": name, "route": "torch._int_mm" if PRODUCTS[name][2] ==
+            "int8" else "torch.bmm bf16 (fp32 partials)",
+            "source": PRODUCTS[name][0], "replaces": PRODUCTS[name][1],
+            "launches": 0, "max_abs_err": 0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        say(f"  {name:22s} {label:14s} B={B:<4d} product {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+            f"max_abs_err {err}"
+            + "".join(f"  == {w}" for w, _ in (also or ())))
+        if B in (1, 128) and "ms" + ("" if B == 1 else "_b128") not in rec:
+            sfx = "" if B == 1 else "_b128"
+            dev_ms = _device_ms(torch, fn)
+            say(f"  {name:22s} {label:14s} B={B:<4d} device time {dev_ms} ms "
+                "(torch.profiler)")
+            rec.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                        "bound_ms" + sfx: bound_ms,
+                        "bound_by" + sfx: bound_by, "library_ms" + sfx: None,
+                        "device_ms" + sfx: dev_ms, "label" + sfx: label})
+        return got
+
+    # c3's histogram: the MatchAll mask shared by the batch (stride 0)
+    h = d3.plan[("a", "h")]
+    hs = d3.plan[("a", "h", "s")]["dense_mm"]["sums"][0]
+    bid, nb = d3._arrays[h["bid_key"]], h["nb"]
+    amount = d3._arrays["amount:w"]
+    op_c, op_s = d3._arrays[h["dense_mm"]["op"]], d3._arrays[hs[1]]
+    T = bid.shape[0]
+    for B in (1, 128):
+        mask = (d3._arrays["alive"] > 0)[None].expand(B, T)
+        run("dense_bucket_counts_mm", "c3 shared", B,
+            lambda: R.dense_bucket_counts_mm(bid, mask, nb, op=op_c),
+            lambda: R.dense_bucket_counts(bid, mask, nb),
+            (1, T, nb, T + op_c.numel() * 2, B * nb * 8), iters=10)
+        run("dense_bucket_sum_mm", "c3 shared", B,
+            lambda: R.dense_bucket_sum_mm(bid, mask, amount, nb,
+                                          bound=hs[0], op=op_s),
+            lambda: R.dense_bucket_sum(bid, mask, amount, nb),
+            (1, T, op_s.shape[1], T + op_s.numel() * 2, B * nb * 8),
+            iters=10)
+    mask = (d3._arrays["alive"] > 0)[None]
+    ms_res = [_cuda_ms(torch, lambda: R.dense_bucket_counts_mm(
+                  bid, mask, nb, op=op_c), 10),
+              _cuda_ms(torch, lambda: R.dense_bucket_sum_mm(
+                  bid, mask, amount, nb, bound=hs[0], op=op_s), 10)]
+    ms_chunk = [_cuda_ms(torch, lambda: R.dense_bucket_counts_mm(
+                    bid, mask, nb), 5),
+                _cuda_ms(torch, lambda: R.dense_bucket_sum_mm(
+                    bid, mask, amount, nb, bound=hs[0]), 5)]
+    check(torch.equal(R.dense_bucket_sum_mm(bid, mask, amount, nb,
+                                            bound=hs[0]),
+                      R.dense_bucket_sum(bid, mask, amount, nb)),
+          "c3 sum: the per-chunk build != index_add_")
+    # the partials' exactness edge, one bucket under full masks over every
+    # row: INT32_MIN / INT32_MAX payloads (5 pieces), and one-piece -128 /
+    # 127 payloads whose partials reach -2^22 and 127 * 2^15
+    one = torch.zeros_like(bid)
+    full = torch.ones(2, T, dtype=torch.bool, device=bid.device)
+    for v, bound in ((I32_MIN, None), (I32_MAX, None), (-128, (-128, 127)),
+                     (127, (-128, 127))):
+        pl = torch.full((T,), v, dtype=torch.int32, device=bid.device)
+        got = R.dense_bucket_sum_mm(one, full, pl, 1, bound=bound)
+        check(torch.equal(got, R.dense_bucket_sum(one, full, pl, 1))
+              and int(got[0, 0]) == v * T,
+              f"dense_bucket_sum_mm at {v} over {T} rows != index_add_")
+        say(f"  dense_bucket_sum_mm    all {v} over {T} rows, full masks, "
+            f"{R.npieces_for_bound(bound)} pieces: {int(got[0, 0])} == "
+            "index_add_")
+    del one, full, pl
+    a8 = torch.zeros(C.MM_MIN_ROWS, T, dtype=torch.int8, device=bid.device)
+    a8[0] = mask[0].view(torch.int8)
+    oh8 = (bid[None, :] == torch.arange(
+        R.pad8(nb), dtype=bid.dtype, device=bid.device)[:, None]).to(
+        torch.int8)
+    ms_i8 = _cuda_ms(torch, lambda: torch._int_mm(a8, oh8.t()), 3)
+    check(torch.equal(torch._int_mm(a8, oh8.t())[0, :nb].to(torch.int64),
+                      R.dense_bucket_counts(bid, mask, nb)[0]),
+          "c3 int8 _int_mm counts != index_add_")
+    del a8, oh8
+    say(f"  c3 dense products, B=1: resident operand (plan time, "
+        f"{op_c.numel() * 2 + op_s.numel() * 2} bytes) counts "
+        f"{ms_res[0]:.4f} ms, sum {ms_res[1]:.4f} ms; operand built per "
+        f"row chunk counts {ms_chunk[0]:.4f} ms, sum {ms_chunk[1]:.4f} ms; "
+        f"int8 torch._int_mm [{C.MM_MIN_ROWS}, {T}] x [{T}, "
+        f"{R.pad8(nb)}] counts (one call) {ms_i8:.4f} ms")
+    for nm, a, b in (("dense_bucket_counts_mm", ms_res[0], ms_chunk[0]),
+                     ("dense_bucket_sum_mm", ms_res[1], ms_chunk[1])):
+        records[nm]["c3_resident_ms"], records[nm]["c3_chunked_ms"] = a, b
+    records["dense_bucket_counts_mm"]["c3_int8_int_mm_ms"] = ms_i8
+    pf = d5.plan[("a", "pf")]["cube"]
+    pfs = d5.plan[("a", "pf", "s")]["cube"]
+    pc = d5.plan[("a", "p")]["pcube"]
+    sc = d9.plan[("a", "t", "p")]["scube"]
+    qty = r5._arrays["qty:w"]
+    for B in (1, 17, 31, 128, 200):
+        pm5 = pmat_for(d5, 5, B)
+        d5._ind_cache = {}
+        # cube_dots: c5's post-filter count site, then its sum(qty) site
+        ind = d5._cube_ind(pf, pm5)
+        op = d5._arrays[pf["key"]]
+        D, Kp = ind.shape[1], op.shape[0]
+        row_mask = (r5._root_mask(pm5, r5._arrays) & r5._chain_mask(
+            r5.plan[("a", "pf")]["fmask"], pm5, r5._arrays))
+        dots = run("cube_dots", "c5 pf count", B,
+                   lambda: C.cube_dots(ind, op),
+                   lambda: (ind.to(torch.float64) @ op[:, :D].t().to(
+                       torch.float64)).to(torch.int32),
+                   (B, D, Kp, B * D + op.numel(), B * Kp * 4))
+        check(torch.equal(C.recombine(dots, pf["layout"])["cnt"],
+                          R.ts_count(row_mask)),
+              "c5 pf cube count != the row count under the same chain")
+        ops = d5._arrays[pfs["key"]]
+        dots = run("cube_dots", "c5 pf sum(qty)", B,
+                   lambda: C.cube_dots(ind, ops),
+                   lambda: (ind.to(torch.float64) @ ops[:, :D].t().to(
+                       torch.float64)).to(torch.int32),
+                   (B, D, ops.shape[0], B * D + ops.numel(),
+                    B * ops.shape[0] * 4))
+        rec = C.recombine(dots, pfs["layout"])
+        check(torch.equal(rec["sum"], R.ts_sum_plane(qty, row_mask))
+              and torch.equal(rec["cnt"], R.ts_count(row_mask)),
+              "c5 pf cube sum(qty) != the row reduction")
+        # block_counts: c5's pcube vs chain_counts per 128 rows, summed
+        ind = d5._cube_ind(pc, pm5)
+        hist = d5._arrays[pc["key"]]
+        G, NB = pc["G"], pc["NB"]
+        cc = K.chain_counts(*_chain_counts_args(r5, pm5))
+        run("block_counts", "c5 pcube", B,
+            lambda: C.block_counts(ind, hist, NB),
+            lambda: _digits_plain(torch, ind, hist, NB),
+            (B, ind.shape[1], 2 * NB, B * ind.shape[1] + hist.numel(),
+             B * NB * 4),
+            also=(("chain_counts summed to G",
+                   cc.reshape(B, NB, G // 128).sum(-1, dtype=torch.int32)),))
+        # slot_block_counts: c9's scube vs chain_slot_counts, summed
+        pm9 = pmat_for(d9, 9, B)
+        d9._ind_cache = {}
+        ind = d9._cube_ind(sc, pm9)
+        hist = d9._arrays[sc["key"]]
+        ns = d9.plan[("a", "t", "p")]["nslots"]
+        G, NB = sc["G"], sc["NB"]
+        cs = K.chain_slot_counts(*_chain_slot_args(r9, pm9))
+        run("slot_block_counts", "c9 scube", B,
+            lambda: C.slot_block_counts(ind, hist, ns, NB),
+            lambda: _digits_plain(torch, ind, hist, NB * ns).reshape(
+                B, NB, ns).transpose(1, 2),
+            (B, ind.shape[1], 2 * NB * ns, B * ind.shape[1] + hist.numel(),
+             B * NB * ns * 4),
+            also=(("chain_slot_counts summed to G",
+                   cs.reshape(B, ns, NB, G // 32).sum(-1,
+                                                      dtype=torch.int32)),))
+        # the dense products on c5's post-filter histogram (row-mode node:
+        # B distinct masks over 10M rows), operands built here
+        h = r5.plan[("a", "pf", "h")]
+        bid, nb = r5._arrays[h["bid_key"]], h["nb"]
+        if B == 1:
+            h_cnt = R.dense_counts_operand(bid, nb)
+            h_sum = R.dense_sum_operand(bid, qty, nb, (0, 99))
+        T = bid.shape[0]
+        run("dense_bucket_counts_mm", "c5 pf/h", B,
+            lambda: R.dense_bucket_counts_mm(bid, row_mask, nb, op=h_cnt),
+            lambda: R.dense_bucket_counts(bid, row_mask, nb),
+            (B, T, nb, B * T + h_cnt.numel() * 2, B * nb * 8), iters=5)
+        run("dense_bucket_sum_mm", "c5 pf/h qty", B,
+            lambda: R.dense_bucket_sum_mm(bid, row_mask, qty, nb,
+                                          bound=(0, 99), op=h_sum),
+            lambda: R.dense_bucket_sum(bid, row_mask, qty, nb),
+            (B, T, h_sum.shape[1], B * T + h_sum.numel() * 2, B * nb * 8),
+            iters=5)
+        del row_mask, cc, cs
+    del h_cnt, h_sum
+    # masked_sum_planes_mm: c2's avg(weights) per-doc pre-aggregates
+    col = r2.dindex.column("weights")
+    pb = col.preagg_bounds(r2.dindex.T)
+    planes = [r2._arrays["weights:pre:cnt"]] + [
+        r2._arrays["weights:pre:sum"][:, i]
+        for i in range(r2._arrays["weights:pre:sum"].shape[1])]
+    bounds = [pb["cnt"]] + pb["sum"]
+    op_p = R.sum_planes_operand(planes, bounds)
+    for B in (1, 128):
+        pm2 = pmat_for(r2, 2, B)
+        m2 = r2._root_mask(pm2, r2._arrays)
+        run("masked_sum_planes_mm", "c2 avg_w", B,
+            lambda: R.masked_sum_planes_mm(m2, planes, bounds, op=op_p),
+            lambda: R.masked_sum_planes(m2, planes),
+            (B, T, op_p.shape[1], B * T + op_p.numel() * 2,
+             B * len(planes) * 8), iters=5)
+    del op_p, m2
+    # c8's cube site: the product on a [Dprod, K] row-major operand
+    c8 = d8.plan[("a", "n")]["cube"]
+    pm8 = pmat_for(d8, 8, 128)
+    d8._ind_cache = {}
+    ind = d8._cube_ind(c8, pm8)
+    op = d8._arrays[c8["key"]]
+    a = torch.nn.functional.pad(ind.view(torch.int8),
+                                (0, op.shape[1] - ind.shape[1]))
+    op_rm = op.t().contiguous()
+    t = [_cuda_ms(torch, f, 10) for f in (
+        lambda: torch._int_mm(a, op.t()), lambda: torch._int_mm(a, op_rm),
+        lambda: torch._int_mm(a, op_rm), lambda: torch._int_mm(a, op.t()))]
+    check(torch.equal(torch._int_mm(a, op.t()), torch._int_mm(a, op_rm)),
+          "c8 cube product layouts disagree")
+    say(f"  c8 cube product B=128 Dprod {ind.shape[1]}: [K, Dprod] operand "
+        f"(the resident layout) {t[0]:.4f} / {t[3]:.4f} ms, [Dprod, K] "
+        f"row-major {t[1]:.4f} / {t[2]:.4f} ms (in turns)")
+    records["cube_dots"]["c8_layouts_ms"] = {"resident": [t[0], t[3]],
+                                             "row_major": [t[1], t[2]]}
+    # padding: Dprod 1003 and K 13, neither a multiple of 8
+    rng = np.random.default_rng(SEED)
+    pieces = rng.integers(-128, 128, (1003, 13)).astype(np.int8)
+    op = C.device_operand(pieces, DEVICE)
+    for B in (1, 17, 31, 128, 200):
+        ind = torch.from_numpy(rng.random((B, 1003)) < 0.5).to(DEVICE)
+        got = C.cube_dots(ind, op)
+        want = torch.from_numpy(ind.cpu().numpy().astype(np.int64)
+                                @ pieces.astype(np.int64)).to(DEVICE)
+        check(torch.equal(got[:, :13].to(torch.int64), want),
+              f"cube_dots padded case B={B} != numpy")
+        say(f"  cube_dots              Dprod 1003 K 13  B={B:<4d} == numpy "
+            "int64 (max_abs_err 0)")
+    del cfgs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return records
+
+
 def load_against(path: str, name: str = "tat_against"):
     """The kernels module of the port package in another tree (say the
     parent commit, unpacked with git archive), imported under the package
@@ -1126,22 +1487,42 @@ def _profile_group(torch, searcher, reqs, top: int = 6) -> None:
         f"collect {(t2 - t1) * 1e3:.3f} ms")
 
 
-def phase_main_path(torch, K, tt, idx, searcher, oracle, flagship, card,
-                    path):
-    """Drive one slice's main path with the launch counters set to 0;
-    returns the counts it left."""
-    label, cfg_nos, kernels = path
+def _counters(K, C, R) -> dict:
+    return {**K.launches, **C.calls, **R.mm_calls}
+
+
+def _reset_counters(K, C, R) -> None:
+    K.reset_launches()
+    C.reset_calls()
+    R.reset_mm_calls()
+
+
+def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
+                    card, path, answers, reps=1):
+    """Drive one slice's main path with the launch counters (the kernels'
+    and the products') set to 0; returns the counts it left. `answers`
+    keeps the oracle's (and c6's reference's) answers by request, so a
+    later path compares with the same answers without asking again;
+    `reps`: msearch timing runs per dedup setting (the median is
+    printed), but one for c6, whose host-bound dedup-off stream takes
+    about a minute at 10M docs."""
+    label, cfg_nos, kernels, products, _ = path
     say(f"[5] main path {label}: agg_search / agg_search_batch vs the "
         "oracle (c6: its numpy reference)")
-    K.reset_launches()
+    _reset_counters(K, C, R)
     dedup_on = searcher.config
     dedup_off = dataclasses.replace(dedup_on, msearch_dedup=False)
     for n, name, q, aggs in all_configs(flagship):
         if n not in cfg_nos:
             continue
         t_cfg = time.time()
-        reference = (oracle.agg_search if n != 6 else
-                     lambda rq, ra: c6_reference(tt, idx, rq, ra))
+
+        def reference(rq, ra, n=n):
+            key = (n, repr(rq))
+            if key not in answers:
+                answers[key] = (oracle.agg_search(rq, ra) if n != 6
+                                else c6_reference(tt, idx, rq, ra))
+            return answers[key]
         t0 = time.time()
         want = reference(q, aggs)
         t_oracle = time.time() - t0
@@ -1181,36 +1562,52 @@ def phase_main_path(torch, K, tt, idx, searcher, oracle, flagship, card,
             t0 = time.perf_counter()
             searcher.agg_search(rq, ra)
             times.append((time.perf_counter() - t0) * 1e3)
-        msq = _msearch_ms_per_q(torch, searcher, reqs)
+        n_reps = 1 if n == 6 else reps
+        msq = statistics.median(_msearch_ms_per_q(torch, searcher, reqs)
+                                for _ in range(n_reps))
         searcher.config = dedup_off
-        msq_all = _msearch_ms_per_q(torch, searcher, reqs)
+        msq_all = statistics.median(_msearch_ms_per_q(torch, searcher, reqs)
+                                    for _ in range(n_reps))
         searcher.config = dedup_on
         say(f"  {name}: == oracle ({len(seen)} distinct varied checked; "
             f"oracle {t_oracle:.1f}s)  p50 {statistics.median(times):.3f} ms  "
             f"msearch {msq:.4f} ms/q dedup on ({distinct} distinct of "
             f"{len(group)} per group), {msq_all:.4f} ms/q dedup off  "
             f"[{card}]  ({time.time() - t_cfg:.1f}s)")
-        if n in PROFILED:
+        if n in (PROFILED_DEFAULT if label == "default" else PROFILED):
             searcher.config = dedup_off
             _profile_group(torch, searcher, group)
             searcher.config = dedup_on
-    counts = dict(K.launches)
-    say(f"[6] kernel launches during the main path {label}:", counts)
-    for k in kernels:
+    counts = _counters(K, C, R)
+    say(f"[6] kernel launches and product calls during the main path "
+        f"{label}:", counts)
+    for k in kernels + products:
         check(counts[k] > 0,
-              f"kernel {k} was never launched by the main path {label}")
+              f"{k} was never launched by the main path {label}")
     return counts
 
 
-def phase_plan(torch, searcher, flagship):
+def plan_modes(prog) -> dict:
+    """{plan path: the cube / pcube / scube / dense_mm modes it carries}
+    of a Program's plan (paths without one left out)."""
+    out = {}
+    for path, p in prog.plan.items():
+        got = [m for m in ("cube", "pcube", "scube", "dense_mm") if p.get(m)]
+        if got:
+            out["/".join(path[1:])] = got
+    return out
+
+
+def phase_plan(torch, searcher, flagship, label="row modes", modes=None):
     """Plan every config (layouts, planes and operands ship here), each a
     device Program: the exact host fallback must never stand in for the
     device path. c7 is planned after c4 and c9 after c5, so their plan
     seconds are the build of what they add: c7's member operand (on c4's
     sku layout) and c9's slot plane (on c5's price layout, under the same
-    chain planes)."""
+    chain planes). With `modes` ({config: set of modes}), each plan's
+    cube / pcube / scube / dense_mm modes are printed and must be those."""
     from tantivy_aggregations_tpu_torch.aggs.compile import Program
-    say("[3b] planning c1-c10")
+    say(f"[3b] planning c1-c10 ({label})")
     for n, name, q, aggs in all_configs(flagship):
         t0 = time.time()
         prog = searcher._program_for(q, aggs)
@@ -1218,6 +1615,12 @@ def phase_plan(torch, searcher, flagship):
         check(type(prog) is Program,
               f"{name} planned {type(prog).__name__}, not a device Program "
               f"({getattr(prog, 'reason', '')})")
+        if modes is not None:
+            dump = plan_modes(prog)
+            got = set().union(*map(set, dump.values())) if dump else set()
+            say(f"  {name}: modes {dump}")
+            check(got == modes[n], f"{name} plans modes {sorted(got)}, not "
+                                   f"{sorted(modes[n])}")
         extra = ""
         mo = prog.plan.get(("a", "t"), {}).get("member_op")
         if mo is not None:
@@ -1314,8 +1717,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import tantivy_aggregations_tpu_torch as tt
+    from tantivy_aggregations_tpu_torch.engine_config import EngineConfig
     from tantivy_aggregations_tpu_torch.models import flagship
+    from tantivy_aggregations_tpu_torch.ops import cube as C
     from tantivy_aggregations_tpu_torch.ops import kernels as K
+    from tantivy_aggregations_tpu_torch.ops import reductions as R
     from tantivy_aggregations_tpu_torch.query import compile as qc
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
@@ -1339,9 +1745,18 @@ def main(argv=None) -> int:
     idx = phase_index(tt, flagship)
     lap("index", t0)
     t0 = time.time()
-    searcher = idx.searcher(device="cuda")
+    searcher = idx.searcher(device="cuda", config=EngineConfig(**ROW_MODES))
     phase_plan(torch, searcher, flagship)
     lap("plan", t0)
+    t0 = time.time()
+    # the default EngineConfig's searcher, on the same device index (its
+    # planes and layouts are shipped once)
+    dflt = idx.searcher(device="cuda")
+    dflt._device_index = searcher._get_device_index()
+    dflt._device_epoch = searcher._device_epoch
+    phase_plan(torch, dflt, flagship, "default EngineConfig", DEFAULT_MODES)
+    lap("plan default", t0)
+    searchers = {"row": searcher, "default": dflt}
     t0 = time.time()
     against = load_against(args.against) if args.against else None
     records = phase_kernels(torch, K, qc, tt, searcher, flagship, against)
@@ -1350,13 +1765,19 @@ def main(argv=None) -> int:
     for name, err in phase_edges(torch, K, qc).items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     lap("edge cases", t0)
+    t0 = time.time()
+    products = phase_products(torch, K, C, R, qc, searcher, dflt, flagship)
+    lap("products", t0)
     oracle = idx.oracle_searcher()
-    counts = dict.fromkeys(K.launches, 0)
+    counts = dict.fromkeys(_counters(K, C, R), 0)
     by_path = {}
+    answers = {}
     for path in PATHS:
         t0 = time.time()
-        by_path[path[0]] = phase_main_path(torch, K, tt, idx, searcher,
-                                           oracle, flagship, card, path)
+        s = searchers["default" if path[0] == "default" else "row"]
+        by_path[path[0]] = phase_main_path(
+            torch, K, C, R, tt, idx, s, oracle, flagship, card, path,
+            answers, reps=3 if path[0] == "default" else 1)
         for k, n in by_path[path[0]].items():
             counts[k] += n
         lap(f"main path {path[0]}", t0)
@@ -1370,10 +1791,16 @@ def main(argv=None) -> int:
         check(counts[name] > 0, f"kernel {name} was never launched")
         rec["launches"] = counts[name]
         rec["launches_by_path"] = {lb: c[name] for lb, c in by_path.items()}
+    check(set(products) == set(PRODUCTS),
+          f"product records {sorted(products)} != {sorted(PRODUCTS)}")
+    for name, rec in products.items():
+        rec["launches"] = by_path["default"][name]
+        rec["launches_by_path"] = {lb: c[name] for lb, c in by_path.items()}
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
     say(f"whole run {time.time() - t_run:.1f}s: " + ", ".join(
         f"{k} {v:.1f}s" for k, v in phases.items()))
+    say(json.dumps({"products": list(products.values())}))
     say(json.dumps({"kernels": list(records.values())}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

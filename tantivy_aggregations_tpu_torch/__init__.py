@@ -11,17 +11,21 @@ re-hosted on PyTorch for one NVIDIA H100:
 - Fast-field columns are device-resident int32/int8 planes in the same
   encoding as the JAX package (index/loader.py).
 - Programs are batch-first: every request group runs as one ``[B, P]``
-  int32 parameter matrix through eager torch ops and five hand-written
-  CUDA kernels (csrc/kernels.cu, bound in ops/kernels.py): fused masked
+  int32 parameter matrix through eager torch ops, five hand-written CUDA
+  kernels (csrc/kernels.cu, bound in ops/kernels.py: fused masked
   metrics, per-32-row chain-mask counts + payload sums, per-128-row
   chain-mask counts, per-slot chain-mask counts, and member-operand row
-  gathers.
+  gathers) and exact matrix products on the tensor cores: the value-domain
+  cube's (ops/cube.py) and the dense bucket products
+  (ops/reductions.py).
 
 The device path serves the judged configs c1-c5 and the extra configs
-c6-c10 (models/flagship.py) with the value-domain cube off. An agg tree the
-planner cannot lower answers on the exact host path (the copied oracle),
-with one warning on the package logger, and so does a request whose
-set-query runs exceed its program's run slots. Nothing here imports jax.
+c6-c10 (models/flagship.py) at the JAX package's default EngineConfig
+(the cube and the dense products on; ``EngineConfig(use_cube=False,
+dense_mxu=False)`` asks for the row modes). An agg tree the planner
+cannot lower answers on the exact host path (the copied oracle), with one
+warning on the package logger, and so does a request whose set-query runs
+exceed its program's run slots. Nothing here imports jax.
 """
 
 from .schema import Schema, FieldType, Cardinality, SchemaBuilder

@@ -1,26 +1,42 @@
 """Agg-tree compiler: IR -> a batch-first torch program + host harvest.
 
-The port of the JAX package's aggs/compile.py for the slice's modes. `plan`
-resolves fields and picks an execution MODE per node from static index
-metadata (the same choices the JAX package makes with the value-domain
-cube and member operands off and its Pallas gate on); `_run` evaluates the
+The port of the JAX package's aggs/compile.py. `plan` resolves fields and
+picks an execution MODE per node from static index metadata (the choices
+the JAX package makes under the same EngineConfig, its Pallas gate on and
+unsharded: the value-domain cube (`use_cube`) and the dense products
+(`dense_mxu`) on by default, member operands always); `_run` evaluates the
 whole tree for a [B, P] int32 param matrix — one row per query of an
-msearch group, a single query is B = 1 — with eager torch ops and the
-five CUDA kernels of ops/kernels.py; the copied `harvest` reconstructs
-exact user-domain fruits (bit-identical to the oracle).
+msearch group, a single query is B = 1 — with eager torch ops, the five
+CUDA kernels of ops/kernels.py and the matrix products of ops/cube.py and
+ops/reductions.py; the copied `harvest` reconstructs exact user-domain
+fruits (bit-identical to the oracle).
 
 The plan does not depend on the device: a program on CPU tensors plans and
-runs exactly the kernel modes the card runs (the kernels' plain versions
-execute them there).
+runs exactly the modes the card runs (the kernels' plain versions execute
+them there). A mode is chosen at plan time and recorded in the plan dict.
 
 Modes:
+- value-domain CUBE (ops/cube.py, `use_cube`): where the chain's fields
+  are single-valued narrow / stringy columns whose product domain is small
+  and the chain has a param, root/filter-scope counts and metrics
+  (p["cube"]), root-level dense histogram / terms with Count/Sum/Avg subs
+  (p["cube"] on the bucket node), integer-percent rank percentiles
+  (p["pcube"]: per-block counts from a device-built block histogram) and
+  slot_rank percentiles (p["scube"]) answer from [Dprod]-cell
+  pre-aggregates: one indicator per (factors, chain) evaluated by the mask
+  program over virtual domain planes, then int8 products. No row pass.
 - metrics at the root or under filters (MaskCtx): narrow single-valued
   planes through the fused_metrics kernel; wide planes by exact torch
-  reductions; multi-valued fields reduce static per-doc pre-aggregates.
+  reductions; multi-valued fields reduce static per-doc pre-aggregates;
+  limb and pre-aggregate sums as one dense product (p["dense_mm"],
+  `dense_mxu`).
 - histogram / terms ("dense", and "scatter" for nested nodes past the
   dense budget — the same integer index_add_ in torch): per-query bucket
   reductions over STATIC bucket-id planes (nested buckets compose static
-  slot ids; only validity is per query).
+  slot ids; only validity is per query). A dense node right under the
+  root or a filter, and the count and metric subs directly under it, run
+  as dense products (p["dense_mm"]: ops/reductions.py dense_bucket_*_mm,
+  `dense_mxu`) over an operand built once per program.
 - high-cardinality root-level terms / histograms ("prefix"): bucket-sorted
   OrderedLayout scanned by the chain_blocks kernel (chain mask evaluated
   in-kernel, per-32-row-block counts + int64 payload sums), then per-bucket
@@ -45,11 +61,11 @@ Every other shape — non-integer percents, top_hits, facets, exists /
 phrase queries, multi-valued query chains or bucket fields, a kernel
 chain whose planes, payloads, ops and params overflow the chain tile
 kernel's shared memory (K.chain_fits: about 50 planes, or tens of
-thousands of params), the cube, sharding —
+thousands of params), sharding —
 raises NotImplementedError at plan time naming the shape, and the searcher
-answers it on the exact host path. The root query's mask is compiled only
-when a node reads it, so a chain that only a member operand answers needs
-no mask program.
+answers it on the exact host path. A scope's mask is evaluated only when a
+node reads it, so a chain that only a member operand or the cube answers
+runs no row pass.
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ import torch
 
 from ..aggs import ir as A
 from ..index.loader import ALIGN, _put
+from ..ops import cube as C
 from ..ops import kernels as K
 from ..ops import reductions as R
 from ..query import compile as qc
@@ -85,11 +102,22 @@ def _wrap64(x: int) -> int:
     return ((x + 2**63) % 2**64) - 2**63
 
 
-@dataclass
 class MaskCtx:
-    mask: torch.Tensor  # [B, T] bool; batch stride 0 where one row is shared
-    #: the mask's exact [B] int64 counts, once a node has them
-    cnt: Optional[torch.Tensor] = None
+    """Root or filter scope: its [B, T] bool mask (batch stride 0 where one
+    row is shared), made by `make` on first use — a scope whose readers the
+    cube answers never evaluates it."""
+
+    def __init__(self, make):
+        self._make = make
+        self._mask = None
+        #: the mask's exact [B] int64 counts, once a node has them
+        self.cnt: Optional[torch.Tensor] = None
+
+    @property
+    def mask(self) -> torch.Tensor:
+        if self._mask is None:
+            self._mask = self._make()
+        return self._mask
 
     def count(self) -> torch.Tensor:
         if self.cnt is None:
@@ -105,6 +133,9 @@ class SlotCtx:
     bid: torch.Tensor
     valid: torch.Tensor
     dims: Tuple[int, ...]
+    #: the node's plan entry when `bid` is a static plane of a dense node
+    #: right under a MaskCtx and its reductions run as dense products
+    mm: Optional[dict] = None
 
     @property
     def nslots(self) -> int:
@@ -197,12 +228,17 @@ class Program:
         self._pack_spec = None
 
     def _batch_cap(self):
-        """Queries per msearch group whose slot_rank state fits
-        BATCH_MEM_BUDGET, or None when the program keeps no per-query
-        row-axis state."""
-        per_q = sum((p["layout"].n_rows // SLOT_GROUP) * p["nslots"] * 8
-                    for p in self.plan.values()
-                    if p.get("pmode") == "slot_rank")
+        """Queries per msearch group whose per-query block-count state
+        (slot_rank: [ns, R/G] counts and their cumsum; the pcube rank
+        prefix: [R/G]) fits BATCH_MEM_BUDGET, or None when the program
+        keeps no per-query row-axis state."""
+        per_q = 0
+        for p in self.plan.values():
+            if p.get("pmode") == "slot_rank":
+                G = p["scube"]["G"] if p.get("scube") else SLOT_GROUP
+                per_q += (p["layout"].n_rows // G) * p["nslots"] * 8
+            elif p.get("pmode") == "rank" and p.get("pcube"):
+                per_q += (p["layout"].n_rows // p["pcube"]["G"]) * 8
         if per_q == 0:
             return None
         return max(1, self.BATCH_MEM_BUDGET // per_q)
@@ -433,29 +469,488 @@ class Program:
             planes.append((cnt_key, cnt))
         return meta, planes
 
+    # -- value-domain cubes (ops/cube.py) -------------------------------------
+
+    @staticmethod
+    def _cube_query_ok(q) -> bool:
+        """Queries whose mask over a single-valued narrow/stringy field reads
+        ONLY the `{f}:w` plane and is elementwise in w — the property that
+        makes evaluation over the virtual domain planes the chain predicate
+        itself. PhraseQuery (position windows over the token stream) is the
+        one field-query that is not. (An Exists leaf passes here and is
+        refused by mask_program: such a tree answers on the host path.)"""
+        if isinstance(q, Q.BooleanQuery):
+            return all(Program._cube_query_ok(c)
+                       for c in (*q.must, *q.should, *q.must_not))
+        return isinstance(q, (Q.MatchAllQuery, Q.ExistsQuery, Q.TermQuery,
+                              Q.RangeQuery, Q.PrefixQuery, Q.TermSetQuery,
+                              Q.FuzzyTermQuery, Q.RegexQuery))
+
+    def _chain_fields(self, chain):
+        out = set()
+        for q, _ in chain:
+            qc.query_fields(q, out)
+        return out
+
+    def _cube_gate(self, chain):
+        """(factors, Dprod) for a cube-able chain, else None: every chain
+        field single-valued narrow/stringy, every chain query elementwise
+        in w, product domain <= CUBE_DOM_CAP (int32 dot lanes < 2^24), at
+        most MAX_BUILD_ROWS rows (the host build_sum exactness), and at
+        least one extracted query param — match-all shaped chains keep the
+        row paths."""
+        if not self.config.use_cube:
+            return None
+        if self.dindex.T > C.MAX_BUILD_ROWS:
+            return None
+        if not all(self._cube_query_ok(q) for q, _ in chain):
+            return None
+        facs = []
+        Dprod = 1
+        for f in sorted(self._chain_fields(chain)):
+            col = self._col(f)
+            if col.multi or not (col.narrow or col.ftype.is_stringy):
+                return None
+            Df, off = C.factor_meta(col)
+            facs.append((f, Df, off))
+            Dprod *= Df
+        if Dprod > C.CUBE_DOM_CAP \
+                or not qc.chain_param_keys(chain, self.dindex):
+            return None
+        return tuple(facs), Dprod
+
+    def _cube_host_cell(self, facs):
+        """Host int64 domain-cell index per doc row (alive rows only;
+        cached on the device index — shared by every cube over the same
+        factor set)."""
+        cc = self.dindex.cube_cache
+        key = ("cell",) + tuple(f for f, _, _ in facs)
+        if key not in cc:
+            ws = [self._host_planes(self._col(f))[0] for f, _, _ in facs]
+            cc[key] = C.host_cell(facs, ws, self.dindex.alive_host > 0)
+        return cc[key]
+
+    def _cube_site(self, facs, sig, build_groups):
+        """Register one packed int8 piece operand (built host-exact on a
+        miss, cached on the device index); returns (array key, column
+        layout), or (None, None) when the site exceeds the static column
+        cap (the caller keeps the row paths)."""
+        cc = self.dindex.cube_cache
+        fkey = tuple(f for f, _, _ in facs)
+        key = ("site",) + fkey + (sig,)
+        if key not in cc:
+            pieces, layout = C.pack_groups(build_groups())
+            cc[key] = (None if pieces.shape[-1] > C.CUBE_COLS_CAP
+                       else (C.device_operand(pieces, self.device), layout))
+        if cc[key] is None:
+            return None, None
+        dev, layout = cc[key]
+        akey = "CUBE#" + "|".join(fkey) + "#" + sig
+        self._need(akey, dev)
+        return akey, layout
+
+    def _cube_base(self, facs, Dprod, chain):
+        """The indicator of a cube site: the chain's mask program over the
+        virtual domain planes (cached per factor set), memoized per run
+        under `ind_key` — nodes sharing a chain share it."""
+        cc = self.dindex.cube_cache
+        dkey = ("dom",) + tuple(f for f, _, _ in facs)
+        if dkey not in cc:
+            cc[dkey] = C.dom_planes(facs, self.device)[0]
+        return {"factors": facs, "Dprod": Dprod, "dom": cc[dkey],
+                "ind": self._chain_entry(chain, planes_of=lambda keys: None),
+                "ind_key": (facs, tuple(qp for _, qp in chain))}
+
+    def _plan_cube_count(self, p, chain) -> bool:
+        g = self._cube_gate(chain)
+        if g is None:
+            return False
+        facs, Dprod = g
+        cell = self._cube_host_cell(facs)
+        key, layout = self._cube_site(
+            facs, "cnt", lambda: [("cnt", C.build_count(cell, Dprod))])
+        if key is None:
+            return False
+        p["cube"] = {**self._cube_base(facs, Dprod, chain),
+                     "key": key, "layout": layout}
+        return True
+
+    def _plan_cube_metric(self, node, p, chain) -> bool:
+        g = self._cube_gate(chain)
+        if g is None:
+            return False
+        facs, Dprod = g
+        col = self._col(node.field)
+        need_min, need_max, need_sum = self._metric_needs(node)
+        cell = self._cube_host_cell(facs)
+        sig = (f"metric:{node.field}:"
+               f"{int(need_min)}{int(need_max)}{int(need_sum)}")
+
+        def build_groups():
+            if col.multi:
+                pre = self._doc_preagg_host(col)
+                groups = [("cnt", C.build_sum(cell, pre["cnt"], Dprod))]
+                if need_sum:
+                    sm = pre["sum"]
+                    groups.append(("sum", np.stack(
+                        [C.build_sum(cell, sm[:, i], Dprod)
+                         for i in range(sm.shape[1])])))
+                return groups
+            groups = [("cnt", C.build_count(cell, Dprod))]
+            if need_sum:
+                if col.sum_direct:
+                    groups.append(("sum", C.build_sum(
+                        cell, self._host_planes(col)[0], Dprod)))
+                else:
+                    limbs = self._sum_limbs_host(col)
+                    groups.append(("sum", np.stack(
+                        [C.build_sum(cell, limbs[:, i], Dprod)
+                         for i in range(limbs.shape[1])])))
+            return groups
+
+        key, layout = self._cube_site(facs, sig, build_groups)
+        if key is None:
+            return False
+        cb = {**self._cube_base(facs, Dprod, chain),
+              "key": key, "layout": layout, "mm": {}, "mm_narrow": col.narrow}
+        if need_min or need_max:
+            self._cube_minmax(cb, facs, Dprod, cell, col, need_min, need_max)
+        p["cube"] = cb
+        return True
+
+    def _cube_minmax(self, cb, facs, Dprod, cell, col, need_min, need_max):
+        """Per-cell min/max planes (beside the product operand): narrow ->
+        one int32 [Dprod] plane; wide -> a [2, Dprod] (hi, lo) split of the
+        int64 rm min/max. Empty-cell sentinels match the row reductions
+        exactly (I32_MAX / -1 narrow, I64_MAX / I64_MIN wide)."""
+        cc = self.dindex.cube_cache
+        fkey = tuple(f for f, _, _ in facs)
+        if col.multi:
+            pre = self._doc_preagg_host(col)
+            valid = pre["cnt"] > 0
+            if col.narrow:
+                srcs = {"min": pre["minA"], "max": pre["maxA"]}
+            else:
+                srcs = {"min": (pre["minA"], pre["minB"]),
+                        "max": (pre["maxA"], pre["maxB"])}
+        else:
+            valid = None
+            hp = self._host_planes(col)
+            srcs = {"min": (hp[0] if col.narrow else (hp[0], hp[1])),
+                    "max": (hp[0] if col.narrow else (hp[0], hp[1]))}
+        for which, need in (("min", need_min), ("max", need_max)):
+            if not need:
+                continue
+            ck = ("mm",) + fkey + (col.name, which, col.multi)
+            if ck not in cc:
+                src = srcs[which]
+                if col.narrow:
+                    arr = (C.build_min32(cell, src, Dprod, valid)
+                           if which == "min"
+                           else C.build_max32(cell, src, Dprod, valid))
+                else:
+                    hi, lo = src
+                    rm = ((hi.astype(np.int64) << 32)
+                          + lo.astype(np.int64) + 2**31)
+                    m64 = (C.build_min64(cell, rm, Dprod, valid)
+                           if which == "min"
+                           else C.build_max64(cell, rm, Dprod, valid))
+                    arr = np.stack(C.split_rm(m64))
+                cc[ck] = _put(arr, self.device)
+            akey = (f"CUBE#{'|'.join(fkey)}#mm:{col.name}:{which}:"
+                    f"{col.multi}")
+            self._need(akey, cc[ck])
+            cb["mm"][which] = akey
+
+    def _cube_ind(self, cb, pmat):
+        """[B, Dprod] bool chain indicator: the chain's mask program over
+        the virtual domain planes — the same op list the kernels and the
+        row path interpret, so the predicate semantics are identical by
+        construction. Memoized per run (nodes sharing a chain share it)."""
+        hit = self._ind_cache.get(cb["ind_key"])
+        if hit is None:
+            e = cb["ind"]
+            hit = qc.eval_ops(e["mp"].ops,
+                              [cb["dom"][k] for k in e["mp"].plane_keys],
+                              self._chain_pmat(e, pmat), (cb["Dprod"],))
+            self._ind_cache[cb["ind_key"]] = hit
+        return hit
+
+    def _cube_rec(self, cb, pmat, arrays):
+        """Indicator + recombined group values ({name: [B] or [B, m]})."""
+        ind = self._cube_ind(cb, pmat)
+        dots = C.cube_dots(ind, arrays[cb["key"]])
+        return ind, C.recombine(dots, cb["layout"])
+
+    @staticmethod
+    def _cube_mm_eval(cb, ind, arrays, which, is_min):
+        """min / max over the matched cells' planes: a where and a reduce
+        over Dprod (no product)."""
+        a = arrays[cb["mm"][which]]
+        if cb["mm_narrow"]:
+            v = torch.where(ind, a, C.I32_MAX if is_min else -1)
+        else:
+            v = torch.where(ind, R.wide_recon(a[0], a[1]),
+                            R.I64_MAX if is_min else R.I64_MIN)
+        return v.amin(dim=-1) if is_min else v.amax(dim=-1)
+
+    def _eval_metric_cube(self, node, pmat, arrays, p):
+        cb = p["cube"]
+        need_min, need_max, need_sum = self._metric_needs(node)
+        ind, rec = self._cube_rec(cb, pmat, arrays)
+        out = {"cnt": rec["cnt"]}
+        if need_min:
+            out["min"] = self._cube_mm_eval(cb, ind, arrays, "min", True)
+        if need_max:
+            out["max"] = self._cube_mm_eval(cb, ind, arrays, "max", False)
+        if need_sum:
+            out["sum"] = rec["sum"]
+        return out
+
+    def _plan_cube_bucket(self, node, p, path, *, sig, chain, nb, bid_host,
+                          sub_hdims, sub_tflat, sub_bchain) -> bool:
+        """Cube lowering for a ROOT-LEVEL dense bucket agg (histogram or
+        small-card terms) over a cube-able chain whose subs are
+        Count/Sum/Avg and percentiles: per-bucket counts and the
+        Count/Sum/Avg fruits become [nb, Dprod]-shaped exact piece operands
+        — bucket j's fruit is one more dot lane of the SAME [B, Dprod]
+        indicator product — and the percentiles plan in-slot (slot_rank).
+        Records p["cube"] and plans the subs; False keeps the row modes."""
+        CSA = (A.CountAgg, A.SumAgg, A.AvgAgg)
+        sub_aggs = [ns2 for ns2 in node.sub_aggs if isinstance(ns2[1], CSA)]
+        rest = [ns2 for ns2 in node.sub_aggs if not isinstance(ns2[1], CSA)]
+        if not all(isinstance(s2, A.PercentilesAgg) for _, s2 in rest):
+            return False
+        g = self._cube_gate(chain)
+        if g is None:
+            return False
+        facs, Dprod = g
+        if Dprod * nb > C.CUBE_BCELLS_CAP:
+            return False
+        cell = self._cube_host_cell(facs)
+        subs = {}
+        for name, s in sub_aggs:
+            if isinstance(s, A.CountAgg):
+                continue
+            scol = self._col(s.field)
+            if scol.multi:
+                subs[name] = {
+                    "multi": True,
+                    "L": int(self._doc_preagg_host(scol)["sum"].shape[1])}
+            elif scol.sum_direct:
+                subs[name] = {"multi": False, "L": 0}
+            else:
+                subs[name] = {
+                    "multi": False,
+                    "L": int(self._sum_limbs_host(scol).shape[1])}
+        sig += "#" + "|".join(
+            f"{name}:{type(s).__name__}:{getattr(s, 'field', '')}"
+            for name, s in sub_aggs)
+
+        def build_groups():
+            cell2 = C.bucket_cell(cell, bid_host, nb)
+            groups = [("counts", C.build_bucket_counts(cell2, Dprod, nb))]
+            for name, s in sub_aggs:
+                if isinstance(s, A.CountAgg):
+                    continue  # eval reuses the counts group
+                scol = self._col(s.field)
+                if scol.multi:
+                    pre = self._doc_preagg_host(scol)
+                    groups.append((f"c:{name}", C.build_bucket_sums(
+                        cell2, pre["cnt"], Dprod, nb)))
+                    limbs = pre["sum"]
+                elif scol.sum_direct:
+                    groups.append((f"s:{name}", C.build_bucket_sums(
+                        cell2, self._host_planes(scol)[0], Dprod, nb)))
+                    continue
+                else:
+                    limbs = self._sum_limbs_host(scol)
+                S = np.stack(
+                    [C.build_bucket_sums(cell2, limbs[:, i], Dprod, nb)
+                     for i in range(limbs.shape[1])], axis=1)
+                groups.append((f"s:{name}",
+                               S.reshape(nb * limbs.shape[1], Dprod)))
+            return groups
+
+        key, layout = self._cube_site(facs, sig, build_groups)
+        if key is None:
+            return False
+        p["mode"] = "dense"
+        p["cube"] = {**self._cube_base(facs, Dprod, chain), "key": key,
+                     "layout": layout, "nb": nb, "subs": subs}
+        for name, sub in sub_aggs:
+            if isinstance(sub, A.CountAgg):
+                self.plan[path + (name,)] = {"kind": "count",
+                                             "hdims": sub_hdims}
+            else:
+                self.plan[path + (name,)] = self._metric_plan_dict(
+                    sub, sub_hdims)
+        for name, sub in rest:
+            self._plan_aggs(sub, path + (name,), in_slot=True,
+                            hdims=sub_hdims, tflat=sub_tflat, chain=chain,
+                            bchain=sub_bchain)
+        return True
+
+    def _eval_bucket_cube(self, node, p, pmat, arrays):
+        """(counts [B, nb], sub_out) for a cube'd root bucket agg — the
+        shapes of the dense row formulation's slot fruits (direct sums
+        [B, nb], limb sums [B, nb, L]), so selection and harvest are
+        shared; percentile subs evaluate as planned (they read no ctx)."""
+        cb = p["cube"]
+        nb = cb["nb"]
+        _, rec = self._cube_rec(cb, pmat, arrays)
+        B = pmat.shape[0]
+        counts = rec["counts"].reshape(B, nb)
+        sub_out = {}
+        for name, sub in node.sub_aggs:
+            if isinstance(sub, A.CountAgg):
+                sub_out[name] = {"cnt": counts}
+                continue
+            if isinstance(sub, A.PercentilesAgg):
+                sub_out[name] = self._eval_percentiles(
+                    pmat, arrays, self.plan[p["path"] + (name,)])
+                continue
+            spec = cb["subs"][name]
+            cnt = (rec[f"c:{name}"].reshape(B, nb) if spec["multi"]
+                   else counts)
+            s = rec[f"s:{name}"]
+            sub_out[name] = {
+                "cnt": cnt,
+                "sum": (s.reshape(B, nb) if spec["L"] == 0
+                        else s.reshape(B, nb, spec["L"]))}
+        return counts, sub_out
+
+    def _perm_cell(self, facs, layout):
+        """int32 domain-cell plane over the layout's permuted rows (-1 on
+        dead or padding rows), from the chain view's permuted w planes."""
+        strides, _ = C.strides_of(facs)
+        cell = torch.zeros(layout.n_rows, dtype=torch.int32,
+                           device=self.device)
+        for (f, _, off), st in zip(facs, strides):
+            cell += (layout.cache[f"{f}:w"] + off) * st
+        return torch.where(layout.cache["avalid"] > 0, cell, -1)
+
+    def _plan_cube_pct(self, p, chain, layout):
+        """Cube lowering for the flat rank-percentile prefix: per-G-row
+        block chain-match counts from one int8 product against a static
+        two-digit per-block cell histogram, built once on the device from
+        the permuted chain planes the window recompute keeps resident."""
+        g = self._cube_gate(chain)
+        if g is None:
+            return None
+        facs, Dprod = g
+        G = C.choose_block(layout.n_rows, Dprod)
+        if G is None:
+            return None
+        fkey = tuple(f for f, _, _ in facs)
+        cc = self.dindex.cube_cache
+        ck = ("phist", p["prefix"], fkey, G)
+        if ck not in cc:
+            cc[ck] = C.build_blockhist(self._perm_cell(facs, layout),
+                                       Dprod, G)
+        key = f"PCUBE#{p['prefix']}#{'|'.join(fkey)}#{G}"
+        self._need(key, cc[ck])
+        return {**self._cube_base(facs, Dprod, chain), "key": key, "G": G,
+                "NB": layout.n_rows // G}
+
+    def _plan_cube_slots(self, p, chain, layout, nslots):
+        """Cube lowering for slot_rank nested percentiles: per-(slot,
+        block) chain-match counts from one int8 product against a static
+        histogram over (composite ancestor slot, G-row block, domain cell),
+        built once on the device from the permuted planes and the static
+        composite-slot plane (p["slotk"])."""
+        g = self._cube_gate(chain)
+        if g is None:
+            return None
+        facs, Dprod = g
+        G = C.choose_block_ns(layout.n_rows, Dprod, nslots)
+        if G is None:
+            return None
+        fkey = tuple(f for f, _, _ in facs)
+        cc = self.dindex.cube_cache
+        ck = ("shist", p["prefix"], fkey, G, p["slotk"])
+        if ck not in cc:
+            cc[ck] = C.build_slot_blockhist(
+                self._perm_cell(facs, layout), layout.cache[p["slotk"]],
+                nslots, Dprod, G)
+        key = f"SCUBE#{p['prefix']}#{'|'.join(fkey)}#{G}#{p['slotk']}"
+        self._need(key, cc[ck])
+        return {**self._cube_base(facs, Dprod, chain), "key": key, "G": G,
+                "NB": layout.n_rows // G}
+
+    # -- dense products (ops/reductions.py *_mm) -----------------------------
+
+    def _dense_op(self, key, K, rows, build):
+        """Register the resident dense-product operand `build()` under
+        `key` (cached on the device index) when its [rows, K] fits
+        R.DENSE_OP_MEM, and return its array key; None where the product
+        builds its operand per row chunk instead."""
+        if rows * R.pad8(K) * R.mm_dtype(self.device).itemsize \
+                > R.DENSE_OP_MEM:
+            return None
+        cc = self.dindex.cube_cache
+        ck = ("dmm", key)
+        if ck not in cc:
+            cc[ck] = build()
+        akey = f"DMM#{key}"
+        self._need(akey, cc[ck])
+        return akey
+
+    def _dense_counts_plan(self, bid_key, bid, nb):
+        """The dense-product entry of a dense bucket node right under a
+        MaskCtx: its one-hot counts operand (shared with its count subs)."""
+        return {"bid_key": bid_key, "nb": nb, "bid": bid,
+                "op": self._dense_op(f"{bid_key}@{nb}:cnt", nb, bid.shape[0],
+                                     lambda: R.dense_counts_operand(bid, nb))}
+
+    def _dense_sum_plan(self, sbid, key, plane, bound):
+        """(bound, operand key) of one payload plane's dense bucket sums
+        under the static bucket plane of `sbid`."""
+        nb, bid = sbid["nb"], sbid["bid"]
+        n = R.npieces_for_bound(bound)
+        return (bound, self._dense_op(
+            f"{sbid['bid_key']}@{nb}:{key}:{bound}", n * nb, bid.shape[0],
+            lambda: R.dense_sum_operand(bid, plane, nb, bound)))
+
+    def _dense_planes_plan(self, key, planes, bounds):
+        """(bounds, operand key) of a MaskCtx metric's masked sums of
+        several static planes as one product."""
+        live = [b for b in bounds if tuple(b) != (0, 0)]
+        K = sum(R.npieces_for_bound(b) for b in live)
+        return (bounds, self._dense_op(
+            f"{key}:{tuple(map(tuple, bounds))}", K, planes[0].shape[0],
+            lambda: R.sum_planes_operand(planes, bounds)))
+
     # -- node planners -------------------------------------------------------
 
     def _plan_aggs(self, node, path, *, in_slot, hdims, tflat, chain,
-                   bchain):
+                   bchain, sbid=None):
         """`bchain`: the dense single-valued bucket ancestors a slot_rank
         percentile descendant composes its slot plane from — (("hist",
         field, hist plan) | ("terms", field, card), ...) — or None once an
-        ancestor cannot thread a static slot."""
+        ancestor cannot thread a static slot. `sbid`: the parent's dense
+        product entry (_dense_counts_plan) when the parent is a dense
+        bucket node right under a MaskCtx, so this node's counts and sums
+        are dense products over its static bucket plane."""
         if isinstance(node, (dict, tuple)):
             items = node.items() if isinstance(node, dict) else node
             for name, sub in items:
                 self._plan_aggs(sub, path + (name,), in_slot=in_slot,
                                 hdims=hdims, tflat=tflat, chain=chain,
-                                bchain=bchain)
+                                bchain=bchain, sbid=sbid)
             return
         if isinstance(node, A.CountAgg):
-            self._reads_root = True
-            self.plan[path] = {"kind": "count", "hdims": hdims}
+            p = {"kind": "count", "hdims": hdims}
+            if in_slot or not self._plan_cube_count(p, chain):
+                self._reads_root = True
+            if sbid is not None:
+                p["dense_mm"] = {"op": sbid["op"]}
+            self.plan[path] = p
             return
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
                              A.StatsAgg)):
-            self._reads_root = True
-            self._plan_metric(node, path, hdims)
+            self._plan_metric(node, path, hdims,
+                              chain=None if in_slot else chain, sbid=sbid)
             return
         if isinstance(node, A.PercentilesAgg):
             if in_slot:
@@ -475,11 +970,12 @@ class Program:
                              tflat=tflat, chain=chain, bchain=bchain)
             return
         if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
-            self._reads_root = True
             sub_chain = chain + ((node.query, path + ("fq",)),)
-            self.plan[path] = {
-                "kind": "filter", "hdims": hdims,
-                "fmask": self._chain_entry(((node.query, path + ("fq",)),))}
+            p = {"kind": "filter", "hdims": hdims}
+            if in_slot or not self._plan_cube_count(p, sub_chain):
+                self._reads_root = True
+            p["fmask"] = self._chain_entry(((node.query, path + ("fq",)),))
+            self.plan[path] = p
             self._plan_aggs(node.sub_aggs, path, in_slot=in_slot,
                             hdims=hdims, tflat=tflat, chain=sub_chain,
                             bchain=bchain)
@@ -506,19 +1002,63 @@ class Program:
                              else None),
                 "base": col.f64_base_exp, "hdims": hdims}
 
-    def _plan_metric(self, node, path, hdims):
+    def _plan_metric(self, node, path, hdims, chain=None, sbid=None):
+        """A metric node: on the cube where `chain` (root / filter scope)
+        passes the gate; else its row planes, with p["dense_mm"] where its
+        sums are dense products (in a static dense parent, `sbid`, or at
+        root / filter scope for multi-valued and limb sums)."""
         col = self._col(node.field)
         need_min, need_max, need_sum = self._metric_needs(node)
         p = self._metric_plan_dict(node, hdims)
+        self.plan[path] = p
+        if chain is not None and self._plan_cube_metric(node, p, chain):
+            return  # no row planes: the cube answers every fruit
+        self._reads_root = True
+        T = self.dindex.T
         if col.multi:
             self._need_preagg(col, need_sum, need_min or need_max)
-        else:
-            self._need_col_planes(col)
-            if need_sum and not col.sum_direct:
-                self._need(f"{node.field}:limbs", col.sum_limbs())
-            # root/filter-scope narrow metrics run the fused kernel
-            p["fused"] = col.narrow and not hdims
-        self.plan[path] = p
+            pre = f"{col.name}:pre:"
+            pb = col.preagg_bounds(T)
+            cnt = self._arrays[pre + "cnt"]
+            sums = ([self._arrays[pre + "sum"][:, i]
+                     for i in range(self._arrays[pre + "sum"].shape[1])]
+                    if need_sum else [])
+            if sbid is not None:
+                p["dense_mm"] = {
+                    "op": sbid["op"],
+                    "pcnt": self._dense_sum_plan(sbid, pre + "cnt", cnt,
+                                                 pb["cnt"]),
+                    "sums": [self._dense_sum_plan(sbid, f"{pre}sum{i}", v,
+                                                  pb["sum"][i])
+                             for i, v in enumerate(sums)]}
+            elif chain is not None and self.config.dense_mxu:
+                p["dense_mm"] = {"planes": self._dense_planes_plan(
+                    f"{pre}{int(need_sum)}", [cnt] + sums,
+                    [pb["cnt"]] + (pb["sum"] if need_sum else []))}
+            return
+        self._need_col_planes(col)
+        if need_sum and not col.sum_direct:
+            self._need(f"{node.field}:limbs", col.sum_limbs())
+        # root/filter-scope narrow metrics run the fused kernel
+        p["fused"] = col.narrow and not hdims
+        if sbid is not None:
+            p["dense_mm"] = {"op": sbid["op"], "sums": []}
+            if need_sum and col.sum_direct:
+                p["dense_mm"]["sums"] = [self._dense_sum_plan(
+                    sbid, f"{col.name}:w", col.w, (0, int(col.span)))]
+            elif need_sum:
+                limbs = col.sum_limbs()
+                p["dense_mm"]["sums"] = [
+                    self._dense_sum_plan(sbid, f"{col.name}:limbs{i}",
+                                         limbs[:, i], b)
+                    for i, b in enumerate(col.limb_bounds())]
+        elif (chain is not None and self.config.dense_mxu and need_sum
+              and not col.sum_direct):
+            limbs = col.sum_limbs()
+            p["dense_mm"] = {"planes": self._dense_planes_plan(
+                f"{col.name}:limbs",
+                [limbs[:, i] for i in range(limbs.shape[1])],
+                col.limb_bounds())}
 
     def _plan_percentiles(self, node, path, hdims, chain):
         col = self._col(node.field)
@@ -533,13 +1073,17 @@ class Program:
         layout = col.value_layout()
         prefix = f"VL:{node.field}#"
         entry, _ = self._build_chain_view(layout, prefix, chain)
-        self._need_chain_fit(entry)
-        self.plan[path] = {
-            "kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
-            "min_mono": col.min_mono, "percents": node.percents,
-            "hdims": hdims, "pmode": "rank", "int_percents": True,
-            "layout": layout, "prefix": prefix, "pallas_counts": True,
-            "chainp": entry}
+        p = {"kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
+             "min_mono": col.min_mono, "percents": node.percents,
+             "hdims": hdims, "pmode": "rank", "int_percents": True,
+             "layout": layout, "prefix": prefix, "chainp": entry}
+        # the value-domain cube: per-block counts from one int8 product
+        # against a static block histogram, in place of chain_counts
+        p["pcube"] = self._plan_cube_pct(p, chain, layout)
+        p["pallas_counts"] = p["pcube"] is None
+        if p["pallas_counts"]:
+            self._need_chain_fit(entry)
+        self.plan[path] = p
 
     def _plan_percentiles_slots(self, node, path, hdims, chain, bchain):
         """slot_rank: per-bucket percentiles under dense single-valued
@@ -563,23 +1107,34 @@ class Program:
         for kind, _, meta in bchain:
             nslots *= meta["nb"] if kind == "hist" else meta
         layout = col.value_layout()
-        if not (nslots <= self.dense_nb
-                or (nslots <= K.PCT_SLOT_CAP
-                    and (layout.n_rows // SLOT_GROUP) * nslots * 4
-                    <= self.BIG_SLOT_MEM)):
+        ns_ok = nslots <= self.dense_nb
+        if not ns_ok and nslots <= K.PCT_SLOT_CAP:
+            # past the dense budget: the scube keeps [ns, R/G] state, the
+            # kernel [ns, R/32] under a byte bound
+            g = self._cube_gate(chain)
+            ns_ok = ((g is not None and C.choose_block_ns(
+                         layout.n_rows, g[1], nslots) is not None)
+                     or (layout.n_rows // SLOT_GROUP) * nslots * 4
+                     <= self.BIG_SLOT_MEM)
+        if not ns_ok:
             raise NotImplementedError(
                 f"slot_rank percentiles over {nslots} slots exceed the "
                 "device budget")
         prefix = f"VL:{node.field}#"
         entry, _ = self._build_chain_view(layout, prefix, chain)
-        self._need_chain_fit(entry, 1, nslots)
-        self.plan[path] = {
-            "kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
-            "min_mono": col.min_mono, "percents": node.percents,
-            "hdims": hdims, "pmode": "slot_rank", "int_percents": True,
-            "nslots": nslots, "layout": layout, "prefix": prefix,
-            "pallas_slots": True, "chainp": entry,
-            "slotk": self._build_slotcomp(layout, prefix, bchain)}
+        p = {"kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
+             "min_mono": col.min_mono, "percents": node.percents,
+             "hdims": hdims, "pmode": "slot_rank", "int_percents": True,
+             "nslots": nslots, "layout": layout, "prefix": prefix,
+             "chainp": entry,
+             "slotk": self._build_slotcomp(layout, prefix, bchain)}
+        # the value-domain cube: per-(slot, block) counts from one int8
+        # product, in place of chain_slot_counts
+        p["scube"] = self._plan_cube_slots(p, chain, layout, nslots)
+        p["pallas_slots"] = p["scube"] is None
+        if p["pallas_slots"]:
+            self._need_chain_fit(entry, 1, nslots)
+        self.plan[path] = p
 
     def _build_slotcomp(self, layout, prefix, bchain) -> str:
         """The STATIC composite ancestor-slot plane over the value layout's
@@ -900,6 +1455,14 @@ class Program:
                    else f"{node.field}:bid:{node.interval}:{node.offset}")
         bid_host = self._host_bucket_ids(col, p)
         self.plan[path] = p
+        if tflat * nb <= self.dense_nb and not in_slot and \
+                self._plan_cube_bucket(
+                    node, p, path, sig="h:" + bid_key, chain=chain, nb=nb,
+                    bid_host=bid_host, sub_hdims=hdims + (nb,),
+                    sub_tflat=tflat * nb,
+                    sub_bchain=(bchain + (("hist", node.field, dict(p)),)
+                                if bchain is not None else None)):
+            return
         budget = self._dense_budget(node)
         if tflat * nb > budget and not in_slot \
                 and self._sub_kinds_ok(node):
@@ -910,15 +1473,19 @@ class Program:
             return
         self._reads_root = True
         p["mode"] = "dense" if tflat * nb <= budget else "scatter"
-        self._need(bid_key, col.bucket_id_plane(bid_key, lambda: bid_host))
+        bid = col.bucket_id_plane(bid_key, lambda: bid_host)
+        self._need(bid_key, bid)
         p["bid_key"] = bid_key
+        if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
+            p["dense_mm"] = self._dense_counts_plan(bid_key, bid, nb)
         sub_bchain = (bchain + (("hist", node.field, dict(p)),)
                       if bchain is not None and p["mode"] == "dense"
                       else None)
         for name, sub in node.sub_aggs:
             self._plan_aggs(sub, path + (name,), in_slot=True,
                             hdims=hdims + (nb,), tflat=tflat * nb,
-                            chain=chain, bchain=sub_bchain)
+                            chain=chain, bchain=sub_bchain,
+                            sbid=p.get("dense_mm"))
 
     def _plan_terms(self, node, path, *, in_slot, hdims, tflat, chain,
                     bchain):
@@ -946,6 +1513,16 @@ class Program:
         p["sel"] = "topk" if node.order == ("_count", "desc") else "host"
         self.plan[path] = p
         sub_hdims = hdims + ((card if p["sel"] == "host" else p["keff"]),)
+        if tflat * card <= self.dense_nb and not in_slot and \
+                self._plan_cube_bucket(
+                    node, p, path, sig=f"t:{node.field}:{card}", chain=chain,
+                    nb=card,
+                    bid_host=(self._host_planes(col)[0]
+                              if col.ftype.is_stringy else col.term_ids()[0]),
+                    sub_hdims=sub_hdims, sub_tflat=tflat * card,
+                    sub_bchain=(bchain + (("terms", node.field, card),)
+                                if bchain is not None else None)):
+            return
         budget = self._dense_budget(node)
         if tflat * card > budget and not in_slot \
                 and self._sub_kinds_ok(node):
@@ -957,16 +1534,20 @@ class Program:
         self._reads_root = True
         p["mode"] = "dense" if tflat * card <= budget else "scatter"
         if col.ftype.is_stringy:
-            self._need(f"{node.field}:w", col.w)
+            ids_key, ids = f"{node.field}:w", col.w
         else:
-            self._need(f"{node.field}:tid", col.tid())
+            ids_key, ids = f"{node.field}:tid", col.tid()
+        self._need(ids_key, ids)
+        if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
+            p["dense_mm"] = self._dense_counts_plan(ids_key, ids, card)
         sub_bchain = (bchain + (("terms", node.field, card),)
                       if bchain is not None and p["mode"] == "dense"
                       else None)
         for name, sub in node.sub_aggs:
             self._plan_aggs(sub, path + (name,), in_slot=True,
                             hdims=sub_hdims, tflat=tflat * card,
-                            chain=chain, bchain=sub_bchain)
+                            chain=chain, bchain=sub_bchain,
+                            sbid=p.get("dense_mm"))
 
     def _extract_filter_params(self, node, path, out):
         if isinstance(node, (dict, tuple)):
@@ -988,20 +1569,25 @@ class Program:
 
     def _run(self, pmat):
         arrays = self._arrays
-        B, T = pmat.shape[0], self.dindex.T
-        ctx = None  # no planned node reads the root mask
-        if self._root is not None:
-            mask = self._chain_mask(self._root, pmat, arrays)
-            alive = arrays["alive"] > 0
-            if B > 1 and mask.stride(0) == 0:
-                # a param-free root (MatchAll): one row shared by the batch
-                # stays one row (a broadcast view, batch stride 0)
-                mask = mask[:1] & alive
-            else:
-                mask = mask & alive
-            ctx = MaskCtx(mask.expand(B, T))
+        self._ind_cache = {}  # cube indicators of this run, per chain
+        ctx = MaskCtx(lambda: self._root_mask(pmat, arrays))
         out = self._eval_level(self.aggs.items(), ctx, pmat, arrays, ("a",))
-        return {"packed": self._pack_outputs(out, self.aggs, B)}
+        return {"packed": self._pack_outputs(out, self.aggs,
+                                             pmat.shape[0])}
+
+    def _root_mask(self, pmat, arrays):
+        """The root scope's [B, T] mask: the root chain & alive."""
+        assert self._root is not None, "no planned node reads the root mask"
+        B, T = pmat.shape[0], self.dindex.T
+        mask = self._chain_mask(self._root, pmat, arrays)
+        alive = arrays["alive"] > 0
+        if B > 1 and mask.stride(0) == 0:
+            # a param-free root (MatchAll): one row shared by the batch
+            # stays one row (a broadcast view, batch stride 0)
+            mask = mask[:1] & alive
+        else:
+            mask = mask & alive
+        return mask.expand(B, T)
 
     def _eval_level(self, items, ctx, pmat, arrays, path):
         """{name: fruit} of sibling aggs over one context. The metrics the
@@ -1022,12 +1608,16 @@ class Program:
     def _eval(self, node, ctx, pmat, arrays, path):
         p = self.plan.get(path)
         if isinstance(node, A.CountAgg):
+            if p.get("cube"):
+                return {"cnt": self._cube_rec(p["cube"], pmat, arrays)[1]
+                        ["cnt"]}
             if isinstance(ctx, MaskCtx):
                 return {"cnt": ctx.count()}
-            return {"cnt": R.dense_bucket_counts(ctx.bid, ctx.valid,
-                                                 ctx.nslots)}
+            return {"cnt": self._slot_counts(ctx)}
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
                              A.StatsAgg)):
+            if p.get("cube"):
+                return self._eval_metric_cube(node, pmat, arrays, p)
             return self._eval_metric(node, ctx, arrays, p)
         if isinstance(node, A.PercentilesAgg):
             return self._eval_percentiles(pmat, arrays, p)
@@ -1036,12 +1626,16 @@ class Program:
         if isinstance(node, A.TermsAgg):
             return self._eval_terms(node, ctx, pmat, arrays, path, p)
         if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
-            fmask = self._chain_mask(p["fmask"], pmat, arrays)
             if isinstance(ctx, MaskCtx):
-                sub_ctx = MaskCtx(ctx.mask & fmask)
+                sub_ctx = MaskCtx(lambda: ctx.mask & self._chain_mask(
+                    p["fmask"], pmat, arrays))
+                if p.get("cube"):
+                    sub_ctx.cnt = self._cube_rec(p["cube"], pmat,
+                                                 arrays)[1]["cnt"]
                 subs = self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
                                         path)
                 return {"cnt": sub_ctx.count(), **subs}
+            fmask = self._chain_mask(p["fmask"], pmat, arrays)
             sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims)
             out = {"cnt": R.dense_bucket_counts(
                 sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots)}
@@ -1052,6 +1646,14 @@ class Program:
 
     # -- metrics -------------------------------------------------------------
 
+    def _slot_counts(self, ctx):
+        """[B, ns] counts of a SlotCtx: one dense product over its static
+        bucket plane (ctx.mm), else index_add_."""
+        if ctx.mm is not None:
+            return R.dense_bucket_counts_mm(ctx.bid, ctx.valid, ctx.nslots,
+                                            op=self._arrays.get(ctx.mm["op"]))
+        return R.dense_bucket_counts(ctx.bid, ctx.valid, ctx.nslots)
+
     def _eval_metric(self, node, ctx, arrays, p):
         field = node.field
         col = self._col(field)
@@ -1059,11 +1661,32 @@ class Program:
         out = {}
         slot = isinstance(ctx, SlotCtx)
         valid = ctx.valid if slot else ctx.mask
+        dmm = p.get("dense_mm") if not slot or ctx.mm is not None else None
 
-        def msum(plane):
+        def msum(plane, spec):
+            if slot and dmm is not None:
+                bound, key = spec
+                return R.dense_bucket_sum_mm(ctx.bid, valid, plane,
+                                             ctx.nslots, bound=bound,
+                                             op=arrays.get(key))
             if slot:
                 return R.dense_bucket_sum(ctx.bid, valid, plane, ctx.nslots)
             return R.ts_sum_plane(plane, valid)
+
+        def msums(planes, specs):
+            """[..., L] sums of L planes: at root / filter scope one dense
+            product over all of them where planned, else plane by plane."""
+            if not slot and dmm is not None:
+                bounds, key = dmm["planes"]
+                return R.masked_sum_planes_mm(valid, planes, bounds,
+                                              op=arrays.get(key))
+            return torch.stack([msum(pl, sp) for pl, sp in zip(planes, specs)],
+                               dim=-1)
+
+        def specs(n, first=None):
+            if not slot or dmm is None:
+                return [None] * n
+            return ([first] if first else []) + dmm["sums"]
 
         def mmin(plane, m):
             if slot:
@@ -1075,15 +1698,23 @@ class Program:
                 return R.dense_bucket_max(ctx.bid, m, plane, ctx.nslots)
             return R.masked_max_i32(plane, m)
 
+        def limb_sums():
+            limbs = arrays[f"{field}:limbs"]
+            return msums([limbs[:, i] for i in range(limbs.shape[1])],
+                         specs(limbs.shape[1]))
+
         if col.multi:
             pre = f"{field}:pre:"
             cnt_doc = arrays[pre + "cnt"]
-            out["cnt"] = msum(cnt_doc)
+            planes = [cnt_doc]
             if need_sum:
-                planes = arrays[pre + "sum"]
-                out["sum"] = torch.stack(
-                    [msum(planes[:, i]) for i in range(planes.shape[1])],
-                    dim=-1)
+                planes += [arrays[pre + "sum"][:, i]
+                           for i in range(arrays[pre + "sum"].shape[1])]
+            sums = msums(planes, specs(len(planes),
+                                       dmm and dmm.get("pcnt")))
+            out["cnt"] = sums[..., 0]
+            if need_sum:
+                out["sum"] = sums[..., 1:]
             mm = valid & (cnt_doc > 0)
             for which, need, red in (("min", need_min, mmin),
                                      ("max", need_max, mmax)):
@@ -1114,16 +1745,11 @@ class Program:
             if need_max:
                 out["max"] = mx
             if need_sum:
-                if p["direct"]:
-                    out["sum"] = tot
-                else:  # narrow f64: exact signed limb planes
-                    limbs = arrays[f"{field}:limbs"]
-                    out["sum"] = R.masked_sum_planes(
-                        valid, [limbs[:, i] for i in range(limbs.shape[1])])
+                # narrow f64: exact signed limb planes
+                out["sum"] = tot if p["direct"] else limb_sums()
             return out
 
-        out["cnt"] = (R.dense_bucket_counts(ctx.bid, valid, ctx.nslots)
-                      if slot else ctx.count())
+        out["cnt"] = self._slot_counts(ctx) if slot else ctx.count()
         if need_min or need_max:
             if col.narrow:
                 v = arrays[f"{field}:w"]
@@ -1145,12 +1771,9 @@ class Program:
                     out["max"] = R.masked_max_wide(hi, lo, valid)
         if need_sum:
             if p["direct"]:
-                out["sum"] = msum(arrays[f"{field}:w"])
+                out["sum"] = msum(arrays[f"{field}:w"], specs(1)[0])
             else:
-                limbs = arrays[f"{field}:limbs"]
-                out["sum"] = torch.stack(
-                    [msum(limbs[:, i]) for i in range(limbs.shape[1])],
-                    dim=-1)
+                out["sum"] = limb_sums()
         return out
 
     # -- percentiles ---------------------------------------------------------
@@ -1196,7 +1819,19 @@ class Program:
         sub = self._chain_pmat(entry, pmat)
         planes = [arrays[prefix + k] for k in entry["mp"].plane_keys]
         avalid = arrays[prefix + "avalid"]
-        if p["pmode"] == "slot_rank":
+        cb = p.get("scube") or p.get("pcube")
+        if cb:
+            # the cube: per-(slot,) block counts from one int8 product
+            G = cb["G"]
+            ind = self._cube_ind(cb, pmat)
+            if p["pmode"] == "slot_rank":
+                counts = C.slot_block_counts(ind, arrays[cb["key"]],
+                                             p["nslots"], cb["NB"])
+                cum = torch.cumsum(counts, dim=-1, dtype=torch.int32)
+            else:
+                counts = C.block_counts(ind, arrays[cb["key"]], cb["NB"])
+                cum = torch.cumsum(counts, dim=-1, dtype=torch.int64)
+        elif p["pmode"] == "slot_rank":
             G = SLOT_GROUP
             counts = K.chain_slot_counts(sub, entry["ops"], planes, avalid,
                                          arrays[prefix + p["slotk"]],
@@ -1291,14 +1926,16 @@ class Program:
         if p["mode"] == "prefix":
             counts, sub_out = self._eval_prefix_kernel(node, pmat, arrays, p)
             return {"counts": counts, **sub_out}
+        if p.get("cube"):
+            counts, sub_out = self._eval_bucket_cube(node, p, pmat, arrays)
+            return {"counts": counts, **sub_out}
         bid_own = arrays[p["bid_key"]]
         if isinstance(ctx, MaskCtx):
-            sub_ctx = SlotCtx(bid_own, ctx.mask, (nb,))
+            sub_ctx = SlotCtx(bid_own, ctx.mask, (nb,), p.get("dense_mm"))
         else:
             sub_ctx = SlotCtx(ctx.bid * nb + bid_own, ctx.valid,
                               ctx.dims + (nb,))
-        out = {"counts": R.dense_bucket_counts(sub_ctx.bid, sub_ctx.valid,
-                                               sub_ctx.nslots)}
+        out = {"counts": self._slot_counts(sub_ctx)}
         for name, sub in node.sub_aggs:
             out[name] = self._eval(sub, sub_ctx, pmat, arrays,
                                    path + (name,))
@@ -1309,18 +1946,27 @@ class Program:
         if p["mode"] == "prefix":
             counts, sub_out = self._eval_prefix_kernel(node, pmat, arrays, p)
             return self._terms_select(p, counts, sub_out, 1)
+        if p.get("cube"):
+            counts, sub_out = self._eval_bucket_cube(node, p, pmat, arrays)
+            return self._terms_select(p, counts, sub_out, 1)
         col = self._col(node.field)
         ids = arrays[f"{node.field}:w"] if col.ftype.is_stringy \
             else arrays[f"{node.field}:tid"]
         if isinstance(ctx, MaskCtx):
-            sub_ctx = SlotCtx(ids, ctx.mask & (ids >= 0), (card,))
+            sub_ctx = SlotCtx(ids, ctx.mask & (ids >= 0), (card,),
+                              p.get("dense_mm"))
             anc_flat = 1
         else:
             sub_ctx = SlotCtx(ctx.bid * card + ids, ctx.valid & (ids >= 0),
                               ctx.dims + (card,))
             anc_flat = ctx.nslots
-        counts = R.dense_bucket_counts(sub_ctx.bid, sub_ctx.valid,
-                                       sub_ctx.nslots)
+        if sub_ctx.mm is not None:
+            # a missing term (id -1) matches no one-hot column: the scope's
+            # mask goes in as it is, a shared row staying one row
+            counts = R.dense_bucket_counts_mm(
+                ids, ctx.mask, card, op=arrays.get(sub_ctx.mm["op"]))
+        else:
+            counts = self._slot_counts(sub_ctx)
         sub_out = {name: self._eval(sub, sub_ctx, pmat, arrays,
                                     path + (name,))
                    for name, sub in node.sub_aggs}

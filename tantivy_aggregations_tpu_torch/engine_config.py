@@ -27,6 +27,15 @@ class EngineConfig:
     #: compute once and fan the fruits out. Serving wins; benchmarks that
     #: want to measure raw compute throughput should turn it off.
     msearch_dedup: bool = True
+    #: dense bucket counts and sums over STATIC bucket-id planes (and masked
+    #: sums of several planes) are int8 matrix products on the tensor cores
+    #: (ops/reductions.py dense_bucket_*_mm, masked_sum_planes_mm) instead
+    #: of per-query int64 index_add_; exact by 7-bit piece construction
+    dense_mxu: bool = True
+    #: value-domain cube lowering (ops/cube.py): trees whose parameterized
+    #: query chain lives on a small single-valued domain evaluate as exact
+    #: domain-indicator int8 matrix products — no per-query row pass
+    use_cube: bool = True
 
     def validate(self) -> "EngineConfig":
         if self.dense_nb < 1:

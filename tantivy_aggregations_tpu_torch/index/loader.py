@@ -22,7 +22,9 @@ harvest code and the differential tests read the same numbers):
 What the port leaves out: the packed host->device transport and device limb
 derivation (the TPU's remote link made bytes expensive; here a plane is one
 `torch.from_numpy(a).to(device)` copy and limb planes are computed on the
-host), sharding, and the cross-process prep cache.
+host), sharding, and the cross-process prep cache (the cube's and the dense
+products' operands are cached on the DeviceIndex, `cube_cache`, for the
+process's life).
 """
 
 from __future__ import annotations
@@ -178,6 +180,20 @@ class DeviceColumn:
         wu = _w_u64(self._host_mono, self.min_mono)
         return exact.int_limb_planes(wu.view(np.int64), self.sum_n_limbs)
 
+    def limb_bounds(self) -> list:
+        """Per-plane static (lo, hi) value bounds of the sum_limbs() planes
+        (plan-time metadata for the int8 piece decomposition of the dense
+        products). Integer fields: limbs of the non-negative offset
+        w <= span, so plane i is bounded by span >> 26i — the top plane of
+        a modest-span column needs 1 piece instead of 5. f64: signed
+        26-bit limbs."""
+        if self.ftype == FieldType.F64:
+            m = exact.LIMB_MASK
+            return [(-m, m)] * self.sum_n_limbs
+        return [(0, min(exact.LIMB_MASK,
+                        int(self.span) >> (exact.LIMB_BITS * i)))
+                for i in range(self.sum_n_limbs)]
+
     # -- lazy numeric terms dictionary ----------------------------------------
 
     def term_ids(self):
@@ -272,6 +288,25 @@ class DeviceColumn:
                                 "minA": mnA, "minB": mnB,
                                 "maxA": mxA, "maxB": mxB}
         return self._doc_preagg
+
+    _preagg_bounds: Optional[dict] = None
+
+    def preagg_bounds(self, T: int) -> dict:
+        """Static (lo, hi) bounds of the doc_preagg planes, computed once
+        from the host pre-aggregates (query-independent): 'cnt' for the
+        per-doc value-count plane, 'sum' per carry-normalized limb plane.
+        High limb planes of small-valued columns come back (0, 0) and are
+        dropped from the int8 operands entirely."""
+        if self._preagg_bounds is None:
+            pre = self.doc_preagg_host(T)
+            s = pre["sum"]
+            self._preagg_bounds = {
+                "cnt": (0, int(pre["cnt"].max(initial=0))),
+                "sum": [(int(s[:, i].min(initial=0)),
+                         int(s[:, i].max(initial=0)))
+                        for i in range(s.shape[1])],
+            }
+        return self._preagg_bounds
 
     # -- ordered layouts ------------------------------------------------------
 
@@ -381,6 +416,9 @@ class DeviceIndex:
     _max_addends: int = 1
     #: set-type query expansions (query/compile.py match_runs cache)
     set_query_runs: Dict[tuple, list] = field(default_factory=dict)
+    #: query-independent operands of the value-domain cube and the dense
+    #: products (aggs/compile.py), shared by every program on this index
+    cube_cache: Dict[tuple, object] = field(default_factory=dict)
 
     @property
     def alive(self) -> torch.Tensor:

@@ -4,12 +4,15 @@ Batch-first counterparts of the JAX package's ops/reductions.py: every
 mask is [B, rows] bool (one row per query of a request group), planes are
 [rows] (query-independent) or [B, rows], and every result carries the
 leading B axis. All arithmetic is integer: sums accumulate in int64 (CUDA
-has native int64, so the TPU's 13-bit splits and 7-bit MXU pieces are not
-carried over) and no float appears on any result path.
+has native int64, so the TPU's 13-bit splits are not carried over) and no
+float appears on any result path but the dense products' fp32 partials,
+each an integer of magnitude at most 2^23 that fp32 holds exactly.
 
 Dense bucket reductions are integer `index_add_` / `scatter_reduce_` into
 [B, nb] int64 (int32 for min/max) over static or composite bucket-id
-planes; out-of-range ids (e.g. -1) match nothing.
+planes; out-of-range ids (e.g. -1) match nothing. Over a STATIC bucket-id
+plane they also run as matrix products ("Dense products" below), of which
+the index_add_ functions are the plain versions.
 
 [B, rows]-sized int64 temporaries are built a few queries at a time
 (`_query_chunks`), so a 128-query group over 10M rows stays within a
@@ -197,3 +200,244 @@ def prefix_diff_sums_from_blocks(s64, bounds32) -> torch.Tensor:
     """Per-bucket [B, card] exact sums from per-32-block int64 payload sums
     (the chain_blocks kernel output)."""
     return _prefix_at_bounds(s64, bounds32)
+
+
+# ---------------------------------------------------------------------------
+# Dense products: per-bucket reductions over STATIC planes as tensor-core
+# matrix products
+# ---------------------------------------------------------------------------
+#
+# Replaces the JAX package's ops/reductions.py `dense_bucket_counts_mxu`
+# (:242), `dense_bucket_sum_mxu` (:258) and `masked_sum_planes_mxu` (:286),
+# with their helpers `npieces_for_bound`, `_pieces`, `_recombine` and
+# `_mxu_dense_chunk` (:163-224). When the bucket-id plane and the payload
+# are query-independent (a dense bucket agg right under the root or a
+# filter, or a metric at that scope), bucket aggregation is a matrix
+# product whose right operand no query changes:
+#
+#     counts[q, j] = sum_r mask[q, r] * onehot[r, j]
+#     sums[q, j]   = sum_r mask[q, r] * (piece_i[r] * onehot[r, j])
+#
+# so a request group shares one [rows, K] operand: the bucket one-hot, then
+# the payload's 7-bit pieces under it (JAX's column order, piece-major).
+# The planner builds it once per program (`*_operand`, cached on the device
+# index) where it fits DENSE_OP_MEM, else a product builds it per row chunk
+# as the JAX package does. A mask whose rows are one shared row (batch
+# stride 0: a MatchAll root) is multiplied once, as one row, and the result
+# is broadcast over the batch.
+#
+# Formulation on the card: `torch._int_mm` runs an int8 product of this
+# shape (a few output columns, 10M-deep) on very few CTAs — about 19 ms for
+# [32, 10M] x [10M, 32] on the H100, whatever the chunking (`chip_smoke.py`
+# phase 4p times it beside this one) — so the rows are cut into
+# MM_CHUNK-row partials and multiplied as ONE batched bf16 product with
+# fp32 partials (`torch.bmm(..., out_dtype=torch.float32)`). Exact by
+# construction: the mask is 0/1 and every piece lies in [-128, 127], both
+# exact in bf16; a partial sums at most MM_CHUNK * 128 <= 2^23 in magnitude,
+# an integer every fp32 partial holds exactly; partials add up in int64. On
+# the CPU the same partials are float32 products (exact for the same
+# reason). The `index_add_` functions above are the plain versions.
+
+#: rows per product partial (the exactness bound: |partial| <= 128 * MM_CHUNK
+#: must stay <= 2^23); PAD_BLOCK (32768) rows divide every plane
+MM_CHUNK = 1 << 15
+MM_CHUNK_MAX = 1 << 16
+#: byte budget of one resident dense operand (plan time; above it a product
+#: builds its operand per row chunk)
+DENSE_OP_MEM = 4 << 30
+#: element budget of a product step's temporaries (the [B, chunk] mask copy
+#: in the product dtype, a per-chunk operand)
+_MM_STEP_ELEMS = 1 << 27
+
+#: product calls since the last reset_mm_calls()
+mm_calls = {"dense_bucket_counts_mm": 0, "dense_bucket_sum_mm": 0,
+            "masked_sum_planes_mm": 0}
+
+
+def reset_mm_calls() -> None:
+    for k in mm_calls:
+        mm_calls[k] = 0
+
+
+def npieces_for_bound(bound) -> int:
+    """Number of 7-bit pieces that decompose int32 values with static
+    inclusive bounds `bound = (lo, hi)` exactly: low pieces are
+    (v >> 7i) & 127 in [0, 127], the top piece is the arithmetic shift
+    v >> 7(n-1) and must land in [-128, 127]. None -> 5 (full int32)."""
+    if bound is None:
+        return 5
+    lo, hi = int(bound[0]), int(bound[1])
+    for n in range(1, 5):
+        s = 7 * (n - 1)
+        if -128 <= (lo >> s) and (hi >> s) <= 127:
+            return n
+    return 5
+
+
+def _pieces(v, n: int):
+    """The n 7-bit pieces of int32 plane v (see npieces_for_bound)."""
+    return [(v >> (7 * i)) & 127 if i < n - 1 else v >> (7 * (n - 1))
+            for i in range(n)]
+
+
+def _recombine(acc, n: int):
+    """int64 piece sums [..., n, X] -> exact int64 totals [..., X]: one
+    vectorized shift-sum over the piece axis."""
+    shifts = torch.arange(n, dtype=torch.int64, device=acc.device) * 7
+    return (acc << shifts[:, None]).sum(dim=-2)
+
+
+def mm_dtype(device) -> torch.dtype:
+    """The operand dtype of the dense products: bf16 on the card (tensor
+    cores, fp32 partials), float32 on the CPU."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" \
+        else torch.float32
+
+
+def pad8(k: int) -> int:
+    """k rounded up to a multiple of 8 (at least 8): the widths a
+    tensor-core product's operands are padded to."""
+    return max(8, -(-k // 8) * 8)
+
+
+def _onehot(bid, nb: int):
+    return bid[:, None] == torch.arange(nb, dtype=bid.dtype,
+                                        device=bid.device)
+
+
+def _counts_cols(bid, nb: int, dtype):
+    return _onehot(bid, nb).to(dtype)
+
+
+def _sum_cols(bid, plane, nb: int, n: int, dtype):
+    oh = _onehot(bid, nb)
+    return torch.cat([torch.where(oh, p[:, None], 0).to(dtype)
+                      for p in _pieces(plane, n)], dim=1)
+
+
+def _planes_cols(planes, nps, dtype):
+    return torch.stack([p.to(dtype) for v, n in zip(planes, nps)
+                        for p in _pieces(v, n)], dim=1)
+
+
+def _fill(cols_of, rows: int, K: int, device, r0: int = 0, r1=None):
+    """[r1 - r0, pad8(K)] operand rows r0..r1 from `cols_of(r0, r1)` (a
+    [r, K] block), built MM_STEP-bounded slices at a time."""
+    r1 = rows if r1 is None else r1
+    dt = mm_dtype(device)
+    out = torch.zeros(r1 - r0, pad8(K), dtype=dt, device=device)
+    step = max(MM_CHUNK, (_MM_STEP_ELEMS // max(K, 1)) // MM_CHUNK
+               * MM_CHUNK)
+    for a in range(r0, r1, step):
+        b = min(r1, a + step)
+        out[a - r0:b - r0, :K] = cols_of(a, b, dt)
+    return out
+
+
+def _mm_sums(mask, K: int, op=None, cols_of=None):
+    """Exact int64 [B, K] = mask [B, rows] (bool) @ operand [rows, K]: the
+    resident operand `op` ([rows, pad8(K)]) or one built per row step by
+    `cols_of(r0, r1, dtype)`. A batch-stride-0 mask runs once, as one row."""
+    assert MM_CHUNK <= MM_CHUNK_MAX, \
+        f"dense product partials of {MM_CHUNK} rows exceed the exact " \
+        f"fp32 bound ({MM_CHUNK_MAX} rows: |partial| <= 2^23)"
+    mask, rep = shared_row(mask)
+    B, rows = mask.shape
+    dev = mask.device
+    Kp = pad8(K)
+    dt = mm_dtype(dev)
+    acc = torch.zeros(B, Kp, dtype=torch.int64, device=dev)
+    step = max(MM_CHUNK, (_MM_STEP_ELEMS // max(B, Kp)) // MM_CHUNK
+               * MM_CHUNK)
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        rhs = op[r0:r1] if op is not None else _fill(cols_of, rows, K, dev,
+                                                     r0, r1)
+        lhs = mask[:, r0:r1].to(dt)
+        # whole MM_CHUNK-row partials as one batch, a row tail as another
+        full = (r1 - r0) // MM_CHUNK * MM_CHUNK
+        for a, b, n in ((0, full, MM_CHUNK), (full, r1 - r0, r1 - r0 - full)):
+            if b == a:
+                continue
+            nc = (b - a) // n
+            x = lhs[:, a:b].reshape(B, nc, n).transpose(0, 1)
+            y = rhs[a:b].reshape(nc, n, Kp)
+            part = (torch.bmm(x, y, out_dtype=torch.float32)
+                    if dev.type == "cuda" else torch.bmm(x, y))
+            acc += part.to(torch.int64).sum(dim=0)
+    acc = acc[:, :K]
+    return acc if rep == 1 else acc.expand(rep, K)
+
+
+def dense_counts_operand(bid, nb: int):
+    """The resident operand of dense_bucket_counts_mm: bid's one-hot."""
+    return _fill(lambda a, b, d: _counts_cols(bid[a:b], nb, d),
+                 bid.shape[0], nb, bid.device)
+
+
+def dense_bucket_counts_mm(bid, valid, nb: int, op=None) -> torch.Tensor:
+    """dense_bucket_counts over a static [rows] bid plane as one product:
+    [B, rows] validity -> [B, nb] int64 counts (ids outside [0, nb) match
+    nothing)."""
+    mm_calls["dense_bucket_counts_mm"] += 1
+    return _mm_sums(valid, nb, op,
+                    lambda a, b, d: _counts_cols(bid[a:b], nb, d))
+
+
+def dense_sum_operand(bid, plane, nb: int, bound=None):
+    n = npieces_for_bound(bound)
+    return _fill(lambda a, b, d: _sum_cols(bid[a:b], plane[a:b], nb, n, d),
+                 bid.shape[0], n * nb, bid.device)
+
+
+def dense_bucket_sum_mm(bid, valid, plane, nb: int, bound=None,
+                        op=None) -> torch.Tensor:
+    """dense_bucket_sum over a static bid plane and a static int32 payload:
+    its 7-bit pieces under the one-hot ride one product, recombined with
+    int64 shifts -> [B, nb]. `bound`: a static inclusive (lo, hi) on the
+    payload's values, which sets the piece count (None: 5)."""
+    mm_calls["dense_bucket_sum_mm"] += 1
+    B = valid.shape[0]
+    if bound is not None and tuple(bound) == (0, 0):
+        return torch.zeros(B, nb, dtype=torch.int64, device=valid.device)
+    n = npieces_for_bound(bound)
+    acc = _mm_sums(valid, n * nb, op,
+                   lambda a, b, d: _sum_cols(bid[a:b], plane[a:b], nb, n, d))
+    return _recombine(acc.reshape(B, n, nb), n)
+
+
+def _live_planes(planes, bounds):
+    if bounds is None:
+        bounds = [None] * len(planes)
+    live = [l for l in range(len(planes))
+            if bounds[l] is None or tuple(bounds[l]) != (0, 0)]
+    return live, [npieces_for_bound(bounds[l]) for l in live]
+
+
+def sum_planes_operand(planes, bounds=None):
+    live, nps = _live_planes(planes, bounds)
+    lp = [planes[l] for l in live]
+    return _fill(lambda a, b, d: _planes_cols([p[a:b] for p in lp], nps, d),
+                 planes[0].shape[0], sum(nps), planes[0].device)
+
+
+def masked_sum_planes_mm(mask, planes, bounds=None, op=None) -> torch.Tensor:
+    """Exact [B, L] int64 masked sums of L static int32 planes in ONE
+    product: the 7-bit pieces of every plane concatenate into one operand.
+    `bounds`: optional static per-plane inclusive (lo, hi); a (0, 0) plane
+    is dropped from the operand (its sums are 0)."""
+    mm_calls["masked_sum_planes_mm"] += 1
+    B = mask.shape[0]
+    live, nps = _live_planes(planes, bounds)
+    out = torch.zeros(B, len(planes), dtype=torch.int64, device=mask.device)
+    if not live:
+        return out
+    lp = [planes[l] for l in live]
+    acc = _mm_sums(mask, sum(nps), op,
+                   lambda a, b, d: _planes_cols([p[a:b] for p in lp], nps,
+                                                d))
+    o = 0
+    for l, n in zip(live, nps):
+        out[:, l] = _recombine(acc[:, o:o + n, None], n)[:, 0]
+        o += n
+    return out

@@ -10,8 +10,9 @@ compiles (query, param path) pairs to a small postfix op list over int32
 planes and int32 params (`MaskProgram`). The CUDA chain kernels
 (csrc/kernels.cu) interpret it per row in-kernel; `eval_ops` interprets the
 same list with torch ops over [B, ...] masks (the plain versions of those
-kernels, and every other mask in the port). This replaces the JAX
-package's trace-time `eval_mask` closures.
+kernels, every other mask in the port, and the value-domain cube's chain
+indicator over its virtual domain planes, ops/cube.py `dom_planes`). This
+replaces the JAX package's trace-time `eval_mask` closures.
 
 Covered: MatchAll, Term, Range, Prefix, the set-type TermSet / Fuzzy /
 Regex (one opcode that loops the query's run slots) and Boolean

@@ -89,12 +89,14 @@ def test_copied_host_path_matches_jax_originals():
 
 
 def test_engine_config_keeps_the_serving_knobs():
-    """The port keeps the JAX EngineConfig's serving knobs with the same
-    defaults and drops the cube, member-op, MXU and Pallas knobs."""
+    """The port keeps the JAX EngineConfig's serving knobs and its cube and
+    dense-product switches with the same defaults (both on), and drops the
+    member-op and Pallas knobs."""
     port = {f.name: f.default for f in fields(EngineConfig)}
     jax_cfg = {f.name: f.default for f in fields(JaxConfig)}
     assert set(port) == {"dense_nb", "collect_stats", "max_batch",
-                         "msearch_dedup"}
+                         "msearch_dedup", "dense_mxu", "use_cube"}
+    assert port["dense_mxu"] and port["use_cube"]
     assert all(jax_cfg[k] == v for k, v in port.items())
     assert inspect.getsource(EngineConfig.validate) == \
         inspect.getsource(JaxConfig.validate)

@@ -7,7 +7,9 @@ ONE on-disk index written by the JAX writer.
 Two indexes: a persisted fixtures.random_index with dense_nb=8 (forcing
 the prefix modes, as tests/test_pallas_prefix.py does), and a small
 flagship bench index (models/flagship.py schema, 4 segments) with the
-judged configs themselves at the default config."""
+judged configs themselves. Both pin the row modes (use_cube=False,
+dense_mxu=False), whose plans these tests check kernel by kernel; the
+default config's cube and dense products are held in test_torch_cube.py."""
 
 import numpy as np
 import pytest
@@ -41,8 +43,8 @@ def rnd(tmp_path_factory):
                     str(tmp_path_factory.mktemp("slice") / "idx"))
     jidx, pidx = tat.Index.open(path), tt.Index.open(path)
     return {
-        "port": pidx.searcher(device="cpu",
-                              config=EngineConfig(dense_nb=8)),
+        "port": pidx.searcher(device="cpu", config=EngineConfig(
+            dense_nb=8, use_cube=False, dense_mxu=False)),
         "port_oracle": pidx.oracle_searcher(),
         "jax": jidx.searcher(config=JaxConfig(dense_nb=8, use_cube=False,
                                               pallas_interpret=True)),
@@ -411,7 +413,9 @@ def bench(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("bench") / "idx")
     jflag.build_bench_index(path, 40_000, seed=42, n_segments=4)
     jidx, pidx = tat.Index.open(path), tt.Index.open(path)
-    return (pidx.searcher(device="cpu"), pidx.oracle_searcher(),
+    return (pidx.searcher(device="cpu", config=EngineConfig(
+                use_cube=False, dense_mxu=False)),
+            pidx.oracle_searcher(),
             jidx.searcher(config=JaxConfig(use_cube=False,
                                            pallas_interpret=True)),
             jidx.oracle_searcher())
@@ -663,7 +667,8 @@ def test_batch_cap_splits_groups(rnd, monkeypatch):
     prog = rnd["port"]._program_for(pq, pa)
     per_q = prog.plan[("a", "t", "p")]["layout"].n_rows // 32 * 50 * 8
     monkeypatch.setattr(pcompile.Program, "BATCH_MEM_BUDGET", 2 * per_q)
-    s = pidx.searcher(device="cpu", config=EngineConfig(dense_nb=8))
+    s = pidx.searcher(device="cpu", config=EngineConfig(
+        dense_nb=8, use_cube=False, dense_mxu=False))
     assert s._program_for(pq, pa).batch_cap == 2
     groups = s._submit_batch(reqs)
     assert [len(g[1]) for g in groups] == [2, 2, 1]
