@@ -20,7 +20,12 @@ value-domain cube and the dense products on).
    (the cube's operands and block histograms, the dense products'
    operands built here), printing each plan's modes, which must be
    DEFAULT_MODES: c2, c5, c8, c9, c10 on the cube (c5 a pcube, c9 a
-   scube), c3 the dense products, c1, c4, c6, c7 none;
+   scube), c3 the dense products, c1, c4, c6, c7 none; then the tags
+   deployment (phase_tags_index: 10M docs, SEED, built on first use under
+   .bench_cache/) and (3m) the multi-valued requests at the default config,
+   each a device Program with its MULTI_MODES (mv1-mv3 and mv5-mv7 over the
+   bench's multi-valued `weights`, t1-t3 over the tags deployment's keyword
+   `tags` and wide `ids`), mv4 the host path;
 4. each kernel against its plain PyTorch version at the main path's shapes
    (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
    bound (kernel_bound), the device time in torch.profiler and, for
@@ -71,12 +76,18 @@ value-domain cube and the dense products on).
    beside the number of distinct requests per group; for c1, c4, c5 and
    c10 (the default path: c3, c5, c9, c10) one dedup-off group under
    torch.profiler (wall, device busy share, top device ops);
+   then the "multi" and "tags" paths (MULTI_PATHS, the same checks at the
+   default config, MULTI_CHECKED distinct varied requests per request
+   held to the oracle), and mv4 once on the host path == the oracle;
+   5d. the doc-space shapes on the card (phase_doc_space: overflow tails,
+   the CSR phrase stream, mask_gather, a cross-product expansion) == the
+   oracle on a 3000-doc index made from SEED;
    5b. a RegexQuery over sku whose runs fit the 64 regex slots answers on
    a device Program, one whose runs exceed them on the exact host path,
    both == the oracle, and the Program stays cached; the host answer also
    == its three fitting thirds' device answers, merged;
-6. each slice's kernels (and the default path's products) were launched
-   by its own main path in step 5.
+6. each slice's kernels (and the default, multi and tags paths' products)
+   were launched by its own main path in step 5.
 
 Each phase prints its seconds.
 
@@ -196,6 +207,38 @@ PRODUCTS = {
 #: the cube's torch._int_mm products, bf16 for the dense products' batched
 #: bf16 products
 TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+#: the multi-valued paths (phase 5m), each on its deployment at the default
+#: EngineConfig: the requests (multi_requests / tags_requests; mv4 answers
+#: on the host path and is checked apart), the kernels and products the
+#: path must launch, and the requests whose dedup-off group is profiled
+MULTI_PATHS = (
+    ("multi", "bench", ("mv1", "mv2", "mv3", "mv5", "mv6", "mv7"),
+     ("fused_metrics", "chain_blocks", "chain_counts", "chain_slot_counts"),
+     ("block_counts",), ("mv1", "mv3", "mv7")),
+    ("tags", "tags", ("t1", "t2", "t3"), ("fused_metrics", "chain_counts"),
+     ("dense_bucket_counts_mm", "dense_bucket_sum_mm"), ("t1", "t2")),
+)
+#: distinct varied requests of the multi paths held to the oracle per
+#: request (the oracle takes 6-17 s a request there at 10M docs)
+MULTI_CHECKED = 2
+#: the modes each multi-valued request must plan (phase 3m), per node: the
+#: JAX package's plans of the same requests at its default EngineConfig
+MULTI_MODES = {
+    "mv1": {"p": {"rank", "pallas_counts"}},
+    "mv2": {"t": {"prefix", "pallas_prefix"}},
+    "mv3": {"t": {"scatter"}, "h": {"dense", "dense_mm"}},
+    "mv5": {"p": {"rank", "pcube"}},
+    "mv6": {"p": {"rank", "pallas_counts"}},
+    "mv7": {"t": {"dense", "dense_mm"}, "t/p": {"slot_rank",
+                                                 "pallas_slots"}},
+    "t1": {"t": {"dense", "dense_mm"}, "t/p": {"slot_rank", "wslots"}},
+    "t2": {"t": {"dense", "dense_mm", "plane_fanout"},
+           "t/h": {"scatter"}},
+    "t3": {"p": {"rank", "pallas_counts"}},
+}
+#: the tags deployment: DOCS docs in SEGMENTS segments from SEED, with
+#: TAGS_CARD zipf-skewed tag terms
+TAGS_CARD = 64
 
 
 def say(*a, **kw):
@@ -263,6 +306,191 @@ def phase_index(tt, flagship):
     return idx
 
 
+def tags_schema(tt):
+    """The tags deployment's schema: amount and price as the bench's,
+    tags (keyword, multi-valued) and ids (u64, multi-valued, wide)."""
+    from tantivy_aggregations_tpu_torch.schema import Cardinality
+    return (tt.SchemaBuilder()
+            .add_u64_field("amount")
+            .add_f64_field("price")
+            .add_keyword_field("tags", cardinality=Cardinality.MULTI)
+            .add_u64_field("ids", cardinality=Cardinality.MULTI)
+            .build())
+
+
+def tags_columns(n_docs: int, seed: int):
+    """Columns of the tags deployment from `seed`: amount and price drawn
+    as the bench draws them; 0-3 tags per doc from TAGS_CARD zipf-skewed
+    terms, and in one doc of five with a tag a repeat of its first tag
+    (occurrence weight 2); 0-3 ids per doc uniform in [0, 2^40), a span
+    past NARROW_MAX_SPAN (a wide field). No doc holds more than 4 values."""
+    rng = np.random.default_rng(seed)
+    cols = {"amount": rng.integers(0, 10_000, n_docs, dtype=np.uint64),
+            "price": np.round(rng.lognormal(3.0, 1.0, n_docs), 2)}
+    ntag = rng.integers(0, 4, n_docs)
+    rep = (rng.random(n_docs) < 0.2) & (ntag > 0)
+    cnt = ntag + rep
+    offs = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(cnt, out=offs[1:])
+    first = np.cumsum(ntag) - ntag  # each doc's first tag in `drawn`
+    vocab = np.array([f"tag{i:02d}" for i in range(TAGS_CARD)], object)
+    drawn = vocab[(rng.zipf(1.3, int(ntag.sum())) - 1) % TAGS_CARD]
+    vals = np.empty(int(offs[-1]), object)
+    vals[np.repeat(offs[:-1], ntag)
+         + (np.arange(len(drawn)) - np.repeat(first, ntag))] = drawn
+    reps = np.nonzero(rep)[0]
+    vals[offs[reps] + ntag[reps]] = drawn[first[reps]]
+    cols["tags"] = (offs.astype(np.uint32), vals)
+    nid = rng.integers(0, 4, n_docs)
+    ioffs = np.zeros(n_docs + 1, np.uint32)
+    np.cumsum(nid, out=ioffs[1:])
+    cols["ids"] = (ioffs, rng.integers(0, 2**40, int(ioffs[-1]),
+                                       dtype=np.uint64))
+    return cols
+
+
+def build_columnar_index(tt, path, schema, cols, n_docs, n_segments):
+    """An on-disk index of `cols` in n_segments segments (CSR columns are
+    (offsets, values) pairs, cut at the segment bounds)."""
+    idx = tt.Index.create(str(path), schema, overwrite=True)
+    w = idx.writer()
+    per = n_docs // n_segments
+    for s in range(n_segments):
+        lo = s * per
+        hi = n_docs if s == n_segments - 1 else (s + 1) * per
+        part = {}
+        for k, v in cols.items():
+            if isinstance(v, tuple):
+                offs, vals = v
+                part[k] = (offs[lo:hi + 1] - offs[lo],
+                           vals[int(offs[lo]):int(offs[hi])])
+            else:
+                part[k] = v[lo:hi]
+        w.add_documents_columnar(part, hi - lo)
+        w.commit()
+    return idx
+
+
+def phase_tags_index(tt):
+    """The tags deployment (DOCS docs, SEGMENTS segments, SEED), built on
+    first use under .bench_cache/ and reused after."""
+    path = REPO / ".bench_cache" / f"tags_{DOCS}_{SEGMENTS}_{SEED}"
+    t0 = time.time()
+    if (path / "meta.json").exists():
+        idx = tt.Index.open(str(path))
+        say(f"reused {path} in {time.time() - t0:.1f}s")
+    else:
+        idx = build_columnar_index(tt, path, tags_schema(tt),
+                                   tags_columns(DOCS, SEED), DOCS, SEGMENTS)
+        say(f"built the tags deployment, {DOCS} docs x {SEGMENTS} "
+            f"segments, at {path} in {time.time() - t0:.1f}s")
+    return idx
+
+
+def multi_requests(tt, name: str, k: int):
+    """Request `name` of the multi path (mv1-mv7, on the bench index) with
+    parameter set k (0-31)."""
+    pct = (25.0, 50.0, 75.0)
+    amt = tt.RangeQuery("amount", lower=100 + k, upper=9000 - k,
+                        include_upper=True)
+    wrange = tt.RangeQuery("weights", lower=100 + k, upper=899 - k)
+    statuses = ("active", "archived", "deleted", "pending")
+    if name == "mv1":
+        return (tt.BooleanQuery(must=[wrange,
+                                      tt.TermQuery("status", "active")]),
+                {"n": tt.count_agg(), "s": tt.sum_agg("amount"),
+                 "p": tt.percentiles_agg("price")})
+    if name == "mv2":
+        return (tt.RangeQuery("weights", lower=500 + k, upper=531 + k),
+                {"t": tt.terms_agg("sku", size=10, sub_aggs={
+                    "s": tt.sum_agg("amount"), "n": tt.count_agg()})})
+    if name == "mv3":
+        return (amt, {"t": tt.terms_agg("weights", size=10, sub_aggs={
+                          "s": tt.sum_agg("amount")}),
+                      "h": tt.histogram_agg("weights", interval=100)})
+    if name == "mv4":
+        return (amt, {"t": tt.terms_agg("weights", size=10, sub_aggs={
+            "p": tt.percentiles_agg("price", pct)})})
+    if name == "mv5":
+        return (tt.TermQuery("status", statuses[k % 4]),
+                {"p": tt.percentiles_agg("weights")})
+    if name == "mv6":
+        return (tt.BooleanQuery(must=[tt.ExistsQuery("weights"), amt]),
+                {"n": tt.count_agg(), "p": tt.percentiles_agg("price")})
+    if name == "mv7":
+        return (wrange, {"t": tt.terms_agg("status", size=4, sub_aggs={
+            "p": tt.percentiles_agg("price", pct)})})
+    lo = (k * 2**35) % (2**40 - 2**36)
+    if name == "t1":
+        return (amt, {"t": tt.terms_agg("tags", size=10, sub_aggs={
+            "p": tt.percentiles_agg("price", pct)})})
+    if name == "t2":
+        return (amt, {"t": tt.terms_agg("tags", size=10, sub_aggs={
+            "h": tt.histogram_agg("amount", interval=1000),
+            "s": tt.sum_agg("amount")})})
+    if name == "t3":
+        return (tt.RangeQuery("ids", lower=lo, upper=lo + 2**36),
+                {"n": tt.count_agg(), "s": tt.sum_agg("amount"),
+                 "p": tt.percentiles_agg("price")})
+    raise KeyError(name)
+
+
+def multi_varied(tt):
+    """varied_requests for the multi paths: 32 parameter sets in turn
+    (j % 32), as models/flagship.py rotates them."""
+    def varied(name, aggs, n):
+        return [(multi_requests(tt, name, j % 32)[0], aggs)
+                for j in range(n)]
+    return varied
+
+
+def multi_plan_modes(prog) -> dict:
+    """{node path: the modes it runs} of a Program's bucket and percentile
+    nodes (the MULTI_MODES vocabulary)."""
+    out = {}
+    for path, p in prog.plan.items():
+        got = {p[k] for k in ("mode", "pmode") if p.get(k)}
+        got |= {k for k in ("pallas_counts", "pallas_prefix", "pallas_slots",
+                            "pcube", "scube", "cube", "dense_mm", "wslots",
+                            "plane_fanout", "mask_gather", "xpand")
+                if p.get(k)}
+        if got and p.get("kind") in ("terms", "histogram", "percentiles"):
+            out["/".join(path[1:])] = got
+    return out
+
+
+def phase_plan_multi(torch, searchers):
+    """Phase 3m: plan every request of the multi paths at the default
+    EngineConfig, each a device Program with the MULTI_MODES of its
+    nodes; mv4 (terms over weights' 1000 values with slot_rank
+    percentiles: past the slot-state budget at 10M docs) plans the host
+    path."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    from tantivy_aggregations_tpu_torch.searcher import _HostFallback
+    import tantivy_aggregations_tpu_torch as tt
+    say("[3m] planning the multi-valued requests (default EngineConfig)")
+    for label, dep, names, _, _, _ in MULTI_PATHS:
+        for name in names:
+            q, aggs = multi_requests(tt, name, 0)
+            t0 = time.time()
+            prog = searchers[dep]._program_for(q, aggs)
+            torch.cuda.synchronize()
+            check(type(prog) is Program,
+                  f"{name} planned {type(prog).__name__}, not a device "
+                  f"Program ({getattr(prog, 'reason', '')})")
+            got = {k: v for k, v in multi_plan_modes(prog).items()
+                   if k in MULTI_MODES[name]}
+            check(got == MULTI_MODES[name],
+                  f"{name} plans {got}, not {MULTI_MODES[name]}")
+            say(f"  {name} ({label}): {got}, batch_cap {prog.batch_cap}, "
+                f"planned in {time.time() - t0:.2f}s")
+    q, aggs = multi_requests(tt, "mv4", 0)
+    prog = searchers["bench"]._program_for(q, aggs)
+    check(isinstance(prog, _HostFallback),
+          f"mv4 planned {type(prog).__name__}, not the host path")
+    say(f"  mv4 (multi): host path ({prog.reason})")
+
+
 def _cuda_ms(torch, fn, iters: int) -> float:
     """Median CUDA-event time of fn() over `iters` runs, after a warm-up."""
     fn()
@@ -302,8 +530,10 @@ def every_op_queries(tt, B: int):
     term), RANGE32 (narrow range), RANGE_WIDE (f64 range), EQ_WIDE_GUARD and
     EQ32_GUARD in OR pairs (f64 and narrow terms), SET32 (a TermSet of
     three skus, two of the most frequent among them: 4 run slots), SET_WIDE
-    (a TermSet of four f64 prices: 4 slots), NOT, AND and TRUE. Their
-    params are drawn from SEED."""
+    (a TermSet of four f64 prices: 4 slots), GT_IMM (a range over the
+    multi-valued weights: an OR over its per-position planes, each compare
+    guarded against the -1 fill), NOT, AND and TRUE. Their params are
+    drawn from SEED."""
     rng = np.random.default_rng(SEED)
     statuses = ("active", "archived", "deleted", "pending")
     out = []
@@ -318,7 +548,9 @@ def every_op_queries(tt, B: int):
             must=[tt.TermQuery("status", statuses[b % 4]),
                   tt.RangeQuery("amount", lower=lo, upper=lo + 4000,
                                 include_upper=True),
-                  tt.RangeQuery("price", lower=plo, upper=plo + 40.0)],
+                  tt.RangeQuery("price", lower=plo, upper=plo + 40.0),
+                  tt.RangeQuery("weights", lower=lo // 10,
+                                upper=lo // 10 + 600)],
             must_not=[tt.TermQuery("price",
                                    round(float(rng.lognormal(3.0, 1.0)), 2)),
                       tt.TermQuery("qty", int(rng.integers(0, 100))),
@@ -399,7 +631,7 @@ def set_leaf_compares(qc, ops, pm) -> np.ndarray:
     """Compares per row of each query's mask program (kernel_bound's leaf
     costs) under the [B, P] params `pm`: int64 [B]."""
     fixed = {qc.OP_RANGE32: 2, qc.OP_EQ32: 1, qc.OP_EQ32_GUARD: 1,
-             qc.OP_RANGE_WIDE: 4, qc.OP_EQ_WIDE_GUARD: 2}
+             qc.OP_RANGE_WIDE: 4, qc.OP_EQ_WIDE_GUARD: 2, qc.OP_GT_IMM: 1}
     pm = pm.astype(np.int64)
     out = np.zeros(pm.shape[0], np.int64)
     for o in ops.tolist():
@@ -430,9 +662,9 @@ def kernel_bound(torch, qc, name, args, out):
     program and 1 per payload; chain_slot_counts also ns per (query,
     32-row block). Boolean ops and block counts go 32 rows to a word and
     are not counted. A leaf costs its compares: RANGE32 2, EQ32 1,
-    EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2; a set leaf 2 (SET32) or 4
-    (SET_WIDE) per run slot that is not empty in the query's params (the
-    kernel skips empty slots). gather_rows reads each distinct picked row
+    EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2, GT_IMM 1; a set leaf 2
+    (SET32) or 4 (SET_WIDE) per run slot that is not empty in the query's
+    params (the kernel skips empty slots). gather_rows reads each distinct picked row
     once and writes B rows."""
     if name == "fused_metrics":
         mask, plane = args[:2]
@@ -541,7 +773,7 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
                       (p9e, ("a", "t", "p"))):
         ops = prog.plan[key]["chainp"]["mp"].ops
         check(set(ops[:, 0].tolist())
-              == set(range(qc.OP_SET_WIDE + 1)),
+              == set(range(qc.OP_GT_IMM + 1)),
               f"every-opcode chain on {key} has opcodes "
               f"{sorted(set(ops[:, 0].tolist()))}")
     # chain_blocks on c4's sku layout under a chain of more than 256 params
@@ -658,6 +890,57 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
     return records
 
 
+def phase_kernels_multi(torch, K, qc, tt, searchers, records):
+    """Phase 4m: the chain kernels on the multi-valued paths' operands, at
+    B = 1 and 128, exact == their plain versions, with times and bounds
+    (each kept under its kernel's record as a variant): chain_counts on
+    mv1's price layout under the permuted weights:mp{k} planes;
+    chain_blocks on mv2's sku layout; chain_slot_counts on mv7's price
+    layout and status slot plane; chain_counts on the weights value-row
+    layout (mv5 in row modes: a query per status, its planes read at each
+    value row's doc); chain_counts on t3's price layout under the wide ids
+    planes (mph{k}, mpl{k}, mpn)."""
+    say("[4m] chain kernels on the multi-valued layouts (exact ==)")
+    varied = multi_varied(tt)
+    sites = (("chain_counts", "mv1", "default", _chain_counts_args),
+             ("chain_blocks", "mv2", "default", _chain_blocks_args),
+             ("chain_slot_counts", "mv7", "default", _chain_slot_args),
+             ("chain_counts", "mv5 rows", "row", _chain_counts_args),
+             ("chain_counts", "t3", "tags", _chain_counts_args))
+    for name, label, which, args_of in sites:
+        q, aggs = multi_requests(tt, label.split()[0], 0)
+        prog = searchers[which]._program_for(q, aggs)
+        for B in (1, 128):
+            pmat = qc.param_matrix(
+                [prog._extract(rq, ra) for rq, ra in
+                 varied(label.split()[0], aggs, B)], prog._pkeys,
+                prog.device)
+            args = args_of(prog, pmat)
+            kern = lambda a=args, f=getattr(K, name): f(*a)  # noqa: E731
+            plain = lambda a=args, f=getattr(K, name + "_plain"): f(*a)  # noqa
+            got = kern()
+            err = _check_equal(torch, name, f"{label} B={B}", got, plain())
+            matched = int(_outputs(got)[0].to(torch.int64).sum())
+            ms = _cuda_ms(torch, kern, 30 if B == 1 else 10)
+            plain_ms = _cuda_ms(torch, plain, 3)
+            bound_ms, bound_by = kernel_bound(torch, qc, name, args,
+                                              _outputs(got))
+            dev_ms = _device_ms(torch, kern)
+            say(f"  {name:17s} {label:10s} B={B:<4d} kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})  device {dev_ms} ms  max_abs_err {err}  "
+                f"matched {matched}  planes "
+                f"{len(args[2])}  rows {args[3].shape[0]}")
+            rec = records[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec.setdefault("variants", []).append(
+                {"label": label, "B": B, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by})
+            del got, args, pmat
+    torch.cuda.empty_cache()
+
+
 def gather_host_steps(torch, K, idx, rows, old=None, n: int = 10_000):
     """gather_rows' host time per call at B = 1, step by step: a host clock
     around n enqueues of each step on the card (after 100 warm-up calls;
@@ -715,7 +998,8 @@ def gather_host_steps(torch, K, idx, rows, old=None, n: int = 10_000):
 
 def edge_operands(torch, qc, R: int, B: int, rng):
     """Operands of a mask program over 8 int32 planes that holds every
-    opcode, 16 payload planes (4 full-range, all INT32_MIN, all INT32_MAX,
+    opcode of the kernels (OP_GT_IMM against a positive and a negative
+    immediate), 16 payload planes (4 full-range, all INT32_MIN, all INT32_MAX,
     the two alternating, 9 more full-range), and an avalid plane with
     whole blocks 0, whole blocks 1 and stray negative bytes; params of B
     queries, with some ranges and set run slots empty and some guards off.
@@ -728,7 +1012,9 @@ def edge_operands(torch, qc, R: int, B: int, rng):
             (o.OP_EQ_WIDE_GUARD, 6, 7, 11, 12, 13), (o.OP_NOT,),
             (o.OP_AND,), (o.OP_TRUE,), (o.OP_AND,),
             (o.OP_SET32, 0, 14, 3), (o.OP_NOT,), (o.OP_AND,),
-            (o.OP_SET_WIDE, 6, 7, 20, 2), (o.OP_OR,)]
+            (o.OP_SET_WIDE, 6, 7, 20, 2), (o.OP_OR,),
+            (o.OP_GT_IMM, 2, 3), (o.OP_GT_IMM, 6, -1), (o.OP_AND,),
+            (o.OP_OR,)]
     ops = np.zeros((len(prog), qc.OP_WIDTH), np.int32)
     for i, ins in enumerate(prog):
         ops[i, :len(ins)] = ins
@@ -1078,7 +1364,8 @@ def phase_products(torch, K, C, R, qc, row, dflt, flagship):
 
     # c3's histogram: the MatchAll mask shared by the batch (stride 0)
     h = d3.plan[("a", "h")]
-    hs = d3.plan[("a", "h", "s")]["dense_mm"]["sums"][0]
+    hs = d3.plan[("a", "h", "s")]["dense_mm"][h["dense_mm"]["bid_key"]][
+        "sums"][0]
     bid, nb = d3._arrays[h["bid_key"]], h["nb"]
     amount = d3._arrays["amount:w"]
     op_c, op_s = d3._arrays[h["dense_mm"]["op"]], d3._arrays[hs[1]]
@@ -1498,21 +1785,27 @@ def _reset_counters(K, C, R) -> None:
 
 
 def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
-                    card, path, answers, reps=1):
+                    card, path, answers, reps=1, configs=None, varied=None,
+                    profiled=None, n_checked=3):
     """Drive one slice's main path with the launch counters (the kernels'
     and the products') set to 0; returns the counts it left. `answers`
     keeps the oracle's (and c6's reference's) answers by request, so a
     later path compares with the same answers without asking again;
     `reps`: msearch timing runs per dedup setting (the median is
     printed), but one for c6, whose host-bound dedup-off stream takes
-    about a minute at 10M docs."""
+    about a minute at 10M docs. `configs` ((key, name, query, aggs), ...)
+    and `varied` (key, aggs, n -> requests) replace the flagship configs
+    and streams, `profiled` the keys whose dedup-off group is profiled;
+    `n_checked`: distinct varied requests held to the oracle per config."""
     label, cfg_nos, kernels, products, _ = path
     say(f"[5] main path {label}: agg_search / agg_search_batch vs the "
         "oracle (c6: its numpy reference)")
     _reset_counters(K, C, R)
     dedup_on = searcher.config
     dedup_off = dataclasses.replace(dedup_on, msearch_dedup=False)
-    for n, name, q, aggs in all_configs(flagship):
+    if profiled is None:
+        profiled = PROFILED_DEFAULT if label == "default" else PROFILED
+    for n, name, q, aggs in (configs or all_configs(flagship)):
         if n not in cfg_nos:
             continue
         t_cfg = time.time()
@@ -1528,7 +1821,7 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         t_oracle = time.time() - t0
         got = searcher.agg_search(q, aggs)
         check(got == want, f"{name}: agg_search != oracle")
-        reqs = flagship.varied_requests(n, aggs, 256)
+        reqs = (varied or flagship.varied_requests)(n, aggs, 256)
         prog = searcher._program_for(q, aggs)
         group = reqs[:searcher.config.max_batch]
         distinct = len({prog.param_key(rq, ra) for rq, ra in group})
@@ -1554,7 +1847,7 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
             seen.append(rq)
             check(res == (want if rq == q else reference(rq, ra)),
                   f"{name}: varied request {rq!r} != oracle")
-            if len(seen) == 3:
+            if len(seen) == n_checked:
                 break
         # timings (every agg_search ends in the device->host fruit copy)
         times = []
@@ -1574,7 +1867,7 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
             f"msearch {msq:.4f} ms/q dedup on ({distinct} distinct of "
             f"{len(group)} per group), {msq_all:.4f} ms/q dedup off  "
             f"[{card}]  ({time.time() - t_cfg:.1f}s)")
-        if n in (PROFILED_DEFAULT if label == "default" else PROFILED):
+        if n in profiled:
             searcher.config = dedup_off
             _profile_group(torch, searcher, group)
             searcher.config = dedup_on
@@ -1585,6 +1878,86 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         check(counts[k] > 0,
               f"{k} was never launched by the main path {label}")
     return counts
+
+
+def phase_doc_space(torch, tt):
+    """Phase 5d: the doc-space shapes on the card, on an index made from
+    SEED (3000 docs, 3 segments): a text field and multi-valued keyword
+    and u64 fields, some docs holding 9-12 values (overflow tails past
+    DENSE_MULTI_K) and 9-13 tokens. Term and range leaves whose values
+    lie only in the tails, a phrase over the CSR token stream, Exists, rank
+    percentiles and prefix terms through the gathered doc mask
+    (`mask_gather`), and a multi-valued terms agg under a multi-valued one
+    (the cross-product expansion `xpand`): each a device Program whose
+    chain evaluates with torch ops over the doc axis, == the oracle."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    from tantivy_aggregations_tpu_torch.engine_config import EngineConfig
+    from tantivy_aggregations_tpu_torch.schema import Cardinality
+    say("[5d] doc-space shapes on the card (tails, CSR phrase, xpand)")
+    schema = (tt.SchemaBuilder().add_keyword_field("cat")
+              .add_u64_field("qty").add_f64_field("price")
+              .add_keyword_field("tags", cardinality=Cardinality.MULTI)
+              .add_u64_field("counts", cardinality=Cardinality.MULTI)
+              .add_text_field("body").build())
+    idx = tt.Index.create_in_ram(schema)
+    w = idx.writer()
+    rng = np.random.default_rng(SEED)
+    words = [f"w{i}" for i in range(12)]
+    for i in range(3000):
+        big = rng.random() < 0.05
+        k = (lambda: int(rng.integers(9, 13))) if big else \
+            (lambda: int(rng.integers(0, 4)))
+        w.add_document({
+            "cat": f"c{int(rng.integers(0, 6))}",
+            "qty": int(rng.integers(0, 200)),
+            "price": float(np.round(rng.normal() * 50, 2)),
+            "tags": [f"t{int(x)}" for x in rng.integers(0, 16, k())],
+            # values 60-99 only past the 8th position of a doc: the tail
+            "counts": [int(x) if j < 8 else 60 + int(x) % 40
+                       for j, x in enumerate(rng.integers(0, 60, k()))],
+            "body": " ".join(words[int(x)] for x in rng.integers(
+                0, 12, int(rng.integers(9, 14) if big
+                           else rng.integers(0, 7))))})
+        if i in (1000, 2000):
+            w.commit()
+    w.commit()
+    pct = (25.0, 50.0, 75.0)
+    reqs = [
+        (tt.TermQuery("counts", 77), {"n": tt.count_agg(),
+                                      "s": tt.sum_agg("qty")}, ()),
+        (tt.RangeQuery("counts", lower=62, upper=90),
+         {"n": tt.count_agg(), "p": tt.percentiles_agg("price")},
+         ("mask_gather",)),
+        (tt.PhraseQuery("body", "w3 w4"),
+         {"n": tt.count_agg(), "p": tt.percentiles_agg("qty", pct),
+          "t": tt.terms_agg("cat", size=3, sub_aggs={
+              "s": tt.sum_agg("qty")})}, ("mask_gather",)),
+        (tt.BooleanQuery(must=[tt.ExistsQuery("counts")],
+                         must_not=[tt.TermQuery("tags", "t3")]),
+         {"n": tt.count_agg(), "h": tt.histogram_agg("counts", interval=10)},
+         ()),
+        (tt.RangeQuery("qty", lower=10, upper=150),
+         {"t": tt.terms_agg("tags", size=5, sub_aggs={
+             "t2": tt.terms_agg("counts", size=3, sub_aggs={
+                 "s": tt.sum_agg("qty")})})}, ("xpand",)),
+    ]
+    oracle = idx.oracle_searcher()
+    for config in (EngineConfig(dense_nb=4), EngineConfig()):
+        s = idx.searcher(device="cuda", config=config)
+        for q, aggs, need in reqs:
+            prog = s._program_for(q, aggs)
+            check(type(prog) is Program,
+                  f"{q!r} planned {type(prog).__name__} "
+                  f"({getattr(prog, 'reason', '')})")
+            modes = set().union(*multi_plan_modes(prog).values()) \
+                if multi_plan_modes(prog) else set()
+            check(set(need) <= modes, f"{q!r} plans {modes}")
+            got = s.agg_search(q, aggs)
+            check(got == oracle.agg_search(q, aggs), f"{q!r} != oracle")
+            batch = s.agg_search_batch([(q, aggs)] * 3)
+            check(batch == [got] * 3, f"{q!r}: batch != single")
+            say(f"  {type(q).__name__} dense_nb={config.dense_nb}: == "
+                f"oracle, modes {sorted(modes)}")
 
 
 def plan_modes(prog) -> dict:
@@ -1745,6 +2118,9 @@ def main(argv=None) -> int:
     idx = phase_index(tt, flagship)
     lap("index", t0)
     t0 = time.time()
+    tags_idx = phase_tags_index(tt)
+    lap("tags index", t0)
+    t0 = time.time()
     searcher = idx.searcher(device="cuda", config=EngineConfig(**ROW_MODES))
     phase_plan(torch, searcher, flagship)
     lap("plan", t0)
@@ -1756,11 +2132,18 @@ def main(argv=None) -> int:
     dflt._device_epoch = searcher._device_epoch
     phase_plan(torch, dflt, flagship, "default EngineConfig", DEFAULT_MODES)
     lap("plan default", t0)
-    searchers = {"row": searcher, "default": dflt}
+    searchers = {"row": searcher, "default": dflt,
+                 "tags": tags_idx.searcher(device="cuda")}
+    t0 = time.time()
+    phase_plan_multi(torch, {"bench": dflt, "tags": searchers["tags"]})
+    lap("plan multi", t0)
     t0 = time.time()
     against = load_against(args.against) if args.against else None
     records = phase_kernels(torch, K, qc, tt, searcher, flagship, against)
     lap("kernels", t0)
+    t0 = time.time()
+    phase_kernels_multi(torch, K, qc, tt, searchers, records)
+    lap("kernels multi", t0)
     t0 = time.time()
     for name, err in phase_edges(torch, K, qc).items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -1781,6 +2164,28 @@ def main(argv=None) -> int:
         for k, n in by_path[path[0]].items():
             counts[k] += n
         lap(f"main path {path[0]}", t0)
+    oracles = {"bench": oracle, "tags": tags_idx.oracle_searcher()}
+    for label, dep, names, kernels, prods, prof in MULTI_PATHS:
+        t0 = time.time()
+        cfgs = [(nm, nm, *multi_requests(tt, nm, 0)) for nm in names]
+        by_path[label] = phase_main_path(
+            torch, K, C, R, tt, idx if dep == "bench" else tags_idx,
+            searchers["default" if dep == "bench" else "tags"],
+            oracles[dep], flagship, card,
+            (label, names, kernels, prods, {}), answers, configs=cfgs,
+            varied=multi_varied(tt), profiled=prof, n_checked=MULTI_CHECKED)
+        for k, n in by_path[label].items():
+            counts[k] += n
+        lap(f"main path {label}", t0)
+    t0 = time.time()
+    q, aggs = multi_requests(tt, "mv4", 0)
+    check(dflt.agg_search(q, aggs) == oracle.agg_search(q, aggs),
+          "mv4 (host path) != oracle")
+    say("[5m] mv4 on the host path == the oracle")
+    lap("mv4", t0)
+    t0 = time.time()
+    phase_doc_space(torch, tt)
+    lap("doc space", t0)
     t0 = time.time()
     phase_set_overflow(tt, searcher, oracle, flagship, card)
     lap("set-query overflow", t0)

@@ -57,15 +57,37 @@ Set-type queries (TermSet / Fuzzy / Regex) compile to one run-slot opcode
 of the mask program, so they take every mode above; `accepts` tells the
 searcher when a request's runs exceed the compiled slots.
 
-Every other shape — non-integer percents, top_hits, facets, exists /
-phrase queries, multi-valued query chains or bucket fields, a kernel
-chain whose planes, payloads, ops and params overflow the chain tile
-kernel's shared memory (K.chain_fits: about 50 planes, or tens of
-thousands of params), sharding —
-raises NotImplementedError at plan time naming the shape, and the searcher
-answers it on the exact host path. A scope's mask is evaluated only when a
-node reads it, so a chain that only a member operand or the cube answers
-runs no row pass.
+Multi-valued fields (the JAX package's CSR value rows and per-position
+planes, index/loader.py):
+- a query leaf over one is an OR over its doc-aligned per-position planes,
+  which permute into the layouts like any plane: prefix terms, rank and
+  slot_rank percentiles keep the chain kernels (a chain is "dense",
+  _chain_is_dense). A field with an overflow tail, and a phrase over a
+  tailed text field, add doc-space scatters: such a chain is evaluated
+  over the doc axis only, and the prefix and rank modes read the scope's
+  mask gathered through the static row->doc plane `pdoc` (`mask_gather`);
+- percentiles over a multi-valued field rank its value rows (value-row
+  layouts: every doc-aligned plane is read at the row's doc, `row_doc`);
+- a bucket agg over one runs over its value rows ("dense" / "scatter":
+  index_add_, or the dense products over the value rows' static bucket
+  ids); its children chain per value row (a single-valued child reads its
+  ids at the row's doc; a multi-valued child takes the static
+  cross-product expansion `xpand`, one level); a short keyword at the
+  root fans out over its per-position planes (`plane_fanout`), merging
+  the fruits before one selection;
+- percentiles under a multi-valued terms ancestor count each of a doc's
+  value positions as a slot factor of its own (`wslots`: occurrence
+  weights), with torch ops over the chain mask, as percentiles of a
+  multi-valued field under single-valued buckets do.
+
+Every other shape — non-integer percents, top_hits, facets, deeper
+multi-valued nests, slot spaces past the device budget, a kernel chain
+whose planes, payloads, ops and params overflow the chain tile kernel's
+shared memory (K.chain_fits: about 50 planes, or tens of thousands of
+params), sharding — raises NotImplementedError at plan time naming the
+shape, and the searcher answers it on the exact host path. A scope's mask
+is evaluated only when a node reads it, so a chain that only a member
+operand or the cube answers runs no row pass.
 """
 
 from __future__ import annotations
@@ -78,7 +100,7 @@ import numpy as np
 import torch
 
 from ..aggs import ir as A
-from ..index.loader import ALIGN, _put
+from ..index.loader import ALIGN, PAD_BLOCK, _put
 from ..ops import cube as C
 from ..ops import kernels as K
 from ..ops import reductions as R
@@ -127,15 +149,22 @@ class MaskCtx:
 
 @dataclass
 class SlotCtx:
-    """Bucket context: rows are docs, `bid` is the STATIC flat composite
-    slot id plane ([T] int32, meaningful where `valid`), `valid` the
-    per-query [B, T] bool row validity."""
+    """Bucket context: `bid` is the flat composite slot id per ROW ([rows]
+    static or [B, rows], meaningful where `valid`), `valid` the per-query
+    [B, rows] bool row validity. Rows are the docs (`doc` None) or the
+    value rows of a multi-valued bucket field or a cross-product expansion
+    (`doc`: the [rows] int64 doc of each row, where doc-aligned planes are
+    read). `doc_rooted`: children read this context's slots per doc; in
+    the row space of a multi-valued ancestor they chain per row instead
+    (each value row of the ancestor is one collect of the child)."""
     bid: torch.Tensor
     valid: torch.Tensor
     dims: Tuple[int, ...]
     #: the node's plan entry when `bid` is a static plane of a dense node
     #: right under a MaskCtx and its reductions run as dense products
     mm: Optional[dict] = None
+    doc: Optional[torch.Tensor] = None
+    doc_rooted: bool = True
 
     @property
     def nslots(self) -> int:
@@ -143,6 +172,36 @@ class SlotCtx:
         for d in self.dims:
             n *= d
         return n
+
+    def rows(self, plane):
+        """A doc-aligned plane ([T] or [T, L]) read at this context's rows."""
+        return plane if self.doc is None else plane[self.doc]
+
+    def slots_of_docs(self, T: int):
+        """([B, T] slot per doc, -1 for none; [B, T] bool valid): the
+        context's slots scattered onto the docs (value rows of one doc
+        share its slot where the field is single-cardinality)."""
+        if self.doc is None:
+            return torch.where(self.valid, self.bid, -1), self.valid
+        B, rows = self.valid.shape
+        sod = torch.full((B, T), -1, dtype=torch.int64,
+                         device=self.valid.device)
+        sod.scatter_reduce_(1, self.doc.expand(B, rows),
+                            torch.where(self.valid, self.bid, -1)
+                            .to(torch.int64).expand(B, rows), "amax")
+        return sod, sod >= 0
+
+
+def _cols(x, idx, keep=None):
+    """x[:, idx] of a [B, n] tensor (AND `keep`), a batch-stride-0 one
+    gathered once and kept one shared row."""
+    if x.shape[0] > 1 and x.stride(0) == 0:
+        g = x[:1][:, idx]
+        if keep is not None:
+            g = g & keep
+        return g.expand(x.shape[0], idx.shape[0])
+    g = x[:, idx]
+    return g if keep is None else g & keep
 
 
 def _iter_set_queries(query, aggs):
@@ -218,6 +277,10 @@ class Program:
         self._root_chain = ((query, ("q",)),)
         #: set by the planner when a node reads the root MaskCtx
         self._reads_root = False
+        #: the nearest multi-valued bucket ancestor whose value rows form
+        #: the row space while planning (None: doc-rooted; "__deep__": a
+        #: cross-product expansion already re-based it)
+        self._mparent = None
         self._plan_aggs(aggs, ("a",), in_slot=False, hdims=(), tflat=1,
                         chain=self._root_chain, bchain=())
         self._root = (self._chain_entry(self._root_chain)
@@ -237,8 +300,12 @@ class Program:
             if p.get("pmode") == "slot_rank":
                 G = p["scube"]["G"] if p.get("scube") else SLOT_GROUP
                 per_q += (p["layout"].n_rows // G) * p["nslots"] * 8
+                # the torch slot path's [R] int32 composite slot per plane
+                per_q += p["layout"].n_rows * 4 * len(p.get("slotks", ()))
             elif p.get("pmode") == "rank" and p.get("pcube"):
                 per_q += (p["layout"].n_rows // p["pcube"]["G"]) * 8
+            if p.get("mask_gather"):
+                per_q += p["layout"].n_rows  # the gathered [R] bool mask
         if per_q == 0:
             return None
         return max(1, self.BATCH_MEM_BUDGET // per_q)
@@ -314,14 +381,32 @@ class Program:
         self._arrays[key] = arr
 
     def _need_col_planes(self, col):
+        """A column's value planes: w (or hi, lo) over its docs, or over
+        its value rows with their doc and valid planes (multi-valued)."""
+        kinds = ["w"] if col.narrow or col.ftype.is_stringy else ["hi", "lo"]
         if col.multi:
-            raise NotImplementedError(
-                f"multi-valued field {col.name!r} as a row plane")
-        if col.narrow or col.ftype.is_stringy:
-            self._need(f"{col.name}:w", col.w)
-        else:
-            self._need(f"{col.name}:hi", col.hi)
-            self._need(f"{col.name}:lo", col.lo)
+            kinds += ["doc", "valid"]
+        for kind in kinds:
+            self._need(f"{col.name}:{kind}", col.plane(kind))
+
+    def _need_plane(self, key):
+        """Register the device plane of a mask-program plane key."""
+        f, kind = key.rsplit(":", 1)
+        self._need(key, self._col(f).plane(kind))
+
+    def _chain_is_dense(self, chain) -> bool:
+        """True when every query field of the chain evaluates in ANY
+        doc-aligned permuted row space: single-valued, or multi-valued with
+        full per-position plane coverage (no overflow tail): the gate of
+        the layout views that the chain kernels and the pcube read (JAX
+        `_chain_is_dense`)."""
+        for f in self._chain_fields(chain):
+            col = self._col(f)
+            if col.multi and (not (col.has_multi_planes
+                                   or col.has_multi_planes_wide)
+                              or col.has_tail):
+                return False
+        return True
 
     def _chain_entry(self, chain, prefix="", planes_of=None):
         """Compile a chain to its mask program and register what evaluating
@@ -331,7 +416,7 @@ class Program:
         mp = qc.mask_program(chain, self.dindex)
         if planes_of is None:
             for key in mp.plane_keys:
-                self._need_col_planes(self._col(key.rsplit(":", 1)[0]))
+                self._need_plane(key)
         else:
             planes_of(mp.plane_keys)
         cols = [self._pcol[k] for k in mp.param_keys]
@@ -401,20 +486,29 @@ class Program:
 
     # -- permuted (layout) views ---------------------------------------------
 
-    def _avalid_host(self, layout) -> np.ndarray:
-        """int8 [R]: the layout row's doc is alive and the row is real."""
-        return ((self.dindex.alive_host[layout.perm] > 0)
+    def _avalid_host(self, layout, perm=None) -> np.ndarray:
+        """int8 [R]: the layout row's doc is alive and the row is real
+        (`perm`: the layout rows' docs, when they are not layout.perm)."""
+        perm = layout.perm if perm is None else perm
+        return ((self.dindex.alive_host[perm] > 0)
                 & (layout.valid_perm_host > 0)).astype(np.int8)
 
-    def _build_chain_view(self, layout, prefix, chain, payload_fields=()):
+    @staticmethod
+    def _layout_docs(layout, row_doc):
+        """The doc of each layout row: layout.perm over docs, or composed
+        with the value rows' docs (`row_doc`) for a value-row layout."""
+        if row_doc is None:
+            return layout.perm
+        return row_doc[layout.perm].astype(np.int64)
+
+    def _build_chain_view(self, layout, prefix, chain, row_doc=None):
         """Register the untransposed permuted planes a chain kernel scans,
         cached on the layout: the combined alive & valid plane `avalid`
-        (int8), the chain's mask-program planes, and (chain_blocks) the
-        payload sum planes. Returns (chain entry, {payload field: meta}):
-        meta["skeys"] are the field's sum-plane keys, meta["cnt_key"] its
-        per-doc value-count plane (multi-valued payloads), meta["direct"]
-        the flat-sum shape."""
-        perm = layout.perm
+        (int8) and the chain's mask-program planes. A value-row layout
+        (`row_doc`, the value rows' docs) reads every doc-aligned plane at
+        its rows' docs. The chain must be dense (_chain_is_dense). Returns
+        the chain entry."""
+        perm = self._layout_docs(layout, row_doc)
 
         def cache(key, build):
             if key not in layout.cache:
@@ -422,26 +516,39 @@ class Program:
                                          self.device)
             self._need(prefix + key, layout.cache[key])
 
-        cache("avalid", lambda: self._avalid_host(layout))
+        cache("avalid", lambda: self._avalid_host(layout, perm))
 
         def planes_of(keys):
             for key in keys:
                 f, kind = key.rsplit(":", 1)
-                ph = self._host_planes(self._col(f))[1 if kind == "lo"
-                                                     else 0]
+                ph = self._col(f).host_plane(kind)
                 cache(key, lambda ph=ph: ph[perm])
 
         entry = self._chain_entry(chain, prefix, planes_of)
+        if not entry["mp"].dense:
+            raise NotImplementedError(
+                "a query chain with doc-space opcodes has no layout view")
+        return entry
+
+    def _payload_view(self, layout, prefix, fields):
+        """The bucket layout's permuted payload sum planes of `fields`
+        (the Sum / Avg subs of a prefix node), cached on the layout:
+        {field: meta}; meta["skeys"] are the field's sum-plane keys,
+        meta["cnt_key"] its per-doc value-count plane (multi-valued
+        payloads), meta["direct"] the flat-sum shape (_payload_planes)."""
         pay_plan = {}
-        for g in payload_fields:
+        for g in fields:
             if g in pay_plan:
                 continue
             meta, planes = self._payload_planes(g, f"pay:{g}:s",
                                                 f"pay:{g}:cnt")
             for k, ph in planes:
-                cache(k, lambda ph=ph: ph[perm])
+                if k not in layout.cache:
+                    layout.cache[k] = _put(np.ascontiguousarray(
+                        ph[layout.perm]), self.device)
+                self._need(prefix + k, layout.cache[k])
             pay_plan[g] = meta
-        return entry, pay_plan
+        return pay_plan
 
     def _payload_planes(self, g, sum_key, cnt_key):
         """The host planes [T] a bucket's sum(g) payload adds up, under
@@ -896,21 +1003,25 @@ class Program:
         self._need(akey, cc[ck])
         return akey
 
-    def _dense_counts_plan(self, bid_key, bid, nb):
+    def _dense_counts_plan(self, bid_key, bid, nb, doc=None):
         """The dense-product entry of a dense bucket node right under a
-        MaskCtx: its one-hot counts operand (shared with its count subs)."""
-        return {"bid_key": bid_key, "nb": nb, "bid": bid,
+        MaskCtx: its one-hot counts operand (shared with its count subs).
+        `doc`: the rows' docs where the rows are a multi-valued field's
+        value rows (its subs' payloads are read there)."""
+        return {"bid_key": bid_key, "nb": nb, "bid": bid, "doc": doc,
                 "op": self._dense_op(f"{bid_key}@{nb}:cnt", nb, bid.shape[0],
                                      lambda: R.dense_counts_operand(bid, nb))}
 
     def _dense_sum_plan(self, sbid, key, plane, bound):
         """(bound, operand key) of one payload plane's dense bucket sums
-        under the static bucket plane of `sbid`."""
-        nb, bid = sbid["nb"], sbid["bid"]
+        under the static bucket plane of `sbid` (the doc-aligned payload
+        read at the bucket rows' docs)."""
+        nb, bid, doc = sbid["nb"], sbid["bid"], sbid["doc"]
         n = R.npieces_for_bound(bound)
         return (bound, self._dense_op(
             f"{sbid['bid_key']}@{nb}:{key}:{bound}", n * nb, bid.shape[0],
-            lambda: R.dense_sum_operand(bid, plane, nb, bound)))
+            lambda: R.dense_sum_operand(
+                bid, plane if doc is None else plane[doc], nb, bound)))
 
     def _dense_planes_plan(self, key, planes, bounds):
         """(bounds, operand key) of a MaskCtx metric's masked sums of
@@ -924,27 +1035,32 @@ class Program:
     # -- node planners -------------------------------------------------------
 
     def _plan_aggs(self, node, path, *, in_slot, hdims, tflat, chain,
-                   bchain, sbid=None):
-        """`bchain`: the dense single-valued bucket ancestors a slot_rank
-        percentile descendant composes its slot plane from — (("hist",
-        field, hist plan) | ("terms", field, card), ...) — or None once an
-        ancestor cannot thread a static slot. `sbid`: the parent's dense
-        product entry (_dense_counts_plan) when the parent is a dense
+                   bchain, sbid=None, parent_single=True):
+        """`bchain`: the dense bucket ancestors a slot_rank percentile
+        descendant composes its slot plane from — (("hist", field, hist
+        plan) | ("terms", field, card) | ("mterms", field, card), ...) — or
+        None once an ancestor cannot thread a static slot. `sbid`: the
+        parent's dense product entries (_dense_counts_plan; one per
+        per-position plane of a plane fan-out) when the parent is a dense
         bucket node right under a MaskCtx, so this node's counts and sums
-        are dense products over its static bucket plane."""
+        are dense products over its static bucket plane(s).
+        `parent_single`: the slot context stays doc-rooted (no ancestor is
+        a multi-valued bucket field whose value rows the children chain
+        over)."""
         if isinstance(node, (dict, tuple)):
             items = node.items() if isinstance(node, dict) else node
             for name, sub in items:
                 self._plan_aggs(sub, path + (name,), in_slot=in_slot,
                                 hdims=hdims, tflat=tflat, chain=chain,
-                                bchain=bchain, sbid=sbid)
+                                bchain=bchain, sbid=sbid,
+                                parent_single=parent_single)
             return
         if isinstance(node, A.CountAgg):
             p = {"kind": "count", "hdims": hdims}
             if in_slot or not self._plan_cube_count(p, chain):
                 self._reads_root = True
             if sbid is not None:
-                p["dense_mm"] = {"op": sbid["op"]}
+                p["dense_mm"] = {e["bid_key"]: {"op": e["op"]} for e in sbid}
             self.plan[path] = p
             return
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
@@ -961,13 +1077,11 @@ class Program:
             return
         if isinstance(node, A.FacetAgg):
             raise NotImplementedError("facet aggs are not ported yet")
-        if isinstance(node, A.HistogramAgg):
-            self._plan_histogram(node, path, in_slot=in_slot, hdims=hdims,
-                                 tflat=tflat, chain=chain, bchain=bchain)
-            return
-        if isinstance(node, A.TermsAgg):
-            self._plan_terms(node, path, in_slot=in_slot, hdims=hdims,
-                             tflat=tflat, chain=chain, bchain=bchain)
+        if isinstance(node, (A.HistogramAgg, A.TermsAgg)):
+            plan = (self._plan_histogram if isinstance(node, A.HistogramAgg)
+                    else self._plan_terms)
+            plan(node, path, in_slot=in_slot, hdims=hdims, tflat=tflat,
+                 chain=chain, bchain=bchain, parent_single=parent_single)
             return
         if isinstance(node, (A.FilterAgg, A.PostFilterAgg)):
             sub_chain = chain + ((node.query, path + ("fq",)),)
@@ -978,7 +1092,7 @@ class Program:
             self.plan[path] = p
             self._plan_aggs(node.sub_aggs, path, in_slot=in_slot,
                             hdims=hdims, tflat=tflat, chain=sub_chain,
-                            bchain=bchain)
+                            bchain=bchain, parent_single=parent_single)
             return
         if isinstance(node, A.TopHitsAgg):
             raise NotImplementedError("top_hits aggs are not ported yet")
@@ -1024,13 +1138,13 @@ class Program:
                      for i in range(self._arrays[pre + "sum"].shape[1])]
                     if need_sum else [])
             if sbid is not None:
-                p["dense_mm"] = {
-                    "op": sbid["op"],
-                    "pcnt": self._dense_sum_plan(sbid, pre + "cnt", cnt,
+                p["dense_mm"] = {e["bid_key"]: {
+                    "op": e["op"],
+                    "pcnt": self._dense_sum_plan(e, pre + "cnt", cnt,
                                                  pb["cnt"]),
-                    "sums": [self._dense_sum_plan(sbid, f"{pre}sum{i}", v,
+                    "sums": [self._dense_sum_plan(e, f"{pre}sum{i}", v,
                                                   pb["sum"][i])
-                             for i, v in enumerate(sums)]}
+                             for i, v in enumerate(sums)]} for e in sbid}
             elif chain is not None and self.config.dense_mxu:
                 p["dense_mm"] = {"planes": self._dense_planes_plan(
                     f"{pre}{int(need_sum)}", [cnt] + sums,
@@ -1042,16 +1156,19 @@ class Program:
         # root/filter-scope narrow metrics run the fused kernel
         p["fused"] = col.narrow and not hdims
         if sbid is not None:
-            p["dense_mm"] = {"op": sbid["op"], "sums": []}
-            if need_sum and col.sum_direct:
-                p["dense_mm"]["sums"] = [self._dense_sum_plan(
-                    sbid, f"{col.name}:w", col.w, (0, int(col.span)))]
-            elif need_sum:
-                limbs = col.sum_limbs()
-                p["dense_mm"]["sums"] = [
-                    self._dense_sum_plan(sbid, f"{col.name}:limbs{i}",
-                                         limbs[:, i], b)
-                    for i, b in enumerate(col.limb_bounds())]
+            def sums_of(e):
+                if need_sum and col.sum_direct:
+                    return [self._dense_sum_plan(
+                        e, f"{col.name}:w", col.w, (0, int(col.span)))]
+                if need_sum:
+                    limbs = col.sum_limbs()
+                    return [self._dense_sum_plan(e, f"{col.name}:limbs{i}",
+                                                 limbs[:, i], b)
+                            for i, b in enumerate(col.limb_bounds())]
+                return []
+            p["dense_mm"] = {e["bid_key"]: {"op": e["op"],
+                                            "sums": sums_of(e)}
+                             for e in sbid}
         elif (chain is not None and self.config.dense_mxu and need_sum
               and not col.sum_direct):
             limbs = col.sum_limbs()
@@ -1061,54 +1178,82 @@ class Program:
                 col.limb_bounds())}
 
     def _plan_percentiles(self, node, path, hdims, chain):
+        """Rank percentiles over the field's value layout (docs, or the
+        value rows of a multi-valued field, each read at its doc): the
+        pcube or the chain_counts kernel over the permuted chain planes
+        where the chain is dense; else the scope's doc mask gathered
+        through the static row->doc plane (`mask_gather`)."""
         col = self._col(node.field)
-        if col.multi:
-            raise NotImplementedError(
-                "percentiles over a multi-valued field (value-row layouts) "
-                "are not ported yet")
         if not all(float(q).is_integer() for q in node.percents):
             raise NotImplementedError(
                 "non-integer percents (phase-2 rank resolution) are not "
                 "ported yet")
         layout = col.value_layout()
         prefix = f"VL:{node.field}#"
-        entry, _ = self._build_chain_view(layout, prefix, chain)
         p = {"kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
              "min_mono": col.min_mono, "percents": node.percents,
              "hdims": hdims, "pmode": "rank", "int_percents": True,
-             "layout": layout, "prefix": prefix, "chainp": entry}
+             "layout": layout, "prefix": prefix}
+        self.plan[path] = p
+        row_doc = (col.global_doc_of_rows(self.dindex.T) if col.multi
+                   else None)
+        if not self._chain_is_dense(chain):
+            # overflow tails / token streams among the query fields: the
+            # chain cannot be re-evaluated in permuted row space
+            p["mask_gather"] = True
+            p["pcube"] = None
+            p["pallas_counts"] = False
+            self._reads_root = True
+            self._register_pdoc(layout, prefix, row_doc)
+            return
+        p["chainp"] = self._build_chain_view(layout, prefix, chain,
+                                                row_doc=row_doc)
         # the value-domain cube: per-block counts from one int8 product
         # against a static block histogram, in place of chain_counts
         p["pcube"] = self._plan_cube_pct(p, chain, layout)
         p["pallas_counts"] = p["pcube"] is None
         if p["pallas_counts"]:
-            self._need_chain_fit(entry)
-        self.plan[path] = p
+            self._need_chain_fit(p["chainp"])
+
+    def _register_pdoc(self, layout, prefix, row_doc):
+        """The static doc of each permuted layout row ("pdoc", int64) and
+        the layout's row validity ("lvalid"): a non-dense chain's rows read
+        the scope's doc mask at mask[:, pdoc]."""
+        if "pdoc" not in layout.cache:
+            layout.cache["pdoc"] = _put(
+                self._layout_docs(layout, row_doc).astype(np.int64),
+                self.device)
+            layout.cache["lvalid"] = _put(layout.valid_perm_host > 0,
+                                          self.device)
+        self._need(prefix + "pdoc", layout.cache["pdoc"])
+        self._need(prefix + "lvalid", layout.cache["lvalid"])
 
     def _plan_percentiles_slots(self, node, path, hdims, chain, bchain):
-        """slot_rank: per-bucket percentiles under dense single-valued
-        bucket ancestors, counted per (slot, 32-row block) of the field's
-        value layout by the chain_slot_counts kernel against a static
-        composite slot plane (_build_slotcomp)."""
+        """slot_rank: per-bucket percentiles under dense bucket ancestors,
+        counted per (slot, 32-row block) of the field's value layout
+        against a static composite slot plane (_build_slotcomp): by the
+        chain_slot_counts kernel, or the scube. A multi-valued percentile
+        field, and a multi-valued terms ancestor ("mterms": wslots, each
+        of a doc's value positions a slot factor of its own, so a doc
+        holding the bucket's value twice counts twice), count with torch
+        ops over the chain mask instead (the JAX package's non-kernel
+        path)."""
         col = self._col(node.field)
-        if col.multi:
-            raise NotImplementedError(
-                "percentiles over a multi-valued field under bucket aggs "
-                "are not ported yet")
         if not all(float(q).is_integer() for q in node.percents):
             raise NotImplementedError(
                 "non-integer percents under bucket aggs (phase-2 rank "
                 "resolution) are not ported yet")
-        if not bchain:
+        mts = [e for e in (bchain or ()) if e[0] == "mterms"]
+        if not bchain or not self._chain_is_dense(chain) or len(mts) > 1:
             raise NotImplementedError(
-                "percentiles under bucket aggs need dense single-valued "
-                "ancestors")
+                "percentiles under bucket aggs need dense ancestors (at "
+                "most one multi-valued terms ancestor) and a dense chain")
         nslots = 1
         for kind, _, meta in bchain:
             nslots *= meta["nb"] if kind == "hist" else meta
         layout = col.value_layout()
         ns_ok = nslots <= self.dense_nb
-        if not ns_ok and nslots <= K.PCT_SLOT_CAP:
+        if not ns_ok and nslots <= K.PCT_SLOT_CAP and not col.multi:
             # past the dense budget: the scube keeps [ns, R/G] state, the
             # kernel [ns, R/32] under a byte bound
             g = self._cube_gate(chain)
@@ -1121,33 +1266,52 @@ class Program:
                 f"slot_rank percentiles over {nslots} slots exceed the "
                 "device budget")
         prefix = f"VL:{node.field}#"
-        entry, _ = self._build_chain_view(layout, prefix, chain)
+        row_doc = (col.global_doc_of_rows(self.dindex.T) if col.multi
+                   else None)
+        entry = self._build_chain_view(layout, prefix, chain,
+                                          row_doc=row_doc)
         p = {"kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
              "min_mono": col.min_mono, "percents": node.percents,
              "hdims": hdims, "pmode": "slot_rank", "int_percents": True,
              "nslots": nslots, "layout": layout, "prefix": prefix,
-             "chainp": entry,
-             "slotk": self._build_slotcomp(layout, prefix, bchain)}
+             "chainp": entry, "wslots": bool(mts)}
+        self.plan[path] = p
+        if mts or col.multi:
+            mcol = self._col(mts[0][1]) if mts else None
+            K_ = len(mcol.multi_planes_host) if mts else 1
+            p["slotks"] = [self._build_slotcomp(layout, prefix, bchain,
+                                                row_doc, k if mts else None)
+                           for k in range(K_)]
+            p["scube"] = None
+            p["pallas_slots"] = False
+            return
+        p["slotk"] = self._build_slotcomp(layout, prefix, bchain)
         # the value-domain cube: per-(slot, block) counts from one int8
         # product, in place of chain_slot_counts
         p["scube"] = self._plan_cube_slots(p, chain, layout, nslots)
         p["pallas_slots"] = p["scube"] is None
         if p["pallas_slots"]:
             self._need_chain_fit(entry, 1, nslots)
-        self.plan[path] = p
 
-    def _build_slotcomp(self, layout, prefix, bchain) -> str:
+    def _build_slotcomp(self, layout, prefix, bchain, row_doc=None,
+                        mpos=None) -> str:
         """The STATIC composite ancestor-slot plane over the value layout's
         rows (host-exact, cached on the layout): int32 [R], the flat slot
         in [0, nslots) row-major over the bchain, or -1 where a terms
         ancestor has no value. Hist ids come from _host_bucket_ids (the
         source of the dense bid planes), terms ids from the w / tid host
-        planes. Returns its key (registered under `prefix`)."""
-        perm = layout.perm
+        planes, each read at the row's doc (`row_doc`: a value-row
+        layout). An "mterms" ancestor contributes its bucket id through
+        the doc's value at position `mpos` (JAX `_register_mslots`: the
+        keyword ordinal, or a number's distinct-value id). Returns its key
+        (registered under `prefix`)."""
+        perm = self._layout_docs(layout, row_doc)
         sig = []
         for kind, f, meta in bchain:
             if kind == "terms":
                 sig.append(f"t:{f}:{meta}")
+            elif kind == "mterms":
+                sig.append(f"m:{f}:{meta}:{mpos}")
             else:
                 rb = meta.get("rbounds")
                 sig.append("h:%s:%s:%s:%s:%s:%s" % (
@@ -1163,13 +1327,24 @@ class Program:
                 if kind == "hist":
                     bid = self._host_bucket_ids(colf, meta)[perm]
                     slot = slot * meta["nb"] + bid
-                else:
+                    continue
+                if kind == "mterms":
+                    ph = colf.multi_planes_host[mpos]
                     if colf.ftype.is_stringy:
-                        ids = self._host_planes(colf)[0][perm]
+                        ids = ph.astype(np.int64)
                     else:
-                        ids = colf.term_ids()[0][perm]
-                    valid &= ids >= 0
-                    slot = slot * meta + np.maximum(ids, 0)
+                        uniq = colf.term_ids()[1]
+                        ids = np.searchsorted(
+                            uniq, ph.astype(np.int64) + colf.min_mono)
+                        ids = np.where(ph >= 0,
+                                       np.clip(ids, 0, len(uniq) - 1), -1)
+                    ids = ids[perm]
+                elif colf.ftype.is_stringy:
+                    ids = self._host_planes(colf)[0][perm]
+                else:
+                    ids = colf.term_ids()[0][perm]
+                valid &= ids >= 0
+                slot = slot * meta + np.maximum(ids, 0)
             layout.cache[key] = _put(
                 np.where(valid, slot, -1).astype(np.int32), self.device)
         self._need(prefix + key, layout.cache[key])
@@ -1243,28 +1418,33 @@ class Program:
         num = w + np.uint64(-p["w_base"])  # fits u64 (span_num checked)
         return (num // np.uint64(p["iv"])).astype(np.int64)
 
-    def _bucket_field(self, node):
-        col = self._col(node.field)
-        if col.multi:
-            raise NotImplementedError(
-                f"bucket agg over the multi-valued field {node.field!r} is "
-                "not ported yet")
-        return col
-
     def _sub_kinds_ok(self, node) -> bool:
         return all(isinstance(s, (A.CountAgg, A.SumAgg, A.AvgAgg))
                    for _, s in node.sub_aggs)
 
     def _plan_prefix(self, node, p, layout, prefix, chain, hdims, nb):
-        """Prefix-mode lowering of a root-level bucket agg: a member
-        operand when the chain allows one, else the chain_blocks kernel
-        over the bucket layout's permuted view; the metric subs keep only
+        """Prefix-mode lowering of a root-level bucket agg over a dense
+        chain: a member operand when the chain allows one, else the
+        chain_blocks kernel over the bucket layout's permuted view; a
+        non-dense chain gathers the scope's doc mask through the static
+        pdoc plane instead (`mask_gather`). The metric subs keep only
         harvest metadata (their sums come from the payloads)."""
         p["prefix"] = prefix
-        p["pallas_prefix"] = not self._plan_member_op(node, p, chain, layout,
-                                                      prefix)
-        if p["pallas_prefix"]:
-            self._plan_chain_blocks(node, p, layout, prefix, chain)
+        if self._chain_is_dense(chain):
+            p["pallas_prefix"] = not self._plan_member_op(node, p, chain,
+                                                          layout, prefix)
+            if p["pallas_prefix"]:
+                self._plan_chain_blocks(node, p, layout, prefix, chain)
+        else:
+            p["pallas_prefix"] = False
+            p["mask_gather"] = True
+            p["layout"] = layout
+            self._reads_root = True
+            self._register_pdoc(layout, prefix, None)
+            p["pay_plan"] = self._payload_view(layout, prefix,
+                                               _payload_fields(node))
+            self._need(prefix + "bounds32",
+                       _put(layout.bounds.astype(np.int64), self.device))
         for name, sub in node.sub_aggs:
             if isinstance(sub, A.CountAgg):
                 self.plan[p["path"] + (name,)] = {"kind": "count",
@@ -1274,10 +1454,9 @@ class Program:
                     sub, hdims + (nb,))
 
     def _plan_chain_blocks(self, node, p, layout, prefix, chain):
-        pay_fields = [s.field for _, s in node.sub_aggs
-                      if isinstance(s, (A.SumAgg, A.AvgAgg))]
-        p["chainp"], p["pay_plan"] = self._build_chain_view(
-            layout, prefix, chain, pay_fields)
+        p["chainp"] = self._build_chain_view(layout, prefix, chain)
+        p["pay_plan"] = self._payload_view(layout, prefix,
+                                           _payload_fields(node))
         n_pay = sum(len(m["skeys"]) + (m["cnt_key"] is not None)
                     for m in p["pay_plan"].values())
         self._need_chain_fit(p["chainp"], n_pay)
@@ -1441,11 +1620,110 @@ class Program:
             return max(self.dense_nb, K.PCT_SLOT_CAP)
         return self.dense_nb
 
+    #: cap on a cross-product expansion's rows (the JAX package's
+    #: _XPAND_CAP): a larger fan-out answers on the exact host path
+    XPAND_CAP = 1 << 23
+
+    def _build_xpand(self, pfield: str, cfield: str):
+        """The STATIC cross-product expansion of a multi-valued bucket
+        child under a multi-valued row-space ancestor: one row per
+        (parent value row, child value row) pair of one doc — `prow` /
+        `crow` index the two fields' value rows, `doc` is the pair's doc,
+        `valid` marks real rows. Cached on the child column; returns the
+        registered array keys, or None past XPAND_CAP rows."""
+        pcol, ccol = self._col(pfield), self._col(cfield)
+        if ccol._bid_cache is None:
+            ccol._bid_cache = {}
+        ckey = ("xpand", pfield)
+        if ckey not in ccol._bid_cache:
+            T = self.dindex.T
+            pd, cd = (pcol._host_doc.astype(np.int64),
+                      ccol._host_doc.astype(np.int64))
+            idx_c = np.nonzero(ccol._host_valid)[0]
+            cnt = np.bincount(cd[idx_c], minlength=T)
+            coff = np.zeros(T + 1, np.int64)
+            np.cumsum(cnt, out=coff[1:])
+            idx_p = np.nonzero(pcol._host_valid)[0]
+            reps = cnt[pd[idx_p]]
+            E = int(reps.sum())
+            prow = np.repeat(idx_p, reps)
+            within = (np.arange(E, dtype=np.int64)
+                      - np.repeat(np.cumsum(reps) - reps, reps))
+            crow = idx_c[np.repeat(coff[pd[idx_p]], reps) + within]
+            epad = max(PAD_BLOCK, -(-E // PAD_BLOCK) * PAD_BLOCK)
+            if epad > self.XPAND_CAP:
+                ccol._bid_cache[ckey] = None
+            else:
+                def padded(a, dtype):
+                    out = np.zeros(epad, dtype)
+                    out[:E] = a
+                    return _put(out, self.device)
+                ccol._bid_cache[ckey] = {
+                    "prow": padded(prow, np.int64),
+                    "crow": padded(crow, np.int64),
+                    "doc": padded(pd[prow], np.int64),
+                    "valid": padded(np.ones(E, bool), bool)}
+        planes = ccol._bid_cache[ckey]
+        if planes is None:
+            return None
+        keys = {}
+        for nm, arr in planes.items():
+            keys[nm] = f"XP:{pfield}>{cfield}#{nm}"
+            self._need(keys[nm], arr)
+        return keys
+
+    def _plan_bucket_rows(self, node, p, col, *, in_slot, parent_single):
+        """The multi-valued bucket field's part of a bucket plan: a child
+        chained per row under a multi-valued ancestor takes the static
+        cross-product expansion (one level; a deeper nest answers on the
+        host path), and `chain_ok` records whether this node's children
+        stay doc-rooted (single-valued, or single-cardinality CSR)."""
+        if in_slot and not parent_single and col.multi:
+            xp = (self._build_xpand(self._mparent, node.field)
+                  if self._mparent not in (None, "__deep__") else None)
+            if xp is None:
+                raise NotImplementedError(
+                    "multi-valued bucket agg nested under a multi-valued "
+                    "bucket field (no device expansion for this shape)")
+            p["xpand"] = xp
+        entry = self.dindex.schema.field(node.field)
+        p["chain_ok"] = (not col.multi) or entry.cardinality.value == "single"
+
+    def _plan_children(self, node, p, col, path, *, hdims, tflat, chain,
+                       sub_bchain, parent_single, sbid):
+        """Plan a row-mode bucket node's subs, tracking the multi-valued
+        ancestor whose value rows they chain over (`_mparent`)."""
+        prev = self._mparent
+        if "xpand" in p:
+            self._mparent = "__deep__"  # expansion rows, not a field's rows
+        elif col.multi and not p.get("plane_fanout"):
+            self._mparent = node.field
+        try:
+            for name, sub in node.sub_aggs:
+                self._plan_aggs(sub, path + (name,), in_slot=True,
+                                hdims=hdims, tflat=tflat, chain=chain,
+                                bchain=sub_bchain, sbid=sbid,
+                                parent_single=parent_single
+                                and p["chain_ok"])
+        finally:
+            self._mparent = prev
+
+    def _dense_budget(self, node) -> int:
+        """Dense-mode flat-slot admission of a bucket node: dense_nb,
+        extended to PCT_SLOT_CAP when a percentile descendant needs the
+        bucket in its slot_rank bchain (prefix and scatter ancestors cannot
+        thread a static slot plane)."""
+        if _has_pct_sub(node):
+            return max(self.dense_nb, K.PCT_SLOT_CAP)
+        return self.dense_nb
+
     def _plan_histogram(self, node, path, *, in_slot, hdims, tflat, chain,
-                        bchain):
-        col = self._bucket_field(node)
-        p = {"kind": "histogram", "ftype": col.ftype, "multi": False,
+                        bchain, parent_single):
+        col = self._col(node.field)
+        p = {"kind": "histogram", "ftype": col.ftype, "multi": col.multi,
              "hdims": hdims, "path": path}
+        self._plan_bucket_rows(node, p, col, in_slot=in_slot,
+                               parent_single=parent_single)
         p.update(self._hist_layout(col, node))
         nb = p["nb"]
         if tflat * nb >= 2**31:
@@ -1455,8 +1733,8 @@ class Program:
                    else f"{node.field}:bid:{node.interval}:{node.offset}")
         bid_host = self._host_bucket_ids(col, p)
         self.plan[path] = p
-        if tflat * nb <= self.dense_nb and not in_slot and \
-                self._plan_cube_bucket(
+        if tflat * nb <= self.dense_nb and not in_slot and not col.multi \
+                and self._plan_cube_bucket(
                     node, p, path, sig="h:" + bid_key, chain=chain, nb=nb,
                     bid_host=bid_host, sub_hdims=hdims + (nb,),
                     sub_tflat=tflat * nb,
@@ -1464,7 +1742,7 @@ class Program:
                                 if bchain is not None else None)):
             return
         budget = self._dense_budget(node)
-        if tflat * nb > budget and not in_slot \
+        if tflat * nb > budget and not in_slot and not col.multi \
                 and self._sub_kinds_ok(node):
             p["mode"] = "prefix"
             layout = col.layout_for_ids(bid_key, bid_host, nb)
@@ -1475,23 +1753,29 @@ class Program:
         p["mode"] = "dense" if tflat * nb <= budget else "scatter"
         bid = col.bucket_id_plane(bid_key, lambda: bid_host)
         self._need(bid_key, bid)
+        if col.multi:
+            self._need_col_planes(col)
         p["bid_key"] = bid_key
         if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
-            p["dense_mm"] = self._dense_counts_plan(bid_key, bid, nb)
+            p["dense_mm"] = self._dense_counts_plan(
+                bid_key, bid, nb, col.plane("doc") if col.multi else None)
         sub_bchain = (bchain + (("hist", node.field, dict(p)),)
                       if bchain is not None and p["mode"] == "dense"
-                      else None)
-        for name, sub in node.sub_aggs:
-            self._plan_aggs(sub, path + (name,), in_slot=True,
-                            hdims=hdims + (nb,), tflat=tflat * nb,
-                            chain=chain, bchain=sub_bchain,
-                            sbid=p.get("dense_mm"))
+                      and not col.multi else None)
+        self._plan_children(node, p, col, path, hdims=hdims + (nb,),
+                            tflat=tflat * nb, chain=chain,
+                            sub_bchain=sub_bchain,
+                            parent_single=parent_single,
+                            sbid=([p["dense_mm"]] if p.get("dense_mm")
+                                  else None))
 
     def _plan_terms(self, node, path, *, in_slot, hdims, tflat, chain,
-                    bchain):
-        col = self._bucket_field(node)
-        p = {"kind": "terms", "ftype": col.ftype, "multi": False,
+                    bchain, parent_single):
+        col = self._col(node.field)
+        p = {"kind": "terms", "ftype": col.ftype, "multi": col.multi,
              "hdims": hdims, "path": path}
+        self._plan_bucket_rows(node, p, col, in_slot=in_slot,
+                               parent_single=parent_single)
         if col.ftype.is_stringy:
             card = col.card
             p["keys"] = col.terms
@@ -1511,10 +1795,20 @@ class Program:
         # comparator (exact for every order target)
         p["order"] = node.order
         p["sel"] = "topk" if node.order == ("_count", "desc") else "host"
+        # plane fan-out: a short multi-valued keyword at the root evaluates
+        # per value position (doc-aligned planes) and merges the fruits
+        # before any top-k (JAX `plane_fanout`)
+        p["plane_fanout"] = (
+            not in_slot and col.multi and col.ftype.is_stringy
+            and col.has_multi_planes and not col.has_tail
+            and tflat * card <= self.dense_nb
+            and not _has_selection_sub(node))
+        if p["plane_fanout"]:
+            p["chain_ok"] = True
         self.plan[path] = p
         sub_hdims = hdims + ((card if p["sel"] == "host" else p["keff"]),)
-        if tflat * card <= self.dense_nb and not in_slot and \
-                self._plan_cube_bucket(
+        if tflat * card <= self.dense_nb and not in_slot and not col.multi \
+                and self._plan_cube_bucket(
                     node, p, path, sig=f"t:{node.field}:{card}", chain=chain,
                     nb=card,
                     bid_host=(self._host_planes(col)[0]
@@ -1524,7 +1818,7 @@ class Program:
                                 if bchain is not None else None)):
             return
         budget = self._dense_budget(node)
-        if tflat * card > budget and not in_slot \
+        if tflat * card > budget and not in_slot and not col.multi \
                 and self._sub_kinds_ok(node):
             p["mode"] = "prefix"
             self._plan_prefix(node, p, col.bucket_layout(),
@@ -1534,20 +1828,41 @@ class Program:
         self._reads_root = True
         p["mode"] = "dense" if tflat * card <= budget else "scatter"
         if col.ftype.is_stringy:
-            ids_key, ids = f"{node.field}:w", col.w
+            ids_key, ids = f"{node.field}:w", col.plane("w")
         else:
             ids_key, ids = f"{node.field}:tid", col.tid()
         self._need(ids_key, ids)
-        if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
-            p["dense_mm"] = self._dense_counts_plan(ids_key, ids, card)
-        sub_bchain = (bchain + (("terms", node.field, card),)
-                      if bchain is not None and p["mode"] == "dense"
-                      else None)
-        for name, sub in node.sub_aggs:
-            self._plan_aggs(sub, path + (name,), in_slot=True,
-                            hdims=sub_hdims, tflat=tflat * card,
-                            chain=chain, bchain=sub_bchain,
-                            sbid=p.get("dense_mm"))
+        sbid = None
+        if p["plane_fanout"]:
+            planes = [(f"{node.field}:mp{k}", col.plane(f"mp{k}"))
+                      for k in range(len(col.multi_planes_host))]
+            for key, pk in planes:
+                self._need(key, pk)
+            if self.config.dense_mxu:
+                p["dense_mm"] = [self._dense_counts_plan(key, pk, card)
+                                 for key, pk in planes]
+                sbid = p["dense_mm"]
+        else:
+            if col.multi:
+                self._need_col_planes(col)
+            if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
+                p["dense_mm"] = self._dense_counts_plan(
+                    ids_key, ids, card, col.plane("doc") if col.multi
+                    else None)
+                sbid = [p["dense_mm"]]
+        sub_bchain = None
+        if bchain is not None and p["mode"] == "dense":
+            if p["chain_ok"] and not col.multi:
+                sub_bchain = bchain + (("terms", node.field, card),)
+            elif (col.multi and col.has_multi_planes and not col.has_tail
+                  and not any(k == "mterms" for k, _, _ in bchain)):
+                # an occurrence-weighted slot factor: percentile
+                # descendants lower through wslots
+                sub_bchain = bchain + (("mterms", node.field, card),)
+        self._plan_children(node, p, col, path, hdims=sub_hdims,
+                            tflat=tflat * card, chain=chain,
+                            sub_bchain=sub_bchain,
+                            parent_single=parent_single, sbid=sbid)
 
     def _extract_filter_params(self, node, path, out):
         if isinstance(node, (dict, tuple)):
@@ -1570,6 +1885,7 @@ class Program:
     def _run(self, pmat):
         arrays = self._arrays
         self._ind_cache = {}  # cube indicators of this run, per chain
+        self._defer_topk = 0  # > 0 inside a plane fan-out
         ctx = MaskCtx(lambda: self._root_mask(pmat, arrays))
         out = self._eval_level(self.aggs.items(), ctx, pmat, arrays, ("a",))
         return {"packed": self._pack_outputs(out, self.aggs,
@@ -1620,7 +1936,7 @@ class Program:
                 return self._eval_metric_cube(node, pmat, arrays, p)
             return self._eval_metric(node, ctx, arrays, p)
         if isinstance(node, A.PercentilesAgg):
-            return self._eval_percentiles(pmat, arrays, p)
+            return self._eval_percentiles(pmat, arrays, p, ctx)
         if isinstance(node, A.HistogramAgg):
             return self._eval_histogram(node, ctx, pmat, arrays, path, p)
         if isinstance(node, A.TermsAgg):
@@ -1636,7 +1952,10 @@ class Program:
                                         path)
                 return {"cnt": sub_ctx.count(), **subs}
             fmask = self._chain_mask(p["fmask"], pmat, arrays)
-            sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims)
+            if ctx.doc is not None:
+                fmask = _cols(fmask, ctx.doc)
+            sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims,
+                              doc=ctx.doc, doc_rooted=ctx.doc_rooted)
             out = {"cnt": R.dense_bucket_counts(
                 sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots)}
             out.update(self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
@@ -1661,7 +1980,15 @@ class Program:
         out = {}
         slot = isinstance(ctx, SlotCtx)
         valid = ctx.valid if slot else ctx.mask
-        dmm = p.get("dense_mm") if not slot or ctx.mm is not None else None
+        if not slot:
+            dmm = p.get("dense_mm")
+        else:
+            dmm = (p["dense_mm"][ctx.mm["bid_key"]] if ctx.mm is not None
+                   else None)
+
+        def get(key):
+            """A doc-aligned plane, read at the context's rows."""
+            return ctx.rows(arrays[key]) if slot else arrays[key]
 
         def msum(plane, spec):
             if slot and dmm is not None:
@@ -1699,17 +2026,17 @@ class Program:
             return R.masked_max_i32(plane, m)
 
         def limb_sums():
-            limbs = arrays[f"{field}:limbs"]
+            limbs = get(f"{field}:limbs")
             return msums([limbs[:, i] for i in range(limbs.shape[1])],
                          specs(limbs.shape[1]))
 
         if col.multi:
             pre = f"{field}:pre:"
-            cnt_doc = arrays[pre + "cnt"]
+            cnt_doc = get(pre + "cnt")
             planes = [cnt_doc]
             if need_sum:
-                planes += [arrays[pre + "sum"][:, i]
-                           for i in range(arrays[pre + "sum"].shape[1])]
+                sm = get(pre + "sum")
+                planes += [sm[:, i] for i in range(sm.shape[1])]
             sums = msums(planes, specs(len(planes),
                                        dmm and dmm.get("pcnt")))
             out["cnt"] = sums[..., 0]
@@ -1721,11 +2048,10 @@ class Program:
                 if not need:
                     continue
                 if col.narrow:
-                    v = arrays[pre + which + "A"]
-                    out[which] = red(v, mm)
+                    out[which] = red(get(pre + which + "A"), mm)
                 elif slot:
-                    v = R.wide_recon(arrays[pre + which + "A"],
-                                     arrays[pre + which + "B"])
+                    v = R.wide_recon(get(pre + which + "A"),
+                                     get(pre + which + "B"))
                     out[which] = red(v, mm)
                 else:
                     wide = (R.masked_min_wide if which == "min"
@@ -1752,13 +2078,13 @@ class Program:
         out["cnt"] = self._slot_counts(ctx) if slot else ctx.count()
         if need_min or need_max:
             if col.narrow:
-                v = arrays[f"{field}:w"]
+                v = get(f"{field}:w")
                 if need_min:
                     out["min"] = mmin(v, valid)
                 if need_max:
                     out["max"] = mmax(v, valid)
             elif slot:
-                v = R.wide_recon(arrays[f"{field}:hi"], arrays[f"{field}:lo"])
+                v = R.wide_recon(get(f"{field}:hi"), get(f"{field}:lo"))
                 if need_min:
                     out["min"] = mmin(v, valid)
                 if need_max:
@@ -1771,7 +2097,7 @@ class Program:
                     out["max"] = R.masked_max_wide(hi, lo, valid)
         if need_sum:
             if p["direct"]:
-                out["sum"] = msum(arrays[f"{field}:w"], specs(1)[0])
+                out["sum"] = msum(get(f"{field}:w"), specs(1)[0])
             else:
                 out["sum"] = limb_sums()
         return out
@@ -1808,13 +2134,18 @@ class Program:
                      == s.reshape(1, -1, 1, 1))
         return m
 
-    def _eval_percentiles(self, pmat, arrays, p):
+    def _eval_percentiles(self, pmat, arrays, p, ctx=None):
         """Rank rows of the integer percents: per-group match counts from a
         chain kernel (rank: chain_counts per 128-row group -> [B, R/128];
         slot_rank: chain_slot_counts per slot and 32-row block against the
         static slot plane -> [B, ns, R/32]), their cumsum along the groups,
         then the rank rows through searchsorted and a lazy window
-        recompute."""
+        recompute. A non-dense chain reads the scope's mask `ctx` through
+        the pdoc plane; the torch slot path counts over the chain mask."""
+        if p.get("mask_gather"):
+            return self._eval_percentiles_gather(p, arrays, ctx)
+        if p.get("slotks"):
+            return self._eval_percentiles_torch_slots(pmat, arrays, p)
         entry, prefix = p["chainp"], p["prefix"]
         sub = self._chain_pmat(entry, pmat)
         planes = [arrays[prefix + k] for k in entry["mp"].plane_keys]
@@ -1849,6 +2180,66 @@ class Program:
             lambda blk: self._window_mask(p, sub, arrays, blk, G), G)
         return {"m": m, "rows": rows}
 
+    def _eval_percentiles_gather(self, p, arrays, ctx):
+        """Rank percentiles of a non-dense chain: the gathered mask's
+        per-32-row counts, their cumsum, the rank rows from its windows."""
+        pre = p["prefix"]
+        vm = _cols(ctx.mask, arrays[pre + "pdoc"], arrays[pre + "lvalid"])
+        one, rep = R.shared_row(vm)  # a shared mask row is counted once
+        cum = torch.cumsum(R.block32_counts(one), dim=-1, dtype=torch.int64)
+        if rep > 1:
+            cum = cum.expand(rep, -1)
+        m = cum[..., -1]
+
+        def window(blk):
+            rows = blk[..., None] * SLOT_GROUP + torch.arange(
+                SLOT_GROUP, device=blk.device)
+            return torch.gather(vm, 1, rows.reshape(rows.shape[0], -1)) \
+                .reshape(rows.shape)
+
+        rows = _rank_select_rows_lazy(cum, self._int_ranks(p, m), window,
+                                      SLOT_GROUP)
+        return {"m": m, "rows": rows}
+
+    def _eval_percentiles_torch_slots(self, pmat, arrays, p):
+        """slot_rank counted with torch ops over the chain mask (a
+        multi-valued percentile field, or wslots): per query, slot and
+        32-row block, the (row, slot plane) pairs of matched rows naming
+        the slot — a row's weight in slot s is the number of its slot
+        planes holding s — in query chunks (R.slot_block_counts); the
+        rank rows come from weighted 32-row windows."""
+        entry, prefix = p["chainp"], p["prefix"]
+        sub = self._chain_pmat(entry, pmat)
+        planes = [arrays[prefix + k] for k in entry["mp"].plane_keys]
+        avalid = arrays[prefix + "avalid"] > 0
+        slots = [arrays[prefix + k] for k in p["slotks"]]
+        B, R_, ns = sub.shape[0], avalid.shape[0], p["nslots"]
+        cum = torch.empty(B, ns, R_ // SLOT_GROUP, dtype=torch.int32,
+                          device=avalid.device)
+        for sl in R._query_chunks(B, R_ * (1 + len(slots))):
+            vm = qc.eval_ops(entry["mp"].ops, planes, sub[sl], (R_,)) \
+                & avalid
+            # int32 is exact: a block weighs at most 32 * K, totals K * R
+            torch.cumsum(R.slot_block_counts(vm, slots, ns), dim=-1,
+                         dtype=torch.int32, out=cum[sl])
+        m = cum[..., -1].to(torch.int64)
+
+        def window(blk):
+            rows = blk[..., None] * SLOT_GROUP + torch.arange(
+                SLOT_GROUP, device=blk.device)
+            vm = qc.eval_ops(entry["mp"].ops, [pl[rows] for pl in planes],
+                             sub, tuple(rows.shape[1:])) & avalid[rows]
+            s = torch.arange(ns, device=blk.device).reshape(1, -1, 1, 1)
+            w = torch.zeros(rows.shape, dtype=torch.int32,
+                            device=blk.device)
+            for slot in slots:
+                w += vm & (slot[rows] == s)
+            return w
+
+        rows = _rank_select_rows_lazy(cum, self._int_ranks(p, m), window,
+                                      SLOT_GROUP)
+        return {"m": m, "rows": rows}
+
     # -- bucket aggs ---------------------------------------------------------
 
     def _eval_prefix_member(self, node, pmat, arrays, p):
@@ -1881,29 +2272,42 @@ class Program:
                 sub_out[name] = {"cnt": gcnt, "sum": ssum}
         return counts, sub_out
 
-    def _eval_prefix_kernel(self, node, pmat, arrays, p):
-        """Prefix-mode bucket totals via the chain_blocks kernel (or the
-        member operand): (per-bucket counts [B, card] int64, sub_out)."""
+    def _eval_prefix_kernel(self, node, ctx, pmat, arrays, p):
+        """Prefix-mode bucket totals via the chain_blocks kernel, the
+        member operand, or (a non-dense chain) the scope's mask gathered
+        through pdoc: (per-bucket counts [B, card] int64, sub_out)."""
         if "member_op" in p:
             return self._eval_prefix_member(node, pmat, arrays, p)
-        entry, prefix = p["chainp"], p["prefix"]
+        prefix = p["prefix"]
         pay_keys = []
         for meta in p["pay_plan"].values():
             pay_keys += meta["skeys"]
             if meta["cnt_key"]:
                 pay_keys.append(meta["cnt_key"])
-        c32, sums = K.chain_blocks(
-            self._chain_pmat(entry, pmat), entry["ops"],
-            [arrays[prefix + k] for k in entry["mp"].plane_keys],
-            arrays[prefix + "avalid"],
-            [arrays[prefix + k] for k in pay_keys])
         bounds32 = arrays[prefix + "bounds32"]
-        counts = R.prefix_diff_counts_from_blocks(c32, bounds32)
-        col_of = {k: j for j, k in enumerate(pay_keys)}
+        if p.get("mask_gather"):
+            # the scope's mask at the layout rows' docs, real rows only
+            vm = _cols(ctx.mask, arrays[prefix + "pdoc"],
+                       arrays[prefix + "lvalid"])
+            counts = R.prefix_diff_counts_from_blocks(R.block32_counts(vm),
+                                                      bounds32)
 
-        def bucket_sums(key):
-            return R.prefix_diff_sums_from_blocks(sums[:, col_of[key]],
-                                                  bounds32)
+            def bucket_sums(key):
+                return R.prefix_diff_sums_from_blocks(
+                    R.block32_sums(vm, arrays[prefix + key]), bounds32)
+        else:
+            entry = p["chainp"]
+            c32, sums = K.chain_blocks(
+                self._chain_pmat(entry, pmat), entry["ops"],
+                [arrays[prefix + k] for k in entry["mp"].plane_keys],
+                arrays[prefix + "avalid"],
+                [arrays[prefix + k] for k in pay_keys])
+            counts = R.prefix_diff_counts_from_blocks(c32, bounds32)
+            col_of = {k: j for j, k in enumerate(pay_keys)}
+
+            def bucket_sums(key):
+                return R.prefix_diff_sums_from_blocks(sums[:, col_of[key]],
+                                                      bounds32)
 
         sub_out = {}
         for name, sub in node.sub_aggs:
@@ -1921,20 +2325,70 @@ class Program:
                 sub_out[name] = {"cnt": gcnt, "sum": ssum}
         return counts, sub_out
 
+    def _bucket_ctx(self, node, ctx, p, own, nb, arrays, mm=None,
+                    missing=False):
+        """The sub-context of a row-mode bucket node whose row ids are
+        `own` ([T] doc-aligned, or [V] over the field's value rows; -1 =
+        none where `missing`, a terms node's) over `nb` buckets. Under a MaskCtx the rows are the docs or
+        the field's value rows (each read at its doc); under a doc-rooted
+        SlotCtx the parent's slot is read at the rows' docs; in a
+        multi-valued ancestor's row space a single-valued child chains per
+        ancestor row, and a multi-valued one over the static
+        cross-product expansion (`xpand`)."""
+        f = node.field
+        col = self._col(f)
+        chain_ok = p["chain_ok"]
+        if isinstance(ctx, MaskCtx):
+            if col.multi:
+                doc = arrays[f"{f}:doc"]
+                valid = _cols(ctx.mask, doc, arrays[f"{f}:valid"] > 0)
+            else:
+                doc, valid = None, ctx.mask
+            if missing:
+                valid = valid & (own >= 0)
+            return SlotCtx(own, valid, (nb,), mm, doc, chain_ok)
+        dims = ctx.dims + (nb,)
+        xp = p.get("xpand")
+        if xp:
+            pslot = _cols(torch.where(ctx.valid, ctx.bid, -1),
+                          arrays[xp["prow"]])
+            own_r = own[arrays[xp["crow"]]]
+            valid = arrays[xp["valid"]] & (pslot >= 0)
+            doc = arrays[xp["doc"]]
+        elif not ctx.doc_rooted:
+            # each row of the multi-valued ancestor is one collect
+            pslot = torch.where(ctx.valid, ctx.bid, -1)
+            own_r, valid, doc = ctx.rows(own), ctx.valid, ctx.doc
+        elif col.multi:
+            sod, svd = ctx.slots_of_docs(self.dindex.T)
+            doc = arrays[f"{f}:doc"]
+            pslot = _cols(sod, doc)
+            valid = (arrays[f"{f}:valid"] > 0) & _cols(svd, doc)
+            own_r = own
+        elif ctx.doc is None:
+            return SlotCtx(ctx.bid * nb + own,
+                           ctx.valid & (own >= 0) if missing else ctx.valid,
+                           dims)
+        else:
+            pslot, valid = ctx.slots_of_docs(self.dindex.T)
+            own_r, doc = own, None
+        if missing:
+            valid = valid & (own_r >= 0)
+        bid = torch.where(valid, pslot * nb + own_r, -1)
+        return SlotCtx(bid, valid, dims, None, doc,
+                       chain_ok and ctx.doc_rooted)
+
     def _eval_histogram(self, node, ctx, pmat, arrays, path, p):
         nb = p["nb"]
         if p["mode"] == "prefix":
-            counts, sub_out = self._eval_prefix_kernel(node, pmat, arrays, p)
+            counts, sub_out = self._eval_prefix_kernel(node, ctx, pmat,
+                                                       arrays, p)
             return {"counts": counts, **sub_out}
         if p.get("cube"):
             counts, sub_out = self._eval_bucket_cube(node, p, pmat, arrays)
             return {"counts": counts, **sub_out}
-        bid_own = arrays[p["bid_key"]]
-        if isinstance(ctx, MaskCtx):
-            sub_ctx = SlotCtx(bid_own, ctx.mask, (nb,), p.get("dense_mm"))
-        else:
-            sub_ctx = SlotCtx(ctx.bid * nb + bid_own, ctx.valid,
-                              ctx.dims + (nb,))
+        sub_ctx = self._bucket_ctx(node, ctx, p, arrays[p["bid_key"]], nb,
+                                   arrays, p.get("dense_mm"))
         out = {"counts": self._slot_counts(sub_ctx)}
         for name, sub in node.sub_aggs:
             out[name] = self._eval(sub, sub_ctx, pmat, arrays,
@@ -1944,23 +2398,21 @@ class Program:
     def _eval_terms(self, node, ctx, pmat, arrays, path, p):
         card = p["card"]
         if p["mode"] == "prefix":
-            counts, sub_out = self._eval_prefix_kernel(node, pmat, arrays, p)
+            counts, sub_out = self._eval_prefix_kernel(node, ctx, pmat,
+                                                       arrays, p)
             return self._terms_select(p, counts, sub_out, 1)
         if p.get("cube"):
             counts, sub_out = self._eval_bucket_cube(node, p, pmat, arrays)
             return self._terms_select(p, counts, sub_out, 1)
+        if p.get("plane_fanout"):
+            return self._eval_plane_fanout(node, ctx, pmat, arrays, path, p)
         col = self._col(node.field)
         ids = arrays[f"{node.field}:w"] if col.ftype.is_stringy \
             else arrays[f"{node.field}:tid"]
-        if isinstance(ctx, MaskCtx):
-            sub_ctx = SlotCtx(ids, ctx.mask & (ids >= 0), (card,),
-                              p.get("dense_mm"))
-            anc_flat = 1
-        else:
-            sub_ctx = SlotCtx(ctx.bid * card + ids, ctx.valid & (ids >= 0),
-                              ctx.dims + (card,))
-            anc_flat = ctx.nslots
-        if sub_ctx.mm is not None:
+        sub_ctx = self._bucket_ctx(node, ctx, p, ids, card, arrays,
+                                   p.get("dense_mm"), missing=True)
+        anc_flat = 1 if isinstance(ctx, MaskCtx) else ctx.nslots
+        if sub_ctx.mm is not None and not col.multi:
             # a missing term (id -1) matches no one-hot column: the scope's
             # mask goes in as it is, a shared row staying one row
             counts = R.dense_bucket_counts_mm(
@@ -1972,9 +2424,59 @@ class Program:
                    for name, sub in node.sub_aggs}
         return self._terms_select(p, counts, sub_out, anc_flat)
 
+    def _eval_plane_fanout(self, node, ctx, pmat, arrays, path, p):
+        """A short multi-valued keyword at the root: the subtree evaluated
+        once per value position over the doc-aligned plane mp{k} (each a
+        disjoint set of the docs' value occurrences), the fruits merged
+        (sums add, extremes fold), then one selection — nested terms defer
+        theirs until after the merge."""
+        per_plane = []
+        mms = p.get("dense_mm") or [None] * len(
+            self._col(node.field).multi_planes_host)
+        self._defer_topk += 1
+        try:
+            for k, mm in enumerate(mms):
+                pk = arrays[f"{node.field}:mp{k}"]
+                sub_ctx = SlotCtx(pk, ctx.mask & (pk >= 0), (p["card"],), mm)
+                one = {"counts": self._slot_counts(sub_ctx)}
+                for name, sub in node.sub_aggs:
+                    one[name] = self._eval(sub, sub_ctx, pmat, arrays,
+                                           path + (name,))
+                per_plane.append(one)
+        finally:
+            self._defer_topk -= 1
+        merged = _merge_plane_outs(per_plane)
+        counts = merged.pop("counts")
+        merged = self._apply_deferred_topk(node.sub_aggs, merged, path,
+                                           p["card"])
+        return self._terms_select(p, counts, merged, 1)
+
+    def _apply_deferred_topk(self, sub_aggs, out, path, anc_flat):
+        """After a plane fan-out's merge: the selection of every nested
+        terms node, deepest first."""
+        for name, sub in sub_aggs:
+            if isinstance(sub, A.TermsAgg):
+                sp = self.plan[path + (name,)]
+                inner = self._apply_deferred_topk(
+                    sub.sub_aggs, out[name], path + (name,),
+                    anc_flat * sp["card"])
+                counts = inner.pop("counts")
+                out[name] = self._terms_select(sp, counts, inner, anc_flat)
+            elif isinstance(sub, A.HistogramAgg):
+                out[name] = self._apply_deferred_topk(
+                    sub.sub_aggs, out[name], path + (name,),
+                    anc_flat * self.plan[path + (name,)]["nb"])
+            elif isinstance(sub, (A.FilterAgg, A.PostFilterAgg)):
+                out[name] = self._apply_deferred_topk(
+                    sub.sub_aggs, out[name], path + (name,), anc_flat)
+        return out
+
     def _terms_select(self, p, counts, sub_out, anc_flat):
         """Dispatch the planned selection mode: device top-k or all buckets
-        for host selection."""
+        for host selection (none inside a plane fan-out: its merge selects
+        once)."""
+        if self._defer_topk:
+            return {"counts": counts, **sub_out}
         card, keff = p["card"], p["keff"]
         B = counts.shape[0]
         c2 = counts.reshape(B, anc_flat, card)
@@ -2411,6 +2913,39 @@ def _limb_totals_vec(a: np.ndarray):
     for i in range(1, a.shape[1]):
         tot += a[:, i].astype(np.int64) << np.int64(exact.LIMB_BITS * i)
     return tot
+
+
+def _payload_fields(node):
+    """The fields of a prefix node's Sum / Avg subs (its payloads)."""
+    return [s.field for _, s in node.sub_aggs
+            if isinstance(s, (A.SumAgg, A.AvgAgg))]
+
+
+def _merge_plane_outs(outs):
+    """Merge a plane fan-out's per-plane fruit trees: counts and sums add,
+    min / max fold (each plane is a disjoint set of value occurrences)."""
+    out = {}
+    for key, v in outs[0].items():
+        vals = [o[key] for o in outs]
+        if isinstance(v, dict):
+            out[key] = _merge_plane_outs(vals)
+            continue
+        r = vals[0]
+        for x in vals[1:]:
+            r = (torch.minimum(r, x) if key == "min"
+                 else torch.maximum(r, x) if key == "max" else r + x)
+        out[key] = r
+    return out
+
+
+def _has_selection_sub(node) -> bool:
+    """True if a descendant's fruit is a selection (top_hits, percentiles):
+    per-plane fruits of those do not merge."""
+    for _, s in getattr(node, "sub_aggs", ()):
+        if isinstance(s, (A.TopHitsAgg, A.PercentilesAgg)) \
+                or _has_selection_sub(s):
+            return True
+    return False
 
 
 def _has_pct_sub(node) -> bool:

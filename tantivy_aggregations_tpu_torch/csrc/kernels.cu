@@ -41,6 +41,9 @@ constexpr int OP_RANGE_WIDE = 7;
 constexpr int OP_EQ_WIDE_GUARD = 8;
 constexpr int OP_SET32 = 9;
 constexpr int OP_SET_WIDE = 10;
+constexpr int OP_GT_IMM = 11;  // plane > the immediate o[2] (a guard)
+// 12 and up are doc-space only (value-row scatters): _check_chain keeps
+// them out of every kernel
 constexpr int OP_WIDTH = 8;
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -213,13 +216,20 @@ __device__ __forceinline__ unsigned long long wide_key(int hi, int lo) {
          (static_cast<unsigned>(lo) ^ 0x80000000u);
 }
 
-// A set opcode's word (OP_SET32 / OP_SET_WIDE at op list entry `o`): the
-// OR of its S run slots' RANGE32 (or RANGE_WIDE) compare words; an empty
-// slot (lo > hi: extract_params pads the runs with (1, 0)) is skipped by a
-// branch uniform across the warp.
+// The word of an opcode of the extended set (op list entry `o`):
+// OP_GT_IMM, a plane compared with an immediate (the multi-valued planes'
+// guards: a position's -1 fill, the wide value count, a keyword's missing
+// ordinal), or a set opcode (OP_SET32 / OP_SET_WIDE), the OR of its S run
+// slots' RANGE32 (or RANGE_WIDE) compare words; an empty slot (lo > hi:
+// extract_params pads the runs with (1, 0)) is skipped by a branch uniform
+// across the warp.
 __device__ __forceinline__ unsigned set_word(const int* o, const int* blk,
                                              const int* prm) {
   unsigned r = 0u;
+  if (o[0] == OP_GT_IMM) {
+    const int imm = o[2];
+    return word_of(blk + o[1] * SRC_INTS, [=](int x) { return x > imm; });
+  }
   if (o[0] == OP_SET32) {
     const int* v = blk + o[1] * SRC_INTS;
     for (int s = 0; s < o[3]; ++s) {
@@ -248,9 +258,10 @@ __device__ __forceinline__ unsigned set_word(const int* o, const int* blk,
 // The mask program over lane's block `blk` (plane p at blk + p * SRC_INTS)
 // under params `prm` -> the block's 32-bit mask word. The op list and the
 // params are uniform across the warp; `top` holds the stack's top word.
-// SETS: the program may hold set opcodes (set_word). A program without
-// them runs the SETS = false instance, which carries no set code: the set
-// loops cost the other chains registers and 2-5% of their time (PERF.md).
+// SETS: the program may hold an opcode of the extended set (set_word: the
+// set loops and OP_GT_IMM). A program without one runs the SETS = false
+// instance, which carries none of that code: the set loops cost the other
+// chains registers and 2-5% of their time (PERF.md).
 template <bool SETS>
 __device__ __forceinline__ unsigned eval_word(const int* ops, int n_ops,
                                               const int* blk, const int* prm) {
@@ -922,8 +933,8 @@ int resident_ctas(Occupancy& c, K kern, int threads, int smem) {
 
 // The launch shape (warps, stages, smem bytes, and for SLOTS the kept
 // query words qb) comes from the wrapper (ops/kernels.py chain_plan /
-// slot_plan), and so does `sets` (the op list holds a set opcode: the
-// SETS = true instance); the grid is the resident CTAs of the card, each
+// slot_plan), and so does `sets` (the op list holds an opcode of the
+// extended set: the SETS = true instance); the grid is the resident CTAs of the card, each
 // walking tiles tile, tile + grid, ...
 template <int MODE>
 int launch_chain_tiles(const void* const* srcs, int n_planes, int n_aux,

@@ -10,10 +10,16 @@ harvest code and the differential tests read the same numbers):
   `w` plane directly or signed 26-bit limb planes (utils/exact.py).
 - Single-cardinality keyword fields are DENSE: one int32 global-ordinal
   column (-1 = missing) aligned with the doc axis.
-- Multi-valued fields keep their value rows on the host and reach the
-  device as per-doc pre-aggregates (metric aggs reduce in doc space);
-  narrow and keyword ones also keep DENSE_MULTI_K doc-aligned
-  per-position planes on the host (the member operands' source).
+- Multi-valued fields keep their values as padded CSR VALUE ROWS (`w` or
+  (`hi`, `lo`) over the value axis, with the owning `doc` and a `valid`
+  plane), read by value-row layouts (percentiles and bucket aggs over the
+  field) and through per-doc pre-aggregates (metric aggs in doc space).
+  Query masks read DENSE doc-aligned per-position planes instead: value
+  position k of each doc, k < DENSE_MULTI_K, as `mp{k}` (narrow / keyword
+  w values, -1 where the doc has no k-th value) or as a lexicographic
+  (`mph{k}`, `mpl{k}`) pair beside the value-count plane `mpn` (wide), plus
+  an overflow TAIL of the value rows past position DENSE_MULTI_K-1 (`tw` |
+  `th`/`tl`, `tdoc`, `tvalid`), which only doc-space evaluation reads.
 - Segments are concatenated on one doc axis padded to PAD_BLOCK.
 - OrderedLayout: a load-time argsort of a column with 32-aligned bucket
   padding (bucket layouts) or value order (value layouts), the static views
@@ -22,7 +28,8 @@ harvest code and the differential tests read the same numbers):
 What the port leaves out: the packed host->device transport and device limb
 derivation (the TPU's remote link made bytes expensive; here a plane is one
 `torch.from_numpy(a).to(device)` copy and limb planes are computed on the
-host), sharding, and the cross-process prep cache (the cube's and the dense
+host), sharding (so the JAX loader's per-shard CSR partition is its
+one-device case), and the cross-process prep cache (the cube's and the dense
 products' operands are cached on the DeviceIndex, `cube_cache`, for the
 process's life).
 """
@@ -92,7 +99,7 @@ class DeviceColumn:
 
     name: str
     ftype: FieldType
-    multi: bool  # multi-valued field (value rows, not doc-aligned planes)
+    multi: bool  # multi-valued field (CSR value rows)
     narrow: bool = True
     # keyword: `w` holds global ordinals (dense: -1 = missing)
     terms: Optional[np.ndarray] = None  # global sorted term table (host)
@@ -109,11 +116,13 @@ class DeviceColumn:
     _host_values: Optional[np.ndarray] = None  # user-domain, padded layout
     _host_valid: Optional[np.ndarray] = None
     _host_mono: Optional[np.ndarray] = None  # int64 mono, padded layout
+    _host_doc: Optional[np.ndarray] = None  # multi: int32 doc per value row
     _orig_docs: Optional[np.ndarray] = None  # multi: global doc per value
     _orig_values: Optional[np.ndarray] = None  # multi: values, doc order
     _w_host: Optional[np.ndarray] = None   # int32 [R] (narrow / ordinals)
     _hi_host: Optional[np.ndarray] = None  # int32 [R] (wide)
     _lo_host: Optional[np.ndarray] = None
+    _valid8_host: Optional[np.ndarray] = None  # multi: int8 [V]
     #: lazily shipped device tensors, keyed by plane name
     _dev: Dict[str, torch.Tensor] = field(default_factory=dict)
     # -- numeric terms dictionary (lazy) --------------------------------------
@@ -128,8 +137,20 @@ class DeviceColumn:
     #: of the value at positions 0..DENSE_MULTI_K-1 of each doc (w values;
     #: keyword: global ordinals), -1 where the doc has no value there
     multi_planes_host: Optional[list] = None
-    #: some doc holds more than DENSE_MULTI_K values (the planes miss them)
-    _has_tail: bool = False
+    #: wide multi-valued fields: per position k a doc-aligned (hi, lo)
+    #: int32 pair (the single-valued wide split, so the same params compare)
+    #: and one shared value-count plane `mpn`, the validity guard (every
+    #: (hi, lo) pair is an attainable value: no free sentinel)
+    multi_planes_wide_host: Optional[list] = None
+    _mpn_host: Optional[np.ndarray] = None
+    #: the overflow tail of docs with more than DENSE_MULTI_K values: their
+    #: value rows from position DENSE_MULTI_K on, as a padded CSR triple
+    #: (narrow: `tw`, -1 fill; wide: `th`/`tl`) with `tdoc` and `tvalid`
+    _tail_w_host: Optional[np.ndarray] = None
+    _tail_hi_host: Optional[np.ndarray] = None
+    _tail_lo_host: Optional[np.ndarray] = None
+    _tail_doc_host: Optional[np.ndarray] = None
+    _tail_valid8_host: Optional[np.ndarray] = None
 
     @property
     def has_multi_planes(self) -> bool:
@@ -137,12 +158,49 @@ class DeviceColumn:
 
     @property
     def has_multi_planes_wide(self) -> bool:
-        """Wide multi-valued fields get no dense planes in the port yet."""
-        return False
+        return self.multi_planes_wide_host is not None
 
     @property
     def has_tail(self) -> bool:
-        return self._has_tail
+        return (self._tail_w_host is not None
+                or self._tail_hi_host is not None)
+
+    @property
+    def has_value_rows(self) -> bool:
+        """A multi-valued column whose padded value rows carry a doc map:
+        the gate of value-row layouts (percentiles over the field)."""
+        return self.multi and self._host_doc is not None
+
+    def global_doc_of_rows(self, T: int) -> np.ndarray:
+        """[V] int64 doc id per value row (one device: the stored ids are
+        global already)."""
+        return self._host_doc.astype(np.int64)
+
+    def host_plane(self, kind: str) -> np.ndarray:
+        """The host plane behind the device plane `kind` (the part after
+        the ':' of a mask program's plane key): w / hi / lo (doc rows, or
+        value rows of a multi-valued field), doc / valid (value rows),
+        mp{k}, mph{k}, mpl{k}, mpn (doc-aligned per-position planes), tw /
+        th / tl / tdoc / tvalid (the overflow tail)."""
+        fixed = {"w": self._w_host, "hi": self._hi_host, "lo": self._lo_host,
+                 "doc": self._host_doc, "valid": self._valid8_host,
+                 "mpn": self._mpn_host, "tw": self._tail_w_host,
+                 "th": self._tail_hi_host, "tl": self._tail_lo_host,
+                 "tdoc": self._tail_doc_host,
+                 "tvalid": self._tail_valid8_host}
+        if kind in fixed:
+            return fixed[kind]
+        if kind.startswith("mph"):
+            return self.multi_planes_wide_host[int(kind[3:])][0]
+        if kind.startswith("mpl"):
+            return self.multi_planes_wide_host[int(kind[3:])][1]
+        if kind.startswith("mp"):
+            return self.multi_planes_host[int(kind[2:])]
+        raise KeyError(f"column {self.name!r} has no plane {kind!r}")
+
+    def plane(self, kind: str) -> torch.Tensor:
+        """The device plane `kind` (see host_plane), shipped on first use."""
+        return self._ship(kind, self.host_plane(kind))
 
     # -- lazy device planes ---------------------------------------------------
 
@@ -589,10 +647,10 @@ def _load_keyword_dense(entry, segments, T, device) -> DeviceColumn:
 
 
 def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
-    """Multi-valued field: the value rows in doc order (a doc's values are
-    contiguous) with their doc ids, read through the per-doc pre-aggregates
-    (metric aggs in doc space); narrow and keyword fields also get the
-    dense per-position planes (member operands)."""
+    """Multi-valued field: padded CSR value rows (a doc's values contiguous,
+    docs ascending) with their doc ids and validity, the dense per-position
+    planes and the overflow tail (the JAX loader's `_load_csr` on one
+    device)."""
     from .segment import numeric_dtype
     name = entry.name
     if keyword:
@@ -631,33 +689,90 @@ def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
     span = ((max_mono - min_mono) % 2**64) if n else 0
     if keyword:
         min_mono, max_mono, span = 0, max_mono, int(max_mono)
+
+    V = _pad_to(max(n, 1), PAD_BLOCK)
+    mono_out = np.full(V, min_mono, np.int64)
+    mono_out[:n] = m
+    doc_out = np.zeros(V, I32)
+    doc_out[:n] = docs
+    valid_out = np.zeros(V, bool)
+    valid_out[:n] = True
+    host_out = np.zeros(V, np.int64 if keyword else
+                        (vals.dtype if n else np.float64))
+    if not keyword and n:
+        host_out[:] = mono_mod.from_mono(entry.type.value,
+                                         np.full(V, min_mono, np.int64))
+    host_out[:n] = vals
     col = DeviceColumn(
         name=name, ftype=entry.type, multi=True,
-        narrow=keyword or span <= NARROW_MAX_SPAN,
         terms=gterms if keyword else None,
         min_mono=min_mono, max_mono=max_mono, span=span, n_values=n,
-        _device=device, _host_values=vals, _host_mono=m,
-        _orig_docs=docs, _orig_values=vals)
-    if col.narrow:
-        _multi_planes(col, m, docs, T, keyword)
+        _device=device, _host_values=host_out, _host_valid=valid_out,
+        _host_mono=mono_out, _host_doc=doc_out,
+        _orig_docs=docs.astype(np.int64), _orig_values=vals)
+    col._valid8_host = valid_out.astype(np.int8)
+    if keyword:
+        col.narrow = True
+        col._w_host = np.where(valid_out, mono_out, -1).astype(I32)
+    else:
+        col.narrow, a, b = _mono_planes(mono_out, min_mono, span)
+        if col.narrow:
+            col._w_host = a
+        else:
+            col._hi_host, col._lo_host = a, b
+    _multi_planes(col, m, docs, T, keyword)
     return col
 
 
 def _multi_planes(col: DeviceColumn, m: np.ndarray, docs: np.ndarray,
                   T: int, keyword: bool) -> None:
-    """The dense per-position planes of a narrow / keyword multi-valued
-    column (rows of `m` are doc-ascending with their global `docs`)."""
+    """The dense per-position planes of a multi-valued column and its
+    overflow tail (rows of `m` are doc-ascending with their `docs`):
+    narrow / keyword w values with the -1 fill, or wide (hi, lo) pairs
+    beside the value-count plane."""
     n = m.shape[0]
     cnt = np.bincount(docs, minlength=T) if n else np.zeros(T, np.int64)
     kmax = int(cnt.max()) if n else 0
-    wvals = m if keyword else _w_u64(m, col.min_mono).astype(np.int64)
     offs = np.zeros(T + 1, np.int64)
     np.cumsum(cnt, out=offs[1:])
+    K = max(min(kmax, DENSE_MULTI_K), 1)
+    if kmax > DENSE_MULTI_K:
+        # overflow rows: value positions >= DENSE_MULTI_K of each doc
+        pos_in_doc = np.arange(n, dtype=np.int64) - offs[:-1][docs]
+        tsel = np.flatnonzero(pos_in_doc >= DENSE_MULTI_K)
+        Vt = _pad_to(max(len(tsel), 1), PAD_BLOCK)
+        tdoc = np.zeros(Vt, I32)
+        tdoc[:len(tsel)] = docs[tsel]
+        tvalid = np.zeros(Vt, np.int8)
+        tvalid[:len(tsel)] = 1
+        col._tail_doc_host, col._tail_valid8_host = tdoc, tvalid
+    else:
+        tsel = None
+    if col.narrow:
+        wvals = m if keyword else _w_u64(m, col.min_mono).astype(np.int64)
+        planes = []
+        for k in range(K):
+            pk = np.full(T, -1, np.int64)
+            has = cnt > k
+            pk[has] = wvals[offs[:-1][has] + k]
+            planes.append(pk.astype(I32))
+        col.multi_planes_host = planes
+        if tsel is not None:
+            tw = np.full(len(col._tail_doc_host), -1, I32)
+            tw[:len(tsel)] = wvals[tsel]
+            col._tail_w_host = tw
+        return
+    wv = _w_u64(m, col.min_mono)
     planes = []
-    for k in range(max(min(kmax, DENSE_MULTI_K), 1)):
-        pk = np.full(T, -1, np.int64)
+    for k in range(K):
+        hp = np.zeros(T, I32)
+        lp = np.zeros(T, I32)
         has = cnt > k
-        pk[has] = wvals[offs[:-1][has] + k]
-        planes.append(pk.astype(I32))
-    col.multi_planes_host = planes
-    col._has_tail = kmax > DENSE_MULTI_K
+        hp[has], lp[has] = _split_wide(wv[offs[:-1][has] + k])
+        planes.append((hp, lp))
+    col.multi_planes_wide_host = planes
+    col._mpn_host = np.minimum(cnt, 2**31 - 1).astype(I32)
+    if tsel is not None:
+        tu = np.zeros(len(col._tail_doc_host), np.uint64)
+        tu[:len(tsel)] = wv[tsel]
+        col._tail_hi_host, col._tail_lo_host = _split_wide(tu)

@@ -44,8 +44,10 @@ chain_blocks — replaces `_chain_blocks_batched` / `make_chain_blocks`.
   `chain_plan` sizes the launch (fewer warps where eight param rows
   would not fit). The set opcodes (OP_SET32, OP_SET_WIDE: TermSet / Fuzzy
   / Regex) loop their run slots in `eval_word`, a range compare's word per
-  non-empty slot, ORed; the three chain kernels share it, and an op list
-  without them runs the kernel instance that carries no set code.
+  non-empty slot, ORed, and OP_GT_IMM (the multi-valued planes' guards)
+  compares a plane with an immediate; the three chain kernels share it,
+  and an op list without these runs the kernel instance that carries none
+  of their code. A doc-space opcode (a value-row scatter) is refused.
 chain_counts — replaces `_chain_counts_batched` / `make_chain_counts`.
   Same bound and kernel, counts only; four lanes' counts fold into one
   128-row group by two shuffles.
@@ -89,7 +91,7 @@ import numpy as np
 import torch
 
 from ..ops.reductions import block32_counts, shared_row
-from ..query.compile import OP_SET32, OP_WIDTH, eval_ops
+from ..query.compile import DOC_SPACE_OPS, OP_SET32, OP_WIDTH, eval_ops
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -350,6 +352,9 @@ def _check_chain(name, pmat, ops, planes, avalid, payloads, group):
           name, lambda: f"ops {tuple(ops.shape)}")
     _need(avalid.dtype is torch.int8 and R > 0 and R % group == 0, name,
           lambda: f"avalid {tuple(avalid.shape)} {avalid.dtype}")
+    _need(not _doc_space(ops), name,
+          "the op list holds a doc-space opcode (a value-row scatter), "
+          "which no layout view evaluates")
     for t in (*planes, *payloads):
         if t.dtype is not _I32 or t.shape != (R,):
             raise ValueError(f"{name}: plane {tuple(t.shape)} {t.dtype}")
@@ -417,11 +422,21 @@ def slot_plan(n_planes: int, n_ops: int, P: int, B: int, ns: int):
 
 
 def _has_sets(ops) -> bool:
-    """Whether an op list holds a set opcode: the flag `ops_tensor` keeps
-    on the tensors it makes (so the main path never reads its op list
-    back), else read from the tensor."""
+    """Whether an op list holds an opcode of the kernels' extended set
+    (set loops, OP_GT_IMM): the flag `ops_tensor` keeps on the tensors it
+    makes (so the main path never reads its op list back), else read from
+    the tensor."""
     flag = getattr(ops, "has_sets", None)
     return bool((ops[:, 0] >= OP_SET32).any()) if flag is None else flag
+
+
+def _doc_space(ops) -> bool:
+    """Whether an op list holds a doc-space opcode (DOC_SPACE_OPS): the
+    flag `ops_tensor` keeps, else read from the tensor."""
+    flag = getattr(ops, "doc_space", None)
+    if flag is None:
+        return bool(np.isin(ops[:, 0].cpu().numpy(), DOC_SPACE_OPS).any())
+    return flag
 
 
 def _chain_sources(name, pmat, ops, planes, avalid, aux, ns=0):
@@ -605,8 +620,10 @@ def gather_rows(idx, op):
 
 def ops_tensor(ops: np.ndarray, device) -> torch.Tensor:
     """A mask program's op list as the [n, OP_WIDTH] int32 operand, with
-    its `has_sets` flag (it holds a set opcode) read here, on the host."""
+    its `has_sets` flag (an opcode of the extended set) and `doc_space`
+    flag (a doc-space opcode) read here, on the host."""
     ops = np.ascontiguousarray(ops, np.int32)
     t = torch.from_numpy(ops).to(device)
     t.has_sets = bool((ops[:, 0] >= OP_SET32).any())
+    t.doc_space = bool(np.isin(ops[:, 0], DOC_SPACE_OPS).any())
     return t

@@ -10,7 +10,9 @@ each an integer of magnitude at most 2^23 that fp32 holds exactly.
 
 Dense bucket reductions are integer `index_add_` / `scatter_reduce_` into
 [B, nb] int64 (int32 for min/max) over static or composite bucket-id
-planes; out-of-range ids (e.g. -1) match nothing. Over a STATIC bucket-id
+planes; out-of-range ids (e.g. -1) match nothing. Their rows are docs or a
+multi-valued field's value rows alike, so they also stand for the JAX
+package's scatter `slot_*` reductions. Over a STATIC bucket-id
 plane they also run as matrix products ("Dense products" below), of which
 the index_add_ functions are the plain versions.
 
@@ -110,6 +112,23 @@ def masked_max_wide(hi, lo, mask) -> torch.Tensor:
     return (mh.to(torch.int64) << 32) + (ml.to(torch.int64) + 2**31)
 
 
+def values_hit_to_doc_mask(hits, doc, T: int) -> torch.Tensor:
+    """Value-row hits [B, V] -> doc mask [B, T]: doc d is set where a hit
+    row maps to it (a scatter-or, the JAX package's values_hit_to_doc_mask;
+    only doc-space mask programs, over a multi-valued field's overflow tail
+    or CSR token stream, reach it). Exact, in query chunks."""
+    B, V = hits.shape
+    out = torch.zeros(B, T, dtype=torch.bool, device=hits.device)
+    d = doc.to(torch.int64)
+    for sl in _query_chunks(B, max(V, T)):
+        acc = torch.zeros(sl.stop - sl.start, T, dtype=torch.int32,
+                          device=hits.device)
+        acc.scatter_reduce_(1, d.expand(acc.shape[0], V),
+                            hits[sl].to(torch.int32), "amax")
+        out[sl] = acc > 0
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dense bucket reductions (static or composite bucket-id planes)
 # ---------------------------------------------------------------------------
@@ -177,6 +196,35 @@ def block32_counts(mask) -> torch.Tensor:
     """[B, R] mask -> [B, R/32] int32 per-32-row counts."""
     B, R = mask.shape
     return mask.view(B, R // 32, 32).sum(dim=-1, dtype=torch.int32)
+
+
+def block32_sums(mask, plane) -> torch.Tensor:
+    """[B, R] mask, int32 [R] plane -> [B, R/32] int64 exact per-32-row
+    sums of the masked plane (in query chunks)."""
+    B, R = mask.shape
+    out = torch.empty(B, R // 32, dtype=torch.int64, device=mask.device)
+    for sl in _query_chunks(B, R):
+        out[sl] = torch.where(mask[sl], plane, 0).view(-1, R // 32, 32).sum(
+            dim=-1, dtype=torch.int64)
+    return out
+
+
+def slot_block_counts(mask, slots, ns: int) -> torch.Tensor:
+    """[B, R] mask and K static int32 [R] slot planes (-1 = none) ->
+    int32 [B, ns, R/32]: per query, slot s and 32-row block, the number
+    of (row, plane) pairs with the row masked and the plane's slot s. An
+    int32 index_add_ over s * R/32 + block, in query chunks (exact: a
+    block holds at most 32 * K)."""
+    B, R = mask.shape
+    NB = R // 32
+    out = torch.zeros(B, ns * NB, dtype=torch.int32, device=mask.device)
+    blk = torch.arange(R, device=mask.device) // 32
+    for slot in slots:
+        ok = (slot >= 0) & (slot < ns)
+        idx = slot.clamp(0, ns - 1).to(torch.int64) * NB + blk
+        for sl in _query_chunks(B, R):
+            out[sl].index_add_(1, idx, (mask[sl] & ok).to(torch.int32))
+    return out.view(B, ns, NB)
 
 
 def _prefix_at_bounds(block_vals, bounds32) -> torch.Tensor:

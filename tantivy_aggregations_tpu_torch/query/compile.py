@@ -15,11 +15,18 @@ indicator over its virtual domain planes, ops/cube.py `dom_planes`). This
 replaces the JAX package's trace-time `eval_mask` closures.
 
 Covered: MatchAll, Term, Range, Prefix, the set-type TermSet / Fuzzy /
-Regex (one opcode that loops the query's run slots) and Boolean
-must/should/must_not over single-valued dense columns (narrow, wide
-(hi, lo) lexicographic, and stringy ordinals). Exists, Phrase and
-multi-valued query fields raise NotImplementedError naming the shape (the
-searcher answers those on the exact host path).
+Regex (one opcode that loops the query's run slots), Exists, Phrase and
+Boolean must/should/must_not over single-valued columns (narrow, wide
+(hi, lo) lexicographic, and stringy ordinals) and multi-valued ones: a leaf
+is the OR over the field's doc-aligned per-position planes (the JAX
+package's eval_mask), each compare guarded by one plane compare against an
+immediate (OP_GT_IMM: a narrow position's -1 fill, a wide position's value
+count). Two opcodes are DOC-SPACE ONLY (`DOC_SPACE_OPS`): the scatter-or of
+value-row hits onto their docs (a field's overflow tail past
+DENSE_MULTI_K values, Exists over bare value rows) and the CSR phrase
+stream of a text field with a tail. A program holding one evaluates over
+the doc axis with torch ops (`eval_ops`) and never reaches a chain kernel
+or a permuted view (`MaskProgram.dense`).
 
 Exactness notes (kept from the JAX package):
 - Exclusive range bounds are normalized to inclusive in the mono domain
@@ -37,6 +44,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..ops.reductions import values_hit_to_doc_mask
 from ..query import ir as Q
 from ..schema import FieldType
 from ..utils import exact as exact_mod
@@ -364,6 +372,13 @@ OP_SET32 = 9          # plane, p0, S: for some slot i < S,
 OP_SET_WIDE = 10      # hi, lo, p0, S: for some slot i < S, (hi, lo) in the
 #                       lexicographic range (p[p0+4i], p[p0+4i+1]) ..
 #                       (p[p0+4i+2], p[p0+4i+3])
+OP_GT_IMM = 11        # plane, imm: plane > imm (the immediate is in the op)
+# doc-space only: the operands are value-row planes, the result a doc mask
+OP_ROWS_TO_DOCS = 12  # doc: pop value-row hits [.., V]; push [.., T] with
+#                       doc d set where some row r with doc[r] == d hits
+OP_PHRASE_ROWS = 13   # w, valid, doc, p0, n: value row r starts the phrase
+#                       p[p0..p0+n-1] (rows r..r+n-1 valid, of r's doc)
+DOC_SPACE_OPS = (OP_ROWS_TO_DOCS, OP_PHRASE_ROWS)
 OP_WIDTH = 8
 #: bool stack depth the kernels carry (one bit per entry of a uint32)
 MAX_STACK = 32
@@ -375,6 +390,13 @@ class MaskProgram(NamedTuple):
     ops: np.ndarray          # int32 [n_ops, OP_WIDTH]
     plane_keys: tuple        # short plane keys ("{field}:w", ...), no prefix
     param_keys: tuple        # chain param keys, in extract_params order
+
+    @property
+    def dense(self) -> bool:
+        """Every plane is doc-aligned and every op row-wise: the program
+        evaluates over any permutation of the doc axis (the chain kernels'
+        layouts), not only over the doc axis itself."""
+        return not np.isin(self.ops[:, 0], DOC_SPACE_OPS).any()
 
 
 def chain_param_keys(chain, dindex) -> list:
@@ -389,7 +411,7 @@ def chain_param_keys(chain, dindex) -> list:
 def mask_program(chain, dindex) -> MaskProgram:
     """Compile a chain of (query, param path) pairs — ANDed, as the agg
     planner's chains are — to a MaskProgram. Raises NotImplementedError
-    for a query shape the op list cannot encode (the planner calls this at
+    for a chain deeper than the kernels' stack (the planner calls this at
     plan time, so no request of such a shape reaches a device path)."""
     pkeys = chain_param_keys(chain, dindex)
     pidx = {k: i for i, k in enumerate(pkeys)}
@@ -419,31 +441,33 @@ def mask_program(chain, dindex) -> MaskProgram:
                     (k, i, nm)
         return p0, S
 
-    def leaf(q, path):
-        col = dindex.column(q.field)
-        if col.multi:
-            raise NotImplementedError(
-                f"{type(q).__name__} over the multi-valued field "
-                f"{q.field!r} has no mask-program encoding yet")
-        k = _key(path)
+    def param_run(k, name, n):
+        """Index of `k`+name+"0"; extract_params lays the n params name0 ..
+        name{n-1} out consecutively."""
+        p0 = pidx[f"{k}{name}0"]
+        for i in range(n):
+            assert pidx[f"{k}{name}{i}"] == p0 + i, (k, name, i)
+        return p0
+
+    def cmp32(q, k, w):
+        """The leaf's compare over one narrow / ordinal plane `w`."""
         p = lambda s: pidx[k + s]  # noqa: E731
-        stringy = col.ftype.is_stringy
-        is_set = isinstance(q, SET_QUERIES)
-        if stringy or col.narrow:
-            w = plane(f"{q.field}:w")
-            if is_set:
-                emit(OP_SET32, w, *set_slots(q, k, ("l", "h")))
-            elif isinstance(q, Q.TermQuery) and stringy:
-                emit(OP_EQ32, w, p(":t"))
-            elif isinstance(q, Q.TermQuery):
-                emit(OP_EQ32_GUARD, w, p(":t0"), p(":tv0"))
-                emit(OP_EQ32_GUARD, w, p(":t1"), p(":tv1"))
-                emit(OP_OR, pops=2)
-            else:  # range (numeric or lexicographic) or keyword prefix
-                emit(OP_RANGE32, w, p(":lo"), p(":hi"))
-            return
-        hi, lo = plane(f"{q.field}:hi"), plane(f"{q.field}:lo")
-        if is_set:
+        if isinstance(q, SET_QUERIES):
+            emit(OP_SET32, w, *set_slots(q, k, ("l", "h")))
+        elif isinstance(q, Q.TermQuery) and dindex.column(
+                q.field).ftype.is_stringy:
+            emit(OP_EQ32, w, p(":t"))
+        elif isinstance(q, Q.TermQuery):
+            emit(OP_EQ32_GUARD, w, p(":t0"), p(":tv0"))
+            emit(OP_EQ32_GUARD, w, p(":t1"), p(":tv1"))
+            emit(OP_OR, pops=2)
+        else:  # range (numeric or lexicographic) or keyword prefix
+            emit(OP_RANGE32, w, p(":lo"), p(":hi"))
+
+    def cmp_wide(q, k, hi, lo):
+        """The leaf's lexicographic compare over one (hi, lo) pair."""
+        p = lambda s: pidx[k + s]  # noqa: E731
+        if isinstance(q, SET_QUERIES):
             emit(OP_SET_WIDE, hi, lo,
                  *set_slots(q, k, ("lh", "ll", "hh", "hl")))
         elif isinstance(q, Q.TermQuery):
@@ -454,12 +478,111 @@ def mask_program(chain, dindex) -> MaskProgram:
             emit(OP_RANGE_WIDE, hi, lo, p(":loh"), p(":lol"), p(":hih"),
                  p(":hil"))
 
+    def guarded(compare, guard_plane, imm):
+        """compare() AND guard_plane > imm."""
+        compare()
+        emit(OP_GT_IMM, guard_plane, imm)
+        emit(OP_AND, pops=2)
+
+    def leaf(q, path):
+        col = dindex.column(q.field)
+        f = q.field
+        k = _key(path)
+        if col.multi and col.has_multi_planes:
+            # an OR over the per-position planes; the -1 fill never
+            # matches (term params are w values >= 0 or the -2 missing
+            # ordinal, run slots start at >= 0, and a range carries an
+            # explicit >= 0 guard); the tail's rows scatter onto their docs
+            is_range = isinstance(q, (Q.RangeQuery, Q.PrefixQuery))
+
+            def one(w):
+                if is_range:
+                    guarded(lambda: cmp32(q, k, w), w, -1)
+                else:
+                    cmp32(q, k, w)
+
+            for kk in range(len(col.multi_planes_host)):
+                one(plane(f"{f}:mp{kk}"))
+                if kk:
+                    emit(OP_OR, pops=2)
+            if col.has_tail:
+                one(plane(f"{f}:tw"))
+                emit(OP_ROWS_TO_DOCS, plane(f"{f}:tdoc"), pops=1)
+                emit(OP_OR, pops=2)
+            return
+        if col.multi:
+            # wide: each position's pair guarded by the value count
+            mpn = plane(f"{f}:mpn")
+            for kk in range(len(col.multi_planes_wide_host)):
+                hi, lo = plane(f"{f}:mph{kk}"), plane(f"{f}:mpl{kk}")
+                guarded(lambda: cmp_wide(q, k, hi, lo), mpn, kk)
+                if kk:
+                    emit(OP_OR, pops=2)
+            if col.has_tail:
+                guarded(lambda: cmp_wide(q, k, plane(f"{f}:th"),
+                                         plane(f"{f}:tl")),
+                        plane(f"{f}:tvalid"), 0)
+                emit(OP_ROWS_TO_DOCS, plane(f"{f}:tdoc"), pops=1)
+                emit(OP_OR, pops=2)
+            return
+        if col.ftype.is_stringy or col.narrow:
+            cmp32(q, k, plane(f"{f}:w"))
+        else:
+            cmp_wide(q, k, plane(f"{f}:hi"), plane(f"{f}:lo"))
+
+    def exists(q):
+        col = dindex.column(q.field)
+        f = q.field
+        if col.multi and col.has_multi_planes:
+            emit(OP_GT_IMM, plane(f"{f}:mp0"), -1)  # a first value exists
+        elif col.multi and col.has_multi_planes_wide:
+            emit(OP_GT_IMM, plane(f"{f}:mpn"), 0)
+        elif col.multi:
+            emit(OP_GT_IMM, plane(f"{f}:valid"), 0)
+            emit(OP_ROWS_TO_DOCS, plane(f"{f}:doc"), pops=1)
+        elif col.ftype.is_stringy:
+            emit(OP_GT_IMM, plane(f"{f}:w"), -1)
+        else:
+            emit(OP_TRUE)
+
+    def phrase(q, path):
+        col = dindex.column(q.field)
+        f = q.field
+        k = _key(path)
+        n = len(q.tokens)
+        K = len(col.multi_planes_host or ())
+        if n == 0 or (not col.has_tail and K < n):
+            emit(OP_TRUE)  # no start position: matches nothing
+            emit(OP_NOT, pops=1)
+            return
+        p0 = param_run(k, ":p", n)
+        if not col.has_tail:
+            # the plane index IS the token position: an OR over start
+            # positions of ANDed compares
+            for s0 in range(K - n + 1):
+                for j in range(n):
+                    emit(OP_EQ32, plane(f"{f}:mp{s0 + j}"), p0 + j)
+                    if j:
+                        emit(OP_AND, pops=2)
+                if s0:
+                    emit(OP_OR, pops=2)
+            return
+        # the CSR token stream (positions in row order), then its docs
+        doc = plane(f"{f}:doc")
+        emit(OP_PHRASE_ROWS, plane(f"{f}:w"), plane(f"{f}:valid"), doc, p0,
+             n)
+        emit(OP_ROWS_TO_DOCS, doc, pops=1)
+
     def walk(q, path):
         if isinstance(q, Q.MatchAllQuery):
             emit(OP_TRUE)
         elif isinstance(q, (Q.TermQuery, Q.RangeQuery, Q.PrefixQuery,
                             *SET_QUERIES)):
             leaf(q, path)
+        elif isinstance(q, Q.ExistsQuery):
+            exists(q)
+        elif isinstance(q, Q.PhraseQuery):
+            phrase(q, path)
         elif isinstance(q, Q.BooleanQuery):
             emit(OP_TRUE)
             for i, c in enumerate(q.must):
@@ -494,10 +617,12 @@ def mask_program(chain, dindex) -> MaskProgram:
 
 
 def eval_ops(ops, planes, pmat, shape) -> torch.Tensor:
-    """Interpret a mask program with torch ops: `planes` are int32 tensors
-    of row shape `shape` (or broadcastable to it), `pmat` is the [B, P]
-    int32 param matrix in param-key order. Returns bool [B, *shape] (a
-    broadcast view where the mask does not depend on the params)."""
+    """Interpret a mask program with torch ops: `planes` are int32 (or
+    int8) tensors of row shape `shape` (or broadcastable to it), `pmat` is
+    the [B, P] int32 param matrix in param-key order. Returns bool
+    [B, *shape] (a broadcast view where the mask does not depend on the
+    params). A doc-space op (DOC_SPACE_OPS) reads value-row planes of its
+    own length and takes `shape` as (T,), the doc axis."""
     B = pmat.shape[0]
     lead = (B,) + (1,) * len(shape)
     prm = [pmat[:, j].reshape(lead) for j in range(pmat.shape[1])]
@@ -545,10 +670,41 @@ def eval_ops(ops, planes, pmat, shape) -> torch.Tensor:
             for j in range(p0 + 4, p0 + 4 * o[4], 4):
                 m |= wide_in(hi, lo, *range(j, j + 4))
             stack.append(m)
+        elif op == OP_GT_IMM:
+            stack.append(planes[o[1]] > o[2])
+        elif op == OP_ROWS_TO_DOCS:
+            hits = stack.pop()
+            stack.append(values_hit_to_doc_mask(
+                hits.expand(B, hits.shape[-1]), planes[o[1]], shape[-1]))
+        elif op == OP_PHRASE_ROWS:
+            stack.append(_phrase_rows(planes[o[1]], planes[o[2]] > 0,
+                                      planes[o[3]], prm[o[4]:o[4] + o[5]]))
         else:
             raise ValueError(f"unknown mask opcode {op}")
     (m,) = stack
     return m.expand((B,) + tuple(shape))
+
+
+def _shift(x, j, fill):
+    """x[r + j] at row r, `fill` past the end."""
+    if j == 0:
+        return x
+    return torch.cat([x[j:], x.new_full((j,), fill)])
+
+
+def _phrase_rows(w, valid, doc, toks):
+    """[B, V] bool: value row r starts the phrase `toks` ([B, 1] params):
+    w[r + j] == toks[j] for every j, and the window's last row is a valid
+    row of r's doc (a doc's rows are contiguous, so the end points pin the
+    whole window) — the JAX package's CSR phrase stream."""
+    n = len(toks)
+    hits = valid & (w == toks[0])
+    for j in range(1, n):
+        hits = hits & (_shift(w, j, -1) == toks[j])
+    if n > 1:
+        hits = hits & _shift(valid, n - 1, False) \
+            & (_shift(doc, n - 1, -1) == doc)
+    return hits
 
 
 def to_device_async(t: torch.Tensor, device) -> torch.Tensor:

@@ -214,9 +214,10 @@ def test_cube_msearch_batch(four):
 
 def test_cube_gate_rejects_unsupported(four):
     """Chains over multi-valued or wide query fields, and param-free ones,
-    keep the row paths (a multi-valued chain answers on the exact host
-    path) and stay bit-identical there."""
-    from tantivy_aggregations_tpu_torch.searcher import _HostFallback
+    keep the row paths (a multi-valued chain is a device Program over the
+    per-position planes) and stay bit-identical there, with the JAX
+    package's plan."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
     s = four["port"].index.searcher(device="cpu")
     ja = {k: v for k, v in _aggs(tat).items() if k != "f"}
     pa = {k: v for k, v in _aggs(tt).items() if k != "f"}
@@ -225,21 +226,26 @@ def test_cube_gate_rejects_unsupported(four):
              (tat.RangeQuery("wide", lower=0, upper=2**39),
               tt.RangeQuery("wide", lower=0, upper=2**39)),
              (tat.MatchAllQuery(), tt.MatchAllQuery())]
-    for (jq, pq), jax in zip(cases, (False, True, True)):
+    for jq, pq in cases:
         want = four["oracle"].agg_search(pq, pa)
         assert s.agg_search(pq, pa) == want
         assert four["row"].agg_search(pq, pa) == want
-        if jax:
-            assert four["jax"].agg_search(jq, ja) == want
-            assert_plan_parity(four["jax"], s, jq, ja, pq, pa)
-    assert isinstance(s._program_for(cases[0][1], pa), _HostFallback)
+        assert four["jax"].agg_search(jq, ja) == want
+        assert_plan_parity(four["jax"], s, jq, ja, pq, pa)
+    assert type(s._program_for(cases[0][1], pa)) is Program
     assert n_sites(s) == 0
-    # an Exists leaf passes the gate but has no mask-program encoding: the
-    # tree answers on the host path, as in row modes
+    # an Exists leaf passes the gate, and its chain over a multi-valued
+    # field's planes has no cube: a device Program with no cube site, as
+    # in row modes
     q = tt.BooleanQuery(must=(tt.TermQuery("cat", "a"),
-                              tt.ExistsQuery("opt")))
+                              tt.ExistsQuery("counts")))
+    jq = tat.BooleanQuery(must=(tat.TermQuery("cat", "a"),
+                                tat.ExistsQuery("counts")))
     assert s.agg_search(q, pa) == four["oracle"].agg_search(q, pa)
-    assert isinstance(s._program_for(q, pa), _HostFallback)
+    assert four["jax"].agg_search(jq, ja) == four["oracle"].agg_search(q, pa)
+    assert_plan_parity(four["jax"], s, jq, ja, q, pa)
+    assert type(s._program_for(q, pa)) is Program
+    assert n_sites(s) == 0
 
 
 def test_cube_filter_chain_under_matchall(four):

@@ -129,15 +129,69 @@ def test_mask_program_matches_jax_eval_mask(dual):
         np.testing.assert_array_equal(pm, jm, err_msg=repr(q))
 
 
+def _multi_jax_arrays(jd, q):
+    """_jax_arrays plus, for a multi-valued field, its value rows (doc,
+    valid) and per-position planes, as JAX Program._need_col_planes
+    registers them."""
+    out = {}
+    for f in jqc.query_fields(q):
+        col = jd.column(f)
+        if col.narrow or col.ftype.is_stringy:
+            out[f"{f}:w"] = col.w
+        else:
+            out[f"{f}:hi"], out[f"{f}:lo"] = col.hi, col.lo
+        if col.multi:
+            out[f"{f}:doc"], out[f"{f}:valid"] = col.doc_id, col.valid
+            for k, pk in enumerate(col.multi_planes or ()):
+                out[f"{f}:mp{k}"] = pk
+            for k, (h, lo) in enumerate(col.multi_planes_wide or ()):
+                out[f"{f}:mph{k}"], out[f"{f}:mpl{k}"] = h, lo
+            if col.has_multi_planes_wide:
+                out[f"{f}:mpn"] = col.mpn
+            if col.has_tail:
+                out[f"{f}:tdoc"] = col.tail_doc
+                if col.has_multi_planes_wide:
+                    out[f"{f}:th"], out[f"{f}:tl"] = col.tail_hi, col.tail_lo
+                    out[f"{f}:tvalid"] = col.tail_valid
+                else:
+                    out[f"{f}:tw"] = col.tail_w
+    return out
+
+
+def assert_mask_matches_jax(jd, pd, q, pq):
+    """The port's mask program over the port's planes == the JAX package's
+    eval_mask over the JAX loader's, with equal extracted params."""
+    jparams = jqc.extract_params(q, jd)
+    pparams = pqc.extract_params(pq, pd)
+    assert jparams == pparams, q
+    jm = np.asarray(jqc.eval_mask(
+        q, jd, {k: jnp.int32(v) for k, v in jparams.items()}, ("q",),
+        jd.T, _multi_jax_arrays(jd, q)))
+    mp = pqc.mask_program(((pq, ("q",)),), pd)
+    assert mp.param_keys == tuple(jparams), q
+    arrays = {k: pd.column(k.rsplit(":", 1)[0]).plane(k.rsplit(":", 1)[1])
+              for k in mp.plane_keys}
+    arrays["alive"] = pd.alive
+    pm = pqc.eval_mask(pq, pd, pparams, ("q",), arrays)[0].numpy()
+    np.testing.assert_array_equal(pm, jm, err_msg=repr(q))
+    return mp
+
+
 @pytest.mark.parametrize("q", [
     tt.ExistsQuery("cat"),
     tt.TermQuery("tags", "t1"),           # multi-valued field
     tt.TermSetQuery("tags", ["t1", "t3"]),  # a set over a multi-valued one
 ])
 def test_mask_program_refuses_unported_shapes(dual, q):
-    _, pd = dual
-    with pytest.raises(NotImplementedError):
-        pqc.mask_program(((q, ("q",)),), pd)
+    """The shapes mask_program once refused (Exists, leaves over a
+    multi-valued field) now compile — an OP_GT_IMM guard, an OR over the
+    per-position planes — and match the JAX package's eval_mask."""
+    jd, pd = dual
+    jq = {tt.ExistsQuery: tat.ExistsQuery, tt.TermQuery: tat.TermQuery,
+          tt.TermSetQuery: tat.TermSetQuery}[type(q)](
+        **{f: getattr(q, f) for f in q.__dataclass_fields__})
+    mp = assert_mask_matches_jax(jd, pd, jq, q)
+    assert mp.dense
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +383,33 @@ def _chain_cases(m, jd):
     def regex(j):
         return m.RegexQuery("cat", f"cat00[{j % 4}-4][13579]")
 
-    return [ranged, wide, empty, every_op, set32, set_wide, fuzzy, regex]
+    def multi_narrow(j):  # per-position planes of counts and tags
+        return m.BooleanQuery(
+            must=[m.RangeQuery("counts", lower=5 + 3 * j, upper=80),
+                  m.TermSetQuery("tags", [f"t{j % 10}", f"t{(j + 3) % 10}"])],
+            must_not=[m.TermQuery("counts", 7 + j)])
+
+    def multi_wide(j):  # (mph, mpl) pairs guarded by mpn
+        return m.BooleanQuery(should=[
+            m.RangeQuery("scores", lower=-1.0 + 0.1 * j, upper=1.0),
+            m.TermQuery("scores", float(_multi_value(jd, "scores", j))),
+            m.TermSetQuery("scores", [0.5, -0.25])])
+
+    def multi_exists(j):
+        return m.BooleanQuery(
+            must=[m.ExistsQuery("tags"), m.RangeQuery("qty", lower=10 * j),
+                  m.PrefixQuery("tags", "t")],
+            must_not=[m.ExistsQuery("scores"), m.ExistsQuery("cat")])
+
+    return [ranged, wide, empty, every_op, set32, set_wide, fuzzy, regex,
+            multi_narrow, multi_wide, multi_exists]
+
+
+def _multi_value(jd, field, j):
+    """The j-th stored value of a multi-valued field (so that term leaves
+    over it match rows)."""
+    col = jd.column(field)
+    return col._host_values[col._host_valid][7 * j]
 
 
 #: the chain cases (_chain_cases) every chain kernel is held to here; the
@@ -356,9 +436,7 @@ def _chain_inputs(jd, pd, case, B):
     host = {}
     for key in mp.plane_keys:
         f, kind = key.rsplit(":", 1)
-        col = jd.column(f)
-        host[key] = {"w": col._w_host, "hi": col._hi_host,
-                     "lo": col._lo_host}[kind]
+        host[key] = pd.column(f).host_plane(kind)
     avalid = jd.alive_host.astype(np.int8)
     return chain_j[0], mp, pkeys, pm, host, avalid
 
@@ -689,8 +767,16 @@ def test_multi_planes_match_jax_loader(dual, field):
     jc, pc = jd.column(field), pd.column(field)
     assert pc.has_multi_planes == jc.has_multi_planes
     assert pc.has_tail == jc.has_tail
-    assert not pc.has_multi_planes_wide  # wide multi planes are not ported
+    assert pc.has_multi_planes_wide == jc.has_multi_planes_wide
     if jc.has_multi_planes:
         assert len(pc.multi_planes_host) == len(jc.multi_planes_host)
         for a, b in zip(pc.multi_planes_host, jc.multi_planes_host):
             np.testing.assert_array_equal(a, b)
+    if jc.has_multi_planes_wide:
+        assert len(pc.multi_planes_wide_host) == \
+            len(jc.multi_planes_wide_host)
+        for (ah, al), (bh, bl) in zip(pc.multi_planes_wide_host,
+                                      jc.multi_planes_wide_host):
+            np.testing.assert_array_equal(ah, bh)
+            np.testing.assert_array_equal(al, bl)
+        np.testing.assert_array_equal(pc._mpn_host, jc._mpn_host)

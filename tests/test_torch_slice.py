@@ -146,27 +146,41 @@ def test_collect_stats_on_the_host_path(rnd):
     pidx = rnd["port"].index
     s = pidx.searcher(device="cpu",
                       config=EngineConfig(dense_nb=8, collect_stats=True))
-    q, aggs = tt.ExistsQuery("cat"), {"n": tt.count_agg()}
+    # a two-deep multi-valued nest: no device lowering here or in JAX
+    q, aggs = tt.MatchAllQuery(), _deep_multi_nest(tt)
     assert s.agg_search(q, aggs) == rnd["port_oracle"].agg_search(q, aggs)
     st = s.last_stats
     assert st.device_ms > 0 and st.wait_ms == 0 and st.harvest_ms == 0
     assert st.total_ms == st.prepare_ms + st.device_ms
 
 
+def _deep_multi_nest(m):
+    """terms over three multi-valued fields nested: the second is the one
+    cross-product expansion the planners lower, the third is past it."""
+    return {"t": m.terms_agg("tags", sub_aggs={
+        "c": m.terms_agg("counts", size=3, sub_aggs={
+            "s": m.terms_agg("scores", size=2)})})}
+
+
 def _unlowered(m):
     """(aggs, query) with module `m`'s IR: six shapes the port's planner
-    does not lower (top_hits, non-integer percents at the root and under
-    buckets, terms over a multi-valued field, a term query on one, exists)
-    and a TermSet query, which it does."""
+    leaves to the host path (top_hits, non-integer percents at the root,
+    under a single-valued and under a multi-valued terms agg (wslots'
+    phase 2), top_hits under a multi-valued terms agg, and a two-deep
+    multi-valued nest, which the JAX package refuses too) and a TermSet
+    query, which it lowers."""
     return [
         ({"t": m.top_hits_agg(size=3)}, m.MatchAllQuery()),
         ({"p": m.percentiles_agg("price", (2.5, 50.0))}, m.MatchAllQuery()),
         ({"t": m.terms_agg("cat", sub_aggs={
             "p": m.percentiles_agg("qty", (2.5, 50.0))})}, m.MatchAllQuery()),
-        ({"t": m.terms_agg("tags")}, m.MatchAllQuery()),
+        (_deep_multi_nest(m), m.MatchAllQuery()),
         ({"n": m.count_agg()}, m.TermSetQuery("cat", ["cat0001"])),
-        ({"n": m.count_agg()}, m.TermQuery("tags", "t1")),
-        ({"n": m.count_agg()}, m.ExistsQuery("cat")),
+        ({"t": m.terms_agg("tags", sub_aggs={
+            "p": m.percentiles_agg("qty", (2.5, 50.0))})},
+         m.RangeQuery("qty", lower=100)),
+        ({"t": m.terms_agg("tags", size=3, sub_aggs={
+            "h": m.top_hits_agg(size=2)})}, m.MatchAllQuery()),
     ]
 
 
@@ -174,7 +188,9 @@ def _unlowered(m):
 def test_unlowered_shapes_answer_exactly(rnd, i):
     """agg_search never raises NotImplementedError: a shape the planner
     refuses answers on the exact host path, == the port's oracle == the
-    JAX package; the TermSet query plans a device Program."""
+    JAX package; the TermSet query plans a device Program. Where the JAX
+    package refuses the shape too (the two-deep multi-valued nest), both
+    answer on the host path."""
     from tantivy_aggregations_tpu_torch.searcher import _HostFallback
     jaggs, jq = _unlowered(tat)[i]
     aggs, q = _unlowered(tt)[i]
@@ -185,6 +201,9 @@ def test_unlowered_shapes_answer_exactly(rnd, i):
     prog = rnd["port"]._program_for(q, aggs)
     assert isinstance(prog, _HostFallback) == \
         (not isinstance(q, tt.TermSetQuery)), prog
+    jprog = rnd["jax"]._program_for(jq, jaggs)
+    if i == 3:
+        assert not hasattr(jprog, "plan"), jprog
 
 
 # ---------------------------------------------------------------------------
