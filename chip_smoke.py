@@ -21,11 +21,15 @@ value-domain cube and the dense products on).
    operands built here), printing each plan's modes, which must be
    DEFAULT_MODES: c2, c5, c8, c9, c10 on the cube (c5 a pcube, c9 a
    scube), c3 the dense products, c1, c4, c6, c7 none; then the tags
-   deployment (phase_tags_index: 10M docs, SEED, built on first use under
-   .bench_cache/) and (3m) the multi-valued requests at the default config,
-   each a device Program with its MULTI_MODES (mv1-mv3 and mv5-mv7 over the
-   bench's multi-valued `weights`, t1-t3 over the tags deployment's keyword
-   `tags` and wide `ids`), mv4 the host path;
+   deployment (phase_tags_index: 10M docs, SEED, with the facet field
+   `cat`, built on first use under .bench_cache/catalog_*), (3o) the
+   oracle's answers of the select and catalog paths queued on worker
+   processes (OraclePool), and (3m) the multi-valued requests at the
+   default config, each a device Program with its MULTI_MODES (mv1-mv3
+   and mv5-mv7 over the bench's multi-valued `weights`, t1-t3 over the
+   tags deployment's keyword `tags` and wide `ids`; p1-p4 and h1-h5 on
+   the bench index, tp, th and f1-f4 on the tags deployment), mv4 and the
+   HOST_SHAPES the host path;
 4. each kernel against its plain PyTorch version at the main path's shapes
    (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
    bound (kernel_bound), the device time in torch.profiler and, for
@@ -70,15 +74,26 @@ value-domain cube and the dense products on).
    times but c6 once), each with the launch and product counters set to 0: for each
    config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
-   docs), agg_search_batch over 256 varied requests == the per-query results
+   docs), agg_search_batch over 256 varied requests (c6: 128) == the
+   per-query results
    (with msearch dedup on and off), distinct varied params == the oracle;
    p50 single-query latency, and msearch ms/query with dedup on and off
    beside the number of distinct requests per group; for c1, c4, c5 and
    c10 (the default path: c3, c5, c9, c10) one dedup-off group under
    torch.profiler (wall, device busy share, top device ops);
-   then the "multi" and "tags" paths (MULTI_PATHS, the same checks at the
-   default config, MULTI_CHECKED distinct varied requests per request
-   held to the oracle), and mv4 once on the host path == the oracle;
+   then the "multi", "tags", "select" and "catalog" paths (MULTI_PATHS,
+   the same checks at the default config, MULTI_CHECKED distinct varied
+   requests per request held to the oracle; select: non-integer
+   percentiles through phase 2 and top_hits; catalog: wslots' phase 2,
+   top_hits under a multi-valued terms agg, facets; a profiled group's
+   phase 2 timed apart), and mv4 and the HOST_SHAPES once on the host
+   path == the oracle;
+   5p. phase 2's rank rows == the integer path's for the same percents,
+   p1's and p2's layouts, row modes and default config, B = 1 and 128
+   (phase_phase2_rows);
+   5s. agg_search_stream at lookahead 1 and 2 == agg_search_batch over a
+   mixed stream on each deployment (phase_stream), with ms/q and the
+   device's busy share;
    5d. the doc-space shapes on the card (phase_doc_space: overflow tails,
    the CSR phrase stream, mask_gather, a cross-product expansion) == the
    oracle on a 3000-doc index made from SEED;
@@ -217,6 +232,15 @@ MULTI_PATHS = (
      ("block_counts",), ("mv1", "mv3", "mv7")),
     ("tags", "tags", ("t1", "t2", "t3"), ("fused_metrics", "chain_counts"),
      ("dense_bucket_counts_mm", "dense_bucket_sum_mm"), ("t1", "t2")),
+    # the rest of the agg surface: non-integer percents (phase 2),
+    # top_hits on the bench index; in-slot top_hits, wslots' phase 2 and
+    # facets on the catalog deployment (the tags deployment's index with
+    # its facet field `cat`)
+    ("select", "bench", ("p1", "p2", "p3", "p4", "h1", "h2", "h3", "h4",
+                         "h5"), ("chain_counts",), (),
+     ("p1", "p2", "h2", "h5")),
+    ("catalog", "tags", ("tp", "th", "f1", "f2", "f3", "f4"),
+     ("fused_metrics",), (), ("tp", "f1")),
 )
 #: distinct varied requests of the multi paths held to the oracle per
 #: request (the oracle takes 6-17 s a request there at 10M docs)
@@ -235,7 +259,37 @@ MULTI_MODES = {
     "t2": {"t": {"dense", "dense_mm", "plane_fanout"},
            "t/h": {"scatter"}},
     "t3": {"p": {"rank", "pallas_counts"}},
+    "p1": {"p": {"rank", "pallas_counts", "phase2"}},
+    "p2": {"t": {"dense", "sel_host", "cube"},
+           "t/p": {"slot_rank", "phase2"}},
+    "p3": {"p": {"rank", "pallas_counts", "phase2"}},
+    "p4": {"p": {"rank", "pallas_counts", "phase2"}},
+    "h1": {"h": {"top_hits"}},
+    "h2": {"t": {"dense", "dense_mm"}, "t/h": {"top_hits", "in_slot"}},
+    "h3": {"h": {"top_hits", "score"}},
+    "h4": {"t": {"scatter"}, "t/h": {"top_hits", "in_slot"}},
+    "h5": {"t": {"scatter"}, "t/h": {"top_hits", "in_slot"}},
+    "tp": {"t": {"dense", "dense_mm", "sel_host"},
+           "t/p": {"slot_rank", "wslots", "phase2"}},
+    "th": {"t": {"dense", "dense_mm"}, "t/h": {"top_hits", "in_slot"}},
+    "f1": {"f": {"scatter", "sel_host", "facet"}},
+    "f2": {"f": {"scatter", "sel_host", "facet"}},
+    "f3": {"f": {"scatter", "sel_host", "facet"}},
+    "f4": {"t": {"dense", "dense_mm", "plane_fanout"},
+           "t/f": {"scatter", "sel_host", "facet"}},
 }
+#: shapes the port answers on the host path, as the JAX package does
+#: (phase 3m): top_hits under a bucket space past prod(hdims) * k = 4096
+#: (4 status buckets x 1100 hits), and a multi-valued terms agg nested two
+#: deep under multi-valued ones; each under a narrow range (about 11k
+#: docs), so that the oracle answers in seconds at 10M docs
+HOST_SHAPES = ("huge_top_hits", "deep_multi_nest")
+#: the facet deployment's categories: CATS top-level, each with CAT_SUBS
+#: subcategories of CAT_LEAVES leaves
+CATS, CAT_SUBS, CAT_LEAVES = 20, 10, 10
+#: cycles of phase 5s's mixed stream on the bench index (384 requests and
+#: 2 on the host path; the tags deployment's runs 2 cycles, 128 requests)
+STREAM_CYCLES = 4
 #: the tags deployment: DOCS docs in SEGMENTS segments from SEED, with
 #: TAGS_CARD zipf-skewed tag terms
 TAGS_CARD = 64
@@ -308,13 +362,15 @@ def phase_index(tt, flagship):
 
 def tags_schema(tt):
     """The tags deployment's schema: amount and price as the bench's,
-    tags (keyword, multi-valued) and ids (u64, multi-valued, wide)."""
+    tags (keyword, multi-valued), ids (u64, multi-valued, wide) and the
+    facet field cat."""
     from tantivy_aggregations_tpu_torch.schema import Cardinality
     return (tt.SchemaBuilder()
             .add_u64_field("amount")
             .add_f64_field("price")
             .add_keyword_field("tags", cardinality=Cardinality.MULTI)
             .add_u64_field("ids", cardinality=Cardinality.MULTI)
+            .add_facet_field("cat")
             .build())
 
 
@@ -323,7 +379,9 @@ def tags_columns(n_docs: int, seed: int):
     as the bench draws them; 0-3 tags per doc from TAGS_CARD zipf-skewed
     terms, and in one doc of five with a tag a repeat of its first tag
     (occurrence weight 2); 0-3 ids per doc uniform in [0, 2^40), a span
-    past NARROW_MAX_SPAN (a wide field). No doc holds more than 4 values."""
+    past NARROW_MAX_SPAN (a wide field); then one facet leaf path per doc
+    in cat (CATS x CAT_SUBS x CAT_LEAVES leaves, 2220 terms with their
+    ancestors). No doc holds more than 4 values in tags or ids."""
     rng = np.random.default_rng(seed)
     cols = {"amount": rng.integers(0, 10_000, n_docs, dtype=np.uint64),
             "price": np.round(rng.lognormal(3.0, 1.0, n_docs), 2)}
@@ -346,6 +404,13 @@ def tags_columns(n_docs: int, seed: int):
     np.cumsum(nid, out=ioffs[1:])
     cols["ids"] = (ioffs, rng.integers(0, 2**40, int(ioffs[-1]),
                                        dtype=np.uint64))
+    # drawn last, so that the columns above do not change with it:
+    # one leaf path /cNN/sN/lN a doc, zipf-skewed over the leaves (the
+    # writer indexes its two ancestors beside it)
+    leaves = np.array([f"/c{c:02d}/s{u}/l{v}" for c in range(CATS)
+                       for u in range(CAT_SUBS) for v in range(CAT_LEAVES)],
+                      object)
+    cols["cat"] = leaves[(rng.zipf(1.3, n_docs) - 1) % len(leaves)]
     return cols
 
 
@@ -371,10 +436,16 @@ def build_columnar_index(tt, path, schema, cols, n_docs, n_segments):
     return idx
 
 
+def tags_index_path():
+    """Where the tags deployment is cached: `catalog_*` since it holds the
+    facet field (a cached `tags_*` index, without it, is never read)."""
+    return REPO / ".bench_cache" / f"catalog_{DOCS}_{SEGMENTS}_{SEED}"
+
+
 def phase_tags_index(tt):
     """The tags deployment (DOCS docs, SEGMENTS segments, SEED), built on
     first use under .bench_cache/ and reused after."""
-    path = REPO / ".bench_cache" / f"tags_{DOCS}_{SEGMENTS}_{SEED}"
+    path = tags_index_path()
     t0 = time.time()
     if (path / "meta.json").exists():
         idx = tt.Index.open(str(path))
@@ -420,6 +491,21 @@ def multi_requests(tt, name: str, k: int):
     if name == "mv7":
         return (wrange, {"t": tt.terms_agg("status", size=4, sub_aggs={
             "p": tt.percentiles_agg("price", pct)})})
+    if name in SELECT_AGGS:
+        if name == "p3":
+            q = tt.TermQuery("status", statuses[k % 4])
+        elif name == "p4":
+            q = wrange
+        else:
+            q = amt
+        return q, SELECT_AGGS[name](tt)
+    if name in CATALOG_AGGS:
+        path = catalog_path(name, k)
+        q = tt.TermQuery("cat", path) if name == "f3" else amt
+        return q, CATALOG_AGGS[name](tt, path)
+    if name in HOST_SHAPES:
+        return (tt.RangeQuery("amount", lower=100, upper=110),
+                HOST_AGGS[name](tt))
     lo = (k * 2**35) % (2**40 - 2**36)
     if name == "t1":
         return (amt, {"t": tt.terms_agg("tags", size=10, sub_aggs={
@@ -435,12 +521,78 @@ def multi_requests(tt, name: str, k: int):
     raise KeyError(name)
 
 
+#: the select path's agg trees (phase 5, "select"), by request
+SELECT_AGGS = {
+    "p1": lambda tt: {"p": tt.percentiles_agg(
+        "price", (1, 5, 25, 50, 75, 95, 99, 99.9))},
+    "p2": lambda tt: {"t": tt.terms_agg("status", 4, sub_aggs={
+        "p": tt.percentiles_agg("price", (50, 99.9))})},
+    "p3": lambda tt: {"p": tt.percentiles_agg("weights", (50, 99.9))},
+    "p4": lambda tt: {"p": tt.percentiles_agg("price", (99.5,))},
+    "h1": lambda tt: {"h": tt.top_hits_agg(10, "amount", False)},
+    "h2": lambda tt: {"t": tt.terms_agg("status", 4, sub_aggs={
+        "h": tt.top_hits_agg(3, "price", False)})},
+    "h3": lambda tt: {"h": tt.top_hits_agg(10)},
+    "h4": lambda tt: {"t": tt.terms_agg("weights", 10, sub_aggs={
+        "h": tt.top_hits_agg(2, "price", True)})},
+    "h5": lambda tt: {"t": tt.terms_agg("sku", 10, sub_aggs={
+        "h": tt.top_hits_agg(3, "price", False)})},
+}
+#: the catalog path's agg trees, by request and facet path
+CATALOG_AGGS = {
+    "tp": lambda tt, path: {"t": tt.terms_agg("tags", 10, sub_aggs={
+        "p": tt.percentiles_agg("price", (50, 99.9))})},
+    "th": lambda tt, path: {"t": tt.terms_agg("tags", 10, sub_aggs={
+        "h": tt.top_hits_agg(2, "price", False)})},
+    "f1": lambda tt, path: {"f": tt.facet_agg("cat")},
+    "f2": lambda tt, path: {"f": tt.facet_agg("cat", path, size=5)},
+    "f3": lambda tt, path: {"n": tt.count_agg(),
+                            "s": tt.sum_agg("amount"),
+                            "f": tt.facet_agg("cat", path)},
+    "f4": lambda tt, path: {"t": tt.terms_agg("tags", 5, sub_aggs={
+        "f": tt.facet_agg("cat")})},
+}
+#: the host-path shapes (HOST_SHAPES)
+HOST_AGGS = {
+    "huge_top_hits": lambda tt: {"t": tt.terms_agg("status", 4, sub_aggs={
+        "h": tt.top_hits_agg(1100, "price", False)})},
+    "deep_multi_nest": lambda tt: {"t": tt.terms_agg("weights", 3, sub_aggs={
+        "u": tt.terms_agg("weights", 2, sub_aggs={
+            "v": tt.terms_agg("weights", 2)})})},
+}
+
+
+def catalog_path(name: str, j: int) -> str:
+    """The facet path of request j of f2 (from /c07) and f3 (from /c03):
+    the next of the CATS top-level categories every 16 requests, so that
+    a varied stream keeps runs of one agg tree."""
+    c0 = {"f2": 7, "f3": 3}.get(name, 0)
+    return f"/c{(c0 + j // 16) % CATS:02d}"
+
+
 def multi_varied(tt):
     """varied_requests for the multi paths: 32 parameter sets in turn
-    (j % 32), as models/flagship.py rotates them."""
+    (j % 32), as models/flagship.py rotates them; f2 and f3 also rotate
+    their facet path (catalog_path), with one agg tree per path."""
+    trees = {}
+
     def varied(name, aggs, n):
-        return [(multi_requests(tt, name, j % 32)[0], aggs)
-                for j in range(n)]
+        out = []
+        for j in range(n):
+            q = multi_requests(tt, name, j % 32)[0]
+            if name in ("f2", "f3"):
+                path = catalog_path(name, j)
+                if name == "f3":
+                    q = tt.TermQuery("cat", path)
+                if path == catalog_path(name, 0):
+                    ra = aggs
+                else:
+                    ra = trees.setdefault(
+                        (name, path), CATALOG_AGGS[name](tt, path))
+                out.append((q, ra))
+            else:
+                out.append((q, aggs))
+        return out
     return varied
 
 
@@ -452,19 +604,30 @@ def multi_plan_modes(prog) -> dict:
         got = {p[k] for k in ("mode", "pmode") if p.get(k)}
         got |= {k for k in ("pallas_counts", "pallas_prefix", "pallas_slots",
                             "pcube", "scube", "cube", "dense_mm", "wslots",
-                            "plane_fanout", "mask_gather", "xpand")
+                            "plane_fanout", "mask_gather", "xpand",
+                            "in_slot", "score")
                 if p.get(k)}
-        if got and p.get("kind") in ("terms", "histogram", "percentiles"):
+        kind = p.get("kind")
+        if kind == "percentiles" and not p["int_percents"]:
+            got.add("phase2")  # ranks resolved on the host, rows in phase 2
+        if kind == "terms" and p["sel"] == "host":
+            got.add("sel_host")
+        if kind == "terms" and p.get("facet_children") is not None:
+            got.add("facet")
+        if kind == "top_hits":
+            got.add("top_hits")
+        if got and kind in ("terms", "histogram", "percentiles",
+                            "top_hits"):
             out["/".join(path[1:])] = got
     return out
 
 
 def phase_plan_multi(torch, searchers):
-    """Phase 3m: plan every request of the multi paths at the default
-    EngineConfig, each a device Program with the MULTI_MODES of its
-    nodes; mv4 (terms over weights' 1000 values with slot_rank
-    percentiles: past the slot-state budget at 10M docs) plans the host
-    path."""
+    """Phase 3m: plan every request of the multi paths (and the select
+    and catalog paths) at the default EngineConfig, each a device Program
+    with the MULTI_MODES of its nodes; mv4 (terms over weights' 1000
+    values with slot_rank percentiles: past the slot-state budget at 10M
+    docs) and the HOST_SHAPES plan the host path, as in JAX."""
     from tantivy_aggregations_tpu_torch.aggs.compile import Program
     from tantivy_aggregations_tpu_torch.searcher import _HostFallback
     import tantivy_aggregations_tpu_torch as tt
@@ -484,11 +647,13 @@ def phase_plan_multi(torch, searchers):
                   f"{name} plans {got}, not {MULTI_MODES[name]}")
             say(f"  {name} ({label}): {got}, batch_cap {prog.batch_cap}, "
                 f"planned in {time.time() - t0:.2f}s")
-    q, aggs = multi_requests(tt, "mv4", 0)
-    prog = searchers["bench"]._program_for(q, aggs)
-    check(isinstance(prog, _HostFallback),
-          f"mv4 planned {type(prog).__name__}, not the host path")
-    say(f"  mv4 (multi): host path ({prog.reason})")
+    for name in ("mv4",) + HOST_SHAPES:
+        q, aggs = multi_requests(tt, name, 0)
+        prog = searchers["bench"]._program_for(q, aggs)
+        check(isinstance(prog, _HostFallback),
+              f"{name} planned {type(prog).__name__}, not the host path")
+        say(f"  {name} (bench): host path "
+            f"({getattr(prog, 'reason', None)})")
 
 
 def _cuda_ms(torch, fn, iters: int) -> float:
@@ -1734,6 +1899,93 @@ def c6_reference(tt, idx, query, aggs) -> dict:
                   "sum_other_doc_count": sum(cnt[k] for k in order[t.size:])}}
 
 
+def _checked(reqs, n: int) -> list:
+    """Indices of the first n distinct requests of a varied stream (the
+    ones phase_main_path holds to the oracle)."""
+    seen, out = [], []
+    for i, r in enumerate(reqs):
+        if r not in seen:
+            seen.append(r)
+            out.append(i)
+            if len(out) == n:
+                break
+    return out
+
+
+class _Pending:
+    """An oracle answer computed in the background (OraclePool)."""
+
+    def __init__(self, res):
+        self._res = res
+
+    def get(self):
+        return self._res.get()
+
+
+def _oracle_answer(path: str, query, aggs):
+    """One oracle answer over the on-disk index at `path` (a worker of
+    OraclePool, at the lowest CPU priority so that the host-bound phases
+    of the main process keep their cores; its index is opened once per
+    worker)."""
+    import os
+    sys.path.insert(0, str(REPO))
+    import tantivy_aggregations_tpu_torch as tt
+    cache = globals().setdefault("_ORACLES", {})
+    if not cache:
+        os.nice(19)
+    if path not in cache:
+        cache[path] = tt.Index.open(path).oracle_searcher()
+    return cache[path].agg_search(query, aggs)
+
+
+class OraclePool:
+    """The oracle's answers for the select and catalog paths, computed by
+    worker processes (the oracle is host Python, seconds to a minute a
+    request at 10M docs) while the card runs the earlier phases. Closed,
+    and its workers joined, by `close`."""
+
+    def __init__(self, workers: int):
+        import multiprocessing
+        self._pool = multiprocessing.get_context("spawn").Pool(workers)
+
+    def submit(self, path, query, aggs) -> _Pending:
+        return _Pending(self._pool.apply_async(_oracle_answer,
+                                               (str(path), query, aggs)))
+
+    def close(self) -> None:
+        self._pool.close()
+        self._pool.join()
+
+    def terminate(self) -> None:
+        self._pool.terminate()
+        self._pool.join()
+
+
+def prefetch_answers(tt, pool, paths, answers) -> int:
+    """Queue the oracle answers phase_main_path will ask for on the
+    select and catalog paths: each request's base query and the first
+    MULTI_CHECKED distinct requests of its varied stream. The slowest
+    (top_hits over most docs) go first. Returns the count queued."""
+    varied = multi_varied(tt)
+    jobs = []
+    for label, dep, names, _, _, _ in MULTI_PATHS:
+        if label not in ("select", "catalog"):
+            continue
+        for name in names:
+            q, aggs = multi_requests(tt, name, 0)
+            reqs = varied(name, aggs, 256)
+            for i in [None] + _checked(reqs, MULTI_CHECKED):
+                rq, ra = (q, aggs) if i is None else reqs[i]
+                key = (name, repr(rq), repr(ra))
+                if key not in answers:
+                    answers[key] = None
+                    jobs.append((name not in ("h1", "h2", "th", "f4", "tp"),
+                                 key, paths[dep], rq, ra))
+    for _, key, path, rq, ra in sorted(jobs, key=lambda j: j[0]):
+        answers[key] = pool.submit(path, rq, ra)
+    return len(jobs)
+
+
 def _profile_group(torch, searcher, reqs, top: int = 6) -> None:
     """One msearch group under torch.profiler: its wall ms (host clock,
     profiled), the device ms (the summed kernel, fill and copy intervals)
@@ -1792,8 +2044,9 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
     keeps the oracle's (and c6's reference's) answers by request, so a
     later path compares with the same answers without asking again;
     `reps`: msearch timing runs per dedup setting (the median is
-    printed), but one for c6, whose host-bound dedup-off stream takes
-    about a minute at 10M docs. `configs` ((key, name, query, aggs), ...)
+    printed), but one for c6, whose host-bound dedup-off stream (one
+    group of 128, where the others run 256 requests) takes 25-40 s at
+    10M docs. `configs` ((key, name, query, aggs), ...)
     and `varied` (key, aggs, n -> requests) replace the flagship configs
     and streams, `profiled` the keys whose dedup-off group is profiled;
     `n_checked`: distinct varied requests held to the oracle per config."""
@@ -1811,25 +2064,33 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         t_cfg = time.time()
 
         def reference(rq, ra, n=n):
-            key = (n, repr(rq))
+            key = (n, repr(rq), repr(ra))
             if key not in answers:
                 answers[key] = (oracle.agg_search(rq, ra) if n != 6
                                 else c6_reference(tt, idx, rq, ra))
+            elif isinstance(answers[key], _Pending):
+                answers[key] = answers[key].get()
             return answers[key]
         t0 = time.time()
         want = reference(q, aggs)
         t_oracle = time.time() - t0
         got = searcher.agg_search(q, aggs)
         check(got == want, f"{name}: agg_search != oracle")
-        reqs = (varied or flagship.varied_requests)(n, aggs, 256)
+        # c6's stream is one group: its host-bound dedup-off pass takes
+        # 25-40 s a group at 10M docs, and it runs on two paths
+        reqs = (varied or flagship.varied_requests)(n, aggs,
+                                                    128 if n == 6 else 256)
         prog = searcher._program_for(q, aggs)
         group = reqs[:searcher.config.max_batch]
-        distinct = len({prog.param_key(rq, ra) for rq, ra in group})
+        # a request is its params and its agg tree (f2 and f3 rotate the
+        # facet path, one agg tree per path)
+        distinct = len({(id(ra), prog.param_key(rq, ra))
+                        for rq, ra in group})
         batch = searcher.agg_search_batch(reqs)
         check(len(batch) == len(reqs), f"{name}: batch length")
         # one agg_search per distinct param set (a program is a pure
         # function of its params, so repeats would recompute the same)
-        keys = [prog.param_key(rq, ra) for rq, ra in reqs]
+        keys = [(id(ra), prog.param_key(rq, ra)) for rq, ra in reqs]
         one = {}
         for k, (rq, ra) in zip(keys, reqs):
             if k not in one:
@@ -1840,15 +2101,12 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         check(searcher.agg_search_batch(reqs) == singles,
               f"{name}: agg_search_batch (dedup off) != per-query")
         searcher.config = dedup_on
-        seen = []
-        for (rq, ra), res in zip(reqs, batch):
-            if any(rq == s for s in seen):
-                continue
-            seen.append(rq)
-            check(res == (want if rq == q else reference(rq, ra)),
+        seen = _checked(reqs, n_checked)
+        for i in seen:
+            rq, ra = reqs[i]
+            check(batch[i] == (want if (rq, ra) == (q, aggs)
+                               else reference(rq, ra)),
                   f"{name}: varied request {rq!r} != oracle")
-            if len(seen) == n_checked:
-                break
         # timings (every agg_search ends in the device->host fruit copy)
         times = []
         for rq, ra in reqs[:20]:
@@ -1871,6 +2129,9 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
             searcher.config = dedup_off
             _profile_group(torch, searcher, group)
             searcher.config = dedup_on
+            if any(p.get("kind") == "percentiles" and not p["int_percents"]
+                   for p in prog.plan.values()):
+                _profile_phase2(torch, searcher, group)
     counts = _counters(K, C, R)
     say(f"[6] kernel launches and product calls during the main path "
         f"{label}:", counts)
@@ -1878,6 +2139,154 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         check(counts[k] > 0,
               f"{k} was never launched by the main path {label}")
     return counts
+
+
+def phase_phase2_rows(torch, tt, searchers, card):
+    """Phase 5p: phase 2 against the integer path on the card. For p1's
+    and p2's layouts in row modes (chain_counts, chain_slot_counts) and at
+    the default config (pcube, scube; p2's terms in key order, so that it
+    selects on the host as above a non-integer percentile and its fruits
+    keep every slot), at B = 1 and 128: their integer
+    percents' rank rows selected in the run, then the same program run
+    again with its percentile nodes set to phase 2 and the ranks the host
+    resolves for the same percents (exact.percentile_rank, _slot_ranks):
+    the selected rows must be ==."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import Program
+    say("[5p] phase 2 == the integer path's rank rows (exact ==)")
+    pct = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
+    for cfg in ("row", "default"):
+        s = searchers[cfg]
+        for name, aggs in (
+                ("p1", {"p": tt.percentiles_agg("price", pct)}),
+                # key order: the terms node ships all 4 slots in both
+                # runs, as it does above a non-integer percentile
+                ("p2", {"t": tt.terms_agg("status", 4, order=("_key", "asc"),
+                                          sub_aggs={"p": tt.percentiles_agg(
+                                              "price", (50.0, 99.0))})})):
+            prog = Program(s._get_device_index(), *multi_requests(
+                tt, name, 0)[:1], aggs, config=s.config)
+            nodes = [p for p in prog.plan.values()
+                     if p.get("kind") == "percentiles"]
+            for B in (1, 128):
+                qs = [multi_requests(tt, name, j % 32)[0] for j in range(B)]
+                raw = prog.submit_many(qs, aggs)
+                vecs = prog.stage(raw, aggs).numpy()
+                want = [prog._unpack_host(vecs[b]) for b in range(B)]
+                for p in nodes:
+                    p["int_percents"] = False
+                try:
+                    raw = prog.submit_many(qs, aggs)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    staged = prog.stage(raw, aggs)
+                    hosts = [prog._unpack_host(v) for v in staged.numpy()]
+                    prog._phase2(hosts, staged.big)
+                    ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    for p in nodes:
+                        p["int_percents"] = True
+                for p in nodes:
+                    for b in range(B):
+                        got = prog._node_at(hosts[b], p["path"])["pvals"]
+                        rows = prog._node_at(want[b], p["path"])["rows"]
+                        check(np.array_equal(got, rows),
+                              f"{name} ({cfg}, B={B}): phase-2 rows != the "
+                              "integer path's")
+                modes = sorted(set().union(*multi_plan_modes(prog).values()))
+                say(f"  {name} {cfg} ({', '.join(modes)}) B={B}: rows == "
+                    f"({len(nodes)} node, phase 2 with its copies "
+                    f"{ms:.3f} ms)  [{card}]")
+
+
+def _stream_requests(tt, dep):
+    """Phase 5s's mixed stream on one deployment: runs of c1, c4, p1, h2
+    (varied parameters) and, once, the huge top_hits shape on the bench
+    index; runs of f1 and tp on the tags deployment."""
+    from tantivy_aggregations_tpu_torch.models import flagship
+    if dep == "bench":
+        cfg = {n: (q, a) for n, _, q, a in all_configs(flagship)}
+        runs = [([cfg[1]] * 16, None), ([cfg[4]] * 16, None),
+                (None, "p1"), (None, "h2")]
+    else:
+        runs = [(None, "f1"), (None, "tp")]
+    reqs = []
+    for cyc in range(STREAM_CYCLES if dep == "bench" else 2):
+        for fixed, name in runs:
+            if fixed is not None:
+                reqs += fixed
+                continue
+            q0, aggs = multi_requests(tt, name, 0)
+            reqs += [(multi_requests(tt, name, (cyc * 32 + j) % 32)[0], aggs)
+                     for j in range(32)]
+        if dep == "bench" and cyc == 1:
+            reqs += [multi_requests(tt, "huge_top_hits", 0)] * 2
+    return reqs
+
+
+def phase_stream(torch, tt, searchers, card):
+    """Phase 5s: agg_search_stream over a mixed stream of about 512
+    requests (c1, c4, p1, h2 and a host-path shape on the bench index; f1
+    and tp on the tags deployment) == agg_search_batch over it, in request
+    order, at lookahead 1 and 2; ms/q of both, and the device's busy share
+    over one lookahead-2 pass under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    say("[5s] agg_search_stream == agg_search_batch (mixed streams)")
+    for dep, s in (("bench", searchers["default"]),
+                   ("tags", searchers["tags"])):
+        reqs = _stream_requests(tt, dep)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = s.agg_search_batch(reqs)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / len(reqs)
+        line = []
+        for la in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = list(s.agg_search_stream(iter(reqs), lookahead=la))
+            ms = (time.perf_counter() - t0) * 1e3 / len(reqs)
+            check(got == batch, f"{dep}: stream (lookahead {la}) != batch")
+            line.append(f"lookahead {la} {ms:.4f} ms/q")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            list(s.agg_search_stream(iter(reqs), lookahead=2))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        say(f"  {dep}: {len(reqs)} requests, stream == batch; batch "
+            f"{batch_ms:.4f} ms/q, stream " + ", ".join(line)
+            + f"; profiled lookahead-2 pass: wall {wall:.1f} ms, device "
+            f"{busy:.1f} ms ({busy / wall:.1%} busy, {1 - busy / wall:.1%} "
+            f"idle)  [{card}]")
+
+
+def _profile_phase2(torch, searcher, reqs) -> None:
+    """Phase 2 of one dedup-off group under torch.profiler: its wall ms
+    (host ranks, the device selection, the second copy), the device ms
+    and the device->host copy's ms."""
+    from torch.profiler import ProfilerActivity, profile
+    q0, aggs = reqs[0]
+    prog = searcher._program_for(q0, aggs)
+    raw = prog.submit_many([q for q, _ in reqs], aggs)
+    staged = prog.stage(raw, aggs)
+    hosts = [prog._unpack_host(v) for v in staged.numpy()]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prog._phase2(hosts, staged.big)
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = copy = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            dev += ms
+            if "DtoH" in e.name or "Device -> Host" in e.name:
+                copy += ms
+    say(f"    phase 2 of the group of {len(reqs)} ({len(staged.big)} "
+        f"node): wall {wall:.3f} ms, device {dev:.3f} ms, of it the "
+        f"device->host copy {copy:.3f} ms")
 
 
 def phase_doc_space(torch, tt):
@@ -2120,6 +2529,31 @@ def main(argv=None) -> int:
     t0 = time.time()
     tags_idx = phase_tags_index(tt)
     lap("tags index", t0)
+    # the select and catalog paths' oracle answers, computed meanwhile
+    import os
+    pool = OraclePool(max(1, min(4, (os.cpu_count() or 2) - 2)))
+    try:
+        return main_paths(torch, tt, EngineConfig, flagship, args, t_run,
+                          lap, phases, card, idx, tags_idx, pool)
+    finally:
+        pool.terminate()
+
+
+def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
+               card, idx, tags_idx, pool) -> int:
+    """Phases 3 on (see the module docstring), on the built indexes, with
+    the oracle's worker processes in `pool`."""
+    from tantivy_aggregations_tpu_torch.ops import cube as C
+    from tantivy_aggregations_tpu_torch.ops import kernels as K
+    from tantivy_aggregations_tpu_torch.ops import reductions as R
+    from tantivy_aggregations_tpu_torch.query import compile as qc
+    answers = {}
+    t0 = time.time()
+    n = prefetch_answers(tt, pool, {"bench": idx.path, "tags": tags_idx.path},
+                         answers)
+    say(f"[3o] {n} oracle answers of the select and catalog paths queued "
+        "on worker processes")
+    lap("oracle queue", t0)
     t0 = time.time()
     searcher = idx.searcher(device="cuda", config=EngineConfig(**ROW_MODES))
     phase_plan(torch, searcher, flagship)
@@ -2154,7 +2588,6 @@ def main(argv=None) -> int:
     oracle = idx.oracle_searcher()
     counts = dict.fromkeys(_counters(K, C, R), 0)
     by_path = {}
-    answers = {}
     for path in PATHS:
         t0 = time.time()
         s = searchers["default" if path[0] == "default" else "row"]
@@ -2177,12 +2610,20 @@ def main(argv=None) -> int:
         for k, n in by_path[label].items():
             counts[k] += n
         lap(f"main path {label}", t0)
+    pool.close()
     t0 = time.time()
-    q, aggs = multi_requests(tt, "mv4", 0)
-    check(dflt.agg_search(q, aggs) == oracle.agg_search(q, aggs),
-          "mv4 (host path) != oracle")
-    say("[5m] mv4 on the host path == the oracle")
-    lap("mv4", t0)
+    for name in ("mv4",) + HOST_SHAPES:
+        q, aggs = multi_requests(tt, name, 0)
+        check(dflt.agg_search(q, aggs) == oracle.agg_search(q, aggs),
+              f"{name} (host path) != oracle")
+        say(f"[5m] {name} on the host path == the oracle")
+    lap("host shapes", t0)
+    t0 = time.time()
+    phase_phase2_rows(torch, tt, searchers, card)
+    lap("phase 2 rows", t0)
+    t0 = time.time()
+    phase_stream(torch, tt, searchers, card)
+    lap("stream", t0)
     t0 = time.time()
     phase_doc_space(torch, tt)
     lap("doc space", t0)

@@ -70,6 +70,8 @@ def main() -> int:
                "tags": tags_idx.oracle_searcher()}
     answers = {}
     for label, dep, names, kernels, prods, prof in S.MULTI_PATHS:
+        if label not in ("multi", "tags"):
+            continue  # scripts/torch_select_phases.py runs the others
         t0 = time.time()
         cfgs = [(nm, nm, *S.multi_requests(tt, nm, 0)) for nm in names]
         S.phase_main_path(

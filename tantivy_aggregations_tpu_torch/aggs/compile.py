@@ -80,8 +80,23 @@ planes, index/loader.py):
   weights), with torch ops over the chain mask, as percentiles of a
   multi-valued field under single-valued buckets do.
 
-Every other shape — non-integer percents, top_hits, facets, deeper
-multi-valued nests, slot spaces past the device budget, a kernel chain
+Non-integer percents (99.9) resolve their ranks in a second phase: the
+program ships each query's match count `m` in the packed fruits and keeps
+its count prefix (and what the lazy window recompute reads) on the device
+("big"); the host resolves exact rational ranks (utils/exact.py
+percentile_rank) and one device call per node selects the rank rows for
+the whole group (`finalize_many`). Such a node forces host-side selection
+on its terms ancestors, so every fruit beside it stays full-slot-space.
+
+top_hits sorts each row space once, by (sort key, doc), into a static
+order cached on the device index (`_hit_order`); a query's flat hits are
+the first k matched rows of that order (a cumsum and a searchsorted), and
+in-slot hits one stable sort per query by composite slot. facet aggs are
+terms aggs over the facet field's value rows with host-side selection of
+the static child ordinals.
+
+Every other shape — deeper multi-valued nests, top_hits under huge bucket
+spaces, slot spaces past the device budget, a kernel chain
 whose planes, payloads, ops and params overflow the chain tile kernel's
 shared memory (K.chain_fits: about 50 planes, or tens of thousands of
 params), sharding — raises NotImplementedError at plan time naming the
@@ -192,6 +207,32 @@ class SlotCtx:
         return sod, sod >= 0
 
 
+class _Staged:
+    """A program's packed [B, F] fruits on their way to the host
+    (Program.stage), beside its phase-1 device state `big`. On the card
+    the copy lands in a pinned buffer of this object's own behind a
+    recorded event; `numpy` waits on the event before reading it."""
+
+    __slots__ = ("host", "event", "big")
+
+    def __init__(self, packed, big):
+        self.big = big
+        self.event = None
+        if packed.device.type == "cuda":
+            self.host = torch.empty(packed.shape, dtype=packed.dtype,
+                                    pin_memory=True)
+            self.host.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = packed.clone()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 def _cols(x, idx, keep=None):
     """x[:, idx] of a [B, n] tensor (AND `keep`), a batch-stride-0 one
     gathered once and kept one shared row."""
@@ -289,12 +330,17 @@ class Program:
         self.batch_cap = self._batch_cap()
         #: per-query fruit layout of the packed [B, F] int64 output
         self._pack_spec = None
+        #: top_hits row orders, per node (_hit_order)
+        self._hit_cache = {}
 
     def _batch_cap(self):
-        """Queries per msearch group whose per-query block-count state
-        (slot_rank: [ns, R/G] counts and their cumsum; the pcube rank
-        prefix: [R/G]) fits BATCH_MEM_BUDGET, or None when the program
-        keeps no per-query row-axis state."""
+        """Queries per msearch group whose per-query state fits
+        BATCH_MEM_BUDGET, or None when the program keeps no per-query
+        row-axis state: slot_rank's [ns, R/G] counts and their cumsum; a
+        rank prefix ([R/G]) where the pcube computes it or phase 2 reads
+        it; a mask-gather node's gathered [R] mask (and, for phase 2, the
+        scope's [T] doc mask its windows re-read); in-slot top_hits'
+        [slots, k] hits (its sorts run a few queries at a time)."""
         per_q = 0
         for p in self.plan.values():
             if p.get("pmode") == "slot_rank":
@@ -304,8 +350,18 @@ class Program:
                 per_q += p["layout"].n_rows * 4 * len(p.get("slotks", ()))
             elif p.get("pmode") == "rank" and p.get("pcube"):
                 per_q += (p["layout"].n_rows // p["pcube"]["G"]) * 8
+            elif p.get("pmode") == "rank" and not p["int_percents"]:
+                G = SLOT_GROUP if p.get("mask_gather") else GROUP
+                per_q += (p["layout"].n_rows // G) * 8
+                if p.get("mask_gather"):
+                    per_q += self.dindex.T
             if p.get("mask_gather"):
                 per_q += p["layout"].n_rows  # the gathered [R] bool mask
+            if p.get("kind") == "top_hits" and p["in_slot"]:
+                per_q += p["tflat"] * (16 * p["k"] + 8)
+            # a nested bucket node's [rows] int64 composite slots, its
+            # validity and their int64 temporaries
+            per_q += p.get("slot_rows", 0) * 40
         if per_q == 0:
             return None
         return max(1, self.BATCH_MEM_BUDGET // per_q)
@@ -348,7 +404,9 @@ class Program:
 
     def submit_many(self, queries, aggs):
         """Run B same-shape queries as one [B, P] param matrix; returns the
-        device-side packed fruits {"packed": [B, F] int64}."""
+        device-side fruits {"packed": [B, F] int64, "big": {path: phase-1
+        state}} ("big": the non-integer percentile nodes' count prefixes,
+        read by phase 2 in finalize_many)."""
         pmat = qc.param_matrix([self._extract(q, aggs) for q in queries],
                                self._pkeys, self.device)
         return self._run(pmat)
@@ -356,15 +414,94 @@ class Program:
     def run(self, query, aggs):
         return self.finalize(self.submit(query, aggs), aggs)
 
-    def finalize(self, raw, aggs):
-        return self.finalize_many(raw, aggs, 1)[0]
+    def stage(self, raw, aggs):
+        """Start the device->host copy of the packed fruits: on the card a
+        non-blocking copy into a pinned host buffer of its own (one per
+        staged result, so no later stage can overwrite a buffer before it
+        is read), followed by an event; on the CPU a plain copy. The
+        finalize calls wait on the event."""
+        return _Staged(raw["packed"], raw["big"])
 
-    def finalize_many(self, raw, aggs, B: int):
-        """One device->host copy of the packed fruits, then host harvest of
-        the first B rows."""
-        vecs = raw["packed"].cpu().numpy()
-        return [self.harvest_host(self._unpack_host(vecs[b]), aggs)
-                for b in range(B)]
+    def finalize(self, raw, aggs, staged=None):
+        return self.finalize_many(raw, aggs, 1, staged=staged)[0]
+
+    def finalize_many(self, raw, aggs, B: int, staged=None):
+        """One device->host copy of the packed fruits (the staged one, or
+        made here), host rank resolution and ONE phase-2 device call per
+        non-integer percentile node for all B queries, one more host copy
+        of the selected rows, then host harvest of the first B rows."""
+        staged = staged if staged is not None else self.stage(raw, aggs)
+        vecs = staged.numpy()
+        hosts = [self._unpack_host(vecs[b]) for b in range(B)]
+        if staged.big:
+            self._phase2(hosts, staged.big)
+        return [self.harvest_host(h, aggs) for h in hosts]
+
+    def _phase2(self, hosts, big):
+        """Exact host ranks of each non-integer percentile node (rank:
+        exact.percentile_rank per query, (0, 0, 0.0) when m == 0;
+        slot_rank: _slot_ranks per slot), the rank rows selected on the
+        device for the whole group at once (the same lazy windows as the
+        integer path), then one host copy of every node's rows."""
+        B = len(hosts)
+        rows = []
+        for path, st in big.items():
+            p = self.plan[path]
+            if p["pmode"] == "slot_rank":
+                rk = np.stack([self._slot_ranks(p, self._node_at(h, path))
+                               for h in hosts])
+            else:
+                rk = []
+                for h in hosts:
+                    node_host = self._node_at(h, path)
+                    m = int(node_host["m"])
+                    fracs, ranks = [], []
+                    for q in p["percents"]:
+                        lo, hi, fr = ((0, 0, 0.0) if m == 0
+                                      else exact.percentile_rank(q, m))
+                        fracs.append(fr)
+                        ranks.extend([lo, hi])
+                    node_host["_fracs"] = fracs
+                    rk.append(ranks)
+                rk = np.asarray(rk, np.int64)
+            st = {k: (v[:B] if torch.is_tensor(v) else v)
+                  for k, v in st.items()}
+            sel = self._select_rows(p, st, self._arrays,
+                                    torch.from_numpy(rk).to(self.device))
+            rows.append((path, tuple(sel.shape[1:]), sel.reshape(B, -1)))
+        got = torch.cat([r for _, _, r in rows], dim=1).cpu().numpy()
+        off = 0
+        for path, shape, r in rows:
+            n = r.shape[1]
+            for b, h in enumerate(hosts):
+                self.attach_percentiles(
+                    h, {path: got[b, off:off + n].reshape(shape)})
+            off += n
+
+    @staticmethod
+    def _node_at(host, path):
+        node = host
+        for k in path[1:]:
+            node = node[k]
+        return node
+
+    def _slot_ranks(self, p, node_host) -> np.ndarray:
+        """[ns, 2P] exact 0-based rank pairs for a slot_rank phase-2 node."""
+        m_vec = np.asarray(node_host["m"]).reshape(-1)
+        ns = m_vec.shape[0]
+        ranks = np.zeros((ns, 2 * len(p["percents"])), np.int64)
+        for s in range(ns):
+            m = int(m_vec[s])
+            if m == 0:
+                continue
+            for i, q in enumerate(p["percents"]):
+                lo, hi, _ = exact.percentile_rank(q, m)
+                ranks[s, 2 * i], ranks[s, 2 * i + 1] = lo, hi
+        return ranks
+
+    def attach_percentiles(self, host, got):
+        for path, vals in got.items():
+            self._node_at(host, path)["pvals"] = vals
 
     def harvest_host(self, host, aggs):
         return {name: self._harvest(agg, host[name], ("a", name), None)
@@ -1075,8 +1212,6 @@ class Program:
             else:
                 self._plan_percentiles(node, path, hdims, chain)
             return
-        if isinstance(node, A.FacetAgg):
-            raise NotImplementedError("facet aggs are not ported yet")
         if isinstance(node, (A.HistogramAgg, A.TermsAgg)):
             plan = (self._plan_histogram if isinstance(node, A.HistogramAgg)
                     else self._plan_terms)
@@ -1095,8 +1230,38 @@ class Program:
                             bchain=bchain, parent_single=parent_single)
             return
         if isinstance(node, A.TopHitsAgg):
-            raise NotImplementedError("top_hits aggs are not ported yet")
+            self._plan_top_hits(node, path, in_slot=in_slot, hdims=hdims,
+                                tflat=tflat)
+            return
         raise TypeError(f"unknown agg {type(node)!r}")
+
+    def _plan_top_hits(self, node, path, *, in_slot, hdims, tflat):
+        """top_hits, flat or in-slot (JAX `_plan_aggs`' top_hits branch):
+        under buckets the shipped fruit is the selected buckets' [k] hits,
+        so prod(hdims) * k bounds the transfer and tflat * k the device
+        [slots, k] output; past either the shape answers on the host
+        path. Score order where sort_field is None."""
+        k = min(node.size, self.dindex.T)
+        if in_slot:
+            out_flat = 1
+            for d in hdims:
+                out_flat *= d
+            if out_flat * k > 4096 or tflat * k > (1 << 22):
+                raise NotImplementedError(
+                    "top_hits under huge bucket spaces answers through "
+                    "the exact host fallback")
+        p = {"kind": "top_hits", "hdims": hdims, "k": k, "in_slot": in_slot,
+             "tflat": tflat, "path": path}
+        self.plan[path] = p
+        self._reads_root = True
+        if node.sort_field is None:
+            p["score"] = True
+            return
+        col = self._col(node.sort_field)
+        if col.multi:
+            raise TypeError("top_hits sort field must be single-valued")
+        self._need_col_planes(col)
+        p.update(narrow=col.narrow, min_mono=col.min_mono, ftype=col.ftype)
 
     @staticmethod
     def _metric_needs(node):
@@ -1182,17 +1347,16 @@ class Program:
         value rows of a multi-valued field, each read at its doc): the
         pcube or the chain_counts kernel over the permuted chain planes
         where the chain is dense; else the scope's doc mask gathered
-        through the static row->doc plane (`mask_gather`)."""
+        through the static row->doc plane (`mask_gather`). Non-integer
+        percents keep the count prefix for phase 2 and take no pcube (as
+        in JAX)."""
         col = self._col(node.field)
-        if not all(float(q).is_integer() for q in node.percents):
-            raise NotImplementedError(
-                "non-integer percents (phase-2 rank resolution) are not "
-                "ported yet")
         layout = col.value_layout()
         prefix = f"VL:{node.field}#"
         p = {"kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
              "min_mono": col.min_mono, "percents": node.percents,
-             "hdims": hdims, "pmode": "rank", "int_percents": True,
+             "hdims": hdims, "pmode": "rank", "path": path,
+             "int_percents": _int_percents(node),
              "layout": layout, "prefix": prefix}
         self.plan[path] = p
         row_doc = (col.global_doc_of_rows(self.dindex.T) if col.multi
@@ -1210,7 +1374,8 @@ class Program:
                                                 row_doc=row_doc)
         # the value-domain cube: per-block counts from one int8 product
         # against a static block histogram, in place of chain_counts
-        p["pcube"] = self._plan_cube_pct(p, chain, layout)
+        p["pcube"] = (self._plan_cube_pct(p, chain, layout)
+                      if p["int_percents"] else None)
         p["pallas_counts"] = p["pcube"] is None
         if p["pallas_counts"]:
             self._need_chain_fit(p["chainp"])
@@ -1237,12 +1402,12 @@ class Program:
         of a doc's value positions a slot factor of its own, so a doc
         holding the bucket's value twice counts twice), count with torch
         ops over the chain mask instead (the JAX package's non-kernel
-        path)."""
+        path). Non-integer percents take the torch path too, with one
+        composite slot plane under single-valued ancestors (JAX plans them
+        without the kernel and the scube), and keep its count prefix for
+        phase 2."""
         col = self._col(node.field)
-        if not all(float(q).is_integer() for q in node.percents):
-            raise NotImplementedError(
-                "non-integer percents under bucket aggs (phase-2 rank "
-                "resolution) are not ported yet")
+        int_p = _int_percents(node)
         mts = [e for e in (bchain or ()) if e[0] == "mterms"]
         if not bchain or not self._chain_is_dense(chain) or len(mts) > 1:
             raise NotImplementedError(
@@ -1253,7 +1418,8 @@ class Program:
             nslots *= meta["nb"] if kind == "hist" else meta
         layout = col.value_layout()
         ns_ok = nslots <= self.dense_nb
-        if not ns_ok and nslots <= K.PCT_SLOT_CAP and not col.multi:
+        if not ns_ok and int_p and nslots <= K.PCT_SLOT_CAP \
+                and not col.multi:
             # past the dense budget: the scube keeps [ns, R/G] state, the
             # kernel [ns, R/32] under a byte bound
             g = self._cube_gate(chain)
@@ -1272,11 +1438,11 @@ class Program:
                                           row_doc=row_doc)
         p = {"kind": "percentiles", "ftype": col.ftype, "narrow": col.narrow,
              "min_mono": col.min_mono, "percents": node.percents,
-             "hdims": hdims, "pmode": "slot_rank", "int_percents": True,
+             "hdims": hdims, "pmode": "slot_rank", "int_percents": int_p,
              "nslots": nslots, "layout": layout, "prefix": prefix,
-             "chainp": entry, "wslots": bool(mts)}
+             "chainp": entry, "wslots": bool(mts), "path": path}
         self.plan[path] = p
-        if mts or col.multi:
+        if mts or col.multi or not int_p:
             mcol = self._col(mts[0][1]) if mts else None
             K_ = len(mcol.multi_planes_host) if mts else 1
             p["slotks"] = [self._build_slotcomp(layout, prefix, bchain,
@@ -1689,6 +1855,22 @@ class Program:
         entry = self.dindex.schema.field(node.field)
         p["chain_ok"] = (not col.multi) or entry.cardinality.value == "single"
 
+    def _slot_rows(self, p, col, in_slot):
+        """Record the rows of a nested bucket node's per-query composite
+        slot plane (p["slot_rows"], budgeted by _batch_cap): the
+        cross-product expansion's, the multi-valued ancestor's or this
+        field's value rows, or the docs."""
+        if not in_slot:
+            return
+        rows = self.dindex.T
+        if "xpand" in p:
+            rows = self._arrays[p["xpand"]["doc"]].shape[0]
+        elif self._mparent not in (None, "__deep__"):
+            rows = self._col(self._mparent).host_plane("doc").shape[0]
+        elif col.multi:
+            rows = col.host_plane("doc").shape[0]
+        p["slot_rows"] = max(rows, self.dindex.T)
+
     def _plan_children(self, node, p, col, path, *, hdims, tflat, chain,
                        sub_bchain, parent_single, sbid):
         """Plan a row-mode bucket node's subs, tracking the multi-valued
@@ -1751,6 +1933,7 @@ class Program:
             return
         self._reads_root = True
         p["mode"] = "dense" if tflat * nb <= budget else "scatter"
+        self._slot_rows(p, col, in_slot)
         bid = col.bucket_id_plane(bid_key, lambda: bid_host)
         self._need(bid_key, bid)
         if col.multi:
@@ -1790,17 +1973,25 @@ class Program:
                 "composite bucket slot space exceeds 2^31 on device")
         p["card"] = card
         p["keff"] = min(node.size, card)
-        # default order: composite-key top-k on device; any other order
-        # ships every bucket and selects on the host with the oracle's
-        # comparator (exact for every order target)
+        facet = isinstance(node, A.FacetAgg)
+        if facet:
+            # facet: host selection over the full per-ordinal count vector;
+            # the child set is a static slice of the sorted term table
+            p["facet_children"] = self._facet_children(col, node.path)
+            p["keff"] = card
+        # default order: composite-key top-k on device; any other order, a
+        # facet, and a node above a non-integer percentile (whose phase 2
+        # reads full-slot-space fruits) ship every bucket and select on
+        # the host with the oracle's comparator (exact for every target)
         p["order"] = node.order
-        p["sel"] = "topk" if node.order == ("_count", "desc") else "host"
+        p["sel"] = ("topk" if node.order == ("_count", "desc") and not facet
+                    and not _has_nonint_pct_sub(node) else "host")
         # plane fan-out: a short multi-valued keyword at the root evaluates
         # per value position (doc-aligned planes) and merges the fruits
         # before any top-k (JAX `plane_fanout`)
         p["plane_fanout"] = (
             not in_slot and col.multi and col.ftype.is_stringy
-            and col.has_multi_planes and not col.has_tail
+            and not facet and col.has_multi_planes and not col.has_tail
             and tflat * card <= self.dense_nb
             and not _has_selection_sub(node))
         if p["plane_fanout"]:
@@ -1808,7 +1999,7 @@ class Program:
         self.plan[path] = p
         sub_hdims = hdims + ((card if p["sel"] == "host" else p["keff"]),)
         if tflat * card <= self.dense_nb and not in_slot and not col.multi \
-                and self._plan_cube_bucket(
+                and not facet and self._plan_cube_bucket(
                     node, p, path, sig=f"t:{node.field}:{card}", chain=chain,
                     nb=card,
                     bid_host=(self._host_planes(col)[0]
@@ -1827,6 +2018,7 @@ class Program:
             return
         self._reads_root = True
         p["mode"] = "dense" if tflat * card <= budget else "scatter"
+        self._slot_rows(p, col, in_slot)
         if col.ftype.is_stringy:
             ids_key, ids = f"{node.field}:w", col.plane("w")
         else:
@@ -1864,6 +2056,21 @@ class Program:
                             sub_bchain=sub_bchain,
                             parent_single=parent_single, sbid=sbid)
 
+    @staticmethod
+    def _facet_children(col, path: str) -> np.ndarray:
+        """Global ordinals of the immediate children of `path` (terms that
+        start with path+'/' and have no further '/'), from the static
+        sorted term table."""
+        terms = col.terms
+        pfx = (path.rstrip("/") + "/") if path else "/"
+        lo = int(np.searchsorted(terms, pfx, side="left"))
+        succ = qc._prefix_successor(pfx)
+        hi = (int(np.searchsorted(terms, succ, side="left"))
+              if succ is not None else len(terms))
+        return np.asarray(
+            [j for j in range(lo, hi)
+             if "/" not in str(terms[j])[len(pfx):]], dtype=np.int64)
+
     def _extract_filter_params(self, node, path, out):
         if isinstance(node, (dict, tuple)):
             items = node.items() if isinstance(node, dict) else node
@@ -1886,10 +2093,13 @@ class Program:
         arrays = self._arrays
         self._ind_cache = {}  # cube indicators of this run, per chain
         self._defer_topk = 0  # > 0 inside a plane fan-out
+        #: phase-1 state of this run's non-integer percentile nodes
+        self._big = big = {}
         ctx = MaskCtx(lambda: self._root_mask(pmat, arrays))
         out = self._eval_level(self.aggs.items(), ctx, pmat, arrays, ("a",))
         return {"packed": self._pack_outputs(out, self.aggs,
-                                             pmat.shape[0])}
+                                             pmat.shape[0]),
+                "big": big}
 
     def _root_mask(self, pmat, arrays):
         """The root scope's [B, T] mask: the root chain & alive."""
@@ -1961,6 +2171,10 @@ class Program:
             out.update(self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
                                         path))
             return out
+        if isinstance(node, A.TopHitsAgg):
+            if isinstance(ctx, MaskCtx):
+                return self._eval_top_hits(node, ctx, arrays, p)
+            return self._eval_top_hits_slots(node, ctx, arrays, p)
         raise TypeError(f"unknown agg {type(node)!r}")
 
     # -- metrics -------------------------------------------------------------
@@ -2134,18 +2348,75 @@ class Program:
                      == s.reshape(1, -1, 1, 1))
         return m
 
-    def _eval_percentiles(self, pmat, arrays, p, ctx=None):
-        """Rank rows of the integer percents: per-group match counts from a
-        chain kernel (rank: chain_counts per 128-row group -> [B, R/128];
-        slot_rank: chain_slot_counts per slot and 32-row block against the
-        static slot plane -> [B, ns, R/32]), their cumsum along the groups,
-        then the rank rows through searchsorted and a lazy window
-        recompute. A non-dense chain reads the scope's mask `ctx` through
-        the pdoc plane; the torch slot path counts over the chain mask."""
+    def _gathered_window(self, p, mask, arrays, blk):
+        """A mask-gather node's 32-row windows: the scope's [B, T] doc mask
+        read at the windows' layout rows through pdoc, real rows only."""
+        pre = p["prefix"]
+        rows = blk[..., None] * SLOT_GROUP + torch.arange(
+            SLOT_GROUP, device=blk.device)
+        flat = rows.reshape(rows.shape[0], -1)
+        m = torch.gather(mask, 1, arrays[pre + "pdoc"][flat]) \
+            & arrays[pre + "lvalid"][flat]
+        return m.reshape(rows.shape)
+
+    def _weighted_window(self, p, sub_pmat, arrays, blk):
+        """The torch slot path's 32-row windows: per (query, slot, block)
+        the weight of each row in the slot (the number of its composite
+        slot planes naming the slot, where the chain matches it)."""
+        entry, prefix = p["chainp"], p["prefix"]
+        rows = blk[..., None] * SLOT_GROUP + torch.arange(
+            SLOT_GROUP, device=blk.device)
+        vm = qc.eval_ops(entry["mp"].ops,
+                         [arrays[prefix + k][rows]
+                          for k in entry["mp"].plane_keys],
+                         sub_pmat, tuple(rows.shape[1:])) \
+            & (arrays[prefix + "avalid"][rows] > 0)
+        s = torch.arange(p["nslots"], device=blk.device).reshape(1, -1, 1, 1)
+        w = torch.zeros(rows.shape, dtype=torch.int32, device=blk.device)
+        for k in p["slotks"]:
+            w += vm & (arrays[prefix + k][rows] == s)
+        return w
+
+    def _select_rows(self, p, st, arrays, ranks):
+        """The layout row of each 0-based rank ([B, 2P]; slot_rank
+        [B, ns, 2P]) from a node's count prefix `st["cum"]` and the lazy
+        recompute of its windows: the one selection of the integer path
+        (in-run ranks) and of phase 2 (host ranks)."""
         if p.get("mask_gather"):
-            return self._eval_percentiles_gather(p, arrays, ctx)
-        if p.get("slotks"):
-            return self._eval_percentiles_torch_slots(pmat, arrays, p)
+            def window(blk):
+                return self._gathered_window(p, st["mask"], arrays, blk)
+        elif p.get("slotks"):
+            def window(blk):
+                return self._weighted_window(p, st["sub"], arrays, blk)
+        else:
+            def window(blk):
+                return self._window_mask(p, st["sub"], arrays, blk, st["G"])
+        return _rank_select_rows_lazy(st["cum"], ranks, window, st["G"])
+
+    def _eval_percentiles(self, pmat, arrays, p, ctx=None):
+        """Per-group match counts from a chain kernel (rank: chain_counts
+        per 128-row group -> [B, R/128]; slot_rank: chain_slot_counts per
+        slot and 32-row block against the static slot plane ->
+        [B, ns, R/32]), the pcube or scube, or torch ops; their cumsum
+        along the groups. Integer percents select their rank rows here
+        (searchsorted and a lazy window recompute); non-integer ones keep
+        the prefix (`self._big`) for phase 2 and ship only m. A non-dense
+        chain reads the scope's mask `ctx` through the pdoc plane."""
+        if p.get("mask_gather"):
+            st, m = self._percentile_counts_gather(p, arrays, ctx)
+        elif p.get("slotks"):
+            st, m = self._percentile_counts_torch_slots(pmat, arrays, p)
+        else:
+            st, m = self._percentile_counts(pmat, arrays, p)
+        if not p["int_percents"]:
+            self._big[p["path"]] = st
+            return {"m": m}
+        return {"m": m, "rows": self._select_rows(
+            p, st, arrays, self._int_ranks(p, m))}
+
+    def _percentile_counts(self, pmat, arrays, p):
+        """(state, m) of a dense chain: the cube's, chain_counts' or
+        chain_slot_counts' block counts and their cumsum."""
         entry, prefix = p["chainp"], p["prefix"]
         sub = self._chain_pmat(entry, pmat)
         planes = [arrays[prefix + k] for k in entry["mp"].plane_keys]
@@ -2174,40 +2445,27 @@ class Program:
             G = GROUP
             counts = K.chain_counts(sub, entry["ops"], planes, avalid)
             cum = torch.cumsum(counts, dim=-1, dtype=torch.int64)
-        m = cum[..., -1].to(torch.int64)
-        rows = _rank_select_rows_lazy(
-            cum, self._int_ranks(p, m),
-            lambda blk: self._window_mask(p, sub, arrays, blk, G), G)
-        return {"m": m, "rows": rows}
+        return {"cum": cum, "sub": sub, "G": G}, cum[..., -1].to(torch.int64)
 
-    def _eval_percentiles_gather(self, p, arrays, ctx):
-        """Rank percentiles of a non-dense chain: the gathered mask's
-        per-32-row counts, their cumsum, the rank rows from its windows."""
+    def _percentile_counts_gather(self, p, arrays, ctx):
+        """(state, m) of a non-dense chain: the gathered mask's per-32-row
+        counts and their cumsum; the windows re-read the scope's doc
+        mask (the gathered [B, R] mask does not outlive the counts)."""
         pre = p["prefix"]
         vm = _cols(ctx.mask, arrays[pre + "pdoc"], arrays[pre + "lvalid"])
         one, rep = R.shared_row(vm)  # a shared mask row is counted once
         cum = torch.cumsum(R.block32_counts(one), dim=-1, dtype=torch.int64)
         if rep > 1:
             cum = cum.expand(rep, -1)
-        m = cum[..., -1]
+        return {"cum": cum, "mask": ctx.mask, "G": SLOT_GROUP}, cum[..., -1]
 
-        def window(blk):
-            rows = blk[..., None] * SLOT_GROUP + torch.arange(
-                SLOT_GROUP, device=blk.device)
-            return torch.gather(vm, 1, rows.reshape(rows.shape[0], -1)) \
-                .reshape(rows.shape)
-
-        rows = _rank_select_rows_lazy(cum, self._int_ranks(p, m), window,
-                                      SLOT_GROUP)
-        return {"m": m, "rows": rows}
-
-    def _eval_percentiles_torch_slots(self, pmat, arrays, p):
-        """slot_rank counted with torch ops over the chain mask (a
-        multi-valued percentile field, or wslots): per query, slot and
-        32-row block, the (row, slot plane) pairs of matched rows naming
-        the slot — a row's weight in slot s is the number of its slot
-        planes holding s — in query chunks (R.slot_block_counts); the
-        rank rows come from weighted 32-row windows."""
+    def _percentile_counts_torch_slots(self, pmat, arrays, p):
+        """(state, m) of slot_rank counted with torch ops over the chain
+        mask (a multi-valued percentile field, wslots, non-integer
+        percents): per query, slot and 32-row block, the (row, slot plane)
+        pairs of matched rows naming the slot — a row's weight in slot s
+        is the number of its slot planes holding s — in query chunks
+        (R.slot_block_counts)."""
         entry, prefix = p["chainp"], p["prefix"]
         sub = self._chain_pmat(entry, pmat)
         planes = [arrays[prefix + k] for k in entry["mp"].plane_keys]
@@ -2222,23 +2480,122 @@ class Program:
             # int32 is exact: a block weighs at most 32 * K, totals K * R
             torch.cumsum(R.slot_block_counts(vm, slots, ns), dim=-1,
                          dtype=torch.int32, out=cum[sl])
-        m = cum[..., -1].to(torch.int64)
+        return ({"cum": cum, "sub": sub, "G": SLOT_GROUP},
+                cum[..., -1].to(torch.int64))
 
-        def window(blk):
-            rows = blk[..., None] * SLOT_GROUP + torch.arange(
-                SLOT_GROUP, device=blk.device)
-            vm = qc.eval_ops(entry["mp"].ops, [pl[rows] for pl in planes],
-                             sub, tuple(rows.shape[1:])) & avalid[rows]
-            s = torch.arange(ns, device=blk.device).reshape(1, -1, 1, 1)
-            w = torch.zeros(rows.shape, dtype=torch.int32,
-                            device=blk.device)
-            for slot in slots:
-                w += vm & (slot[rows] == s)
-            return w
+    # -- top_hits ------------------------------------------------------------
 
-        rows = _rank_select_rows_lazy(cum, self._int_ranks(p, m), window,
-                                      SLOT_GROUP)
-        return {"m": m, "rows": rows}
+    def _hit_order(self, node, p, arrays, doc):
+        """(order, key) of a top_hits node's row space (the docs, or the
+        rows whose docs `doc` holds): key [n] int64 is the sort field's rm
+        at the row's doc (~rm descending; 0 in score order), order [n]
+        int64 the rows sorted by (key, doc, row) — two stable sorts, once
+        per row space (cached per node; the sort planes and `doc` are
+        resident). A query's hits in a slot are the first k of its
+        matched rows in this order."""
+        hit = self._hit_cache.get(p["path"])
+        if hit is not None and hit[0] is doc:
+            return hit[1], hit[2]
+        n = self.dindex.T if doc is None else doc.shape[0]
+        dev = self.device
+        if p.get("score"):
+            key = torch.zeros(n, dtype=torch.int64, device=dev)
+        else:
+            f = node.sort_field
+            if p["narrow"] or p["ftype"].is_stringy:
+                rm = arrays[f"{f}:w"].to(torch.int64)
+            else:
+                rm = R.wide_recon(arrays[f"{f}:hi"], arrays[f"{f}:lo"])
+            rm = rm if doc is None else rm[doc]
+            key = rm if node.ascending else ~rm
+        order = torch.arange(n, dtype=torch.int64, device=dev)
+        if doc is not None:
+            order = torch.sort(doc, stable=True).indices
+        order = order[torch.sort(key[order], stable=True).indices]
+        self._hit_cache[p["path"]] = (doc, order, key)
+        return order, key
+
+    def _eval_top_hits(self, node, ctx, arrays, p):
+        """Flat top_hits over the scope's [B, T] mask: a query's hits are
+        the first k matched docs of the static (key, doc) order — the
+        mask read in that order, its cumsum, and the rows where the cumsum
+        first reaches 1..k (searchsorted). Matched-ness is the mask
+        itself, never a key sentinel: ~rm of a wide column's minimum is
+        I64_MAX. A shared mask row is selected once."""
+        order, key = self._hit_order(node, p, arrays, None)
+        mask, rep = R.shared_row(ctx.mask)
+        B, T, k = mask.shape[0], self.dindex.T, p["k"]
+        dev = mask.device
+        keys = torch.zeros(B, k, dtype=torch.int64, device=dev)
+        docs = torch.zeros(B, k, dtype=torch.int64, device=dev)
+        m = torch.empty(B, dtype=torch.int64, device=dev)
+        t = torch.arange(1, k + 1, dtype=torch.int64, device=dev)
+        for sl in R._query_chunks(B, T * 2):
+            c = R.row_cumsum(mask[sl][:, order])
+            b = c.shape[0]
+            pos = torch.searchsorted(c, t.expand(b, k).contiguous())
+            rows = order[pos.clamp(max=T - 1)]
+            ok = t[None, :] <= c[:, -1:]
+            keys[sl] = torch.where(ok, key[rows], 0)
+            docs[sl] = torch.where(ok, rows, 0)
+            m[sl] = c[:, -1]
+        out = {"keys": keys, "docs": docs, "m": m}
+        if rep > 1:
+            out = {n: v.expand((rep,) + v.shape[1:]) for n, v in out.items()}
+        return out
+
+    def _eval_top_hits_slots(self, node, ctx, arrays, p):
+        """In-slot top_hits: per query, the composite slot of every row
+        read in the static (key, doc) order, one sort by slot (a packed
+        (slot, position) int64 key, so rows keep that order within a
+        slot), then each slot's first k rows found by searchsorted over
+        the cumsum of its live rows — no scatter. Over value rows
+        (ctx.doc) a doc counts once per slot: its rows are adjacent in the
+        sorted order, and all but the first are dropped (JAX's collapse
+        to one hit per (slot, doc)). Queries run a few at a time (the
+        sort's [b, rows] state)."""
+        doc = ctx.doc
+        order, key = self._hit_order(node, p, arrays, doc)
+        ns, k = ctx.nslots, p["k"]
+        B, n = ctx.valid.shape
+        dev = ctx.valid.device
+        # the doc of each row in the sorted order
+        rdoc = (order if doc is None else doc[order]).to(torch.int64)
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+        slots = torch.arange(ns + 1, dtype=torch.int64, device=dev)
+        j = torch.arange(k, dtype=torch.int64, device=dev)
+        keys = torch.empty(B, ns, k, dtype=torch.int64, device=dev)
+        docs = torch.empty(B, ns, k, dtype=torch.int64, device=dev)
+        m = torch.empty(B, ns, dtype=torch.int64, device=dev)
+        for sl in R._query_chunks(B, n * 16):
+            bid = ctx.bid if ctx.bid.dim() == 1 else ctx.bid[sl]
+            valid = ctx.valid[sl]
+            slot = torch.where(valid & (bid >= 0), bid.to(torch.int64), ns)
+            srt = torch.sort((slot[:, order] << 32) | pos, dim=1).values
+            ss, sp = srt >> 32, srt & 0xFFFFFFFF
+            live = ss < ns
+            if doc is not None:
+                d = rdoc[sp]
+                live[:, 1:] &= ~((ss[:, 1:] == ss[:, :-1])
+                                 & (d[:, 1:] == d[:, :-1]))
+            b = ss.shape[0]
+            # live rows before each slot's first row, and in the slot
+            cx = torch.cat([torch.zeros(b, 1, dtype=torch.int64, device=dev),
+                            R.row_cumsum(live)], dim=1)
+            at = torch.gather(cx, 1, torch.searchsorted(
+                ss, slots.expand(b, ns + 1).contiguous()))
+            ms = at[:, 1:] - at[:, :-1]
+            # the (j+1)-th live row of slot s: where cx first reaches it
+            tgt = at[:, :-1, None] + j + 1
+            hit = torch.searchsorted(cx, tgt.reshape(b, -1)).clamp(
+                min=1, max=n) - 1
+            r = order[torch.gather(sp, 1, hit)]
+            ok = (j < ms[:, :, None]).reshape(b, -1)
+            keys[sl] = torch.where(ok, key[r], 0).reshape(b, ns, k)
+            docs[sl] = torch.where(ok, torch.gather(rdoc[sp], 1, hit), 0) \
+                .reshape(b, ns, k)
+            m[sl] = ms
+        return {"keys": keys, "docs": docs, "m": m}
 
     # -- bucket aggs ---------------------------------------------------------
 
@@ -2944,6 +3301,25 @@ def _has_selection_sub(node) -> bool:
     for _, s in getattr(node, "sub_aggs", ()):
         if isinstance(s, (A.TopHitsAgg, A.PercentilesAgg)) \
                 or _has_selection_sub(s):
+            return True
+    return False
+
+
+def _int_percents(node) -> bool:
+    """True when every percent of a PercentilesAgg is an integer (its
+    ranks resolve in the run; any other resolves them in phase 2)."""
+    return all(float(q).is_integer() for q in node.percents)
+
+
+def _has_nonint_pct_sub(node) -> bool:
+    """True when any descendant agg is a PercentilesAgg with non-integer
+    percents (the shape whose phase-2 machinery needs full-slot-space
+    fruits — see _plan_terms_order / _plan_percentiles)."""
+    for _, sub in getattr(node, "sub_aggs", ()):
+        if isinstance(sub, A.PercentilesAgg) \
+                and not all(float(q).is_integer() for q in sub.percents):
+            return True
+        if _has_nonint_pct_sub(sub):
             return True
     return False
 

@@ -55,6 +55,18 @@ def shared_row(mask):
     return mask, 1
 
 
+def row_cumsum(x) -> torch.Tensor:
+    """Inclusive int64 cumsum of each row of a [b, n] tensor, as ONE scan
+    of the flattened tensor less each row's offset: a 1-D scan runs on
+    the whole device, where a scan along the rows of a few long rows runs
+    on few blocks (measured: torch's innermost-dim scan kernel)."""
+    b, n = x.shape
+    flat = torch.cumsum(x.reshape(-1), dim=0, dtype=torch.int64).reshape(b, n)
+    if b > 1:
+        flat[1:] -= flat[:-1, -1:].clone()
+    return flat
+
+
 def ts_count(mask) -> torch.Tensor:
     """[B, rows] bool -> [B] int64 exact counts. A batch-stride-0 mask is
     reduced once, as one row; any other in `_query_chunks` slices (the

@@ -14,6 +14,11 @@ warning on the package logger, and so does a request whose set-query runs
 exceed its program's run slots; the program stays cached for the requests
 of its shape that fit. Nothing else falls back: a kernel that fails
 raises.
+
+`agg_search_batch` and the `agg_search_stream` generator dispatch a
+group, stage its packed fruits' copy to the host (Program.stage: a
+pinned buffer and an event on the card) and collect it later; the stream
+keeps `lookahead` groups in flight.
 """
 
 from __future__ import annotations
@@ -138,9 +143,10 @@ class Searcher:
         else:
             raw = prog.submit(query, aggs)
             st.dispatch_ms = t.lap()
-            raw["packed"] = raw["packed"].cpu()  # block: execute + copy
+            staged = prog.stage(raw, aggs)
+            staged.numpy()  # block: execute + copy
             st.wait_ms = t.lap()
-            out = prog.finalize(raw, aggs)
+            out = prog.finalize(raw, aggs, staged=staged)
             st.harvest_ms = t.lap()
             st.device_ms = st.dispatch_ms + st.wait_ms + st.harvest_ms
         st.total_ms = st.prepare_ms + st.device_ms
@@ -154,7 +160,8 @@ class Searcher:
         shape) run as ONE [B, P] param-matrix program: plane passes are
         shared across the group (the chain kernels read each plane once per
         group), and the fruits of a group come back in one device->host
-        copy. Groups are dispatched back-to-back before any is collected."""
+        copy, staged as the group is dispatched. Groups are dispatched back
+        to back before any is collected."""
         submitted = self._submit_batch(requests)
         results = []
         for group in submitted:
@@ -168,9 +175,7 @@ class Searcher:
         groups = []  # (prog, [queries], aggs)
         for query, aggs in requests:
             prog = self._program_for(query, aggs)
-            cap = min(self.config.max_batch,
-                      getattr(prog, "batch_cap", None)
-                      or self.config.max_batch)
+            cap = self._group_cap(prog)
             if (groups and groups[-1][0] is prog and groups[-1][2] is aggs
                     and len(groups[-1][1]) < cap):
                 groups[-1][1].append(query)
@@ -179,11 +184,20 @@ class Searcher:
         return [self._submit_group(prog, queries, aggs)
                 for prog, queries, aggs in groups]
 
+    def _group_cap(self, prog) -> int:
+        """msearch group size for one program: the serving batch, shrunk by
+        the program's own HBM-residency cap (per-query [rows] state in the
+        rare slot_rank / in-slot-top_hits / sort paths must fit alongside
+        the resident columns — see Program.batch_cap)."""
+        cap = self.config.max_batch
+        pc = getattr(prog, "batch_cap", None)
+        return cap if pc is None else max(1, min(cap, pc))
+
     def _collect_group(self, group):
-        prog, queries, aggs, raw, idxmap, nuniq = group
+        prog, queries, aggs, raw, staged, idxmap, nuniq = group
         if isinstance(prog, _HostFallback):
             return [prog.run(q, aggs) for q in queries]
-        uniq_outs = prog.finalize_many(raw, aggs, nuniq)
+        uniq_outs = prog.finalize_many(raw, aggs, nuniq, staged=staged)
         if len(queries) == nuniq:
             return uniq_outs
         # duplicated requests: each caller gets its own result object
@@ -195,9 +209,54 @@ class Searcher:
             seen[i] = True
         return out
 
+    def agg_search_stream(self, requests, lookahead: int = 2):
+        """Sustained-serving generator over an iterable of (query, aggs):
+        keeps `lookahead` msearch groups in flight so each group's
+        device->host transfer lands while later groups compute — the final
+        round trip amortizes over the whole stream instead of every
+        agg_search_batch call. Yields result dicts in request order."""
+        from collections import deque
+        it = iter(requests)
+        pending = deque()  # (prog, queries, aggs, raw, staged)
+        holdover = []  # request that ended the previous group (shape change)
+
+        def next_group():
+            group_q, group_aggs, prog = [], None, None
+            cap = self.config.max_batch
+            while True:
+                if holdover:
+                    query, aggs = holdover.pop()
+                else:
+                    try:
+                        query, aggs = next(it)
+                    except StopIteration:
+                        break
+                p = self._program_for(query, aggs)
+                if prog is None:
+                    prog, group_aggs = p, aggs
+                    cap = self._group_cap(p)
+                elif p is not prog or aggs is not group_aggs:
+                    holdover.append((query, aggs))  # starts the next group
+                    break
+                group_q.append(query)
+                if len(group_q) >= cap:
+                    break
+            if not group_q:
+                return False
+            pending.append(self._submit_group(prog, group_q, group_aggs))
+            return True
+
+        for _ in range(lookahead):
+            if not next_group():
+                break
+        while pending:
+            group = pending.popleft()
+            next_group()
+            yield from self._collect_group(group)
+
     def _submit_group(self, prog, queries, aggs):
         if isinstance(prog, _HostFallback):  # answered at collect
-            return (prog, queries, aggs, None, None, 0)
+            return (prog, queries, aggs, None, None, None, 0)
         # dedup identical requests (config.msearch_dedup): a program is a
         # pure function of its extracted params — compute each distinct
         # param set ONCE and fan the fruits out
@@ -214,4 +273,5 @@ class Searcher:
             uniq = list(queries)
             idxmap = list(range(len(queries)))
         raw = prog.submit_many(uniq, aggs)
-        return (prog, queries, aggs, raw, idxmap, len(uniq))
+        return (prog, queries, aggs, raw, prog.stage(raw, aggs),
+                idxmap, len(uniq))

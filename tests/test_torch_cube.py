@@ -341,8 +341,9 @@ def test_cube_bucket_msearch(four):
 @pytest.mark.parametrize("i", [0, 3, 4, 6, 7])
 def test_cube_percentiles(four, i):
     """Flat integer-percent rank percentiles over a cube-able chain take
-    the block-histogram product (pcube); over a multi-valued field or with
-    non-integer percents the tree answers on the exact host path."""
+    the block-histogram product (pcube). Over a multi-valued field they
+    rank its value rows, and non-integer percents take no pcube (their
+    ranks resolve in phase 2), as in the JAX package; both == the oracle."""
     def aggs(m):
         return {"p": m.percentiles_agg("price"),
                 "pq": m.percentiles_agg("qty", (25.0, 50.0, 75.0))}
@@ -351,12 +352,14 @@ def test_cube_percentiles(four, i):
     prog = four["port"]._program_for(pq, aggs(tt))
     assert prog.plan[("a", "p")]["pcube"] and prog.plan[("a", "pq")]["pcube"]
 
-    def host(m):
+    def others(m):
         return {"pm": m.percentiles_agg("counts"),
                 "pn": m.percentiles_agg("qty", (33.3,))}
-    want = four["oracle"].agg_search(pq, host(tt))
-    assert four["port"].agg_search(pq, host(tt)) == want
-    assert four["jax"].agg_search(jq, host(tat)) == want
+    want = four["oracle"].agg_search(pq, others(tt))
+    assert four["port"].agg_search(pq, others(tt)) == want
+    assert four["jax"].agg_search(jq, others(tat)) == want
+    prog = four["port"]._program_for(pq, others(tt))
+    assert prog.plan[("a", "pn")]["pcube"] is None
 
 
 def _slot_aggs(m):

@@ -54,6 +54,8 @@ def to_port(x):
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         mod = importlib.import_module(type(x).__module__.replace(
             "tantivy_aggregations_tpu", "tantivy_aggregations_tpu_torch", 1))
+        if type(x).__name__ == "FacetAgg":  # its own constructor
+            return mod.FacetAgg(x.field, x.path, x.size)
         # sub-aggs are frozen (name, agg) pairs, built from a mapping
         return getattr(mod, type(x).__name__)(
             **{f.name: to_port(dict(getattr(x, f.name))

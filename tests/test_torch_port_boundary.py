@@ -48,7 +48,14 @@ COPIED_HARVEST = ["_flat", "_harvest", "_mono_from_mm", "_user_scalar",
                   "_reconstruct_sum", "_sum_at", "_harvest_metric",
                   "_harvest_percentiles", "_harvest_histogram",
                   "_term_key_user", "_harvest_terms_hostsel",
-                  "_harvest_facet", "_harvest_terms", "_harvest_top_hits"]
+                  "_harvest_facet", "_harvest_terms", "_harvest_top_hits",
+                  # phase 2's host rank resolution and the facet child set
+                  "_node_at", "_slot_ranks", "attach_percentiles",
+                  "_facet_children"]
+#: copied module-level helpers of aggs/compile.py
+COPIED_COMPILE_FNS = ["_limb_totals_vec", "_has_nonint_pct_sub"]
+#: copied Searcher methods: the msearch group cap and the stream driver
+COPIED_SEARCHER = ["_group_cap", "agg_search_stream"]
 
 
 def _code_lines(path: Path):
@@ -69,8 +76,14 @@ def test_copied_functions_match_jax_originals():
     for name in COPIED_HARVEST:
         assert inspect.getsource(getattr(pcompile.Program, name)) == \
             inspect.getsource(getattr(jcompile.Program, name)), name
-    assert inspect.getsource(pcompile._limb_totals_vec) == \
-        inspect.getsource(jcompile._limb_totals_vec)
+    for name in COPIED_COMPILE_FNS:
+        assert inspect.getsource(getattr(pcompile, name)) == \
+            inspect.getsource(getattr(jcompile, name)), name
+    from tantivy_aggregations_tpu import searcher as jsearcher
+    from tantivy_aggregations_tpu_torch import searcher as psearcher
+    for name in COPIED_SEARCHER:
+        assert inspect.getsource(getattr(psearcher.Searcher, name)) == \
+            inspect.getsource(getattr(jsearcher.Searcher, name)), name
 
 
 def test_copied_host_path_matches_jax_originals():

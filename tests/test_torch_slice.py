@@ -163,34 +163,36 @@ def _deep_multi_nest(m):
 
 
 def _unlowered(m):
-    """(aggs, query) with module `m`'s IR: six shapes the port's planner
-    leaves to the host path (top_hits, non-integer percents at the root,
-    under a single-valued and under a multi-valued terms agg (wslots'
-    phase 2), top_hits under a multi-valued terms agg, and a two-deep
-    multi-valued nest, which the JAX package refuses too) and a TermSet
-    query, which it lowers."""
+    """(aggs, query) with module `m`'s IR: shapes that once answered on
+    the port's host path — top_hits, non-integer percents at the root and
+    under a histogram, a TermSet query — which it now lowers as the JAX
+    package does, and three it leaves to the host path as the JAX package
+    does: a two-deep multi-valued nest, non-integer percents under a
+    multi-valued terms agg whose 10 tag slots exceed dense_nb = 8 (phase
+    2 admits no slot space past the dense budget), and top_hits under a
+    bucket space past prod(hdims) * k = 4096 (50 cat terms x 100 hits)."""
     return [
         ({"t": m.top_hits_agg(size=3)}, m.MatchAllQuery()),
         ({"p": m.percentiles_agg("price", (2.5, 50.0))}, m.MatchAllQuery()),
-        ({"t": m.terms_agg("cat", sub_aggs={
-            "p": m.percentiles_agg("qty", (2.5, 50.0))})}, m.MatchAllQuery()),
+        ({"h": m.histogram_agg("qty", interval=250, sub_aggs={
+            "p": m.percentiles_agg("price", (2.5, 50.0))})},
+         m.MatchAllQuery()),
         (_deep_multi_nest(m), m.MatchAllQuery()),
         ({"n": m.count_agg()}, m.TermSetQuery("cat", ["cat0001"])),
         ({"t": m.terms_agg("tags", sub_aggs={
             "p": m.percentiles_agg("qty", (2.5, 50.0))})},
          m.RangeQuery("qty", lower=100)),
-        ({"t": m.terms_agg("tags", size=3, sub_aggs={
-            "h": m.top_hits_agg(size=2)})}, m.MatchAllQuery()),
+        ({"t": m.terms_agg("cat", size=50, sub_aggs={
+            "h": m.top_hits_agg(size=100)})}, m.MatchAllQuery()),
     ]
 
 
 @pytest.mark.parametrize("i", range(7))
 def test_unlowered_shapes_answer_exactly(rnd, i):
-    """agg_search never raises NotImplementedError: a shape the planner
-    refuses answers on the exact host path, == the port's oracle == the
-    JAX package; the TermSet query plans a device Program. Where the JAX
-    package refuses the shape too (the two-deep multi-valued nest), both
-    answer on the host path."""
+    """agg_search never raises NotImplementedError, == the port's oracle
+    == the JAX package; the port answers a shape on the exact host path
+    iff the JAX package does (cases 3, 5 and 6), and plans a device
+    Program for every other."""
     from tantivy_aggregations_tpu_torch.searcher import _HostFallback
     jaggs, jq = _unlowered(tat)[i]
     aggs, q = _unlowered(tt)[i]
@@ -199,11 +201,9 @@ def test_unlowered_shapes_answer_exactly(rnd, i):
     assert rnd["jax"].agg_search(jq, jaggs) == want
     assert rnd["port"].agg_search(q, aggs) == want
     prog = rnd["port"]._program_for(q, aggs)
-    assert isinstance(prog, _HostFallback) == \
-        (not isinstance(q, tt.TermSetQuery)), prog
     jprog = rnd["jax"]._program_for(jq, jaggs)
-    if i == 3:
-        assert not hasattr(jprog, "plan"), jprog
+    assert isinstance(prog, _HostFallback) == (not hasattr(jprog, "plan")) \
+        == (i in (3, 5, 6)), (prog, jprog)
 
 
 # ---------------------------------------------------------------------------
