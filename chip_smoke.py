@@ -74,7 +74,7 @@ value-domain cube and the dense products on).
    times but c6 once), each with the launch and product counters set to 0: for each
    config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
-   docs), agg_search_batch over 256 varied requests (c6: 128) == the
+   docs), agg_search_batch over 256 varied requests (c6: C6_STREAM) == the
    per-query results
    (with msearch dedup on and off), distinct varied params == the oracle;
    p50 single-query latency, and msearch ms/query with dedup on and off
@@ -102,13 +102,45 @@ value-domain cube and the dense products on).
    both == the oracle, and the Program stays cached; the host answer also
    == its three fitting thirds' device answers, merged;
 6. each slice's kernels (and the default, multi and tags paths' products)
-   were launched by its own main path in step 5.
+   were launched by its own main path in step 5;
+7. "sharded": the bench index over a SHARDS-shard mesh (four
+   cards where there are four, else four shards on cuda:0, saying which),
+   c1-c10 and mv1, p1, h2 planned (timed) as ShardedPrograms with the
+   JAX package's sharded modes (SHARDED_MODES: prefix terms, rank +
+   bisect, slot_rank + slot_bisect, in-slot top_hits; no member operand,
+   pcube or scube; SHARDED_CUBE_MODES), every shard body on a card;
+8. c1-c10 on the mesh through phase_main_path (agg_search == the oracle
+   and == the unsharded searcher's, the 256-request batch == the
+   unsharded per-query answers with dedup on and off, and the 20 timed
+   agg_search calls == them; p50 and msearch ms/q printed beside the
+   default path's), with fused_metrics, chain_blocks, chain_counts and
+   chain_slot_counts launched by the shard bodies; mv1, p1 (non-integer
+   percents, phase 2's cross-shard bisection) and h2 (the in-slot top_hits
+   merge) once each == the oracle;
+   8k. each of those kernels == its plain version on every launch of
+   SHARD_KERNELS' config on the mesh at B = 1 and 128 (the shards' own
+   operands, captured), shard 0's time and bound kept as variants;
+9. "replicas": ReplicatedSearcher over REPLICAS groups (cards, or one-
+   shard groups on cuda:0): a mixed stream of c1-c10 through
+   agg_search_batch and agg_search_stream == the single searcher's
+   answers in request order, every replica submitting msearch groups in
+   both, ms/q beside the single searcher's;
+10. the prep cache: with <index>/.prep_cache_torch emptied, c1-c10
+   planned cold on a fresh searcher, then warm on another (a new
+   DeviceIndex): seconds, hits and misses (the warm plan misses nothing),
+   fruits == the oracle; the mesh's warm plan after its cold one (phase
+   7's);
+11. the device guard: with two or more cards a 2-shard mesh over cuda:0
+   and cuda:1 answers c1, c4, c5, c9 == the oracle and chain_counts on
+   cuda:1 operands == its plain version while cuda:0 is current; with one
+   card it prints why it is skipped.
 
 Each phase prints its seconds.
 
 It prints a JSON line of per-product records (the same keys; launches
 from the default path), a JSON line of per-kernel records (launches in
-all and per path; max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by,
+all and per path, the sharded and replicas paths among them;
+max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by,
 library_ms, device_ms; B = 128: the same keys suffixed _b128;
 fused_metrics' other operands under "variants"), then, as its last line,
 {"ok": true, "device": {...}}.
@@ -172,6 +204,11 @@ AB_CONFIGS = ((1, ("fused_metrics",)), (5, ("fused_metrics",)),
 PROFILED = (1, 4, 5, 10)
 #: the extra configs this script drives beside c1-c5 (all of them)
 EXTRA = (6, 7, 8, 9, 10)
+#: requests of c6's varied stream (one msearch group; its host-bound
+#: dedup-off pass took 0.23-0.34 s a request at 10M docs beside an NVIDIA
+#: H100 80GB HBM3 at 700 W, on three paths, so it is cut from 128 to 64 to
+#: make room for the sharded path)
+C6_STREAM = 64
 #: the main path of each slice of the port: its configs, the kernels and
 #: the matrix products that path must launch (each path runs with the
 #: counters set to 0), and its EngineConfig switches. The slices c1-c5,
@@ -2036,20 +2073,32 @@ def _reset_counters(K, C, R) -> None:
     R.reset_mm_calls()
 
 
+def _set_counters(K, C, R, counts) -> None:
+    """Put the launch and product counters back to `counts` (_counters)."""
+    for d in (K.launches, C.calls, R.mm_calls):
+        for k in d:
+            d[k] = counts[k]
+
+
 def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
                     card, path, answers, reps=1, configs=None, varied=None,
-                    profiled=None, n_checked=3):
+                    profiled=None, n_checked=3, also=None, timings=None):
     """Drive one slice's main path with the launch counters (the kernels'
     and the products') set to 0; returns the counts it left. `answers`
     keeps the oracle's (and c6's reference's) answers by request, so a
     later path compares with the same answers without asking again;
     `reps`: msearch timing runs per dedup setting (the median is
-    printed), but one for c6, whose host-bound dedup-off stream (one
-    group of 128, where the others run 256 requests) takes 25-40 s at
-    10M docs. `configs` ((key, name, query, aggs), ...)
-    and `varied` (key, aggs, n -> requests) replace the flagship configs
-    and streams, `profiled` the keys whose dedup-off group is profiled;
-    `n_checked`: distinct varied requests held to the oracle per config."""
+    printed), but one for c6, whose host-bound dedup-off stream is one
+    group of C6_STREAM where the others run 256 requests, and whose
+    dedup-off time is its checked run's. `configs`
+    ((key, name, query, aggs), ...) and `varied` (key, aggs, n ->
+    requests) replace the flagship configs and streams, `profiled` the
+    keys whose dedup-off group is profiled;
+    `n_checked`: distinct varied requests held to the oracle per config;
+    `also`: a second searcher whose agg_search must give the same fruits
+    (the sharded path's unsharded one), and which gives the per-query
+    answers that the batch is held to; `timings` ({(label, name): (p50,
+    msearch dedup on, dedup off)}) collects the times printed."""
     label, cfg_nos, kernels, products, _ = path
     say(f"[5] main path {label}: agg_search / agg_search_batch vs the "
         "oracle (c6: its numpy reference)")
@@ -2076,10 +2125,17 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         t_oracle = time.time() - t0
         got = searcher.agg_search(q, aggs)
         check(got == want, f"{name}: agg_search != oracle")
-        # c6's stream is one group: its host-bound dedup-off pass takes
-        # 25-40 s a group at 10M docs, and it runs on two paths
+        if also is not None:
+            # the other searcher's launches are not this path's
+            before = _counters(K, C, R)
+            check(also.agg_search(q, aggs) == got,
+                  f"{name}: agg_search != the other searcher's")
+            _set_counters(K, C, R, before)
+        # c6's stream is one group of C6_STREAM (its host-bound dedup-off
+        # pass, on three paths)
         reqs = (varied or flagship.varied_requests)(n, aggs,
-                                                    128 if n == 6 else 256)
+                                                    C6_STREAM if n == 6
+                                                    else 256)
         prog = searcher._program_for(q, aggs)
         group = reqs[:searcher.config.max_batch]
         # a request is its params and its agg tree (f2 and f3 rotate the
@@ -2092,13 +2148,24 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
         # function of its params, so repeats would recompute the same)
         keys = [(id(ra), prog.param_key(rq, ra)) for rq, ra in reqs]
         one = {}
+        # with `also`, its per-query answers (a sharded c5 or c9 request
+        # takes a third of a second on the host; the timed requests below
+        # hold this searcher's own to them)
+        single = searcher.agg_search if also is None else also.agg_search
+        before = _counters(K, C, R)
         for k, (rq, ra) in zip(keys, reqs):
             if k not in one:
-                one[k] = searcher.agg_search(rq, ra)
+                one[k] = single(rq, ra)
+        if also is not None:  # the other searcher's launches
+            _set_counters(K, C, R, before)
         singles = [one[k] for k in keys]
         check(batch == singles, f"{name}: agg_search_batch != per-query")
         searcher.config = dedup_off
-        check(searcher.agg_search_batch(reqs) == singles,
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = searcher.agg_search_batch(reqs)
+        off_ms = (time.perf_counter() - t0) * 1e3 / len(reqs)
+        check(off == singles,
               f"{name}: agg_search_batch (dedup off) != per-query")
         searcher.config = dedup_on
         seen = _checked(reqs, n_checked)
@@ -2109,17 +2176,27 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
                   f"{name}: varied request {rq!r} != oracle")
         # timings (every agg_search ends in the device->host fruit copy)
         times = []
-        for rq, ra in reqs[:20]:
+        for i, (rq, ra) in enumerate(reqs[:20]):
             t0 = time.perf_counter()
-            searcher.agg_search(rq, ra)
+            got = searcher.agg_search(rq, ra)
             times.append((time.perf_counter() - t0) * 1e3)
+            check(got == singles[i], f"{name}: agg_search of {rq!r} != "
+                  "the per-query answer")
         n_reps = 1 if n == 6 else reps
         msq = statistics.median(_msearch_ms_per_q(torch, searcher, reqs)
                                 for _ in range(n_reps))
-        searcher.config = dedup_off
-        msq_all = statistics.median(_msearch_ms_per_q(torch, searcher, reqs)
-                                    for _ in range(n_reps))
-        searcher.config = dedup_on
+        if n == 6:
+            # c6's host-bound dedup-off pass is timed once: the checked
+            # run above
+            msq_all = off_ms
+        else:
+            searcher.config = dedup_off
+            msq_all = statistics.median(
+                _msearch_ms_per_q(torch, searcher, reqs)
+                for _ in range(n_reps))
+            searcher.config = dedup_on
+        if timings is not None:
+            timings[(label, name)] = (statistics.median(times), msq, msq_all)
         say(f"  {name}: == oracle ({len(seen)} distinct varied checked; "
             f"oracle {t_oracle:.1f}s)  p50 {statistics.median(times):.3f} ms  "
             f"msearch {msq:.4f} ms/q dedup on ({distinct} distinct of "
@@ -2481,6 +2558,432 @@ def phase_set_overflow(tt, searcher, oracle, flagship, card):
         f"device, merged (count {merged['n']}, {len(merged['h'])} buckets)")
 
 
+# ---------------------------------------------------------------------------
+# sharded meshes, replica groups and the prep cache (phases 7-11)
+# ---------------------------------------------------------------------------
+
+#: the shards of the "sharded" path's mesh: four cards where there are four,
+#: else four shards on cuda:0
+SHARDS = 4
+#: the sharded path: c1-c10 at the default EngineConfig on the SHARDS-shard
+#: mesh, and the kernels its shard bodies must launch (fused_metrics for
+#: c1's root metrics, chain_blocks for c4 / c6 / c7's prefix terms,
+#: chain_counts under c5's rank bisection, chain_slot_counts under c9's
+#: slot bisection)
+SHARDED_PATH = ("sharded", (1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
+                ("fused_metrics", "chain_blocks", "chain_counts",
+                 "chain_slot_counts"),
+                ("cube_dots", "dense_bucket_counts_mm",
+                 "dense_bucket_sum_mm"), {})
+#: the modes of each sharded plan's bucket, percentile and top_hits nodes
+#: (the multi_plan_modes vocabulary, plus bisect / slot_bisect): the JAX
+#: package's sharded planner's (__graft_entry__.py
+#: `_dryrun_multichip_inproc`: prefix terms, rank + bisect, slot_rank +
+#: slot_bisect, in-slot top_hits; no member operand, so c7 plans prefix; no
+#: pcube or scube), with the kernel the port runs in each shard body where
+#: the JAX package turns Pallas off (pallas_*)
+SHARDED_MODES = {
+    1: {}, 2: {}, 3: {"h": {"dense", "dense_mm"}},
+    4: {"t": {"prefix", "pallas_prefix"}},
+    5: {"p": {"rank", "bisect", "pallas_counts"},
+        "pf/h": {"dense", "cube"}, "t": {"dense", "cube"}},
+    6: {"t": {"prefix", "pallas_prefix", "sel_host"}},
+    7: {"t": {"prefix", "pallas_prefix"}},
+    8: {"h": {"dense", "cube"}},
+    9: {"t": {"dense", "cube"},
+        "t/p": {"slot_rank", "slot_bisect", "pallas_slots"}},
+    10: {"h": {"dense", "cube"}},
+    "mv1": {"p": {"rank", "bisect", "pallas_counts"}},
+    "p1": {"p": {"rank", "bisect", "pallas_counts", "phase2"}},
+    "h2": {"t": {"dense", "dense_mm"}, "t/h": {"top_hits", "in_slot"}},
+}
+#: the cube / dense_mm modes of c1-c10's sharded plans (plan_modes): the
+#: default path's DEFAULT_MODES without the pcube and scube
+SHARDED_CUBE_MODES = {n: m - {"pcube", "scube"}
+                      for n, m in DEFAULT_MODES.items()}
+#: replica groups of the "replicas" path, and its mixed stream: per config,
+#: a run of REPLICA_RUN varied requests (c6: 8)
+REPLICAS, REPLICA_RUN = 2, 24
+
+
+def sharded_plan_modes(prog) -> dict:
+    out = multi_plan_modes(prog)
+    for path, p in prog.plan.items():
+        key = "/".join(path[1:])
+        for k in ("bisect", "slot_bisect"):
+            if p.get(k) and key in out:
+                out[key].add(k)
+    return out
+
+
+def mesh_devices(torch, n: int):
+    """(devices, what): n cards where there are n, else n shards on
+    cuda:0 (n CPU shards where DEVICE is the CPU: a rehearsal)."""
+    if DEVICE == "cpu":
+        return ["cpu"] * n, f"{n} shards on the CPU"
+    if torch.cuda.device_count() >= n:
+        return ([f"cuda:{i}" for i in range(n)],
+                f"{n} cards, one shard each")
+    return (["cuda:0"] * n,
+            f"{n} shards on cuda:0 (this machine has "
+            f"{torch.cuda.device_count()} card(s))")
+
+
+def _free(torch, *searchers) -> None:
+    """Drop searchers' device indexes and return their memory."""
+    import gc
+    for s in searchers:
+        for sub in getattr(s, "searchers", [s]):
+            sub._device_index = None
+            sub._programs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _answer(answers, key):
+    a = answers[key]
+    if isinstance(a, _Pending):
+        a = answers[key] = a.get()
+    return a
+
+
+def phase_plan_sharded(torch, tt, searcher, flagship):
+    """Phase 7: plan c1-c10 and mv1 / p1 / h2 on the mesh (timed: the
+    per-shard layouts and cube operands are built here, or read from the
+    prep cache, and the dense operands built), each a ShardedProgram with
+    the SHARDED_MODES of its nodes and the SHARDED_CUBE_MODES."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import ShardedProgram
+    reqs = [(n, name, q, a) for n, name, q, a in all_configs(flagship)]
+    reqs += [(nm, nm, *multi_requests(tt, nm, 0))
+             for nm in ("mv1", "p1", "h2")]
+    t_all = time.time()
+    for n, name, q, aggs in reqs:
+        t0 = time.time()
+        prog = searcher._program_for(q, aggs)
+        torch.cuda.synchronize()
+        check(type(prog) is ShardedProgram,
+              f"{name} planned {type(prog).__name__}, not a ShardedProgram "
+              f"({getattr(prog, 'reason', '')})")
+        check(all(pg.device.type == torch.device(DEVICE).type
+                  for pg in prog.progs),
+              f"{name}: a shard body is not on a card")
+        got = sharded_plan_modes(prog)
+        check(got == SHARDED_MODES[n],
+              f"{name} plans {got}, not {SHARDED_MODES[n]}")
+        if isinstance(n, int):
+            dump = plan_modes(prog)
+            cm = set().union(*map(set, dump.values())) if dump else set()
+            check(cm == SHARDED_CUBE_MODES[n],
+                  f"{name} plans {sorted(cm)}, not "
+                  f"{sorted(SHARDED_CUBE_MODES[n])}")
+        say(f"  {name}: {got}, batch_cap {prog.batch_cap}, planned in "
+            f"{time.time() - t0:.2f}s")
+    return time.time() - t_all
+
+
+def phase_sharded(torch, K, C, R, tt, idx, dflt, oracle, flagship, card,
+                  answers, timings):
+    """Phases 7-8: the bench index over a SHARDS-shard mesh at the default
+    EngineConfig. Plans (phase_plan_sharded), then c1-c10 through
+    phase_main_path with the counters set to 0: agg_search == the oracle
+    (c6: c6_reference) and == the unsharded searcher's, agg_search_batch
+    over the varied stream == the per-query answers with dedup on and
+    off, p50 and msearch ms/q printed beside the default path's; then one
+    request each of mv1, p1 (non-integer percents through the sharded
+    phase 2) and h2 (the in-slot top_hits merge) == the oracle. Returns
+    (the path's counts, the mesh searcher)."""
+    devices, what = mesh_devices(torch, SHARDS)
+    say(f"[7] sharded: the bench index over a {SHARDS}-shard mesh ({what})")
+    from tantivy_aggregations_tpu_torch.utils import stats
+    t0 = time.time()
+    s = tt.Index.open(idx.path).searcher(mesh=tt.make_mesh(devices=devices))
+    di = s._get_device_index()
+    say(f"  mesh {[str(d) for d in di.devices]}, T {di.T} "
+        f"({di.T // SHARDS} rows a shard)")
+    stats.reset_prep()
+    t_plan = phase_plan_sharded(torch, tt, s, flagship)
+    say(f"  planned c1-c10, mv1, p1, h2 in {t_plan:.1f}s "
+        f"(load {time.time() - t0 - t_plan:.1f}s; the mesh's cold plan, "
+        f"prep cache: {_prep_io(stats.prep_cache)})")
+    counts = phase_main_path(
+        torch, K, C, R, tt, idx, s, oracle, flagship, card, SHARDED_PATH,
+        answers, profiled=(5, 9), also=dflt, timings=timings)
+    for n, name, _, _ in all_configs(flagship):
+        p50, on, off = timings[("sharded", name)]
+        d50, don, doff = timings[("default", name)]
+        say(f"  {name}: sharded p50 {p50:.3f} ms vs {d50:.3f} unsharded; "
+            f"msearch {on:.4f} / {off:.4f} ms/q (dedup on / off) vs "
+            f"{don:.4f} / {doff:.4f}  [{card}]")
+    for nm in ("mv1", "p1", "h2"):
+        q, aggs = multi_requests(tt, nm, 0)
+        t0 = time.perf_counter()
+        got = s.agg_search(q, aggs)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got == _answer(answers, (nm, repr(q), repr(aggs))),
+              f"{nm} (sharded) != oracle")
+        say(f"  {nm}: sharded == oracle ({ms:.1f} ms)")
+    return counts, s
+
+
+#: the sharded path's kernels and the config whose shard bodies launch
+#: each: c1's root metrics, c4's prefix terms, the counts under c5's rank
+#: bisection and c9's slot bisection
+SHARD_KERNELS = (("fused_metrics", 1), ("chain_blocks", 4),
+                 ("chain_counts", 5), ("chain_slot_counts", 9))
+
+
+def _capture(K, name, fn):
+    """Run fn() with K.<name> recording the arguments of each launch
+    (positional, fused_metrics' minmax among them); returns them."""
+    calls, real = [], getattr(K, name)
+
+    def rec(*a, **kw):
+        calls.append(a + tuple(kw.values()))
+        return real(*a, **kw)
+    setattr(K, name, rec)
+    try:
+        fn()
+    finally:
+        setattr(K, name, real)
+    return calls
+
+
+def phase_shard_kernels(torch, K, qc, searcher, flagship, records):
+    """Phase 8k: each kernel of the sharded path == its plain version on
+    the operands its shard bodies give it on the SHARDS-shard mesh:
+    SHARD_KERNELS' config run once through agg_search (B = 1) and once as
+    an msearch group of max_batch varied requests with dedup off, every
+    launch's arguments captured (each shard's own: its shard-local
+    layout, slot plane and padded tail) and checked; shard 0's time,
+    plain time and bound kept as variants of the kernel's record. Runs
+    after the sharded path's counts are read, so its launches count on
+    no path."""
+    say(f"[8k] the sharded path's kernels on the {SHARDS} shards' operands "
+        "(exact ==)")
+    cfgs = {n: (q, a) for n, _, q, a in all_configs(flagship)}
+    B = searcher.config.max_batch
+    dedup_on = searcher.config
+    for name, n in SHARD_KERNELS:
+        q, aggs = cfgs[n]
+        reqs = flagship.varied_requests(n, aggs, B)
+        searcher.config = dataclasses.replace(dedup_on, msearch_dedup=False)
+        try:
+            calls = (_capture(K, name, lambda: searcher.agg_search(q, aggs))
+                     + _capture(K, name,
+                                lambda: searcher.agg_search_batch(reqs)))
+        finally:
+            searcher.config = dedup_on
+        by_b = {}
+        for args in calls:
+            by_b.setdefault(args[0].shape[0], []).append(args)
+        check(all(len(by_b.get(b, ())) >= SHARDS for b in (1, B)),
+              f"{name} on c{n}: launches "
+              f"{ {b: len(v) for b, v in by_b.items()} } by B, not "
+              f"{SHARDS} or more at B = 1 and {B}")
+        rec = records[name]
+        for b, launched in sorted(by_b.items()):
+            for args in launched:
+                err = _check_equal(torch, name, f"c{n} shard B={b}",
+                                   getattr(K, name)(*args),
+                                   getattr(K, name + "_plain")(*args))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if b not in (1, B):
+                continue
+            args = launched[0]
+            kern = lambda a=args, f=getattr(K, name): f(*a)  # noqa: E731
+            plain = lambda a=args, f=getattr(K, name + "_plain"): f(*a)  # noqa
+            ms = _cuda_ms(torch, kern, 30 if b == 1 else 10)
+            plain_ms = _cuda_ms(torch, plain, 3)
+            bound_ms, bound_by = kernel_bound(torch, qc, name, args,
+                                              _outputs(kern()))
+            rows = (args[0] if name == "fused_metrics" else args[3]).shape[-1]
+            say(f"  {name:17s} c{n} B={b:<4d} {len(launched)} launches == "
+                f"plain; shard 0 ({rows} rows): kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+            rec.setdefault("variants", []).append(
+                {"label": f"c{n} shard 0 of {SHARDS}", "B": b, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by})
+        del calls, by_b
+    torch.cuda.empty_cache()
+
+
+def phase_replicas(torch, K, C, R, tt, idx, dflt, flagship, card):
+    """Phase 9: ReplicatedSearcher with REPLICAS groups (REPLICAS cards,
+    or REPLICAS one-shard groups on cuda:0): a mixed stream of c1-c10
+    (REPLICA_RUN varied requests a config, c6 8), its agg_search_batch and
+    agg_search_stream == the single unsharded searcher's answers in
+    request order, every replica submitting msearch groups in the timed
+    batch and in the stream; ms/q beside the single searcher's. The
+    counters are set to 0 first; returns the counts."""
+    devices, what = mesh_devices(torch, REPLICAS)
+    say(f"[9] replicas: ReplicatedSearcher({REPLICAS} groups: {what})")
+    reqs = []
+    for n, name, q, aggs in all_configs(flagship):
+        reqs += flagship.varied_requests(n, aggs,
+                                         8 if n == 6 else REPLICA_RUN)
+    t0 = time.time()
+    want = dflt.agg_search_batch(reqs)
+    t_single = time.time() - t0
+    t0 = time.time()
+    rs = tt.ReplicatedSearcher(tt.Index.open(idx.path), replicas=REPLICAS,
+                               devices=devices)
+    # every replica plans the shapes of its chunks (layouts and operands
+    # from the prep cache) in an untimed first pass
+    check(rs.agg_search_batch(reqs) == want,
+          "replicas: agg_search_batch != the single searcher")
+    say(f"  loaded, planned and answered once in {time.time() - t0:.1f}s")
+    # the msearch groups each replica submits in the timed batch and the
+    # stream
+    served = {"batch": [0] * REPLICAS, "stream": [0] * REPLICAS}
+    part = ["batch"]
+
+    def counting(r, submit):
+        def run(chunk):
+            groups = submit(chunk)
+            served[part[0]][r] += len(groups)
+            return groups
+        return run
+    for r, sub in enumerate(rs.searchers):
+        sub._submit_batch = counting(r, sub._submit_batch)
+    _reset_counters(K, C, R)
+    t0 = time.time()
+    got = rs.agg_search_batch(reqs)
+    t_rep = time.time() - t0
+    check(got == want, "replicas: agg_search_batch != the single searcher")
+    part[0] = "stream"
+    check(list(rs.agg_search_stream(iter(reqs), lookahead=2)) == want,
+          "replicas: agg_search_stream != the single searcher")
+    check(all(n > 0 for v in served.values() for n in v),
+          f"a replica served no group: {served}")
+    counts = _counters(K, C, R)
+    t0 = time.time()
+    dflt.agg_search_batch(reqs)
+    t_single = min(t_single, time.time() - t0)
+    say(f"  {len(reqs)} mixed requests == the single searcher's (batch and "
+        f"stream), msearch groups per replica {served}; msearch "
+        f"{t_rep * 1e3 / len(reqs):.4f} ms/q on {REPLICAS} replicas vs "
+        f"{t_single * 1e3 / len(reqs):.4f} ms/q on one searcher "
+        f"[{card}]" + ("" if torch.cuda.device_count() >= REPLICAS else
+                       " (one card: the replicas share it, no gain "
+                       "expected)"))
+    say("[9] kernel launches and product calls during the replicas path:",
+        counts)
+    _free(torch, rs)
+    return counts
+
+
+def _prep_io(c) -> str:
+    """The prep cache's counters (utils/stats.prep_cache), printed."""
+    return (f"hits {c['hits']} misses {c['misses']}, read "
+            f"{c['read_bytes'] / 2**20:.1f} MiB in {c['read_s']:.2f}s, "
+            f"wrote {c['write_bytes'] / 2**20:.1f} MiB in "
+            f"{c['write_s']:.2f}s")
+
+
+def _plan_c1_c10(torch, searcher, flagship, oracle_of):
+    """(seconds to plan c1-c10, fruits == the oracle's) on a fresh
+    searcher."""
+    t0 = time.time()
+    for _, _, q, aggs in all_configs(flagship):
+        searcher._program_for(q, aggs)
+    torch.cuda.synchronize()
+    t = time.time() - t0
+    for n, name, q, aggs in all_configs(flagship):
+        check(searcher.agg_search(q, aggs) == oracle_of(n, q, aggs),
+              f"{name}: fruits after a prep-cache plan != oracle")
+    return t
+
+
+def phase_prep(torch, tt, idx, flagship, card, answers, mesh_devices_=None):
+    """Phase 10 (cold / warm plans through the prep cache): with
+    <index>/.prep_cache_torch emptied, c1-c10 planned at the default
+    EngineConfig on a fresh searcher (cold: every artifact built and
+    saved), then on another fresh searcher (a new DeviceIndex: warm, every
+    artifact read; no miss); fruits == the oracle both times. With
+    `mesh_devices_`, only the warm plan of that mesh (its cold plan was
+    the sharded path's). Prints seconds, hits and misses."""
+    import shutil
+    from tantivy_aggregations_tpu_torch.utils import prep_cache as PC
+    from tantivy_aggregations_tpu_torch.utils import stats
+
+    def oracle_of(n, q, aggs):
+        return _answer(answers, (n, repr(q), repr(aggs)))
+
+    def fresh():
+        ix = tt.Index.open(idx.path)
+        if mesh_devices_ is None:
+            return ix.searcher(device=DEVICE)
+        return ix.searcher(mesh=tt.make_mesh(devices=mesh_devices_))
+
+    label = ("unsharded" if mesh_devices_ is None
+             else f"{len(mesh_devices_)}-shard mesh")
+    out = {}
+    if mesh_devices_ is None:
+        shutil.rmtree(Path(idx.path) / PC.DIR_NAME, ignore_errors=True)
+        stats.reset_prep()
+        s = fresh()
+        out["cold"] = _plan_c1_c10(torch, s, flagship, oracle_of)
+        out["cold_counts"] = dict(stats.prep_cache)
+        _free(torch, s)
+    stats.reset_prep()
+    s = fresh()
+    out["warm"] = _plan_c1_c10(torch, s, flagship, oracle_of)
+    out["warm_counts"] = dict(stats.prep_cache)
+    check(out["warm_counts"]["misses"] == 0,
+          f"prep ({label}): the warm plan missed "
+          f"{out['warm_counts']['misses']} artifacts")
+    check(out["warm_counts"]["hits"] > 0, f"prep ({label}): no hits")
+    files = list((Path(idx.path) / PC.DIR_NAME).glob("*.npz"))
+    say(f"[10] prep cache ({label}): " + (
+        f"cold plan of c1-c10 {out['cold']:.2f}s "
+        f"({_prep_io(out['cold_counts'])}), " if "cold" in out else "")
+        + f"warm {out['warm']:.2f}s ({_prep_io(out['warm_counts'])}); "
+        f"fruits == the oracle; {len(files)} files, "
+        f"{sum(f.stat().st_size for f in files) / 2**20:.1f} MiB  [{card}]")
+    _free(torch, s)
+    return out
+
+
+def phase_device_guard(torch, K, qc, tt, idx, flagship, oracle_of):
+    """Phase 11: with two or more cards, a 2-shard mesh over cuda:0 and
+    cuda:1 answers c1, c4, c5 and c9 == the oracle (shard 1's kernels
+    launch on cuda:1 while cuda:0 is current), and chain_counts on cuda:1
+    operands == its plain version; with one card it says why it skips."""
+    if torch.cuda.device_count() < 2:
+        say("[11] device guard: skipped — one card "
+            f"(torch.cuda.device_count() == {torch.cuda.device_count()}); "
+            "it needs a shard on cuda:1")
+        return
+    say("[11] device guard: a shard on cuda:1")
+    torch.cuda.set_device(0)
+    s = tt.Index.open(idx.path).searcher(
+        mesh=tt.make_mesh(devices=["cuda:0", "cuda:1"]))
+    for n, name, q, aggs in all_configs(flagship):
+        if n in (1, 4, 5, 9):
+            check(s.agg_search(q, aggs) == oracle_of(n, q, aggs),
+                  f"{name} on cuda:0 + cuda:1 != oracle")
+    prog = s._program_for(*[(q, a) for n, _, q, a in all_configs(flagship)
+                            if n == 5][0])
+    p1 = prog.progs[1]
+    pp = p1.plan[("a", "p")]
+    entry, prefix = pp["chainp"], pp["prefix"]
+    pm = qc.param_matrix([p1._extract(q, a) for n, _, q, a
+                          in all_configs(flagship) if n == 5],
+                         p1._pkeys, "cuda:1")
+    sub = p1._chain_pmat(entry, pm)
+    planes = [p1._arrays[prefix + k] for k in entry["mp"].plane_keys]
+    avalid = p1._arrays[prefix + "avalid"]
+    check(torch.cuda.current_device() == 0, "cuda:0 is not current")
+    got = K.chain_counts(sub, entry["ops"], planes, avalid)
+    want = K.chain_counts_plain(sub, entry["ops"], planes, avalid)
+    check(got.device == torch.device("cuda:1") and torch.equal(got, want),
+          "chain_counts on cuda:1 != its plain version")
+    say("  c1, c4, c5, c9 == oracle on cuda:0 + cuda:1; chain_counts on "
+        "cuda:1 == plain with cuda:0 current")
+    _free(torch, s)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2588,12 +3091,13 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     oracle = idx.oracle_searcher()
     counts = dict.fromkeys(_counters(K, C, R), 0)
     by_path = {}
+    timings = {}
     for path in PATHS:
         t0 = time.time()
         s = searchers["default" if path[0] == "default" else "row"]
         by_path[path[0]] = phase_main_path(
             torch, K, C, R, tt, idx, s, oracle, flagship, card, path,
-            answers, reps=3 if path[0] == "default" else 1)
+            answers, reps=3 if path[0] == "default" else 1, timings=timings)
         for k, n in by_path[path[0]].items():
             counts[k] += n
         lap(f"main path {path[0]}", t0)
@@ -2630,6 +3134,35 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     t0 = time.time()
     phase_set_overflow(tt, searcher, oracle, flagship, card)
     lap("set-query overflow", t0)
+    _free(torch, searchers.pop("tags"))
+    t0 = time.time()
+    phase_prep(torch, tt, idx, flagship, card, answers)
+    lap("prep unsharded", t0)
+    t0 = time.time()
+    by_path["sharded"], s4 = phase_sharded(
+        torch, K, C, R, tt, idx, dflt, oracle, flagship, card, answers,
+        timings)
+    lap("sharded", t0)
+    t0 = time.time()
+    phase_shard_kernels(torch, K, qc, s4, flagship, records)
+    mesh4 = [str(d) for d in s4._get_device_index().devices]
+    _free(torch, s4)
+    lap("shard kernels", t0)
+    t0 = time.time()
+    phase_prep(torch, tt, idx, flagship, card, answers, mesh4)
+    lap("prep sharded", t0)
+    t0 = time.time()
+    by_path["replicas"] = phase_replicas(torch, K, C, R, tt, idx, dflt,
+                                         flagship, card)
+    lap("replicas", t0)
+    for label in ("sharded", "replicas"):
+        for k, n in by_path[label].items():
+            counts[k] += n
+    t0 = time.time()
+    phase_device_guard(torch, K, qc, tt, idx, flagship,
+                       lambda n, q, a: _answer(answers, (n, repr(q),
+                                                         repr(a))))
+    lap("device guard", t0)
     check(set(records) == set(K.launches),
           f"kernel records {sorted(records)} != kernels "
           f"{sorted(K.launches)}")

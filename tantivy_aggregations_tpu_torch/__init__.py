@@ -26,12 +26,21 @@ dense_mxu=False)`` asks for the row modes). An agg tree the planner
 cannot lower answers on the exact host path (the copied oracle), with one
 warning on the package logger, and so does a request whose set-query runs
 exceed its program's run slots. Nothing here imports jax.
+
+Scale-out, as in the JAX package: ``make_mesh`` (parallel/shard.py) and
+``Index.searcher(mesh=...)`` shard the doc axis over several devices, one
+program body per shard meeting at exact collectives (one process, a thread
+per shard); ``ReplicatedSearcher`` (parallel/replica.py) serves msearch
+groups round-robin from R full copies. One-time prep artifacts persist in
+``<index>/.prep_cache_torch/`` (utils/prep_cache.py).
 """
 
 from .schema import Schema, FieldType, Cardinality, SchemaBuilder
 from .index.index import Index
 from .index.merge_policy import LogMergePolicy
 from .searcher import Searcher
+from .parallel.shard import make_mesh
+from .parallel.replica import ReplicatedSearcher
 from .query.ir import (
     MatchAllQuery,
     TermQuery,
@@ -78,6 +87,8 @@ __all__ = [
     "Index",
     "LogMergePolicy",
     "Searcher",
+    "make_mesh",
+    "ReplicatedSearcher",
     "MatchAllQuery",
     "TermQuery",
     "RangeQuery",

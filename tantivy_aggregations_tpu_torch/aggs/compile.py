@@ -95,14 +95,35 @@ in-slot hits one stable sort per query by composite slot. facet aggs are
 terms aggs over the facet field's value rows with host-side selection of
 the static child ordinals.
 
+Sharded meshes (JAX `shard_map`, parallel/shard.py): a `ShardedProgram`
+holds one Program per shard, each planned and run on its shard's
+DeviceIndex (index/loader.py `load_sharded_index`) in a thread of its own,
+in lockstep; the collectives sit where the JAX program's do: psum of counts
+and exact sums (`_madd`), min / max merges (`_mmin`, `_mmax`), the cube's
+int32 dot vectors psum'd before recombination (per-shard operands with one
+common piece layout; at most cube.MAX_SHARDS shards), and the top_hits
+k-way merges of per-shard candidates (`all_gather`, doc ids globalized).
+The plan follows JAX's sharded plan node by node: no member operands, no
+pcube or scube, rank percentiles select by cross-shard bisection of the
+value domain (`bisect`; count(x) = psum of per-shard counts from the
+chain_counts prefix plus a lazy window), slot_rank by per-slot bisection
+(`slot_bisect`), non-integer percents bisect in phase 2 and emit values
+(`phase2_vals`), wslots answer on the host path. The kernels run in every
+shard body as they do unsharded (each works per 32- or 128-row block).
+
 Every other shape — deeper multi-valued nests, top_hits under huge bucket
 spaces, slot spaces past the device budget, a kernel chain
 whose planes, payloads, ops and params overflow the chain tile kernel's
 shared memory (K.chain_fits: about 50 planes, or tens of thousands of
-params), sharding — raises NotImplementedError at plan time naming the
-shape, and the searcher answers it on the exact host path. A scope's mask
-is evaluated only when a node reads it, so a chain that only a member
+params) — raises NotImplementedError at plan time naming the shape, and
+the searcher answers it on the exact host path. A scope's mask is
+evaluated only when a node reads it, so a chain that only a member
 operand or the cube answers runs no row pass.
+
+The cube's operands and block histograms, the layouts (index/loader.py)
+and the top_hits orders are built once per index contents and persisted
+across processes (utils/prep_cache.py, `_prep_cached`); the dense
+products' operands are built on the device at each plan.
 """
 
 from __future__ import annotations
@@ -119,10 +140,11 @@ from ..index.loader import ALIGN, PAD_BLOCK, _put
 from ..ops import cube as C
 from ..ops import kernels as K
 from ..ops import reductions as R
+from ..parallel import shard as SH
 from ..query import compile as qc
 from ..query import ir as Q
 from ..schema import FieldType
-from ..utils import exact, mono as mono_mod
+from ..utils import exact, mono as mono_mod, prep_cache as PC
 
 MAX_TERMS_CARD = 1 << 27
 MAX_HIST_NB = 1 << 20  # f64 bucket-layout bound (host boundary list is O(nb))
@@ -180,6 +202,8 @@ class SlotCtx:
     mm: Optional[dict] = None
     doc: Optional[torch.Tensor] = None
     doc_rooted: bool = True
+    #: the array key of `doc` (names the row space of a top_hits order)
+    doc_key: Optional[str] = None
 
     @property
     def nslots(self) -> int:
@@ -304,6 +328,8 @@ class Program:
             termmatch.check_set_query_field(dindex.schema.field(n.field).type,
                                             n)
         self.dindex = dindex
+        #: a shard of a mesh (JAX `_sharded`: a 1-device mesh is one too)
+        self._sharded = dindex.mesh is not None
         self.query = query
         self.aggs = aggs
         self.config = config or EngineConfig()
@@ -336,11 +362,19 @@ class Program:
     def _batch_cap(self):
         """Queries per msearch group whose per-query state fits
         BATCH_MEM_BUDGET, or None when the program keeps no per-query
-        row-axis state: slot_rank's [ns, R/G] counts and their cumsum; a
-        rank prefix ([R/G]) where the pcube computes it or phase 2 reads
-        it; a mask-gather node's gathered [R] mask (and, for phase 2, the
-        scope's [T] doc mask its windows re-read); in-slot top_hits'
-        [slots, k] hits (its sorts run a few queries at a time)."""
+        row-axis state (`_per_query_bytes`)."""
+        per_q = self._per_query_bytes()
+        if per_q == 0:
+            return None
+        return max(1, self.BATCH_MEM_BUDGET // per_q)
+
+    def _per_query_bytes(self) -> int:
+        """Device bytes of one query's row-axis state: slot_rank's [ns,
+        R/G] counts and their cumsum; a rank prefix ([R/G]) where the
+        pcube computes it, phase 2 or a bisection reads it; a mask-gather
+        node's gathered [R] mask (and, for phase 2, the scope's [T] doc
+        mask its windows re-read); in-slot top_hits' [slots, k] hits (its
+        sorts run a few queries at a time)."""
         per_q = 0
         for p in self.plan.values():
             if p.get("pmode") == "slot_rank":
@@ -350,7 +384,8 @@ class Program:
                 per_q += p["layout"].n_rows * 4 * len(p.get("slotks", ()))
             elif p.get("pmode") == "rank" and p.get("pcube"):
                 per_q += (p["layout"].n_rows // p["pcube"]["G"]) * 8
-            elif p.get("pmode") == "rank" and not p["int_percents"]:
+            elif p.get("pmode") == "rank" and (not p["int_percents"]
+                                               or p.get("bisect")):
                 G = SLOT_GROUP if p.get("mask_gather") else GROUP
                 per_q += (p["layout"].n_rows // G) * 8
                 if p.get("mask_gather"):
@@ -362,9 +397,36 @@ class Program:
             # a nested bucket node's [rows] int64 composite slots, its
             # validity and their int64 temporaries
             per_q += p.get("slot_rows", 0) * 40
-        if per_q == 0:
-            return None
-        return max(1, self.BATCH_MEM_BUDGET // per_q)
+        return per_q
+
+    # -- merges across the shards of a mesh (JAX `_madd`, `_mmin`, `_mmax`;
+    # the identity on one device) --------------------------------------------
+
+    def _madd(self, x):
+        return SH.psum(x) if self._sharded else x
+
+    def _mmin(self, x):
+        return SH.pmin(x) if self._sharded else x
+
+    def _mmax(self, x):
+        return SH.pmax(x) if self._sharded else x
+
+    def _merge_fruit(self, out: dict) -> dict:
+        """A metric's fruits merged across the shards: counts and sums
+        add, min / max fold."""
+        if not self._sharded:
+            return out
+        return {k: (self._mmin(v) if k == "min" else
+                    self._mmax(v) if k == "max" else self._madd(v))
+                for k, v in out.items()}
+
+    def _prep_cached(self, key, build, to_host, from_host):
+        """Build-or-load one artifact of this index through the
+        cross-process prep cache (JAX `_prep_cached`), under a key that
+        names the shard on a mesh."""
+        di = self.dindex
+        return PC.cached(di.prep_anchor, di.prep_key(key), build, to_host,
+                         from_host)
 
     # ======================================================================
     # public
@@ -443,9 +505,15 @@ class Program:
         slot_rank: _slot_ranks per slot), the rank rows selected on the
         device for the whole group at once (the same lazy windows as the
         integer path), then one host copy of every node's rows."""
-        B = len(hosts)
-        rows = []
-        for path, st in big.items():
+        ranks = self._phase2_ranks(hosts, big)
+        self._phase2_attach(hosts, self._phase2_select(ranks, big,
+                                                       len(hosts)))
+
+    def _phase2_ranks(self, hosts, big):
+        """[(path, int64 [B, 2P] or [B, ns, 2P] host ranks)] of the group's
+        phase-2 nodes (the global m: psum'd on a mesh)."""
+        out = []
+        for path in big:
             p = self.plan[path]
             if p["pmode"] == "slot_rank":
                 rk = np.stack([self._slot_ranks(p, self._node_at(h, path))
@@ -464,11 +532,28 @@ class Program:
                     node_host["_fracs"] = fracs
                     rk.append(ranks)
                 rk = np.asarray(rk, np.int64)
+            out.append((path, rk))
+        return out
+
+    def _phase2_select(self, ranks, big, B):
+        """{path: [B, ...] rows of the ranks} (values on a mesh, from the
+        cross-shard bisection) on the device."""
+        sel = {}
+        for path, rk in ranks:
+            p = self.plan[path]
             st = {k: (v[:B] if torch.is_tensor(v) else v)
-                  for k, v in st.items()}
-            sel = self._select_rows(p, st, self._arrays,
-                                    torch.from_numpy(rk).to(self.device))
-            rows.append((path, tuple(sel.shape[1:]), sel.reshape(B, -1)))
+                  for k, v in big[path].items()}
+            r = torch.from_numpy(rk).to(self.device)
+            sel[path] = (self._bisect_values(p, st, self._arrays, r)
+                         if p.get("bisect") or p.get("slot_bisect")
+                         else self._select_rows(p, st, self._arrays, r))
+        return sel
+
+    def _phase2_attach(self, hosts, sel):
+        """One host copy of every node's selected rows, attached."""
+        B = len(hosts)
+        rows = [(path, tuple(v.shape[1:]), v.reshape(B, -1))
+                for path, v in sel.items()]
         got = torch.cat([r for _, _, r in rows], dim=1).cpu().numpy()
         off = 0
         for path, shape, r in rows:
@@ -766,7 +851,7 @@ class Program:
     def _cube_host_cell(self, facs):
         """Host int64 domain-cell index per doc row (alive rows only;
         cached on the device index — shared by every cube over the same
-        factor set)."""
+        factor set). Built only where an operand misses the prep cache."""
         cc = self.dindex.cube_cache
         key = ("cell",) + tuple(f for f, _, _ in facs)
         if key not in cc:
@@ -776,22 +861,57 @@ class Program:
 
     def _cube_site(self, facs, sig, build_groups):
         """Register one packed int8 piece operand (built host-exact on a
-        miss, cached on the device index); returns (array key, column
-        layout), or (None, None) when the site exceeds the static column
-        cap (the caller keeps the row paths)."""
+        miss, cached on the device index and in the prep cache); returns
+        (array key, column layout), or (None, None) when the site exceeds
+        the static column cap (the caller keeps the row paths)."""
         cc = self.dindex.cube_cache
         fkey = tuple(f for f, _, _ in facs)
         key = ("site",) + fkey + (sig,)
         if key not in cc:
-            pieces, layout = C.pack_groups(build_groups())
-            cc[key] = (None if pieces.shape[-1] > C.CUBE_COLS_CAP
-                       else (C.device_operand(pieces, self.device), layout))
+            cc[key] = self._site_operand(key, build_groups)
         if cc[key] is None:
             return None, None
         dev, layout = cc[key]
         akey = "CUBE#" + "|".join(fkey) + "#" + sig
         self._need(akey, dev)
         return akey, layout
+
+    def _site_operand(self, key, build_groups):
+        """(device operand, layout) of a cube site, or None past
+        CUBE_COLS_CAP: its pieces from the prep cache, or packed from
+        `build_groups()`. On a mesh each shard packs its own rows' groups
+        with the piece counts of the bounds across the shards (one column
+        layout, JAX `pack_groups_sharded`), and the shards agree on
+        whether the cache holds every shard's pieces."""
+        di = self.dindex
+        h = PC.load(*di.prep_anchor, di.prep_key(key))
+        if self._sharded and not all(SH.allgather_obj(
+                h is not None, ("site-hit",) + key)):
+            h = None
+        if h is not None:
+            if "over" in h:
+                return None
+            pieces = h["pieces"]
+            layout = [(str(nm), int(m), int(n)) for nm, m, n
+                      in zip(h["lnames"], h["lm"], h["ln"])]
+        else:
+            groups = build_groups()
+            bounds = C.group_bounds(groups)
+            if self._sharded:
+                bounds = C.merge_bounds(SH.allgather_obj(
+                    bounds, ("site",) + key))
+            pieces, layout = C.pack_groups(groups, bounds)
+            PC.save(*di.prep_anchor, di.prep_key(key),
+                    {"over": np.ones(1, np.int8)}
+                    if pieces.shape[-1] > C.CUBE_COLS_CAP else
+                    {"pieces": pieces,
+                     "lnames": np.asarray([nm for nm, _, _ in layout],
+                                          dtype="U"),
+                     "lm": np.asarray([m for _, m, _ in layout]),
+                     "ln": np.asarray([n for _, _, n in layout])})
+        if pieces.shape[-1] > C.CUBE_COLS_CAP:
+            return None
+        return C.device_operand(pieces, self.device), layout
 
     def _cube_base(self, facs, Dprod, chain):
         """The indicator of a cube site: the chain's mask program over the
@@ -810,9 +930,9 @@ class Program:
         if g is None:
             return False
         facs, Dprod = g
-        cell = self._cube_host_cell(facs)
         key, layout = self._cube_site(
-            facs, "cnt", lambda: [("cnt", C.build_count(cell, Dprod))])
+            facs, "cnt", lambda: [("cnt", C.build_count(
+                self._cube_host_cell(facs), Dprod))])
         if key is None:
             return False
         p["cube"] = {**self._cube_base(facs, Dprod, chain),
@@ -826,11 +946,11 @@ class Program:
         facs, Dprod = g
         col = self._col(node.field)
         need_min, need_max, need_sum = self._metric_needs(node)
-        cell = self._cube_host_cell(facs)
         sig = (f"metric:{node.field}:"
                f"{int(need_min)}{int(need_max)}{int(need_sum)}")
 
         def build_groups():
+            cell = self._cube_host_cell(facs)
             if col.multi:
                 pre = self._doc_preagg_host(col)
                 groups = [("cnt", C.build_sum(cell, pre["cnt"], Dprod))]
@@ -858,15 +978,16 @@ class Program:
         cb = {**self._cube_base(facs, Dprod, chain),
               "key": key, "layout": layout, "mm": {}, "mm_narrow": col.narrow}
         if need_min or need_max:
-            self._cube_minmax(cb, facs, Dprod, cell, col, need_min, need_max)
+            self._cube_minmax(cb, facs, Dprod, col, need_min, need_max)
         p["cube"] = cb
         return True
 
-    def _cube_minmax(self, cb, facs, Dprod, cell, col, need_min, need_max):
+    def _cube_minmax(self, cb, facs, Dprod, col, need_min, need_max):
         """Per-cell min/max planes (beside the product operand): narrow ->
         one int32 [Dprod] plane; wide -> a [2, Dprod] (hi, lo) split of the
         int64 rm min/max. Empty-cell sentinels match the row reductions
-        exactly (I32_MAX / -1 narrow, I64_MAX / I64_MIN wide)."""
+        exactly (I32_MAX / -1 narrow, I64_MAX / I64_MIN wide). On a mesh a
+        shard's planes cover its own rows (merged by _mmin / _mmax)."""
         cc = self.dindex.cube_cache
         fkey = tuple(f for f, _, _ in facs)
         if col.multi:
@@ -887,20 +1008,23 @@ class Program:
                 continue
             ck = ("mm",) + fkey + (col.name, which, col.multi)
             if ck not in cc:
-                src = srcs[which]
-                if col.narrow:
-                    arr = (C.build_min32(cell, src, Dprod, valid)
-                           if which == "min"
-                           else C.build_max32(cell, src, Dprod, valid))
-                else:
+                def build(which=which):
+                    src = srcs[which]
+                    cell = self._cube_host_cell(facs)
+                    if col.narrow:
+                        return (C.build_min32(cell, src, Dprod, valid)
+                                if which == "min"
+                                else C.build_max32(cell, src, Dprod, valid))
                     hi, lo = src
                     rm = ((hi.astype(np.int64) << 32)
                           + lo.astype(np.int64) + 2**31)
                     m64 = (C.build_min64(cell, rm, Dprod, valid)
                            if which == "min"
                            else C.build_max64(cell, rm, Dprod, valid))
-                    arr = np.stack(C.split_rm(m64))
-                cc[ck] = _put(arr, self.device)
+                    return np.stack(C.split_rm(m64))
+                cc[ck] = _put(self._prep_cached(
+                    ck, build, lambda a: {"a": a}, lambda h: h["a"]),
+                    self.device)
             akey = (f"CUBE#{'|'.join(fkey)}#mm:{col.name}:{which}:"
                     f"{col.multi}")
             self._need(akey, cc[ck])
@@ -921,9 +1045,16 @@ class Program:
         return hit
 
     def _cube_rec(self, cb, pmat, arrays):
-        """Indicator + recombined group values ({name: [B] or [B, m]})."""
+        """Indicator + recombined group values ({name: [B] or [B, m]}). On
+        a mesh each shard dots its own operand and the int32 dot vectors
+        are psum'd (lanes < S * 2^24: C.shard_dots asserts S <=
+        C.MAX_SHARDS) before the recombination, which is linear in them."""
         ind = self._cube_ind(cb, pmat)
-        dots = C.cube_dots(ind, arrays[cb["key"]])
+        if self._sharded:
+            dots = C.shard_dots(ind, arrays[cb["key"]], self.dindex.n_shards,
+                                SH.psum)
+        else:
+            dots = C.cube_dots(ind, arrays[cb["key"]])
         return ind, C.recombine(dots, cb["layout"])
 
     @staticmethod
@@ -944,9 +1075,11 @@ class Program:
         ind, rec = self._cube_rec(cb, pmat, arrays)
         out = {"cnt": rec["cnt"]}
         if need_min:
-            out["min"] = self._cube_mm_eval(cb, ind, arrays, "min", True)
+            out["min"] = self._mmin(
+                self._cube_mm_eval(cb, ind, arrays, "min", True))
         if need_max:
-            out["max"] = self._cube_mm_eval(cb, ind, arrays, "max", False)
+            out["max"] = self._mmax(
+                self._cube_mm_eval(cb, ind, arrays, "max", False))
         if need_sum:
             out["sum"] = rec["sum"]
         return out
@@ -971,7 +1104,6 @@ class Program:
         facs, Dprod = g
         if Dprod * nb > C.CUBE_BCELLS_CAP:
             return False
-        cell = self._cube_host_cell(facs)
         subs = {}
         for name, s in sub_aggs:
             if isinstance(s, A.CountAgg):
@@ -992,7 +1124,8 @@ class Program:
             for name, s in sub_aggs)
 
         def build_groups():
-            cell2 = C.bucket_cell(cell, bid_host, nb)
+            cell2 = C.bucket_cell(self._cube_host_cell(facs), bid_host(),
+                                  nb)
             groups = [("counts", C.build_bucket_counts(cell2, Dprod, nb))]
             for name, s in sub_aggs:
                 if isinstance(s, A.CountAgg):
@@ -1078,8 +1211,10 @@ class Program:
         """Cube lowering for the flat rank-percentile prefix: per-G-row
         block chain-match counts from one int8 product against a static
         two-digit per-block cell histogram, built once on the device from
-        the permuted chain planes the window recompute keeps resident."""
-        g = self._cube_gate(chain)
+        the permuted chain planes the window recompute keeps resident.
+        Unsharded only (JAX: its block axis is the layout row order, which
+        a mesh bisects instead)."""
+        g = None if self._sharded else self._cube_gate(chain)
         if g is None:
             return None
         facs, Dprod = g
@@ -1090,8 +1225,10 @@ class Program:
         cc = self.dindex.cube_cache
         ck = ("phist", p["prefix"], fkey, G)
         if ck not in cc:
-            cc[ck] = C.build_blockhist(self._perm_cell(facs, layout),
-                                       Dprod, G)
+            cc[ck] = self._prep_cached(
+                ck, lambda: C.build_blockhist(self._perm_cell(facs, layout),
+                                              Dprod, G),
+                _t2h, lambda h: _h2t(h, self.device))
         key = f"PCUBE#{p['prefix']}#{'|'.join(fkey)}#{G}"
         self._need(key, cc[ck])
         return {**self._cube_base(facs, Dprod, chain), "key": key, "G": G,
@@ -1102,8 +1239,8 @@ class Program:
         block) chain-match counts from one int8 product against a static
         histogram over (composite ancestor slot, G-row block, domain cell),
         built once on the device from the permuted planes and the static
-        composite-slot plane (p["slotk"])."""
-        g = self._cube_gate(chain)
+        composite-slot plane (p["slotk"]). Unsharded only."""
+        g = None if self._sharded else self._cube_gate(chain)
         if g is None:
             return None
         facs, Dprod = g
@@ -1114,9 +1251,11 @@ class Program:
         cc = self.dindex.cube_cache
         ck = ("shist", p["prefix"], fkey, G, p["slotk"])
         if ck not in cc:
-            cc[ck] = C.build_slot_blockhist(
-                self._perm_cell(facs, layout), layout.cache[p["slotk"]],
-                nslots, Dprod, G)
+            cc[ck] = self._prep_cached(
+                ck, lambda: C.build_slot_blockhist(
+                    self._perm_cell(facs, layout), layout.cache[p["slotk"]],
+                    nslots, Dprod, G),
+                _t2h, lambda h: _h2t(h, self.device))
         key = f"SCUBE#{p['prefix']}#{'|'.join(fkey)}#{G}#{p['slotk']}"
         self._need(key, cc[ck])
         return {**self._cube_base(facs, Dprod, chain), "key": key, "G": G,
@@ -1240,8 +1379,9 @@ class Program:
         under buckets the shipped fruit is the selected buckets' [k] hits,
         so prod(hdims) * k bounds the transfer and tflat * k the device
         [slots, k] output; past either the shape answers on the host
-        path. Score order where sort_field is None."""
-        k = min(node.size, self.dindex.T)
+        path. Score order where sort_field is None. On a mesh each shard
+        keeps its own top k and the k-way merge keeps k of the index's."""
+        k = min(node.size, self.dindex.global_T)
         if in_slot:
             out_flat = 1
             for d in hdims:
@@ -1357,8 +1497,12 @@ class Program:
              "min_mono": col.min_mono, "percents": node.percents,
              "hdims": hdims, "pmode": "rank", "path": path,
              "int_percents": _int_percents(node),
-             "layout": layout, "prefix": prefix}
+             "layout": layout, "prefix": prefix,
+             # a mesh selects by cross-shard bisection of the value domain
+             "bisect": self._sharded, "span": col.span}
         self.plan[path] = p
+        if p["bisect"]:
+            self._need_sorted_values(col, layout, prefix)
         row_doc = (col.global_doc_of_rows(self.dindex.T) if col.multi
                    else None)
         if not self._chain_is_dense(chain):
@@ -1374,11 +1518,29 @@ class Program:
                                                 row_doc=row_doc)
         # the value-domain cube: per-block counts from one int8 product
         # against a static block histogram, in place of chain_counts
+        # (unsharded)
         p["pcube"] = (self._plan_cube_pct(p, chain, layout)
                       if p["int_percents"] else None)
         p["pallas_counts"] = p["pcube"] is None
         if p["pallas_counts"]:
             self._need_chain_fit(p["chainp"])
+
+    def _need_sorted_values(self, col, layout, prefix):
+        """Register the layout's ascending value plane `sv` (int64 [R]: w
+        for a narrow column, rm = w - 2^63 for a wide one; I64_MAX on
+        invalid and padding rows, which sort last): the domain a sharded
+        bisection searches (JAX `_need_sorted_value_planes`)."""
+        if "sv" not in layout.cache:
+            from ..index.loader import _w_u64
+            sm = layout.sorted_mono
+            n = sm.shape[0]
+            w = _w_u64(sm, col.min_mono)
+            v = (w.astype(np.int64) if col.narrow
+                 else (w - np.uint64(2**63)).view(np.int64))
+            sv = np.full(layout.n_rows, R.I64_MAX, np.int64)
+            sv[:n] = np.where(layout.valid_perm_host[:n] > 0, v, R.I64_MAX)
+            layout.cache["sv"] = _put(sv, self.device)
+        self._need(prefix + "sv", layout.cache["sv"])
 
     def _register_pdoc(self, layout, prefix, row_doc):
         """The static doc of each permuted layout row ("pdoc", int64) and
@@ -1413,13 +1575,18 @@ class Program:
             raise NotImplementedError(
                 "percentiles under bucket aggs need dense ancestors (at "
                 "most one multi-valued terms ancestor) and a dense chain")
+        if mts and self._sharded:
+            # JAX: the cross-shard bisection has no weighted variant
+            raise NotImplementedError(
+                "occurrence-weighted percentiles under a multi-valued terms "
+                "ancestor answer on the host path on a mesh")
         nslots = 1
         for kind, _, meta in bchain:
             nslots *= meta["nb"] if kind == "hist" else meta
         layout = col.value_layout()
         ns_ok = nslots <= self.dense_nb
         if not ns_ok and int_p and nslots <= K.PCT_SLOT_CAP \
-                and not col.multi:
+                and not col.multi and not self._sharded:
             # past the dense budget: the scube keeps [ns, R/G] state, the
             # kernel [ns, R/32] under a byte bound
             g = self._cube_gate(chain)
@@ -1440,8 +1607,15 @@ class Program:
              "min_mono": col.min_mono, "percents": node.percents,
              "hdims": hdims, "pmode": "slot_rank", "int_percents": int_p,
              "nslots": nslots, "layout": layout, "prefix": prefix,
-             "chainp": entry, "wslots": bool(mts), "path": path}
+             "chainp": entry, "wslots": bool(mts), "path": path,
+             # a mesh selects by per-slot cross-shard bisection, and phase
+             # 2 of non-integer percents emits values
+             "slot_bisect": self._sharded,
+             "phase2_vals": self._sharded and not int_p,
+             "span": col.span}
         self.plan[path] = p
+        if p["slot_bisect"]:
+            self._need_sorted_values(col, layout, prefix)
         if mts or col.multi or not int_p:
             mcol = self._col(mts[0][1]) if mts else None
             K_ = len(mcol.multi_planes_host) if mts else 1
@@ -1698,7 +1872,9 @@ class Program:
         column 0 the per-(value, bucket) matched count, then one column
         per payload sum plane (the chain_blocks payload sources) — built
         once per layout; a query copies the row of its value. Returns True
-        when planned."""
+        when planned. Unsharded only (JAX `_member_split`)."""
+        if self._sharded:
+            return False
         rchain, member = self._member_split(chain)
         if len(member) != 1 or not self._chain_is_matchall(rchain):
             return False
@@ -1796,7 +1972,9 @@ class Program:
         (parent value row, child value row) pair of one doc — `prow` /
         `crow` index the two fields' value rows, `doc` is the pair's doc,
         `valid` marks real rows. Cached on the child column; returns the
-        registered array keys, or None past XPAND_CAP rows."""
+        registered array keys, or None past XPAND_CAP rows. On a mesh the
+        pairs of a doc lie on its shard (both fields' value rows are
+        partitioned by owning doc)."""
         pcol, ccol = self._col(pfield), self._col(cfield)
         if ccol._bid_cache is None:
             ccol._bid_cache = {}
@@ -1817,6 +1995,10 @@ class Program:
                       - np.repeat(np.cumsum(reps) - reps, reps))
             crow = idx_c[np.repeat(coff[pd[idx_p]], reps) + within]
             epad = max(PAD_BLOCK, -(-E // PAD_BLOCK) * PAD_BLOCK)
+            if self._sharded:
+                # a shard expands its own docs' pairs, padded to the
+                # widest shard's length (JAX's per-shard cap)
+                epad = max(SH.allgather_obj(epad, ("xpand", pfield, cfield)))
             if epad > self.XPAND_CAP:
                 ccol._bid_cache[ckey] = None
             else:
@@ -1913,7 +2095,13 @@ class Program:
                 "composite bucket slot space exceeds 2^31 on device")
         bid_key = (f"{node.field}:bid:cal:{node.calendar}" if node.calendar
                    else f"{node.field}:bid:{node.interval}:{node.offset}")
-        bid_host = self._host_bucket_ids(col, p)
+        hb = {}
+
+        def bid_host():
+            if "ids" not in hb:
+                hb["ids"] = self._host_bucket_ids(col, p)
+            return hb["ids"]
+
         self.plan[path] = p
         if tflat * nb <= self.dense_nb and not in_slot and not col.multi \
                 and self._plan_cube_bucket(
@@ -1934,7 +2122,7 @@ class Program:
         self._reads_root = True
         p["mode"] = "dense" if tflat * nb <= budget else "scatter"
         self._slot_rows(p, col, in_slot)
-        bid = col.bucket_id_plane(bid_key, lambda: bid_host)
+        bid = col.bucket_id_plane(bid_key, bid_host)
         self._need(bid_key, bid)
         if col.multi:
             self._need_col_planes(col)
@@ -2002,8 +2190,9 @@ class Program:
                 and not facet and self._plan_cube_bucket(
                     node, p, path, sig=f"t:{node.field}:{card}", chain=chain,
                     nb=card,
-                    bid_host=(self._host_planes(col)[0]
-                              if col.ftype.is_stringy else col.term_ids()[0]),
+                    bid_host=lambda: (self._host_planes(col)[0]
+                                      if col.ftype.is_stringy
+                                      else col.term_ids()[0]),
                     sub_hdims=sub_hdims, sub_tflat=tflat * card,
                     sub_bchain=(bchain + (("terms", node.field, card),)
                                 if bchain is not None else None)):
@@ -2138,13 +2327,13 @@ class Program:
                 return {"cnt": self._cube_rec(p["cube"], pmat, arrays)[1]
                         ["cnt"]}
             if isinstance(ctx, MaskCtx):
-                return {"cnt": ctx.count()}
-            return {"cnt": self._slot_counts(ctx)}
+                return {"cnt": self._madd(ctx.count())}
+            return {"cnt": self._madd(self._slot_counts(ctx))}
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
                              A.StatsAgg)):
             if p.get("cube"):
                 return self._eval_metric_cube(node, pmat, arrays, p)
-            return self._eval_metric(node, ctx, arrays, p)
+            return self._merge_fruit(self._eval_metric(node, ctx, arrays, p))
         if isinstance(node, A.PercentilesAgg):
             return self._eval_percentiles(pmat, arrays, p, ctx)
         if isinstance(node, A.HistogramAgg):
@@ -2155,19 +2344,26 @@ class Program:
             if isinstance(ctx, MaskCtx):
                 sub_ctx = MaskCtx(lambda: ctx.mask & self._chain_mask(
                     p["fmask"], pmat, arrays))
+                cube_cnt = None
                 if p.get("cube"):
-                    sub_ctx.cnt = self._cube_rec(p["cube"], pmat,
-                                                 arrays)[1]["cnt"]
+                    cube_cnt = self._cube_rec(p["cube"], pmat,
+                                              arrays)[1]["cnt"]
+                    if not self._sharded:
+                        # (on a mesh the scope's count stays its shard's)
+                        sub_ctx.cnt = cube_cnt
                 subs = self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
                                         path)
-                return {"cnt": sub_ctx.count(), **subs}
+                cnt = (cube_cnt if cube_cnt is not None
+                       else self._madd(sub_ctx.count()))
+                return {"cnt": cnt, **subs}
             fmask = self._chain_mask(p["fmask"], pmat, arrays)
             if ctx.doc is not None:
                 fmask = _cols(fmask, ctx.doc)
             sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims,
-                              doc=ctx.doc, doc_rooted=ctx.doc_rooted)
-            out = {"cnt": R.dense_bucket_counts(
-                sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots)}
+                              doc=ctx.doc, doc_rooted=ctx.doc_rooted,
+                              doc_key=ctx.doc_key)
+            out = {"cnt": self._madd(R.dense_bucket_counts(
+                sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots))}
             out.update(self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
                                         path))
             return out
@@ -2377,21 +2573,62 @@ class Program:
             w += vm & (arrays[prefix + k][rows] == s)
         return w
 
+    def _window_fn(self, p, st, arrays):
+        """blk [...] -> the [..., G] windows of a node's rows (bool, or the
+        torch slot path's int32 weights), recomputed lazily."""
+        if p.get("mask_gather"):
+            return lambda blk: self._gathered_window(p, st["mask"], arrays,
+                                                     blk)
+        if p.get("slotks"):
+            return lambda blk: self._weighted_window(p, st["sub"], arrays,
+                                                     blk)
+        return lambda blk: self._window_mask(p, st["sub"], arrays, blk,
+                                             st["G"])
+
     def _select_rows(self, p, st, arrays, ranks):
         """The layout row of each 0-based rank ([B, 2P]; slot_rank
         [B, ns, 2P]) from a node's count prefix `st["cum"]` and the lazy
         recompute of its windows: the one selection of the integer path
         (in-run ranks) and of phase 2 (host ranks)."""
-        if p.get("mask_gather"):
-            def window(blk):
-                return self._gathered_window(p, st["mask"], arrays, blk)
-        elif p.get("slotks"):
-            def window(blk):
-                return self._weighted_window(p, st["sub"], arrays, blk)
-        else:
-            def window(blk):
-                return self._window_mask(p, st["sub"], arrays, blk, st["G"])
-        return _rank_select_rows_lazy(st["cum"], ranks, window, st["G"])
+        return _rank_select_rows_lazy(st["cum"], ranks,
+                                      self._window_fn(p, st, arrays), st["G"])
+
+    def _bisect_values(self, p, st, arrays, ranks):
+        """The value of each 0-based GLOBAL rank ([B, 2P]; slot_rank [B,
+        ns, 2P]) on a mesh, by bisecting the value domain (JAX
+        `_bisect_select_values` / `_bisect_select_slot_values`): the
+        smallest x with count(x) >= rank + 1, where count(x) is the psum
+        over the shards of this shard's matched rows (of the slot) with
+        value <= x: the rows [0, pos) of its value-sorted layout, pos from
+        a binary search of `sv`, counted from the node's count prefix plus
+        one lazily recomputed window. One psum per step and no host round
+        trip; span.bit_length() steps (31 for a 31-bit narrow span, 64 for
+        a full wide one). Narrow columns yield w, wide ones rm (as the
+        harvest reads them); a rank of an empty query or slot yields a
+        value the harvest never reads (m == 0)."""
+        sv = arrays[p["prefix"] + "sv"]
+        window = self._window_fn(p, st, arrays)
+        cum, G = st["cum"], st["G"]
+        NB = cum.shape[-1]
+        t = ranks + 1
+        span = int(p["span"])
+        lo0 = 0 if p["narrow"] else -(2**63)
+        lo = torch.full_like(t, lo0)
+        hi = torch.full_like(t, lo0 + span)
+        cols = torch.arange(G, device=t.device)
+        for _ in range(max(1, span.bit_length())):
+            # floor((lo + hi) / 2) without int64 overflow
+            mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+            pos = torch.searchsorted(sv, mid, right=True)
+            blk = (pos // G).clamp(max=NB - 1)
+            prev = torch.gather(cum, -1, (blk - 1).clamp(min=0))
+            base = torch.where(blk > 0, prev.to(torch.int64), 0)
+            inner = (window(blk) * (cols < (pos - blk * G)[..., None])) \
+                .sum(dim=-1)
+            ge = self._madd(base + inner) >= t
+            hi = torch.where(ge, mid, hi)
+            lo = torch.where(ge, lo, mid + 1)
+        return lo
 
     def _eval_percentiles(self, pmat, arrays, p, ctx=None):
         """Per-group match counts from a chain kernel (rank: chain_counts
@@ -2408,11 +2645,15 @@ class Program:
             st, m = self._percentile_counts_torch_slots(pmat, arrays, p)
         else:
             st, m = self._percentile_counts(pmat, arrays, p)
+        m = self._madd(m)
         if not p["int_percents"]:
             self._big[p["path"]] = st
             return {"m": m}
-        return {"m": m, "rows": self._select_rows(
-            p, st, arrays, self._int_ranks(p, m))}
+        ranks = self._int_ranks(p, m)
+        if p.get("bisect") or p.get("slot_bisect"):
+            return {"m": m, "vals": self._bisect_values(p, st, arrays,
+                                                        ranks)}
+        return {"m": m, "rows": self._select_rows(p, st, arrays, ranks)}
 
     def _percentile_counts(self, pmat, arrays, p):
         """(state, m) of a dense chain: the cube's, chain_counts' or
@@ -2485,35 +2726,73 @@ class Program:
 
     # -- top_hits ------------------------------------------------------------
 
-    def _hit_order(self, node, p, arrays, doc):
+    def _hit_order(self, node, p, arrays, doc, doc_key=None):
         """(order, key) of a top_hits node's row space (the docs, or the
-        rows whose docs `doc` holds): key [n] int64 is the sort field's rm
-        at the row's doc (~rm descending; 0 in score order), order [n]
-        int64 the rows sorted by (key, doc, row) — two stable sorts, once
-        per row space (cached per node; the sort planes and `doc` are
-        resident). A query's hits in a slot are the first k of its
-        matched rows in this order."""
+        rows whose docs `doc` holds, the array `doc_key`): key [n] int64
+        is the sort field's rm at the row's doc (~rm descending; 0 in
+        score order), order [n] int64 the rows sorted by (key, doc, row) —
+        two stable sorts, once per row space (cached per node and in the
+        prep cache; the sort planes and `doc` are resident). A query's
+        hits in a slot are the first k of its matched rows in this
+        order."""
         hit = self._hit_cache.get(p["path"])
         if hit is not None and hit[0] is doc:
             return hit[1], hit[2]
         n = self.dindex.T if doc is None else doc.shape[0]
         dev = self.device
-        if p.get("score"):
-            key = torch.zeros(n, dtype=torch.int64, device=dev)
-        else:
-            f = node.sort_field
-            if p["narrow"] or p["ftype"].is_stringy:
-                rm = arrays[f"{f}:w"].to(torch.int64)
+
+        def build():
+            if p.get("score"):
+                key = torch.zeros(n, dtype=torch.int64, device=dev)
             else:
-                rm = R.wide_recon(arrays[f"{f}:hi"], arrays[f"{f}:lo"])
-            rm = rm if doc is None else rm[doc]
-            key = rm if node.ascending else ~rm
-        order = torch.arange(n, dtype=torch.int64, device=dev)
-        if doc is not None:
-            order = torch.sort(doc, stable=True).indices
-        order = order[torch.sort(key[order], stable=True).indices]
+                f = node.sort_field
+                if p["narrow"] or p["ftype"].is_stringy:
+                    rm = arrays[f"{f}:w"].to(torch.int64)
+                else:
+                    rm = R.wide_recon(arrays[f"{f}:hi"], arrays[f"{f}:lo"])
+                rm = rm if doc is None else rm[doc]
+                key = rm if node.ascending else ~rm
+            order = torch.arange(n, dtype=torch.int64, device=dev)
+            if doc is not None:
+                order = torch.sort(doc, stable=True).indices
+            return order[torch.sort(key[order], stable=True).indices], key
+
+        order, key = self._prep_cached(
+            ("hits", node.sort_field, bool(node.ascending),
+             bool(p.get("score")), doc_key, n),
+            build, lambda ok: {"order": ok[0].cpu().numpy(),
+                               "key": ok[1].cpu().numpy()},
+            lambda h: (_put(h["order"], dev), _put(h["key"], dev)))
         self._hit_cache[p["path"]] = (doc, order, key)
         return order, key
+
+    def _merge_hits(self, out):
+        """On a mesh, the index's top k from every shard's (JAX's k-way
+        merge): each shard's k candidates with doc ids globalized (doc +
+        s * T_s, so ties break on the global doc id), gathered, sorted by
+        (matched first, key, doc) and cut to k; m psum'd. No per-row data
+        crosses shards."""
+        keys, docs, m = out["keys"], out["docs"], out["m"]
+        k = keys.shape[-1]
+        j = torch.arange(k, device=keys.device)
+        ok = j < m[..., None]
+        gdoc = docs + SH.axis_index() * self.dindex.T
+
+        def gathered(a):  # [S, ..., k] -> [..., S * k]
+            g = SH.all_gather(a.contiguous())
+            return g.movedim(0, -2).reshape(a.shape[:-1] + (-1,))
+
+        ck, cd, ci = gathered(keys), gathered(gdoc), gathered(ok)
+        # (unmatched last, key, doc): stable sorts, least significant first
+        o = torch.sort(cd, dim=-1, stable=True).indices
+        o = o.gather(-1, torch.sort(ck.gather(-1, o), dim=-1,
+                                    stable=True).indices)
+        o = o.gather(-1, torch.sort((~ci.gather(-1, o)).to(torch.int8),
+                                    dim=-1, stable=True).indices)[..., :k]
+        mt = self._madd(m)
+        okm = j < mt[..., None]
+        return {"keys": torch.where(okm, ck.gather(-1, o), 0),
+                "docs": torch.where(okm, cd.gather(-1, o), 0), "m": mt}
 
     def _eval_top_hits(self, node, ctx, arrays, p):
         """Flat top_hits over the scope's [B, T] mask: a query's hits are
@@ -2542,7 +2821,7 @@ class Program:
         out = {"keys": keys, "docs": docs, "m": m}
         if rep > 1:
             out = {n: v.expand((rep,) + v.shape[1:]) for n, v in out.items()}
-        return out
+        return self._merge_hits(out) if self._sharded else out
 
     def _eval_top_hits_slots(self, node, ctx, arrays, p):
         """In-slot top_hits: per query, the composite slot of every row
@@ -2555,7 +2834,7 @@ class Program:
         to one hit per (slot, doc)). Queries run a few at a time (the
         sort's [b, rows] state)."""
         doc = ctx.doc
-        order, key = self._hit_order(node, p, arrays, doc)
+        order, key = self._hit_order(node, p, arrays, doc, ctx.doc_key)
         ns, k = ctx.nslots, p["k"]
         B, n = ctx.valid.shape
         dev = ctx.valid.device
@@ -2595,7 +2874,8 @@ class Program:
             docs[sl] = torch.where(ok, torch.gather(rdoc[sp], 1, hit), 0) \
                 .reshape(b, ns, k)
             m[sl] = ms
-        return {"keys": keys, "docs": docs, "m": m}
+        out = {"keys": keys, "docs": docs, "m": m}
+        return self._merge_hits(out) if self._sharded else out
 
     # -- bucket aggs ---------------------------------------------------------
 
@@ -2649,7 +2929,7 @@ class Program:
             counts = R.prefix_diff_counts_from_blocks(R.block32_counts(vm),
                                                       bounds32)
 
-            def bucket_sums(key):
+            def local_sums(key):
                 return R.prefix_diff_sums_from_blocks(
                     R.block32_sums(vm, arrays[prefix + key]), bounds32)
         else:
@@ -2662,9 +2942,16 @@ class Program:
             counts = R.prefix_diff_counts_from_blocks(c32, bounds32)
             col_of = {k: j for j, k in enumerate(pay_keys)}
 
-            def bucket_sums(key):
+            def local_sums(key):
                 return R.prefix_diff_sums_from_blocks(sums[:, col_of[key]],
                                                       bounds32)
+
+        # each shard's per-bucket partials over its own layout (its own
+        # bounds), psum'd
+        counts = self._madd(counts)
+
+        def bucket_sums(key):
+            return self._madd(local_sums(key))
 
         sub_out = {}
         for name, sub in node.sub_aggs:
@@ -2703,7 +2990,8 @@ class Program:
                 doc, valid = None, ctx.mask
             if missing:
                 valid = valid & (own >= 0)
-            return SlotCtx(own, valid, (nb,), mm, doc, chain_ok)
+            return SlotCtx(own, valid, (nb,), mm, doc, chain_ok,
+                           f"{f}:doc" if col.multi else None)
         dims = ctx.dims + (nb,)
         xp = p.get("xpand")
         if xp:
@@ -2711,14 +2999,15 @@ class Program:
                           arrays[xp["prow"]])
             own_r = own[arrays[xp["crow"]]]
             valid = arrays[xp["valid"]] & (pslot >= 0)
-            doc = arrays[xp["doc"]]
+            doc, doc_key = arrays[xp["doc"]], xp["doc"]
         elif not ctx.doc_rooted:
             # each row of the multi-valued ancestor is one collect
             pslot = torch.where(ctx.valid, ctx.bid, -1)
             own_r, valid, doc = ctx.rows(own), ctx.valid, ctx.doc
+            doc_key = ctx.doc_key
         elif col.multi:
             sod, svd = ctx.slots_of_docs(self.dindex.T)
-            doc = arrays[f"{f}:doc"]
+            doc, doc_key = arrays[f"{f}:doc"], f"{f}:doc"
             pslot = _cols(sod, doc)
             valid = (arrays[f"{f}:valid"] > 0) & _cols(svd, doc)
             own_r = own
@@ -2728,12 +3017,12 @@ class Program:
                            dims)
         else:
             pslot, valid = ctx.slots_of_docs(self.dindex.T)
-            own_r, doc = own, None
+            own_r, doc, doc_key = own, None, None
         if missing:
             valid = valid & (own_r >= 0)
         bid = torch.where(valid, pslot * nb + own_r, -1)
         return SlotCtx(bid, valid, dims, None, doc,
-                       chain_ok and ctx.doc_rooted)
+                       chain_ok and ctx.doc_rooted, doc_key)
 
     def _eval_histogram(self, node, ctx, pmat, arrays, path, p):
         nb = p["nb"]
@@ -2746,7 +3035,7 @@ class Program:
             return {"counts": counts, **sub_out}
         sub_ctx = self._bucket_ctx(node, ctx, p, arrays[p["bid_key"]], nb,
                                    arrays, p.get("dense_mm"))
-        out = {"counts": self._slot_counts(sub_ctx)}
+        out = {"counts": self._madd(self._slot_counts(sub_ctx))}
         for name, sub in node.sub_aggs:
             out[name] = self._eval(sub, sub_ctx, pmat, arrays,
                                    path + (name,))
@@ -2776,6 +3065,7 @@ class Program:
                 ids, ctx.mask, card, op=arrays.get(sub_ctx.mm["op"]))
         else:
             counts = self._slot_counts(sub_ctx)
+        counts = self._madd(counts)
         sub_out = {name: self._eval(sub, sub_ctx, pmat, arrays,
                                     path + (name,))
                    for name, sub in node.sub_aggs}
@@ -2795,7 +3085,7 @@ class Program:
             for k, mm in enumerate(mms):
                 pk = arrays[f"{node.field}:mp{k}"]
                 sub_ctx = SlotCtx(pk, ctx.mask & (pk >= 0), (p["card"],), mm)
-                one = {"counts": self._slot_counts(sub_ctx)}
+                one = {"counts": self._madd(self._slot_counts(sub_ctx))}
                 for name, sub in node.sub_aggs:
                     one[name] = self._eval(sub, sub_ctx, pmat, arrays,
                                            path + (name,))
@@ -3350,5 +3640,106 @@ def _rank_select_rows_lazy(cum, ranks, window_of, G):
     return blk * G + off
 
 
-def get_program(dindex, query, aggs, config=None) -> Program:
+def _t2h(t: torch.Tensor) -> dict:
+    """A device artifact's host form for the prep cache."""
+    return {"a": t.cpu().numpy()}
+
+
+def _h2t(h: dict, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(h["a"])).to(device)
+
+
+class ShardedProgram:
+    """A Program over a doc-sharded index (JAX `shard_map`): one Program
+    per shard, planned and run in lockstep on the mesh's shard threads
+    (parallel/shard.py MeshGroup.run), each on its shard's DeviceIndex.
+    Fruits leave every shard merged, so shard 0's packed copy is the one
+    staged and harvested; phase 2 resolves host ranks once and bisects on
+    every shard."""
+
+    def __init__(self, sindex, query, aggs, config=None):
+        self.mesh = sindex.mesh
+        self.progs = self.mesh.run(
+            lambda s: Program(sindex.shards[s], query, aggs, config=config))
+        p0 = self.progs[0]
+        for s, pg in enumerate(self.progs[1:], 1):
+            if _plan_sig(pg.plan) != _plan_sig(p0.plan):
+                raise RuntimeError(f"shard {s} planned other modes than "
+                                   "shard 0")
+        self.plan = p0.plan
+        self.config = p0.config
+        self.batch_cap = self._batch_cap()
+
+    def _batch_cap(self):
+        """The msearch group bound: shards on one device share its
+        BATCH_MEM_BUDGET."""
+        per_dev = {}
+        for pg in self.progs:
+            d = str(pg.device)
+            per_dev[d] = per_dev.get(d, 0) + pg._per_query_bytes()
+        worst = max(per_dev.values())
+        if worst == 0:
+            return None
+        return max(1, Program.BATCH_MEM_BUDGET // worst)
+
+    def param_key(self, query, aggs):
+        return self.progs[0].param_key(query, aggs)
+
+    def accepts(self, query, aggs) -> bool:
+        return self.progs[0].accepts(query, aggs)
+
+    def submit(self, query, aggs):
+        return self.submit_many([query], aggs)
+
+    def submit_many(self, queries, aggs):
+        """Each shard runs the [B, P] param matrix (built once, copied to
+        each device); {"packed": shard 0's merged fruits, "big": every
+        shard's phase-1 state, or {} without phase 2}."""
+        p0 = self.progs[0]
+        pm = qc.param_matrix([p0._extract(q, aggs) for q in queries],
+                             p0._pkeys, p0.device)
+        pms = [pm if pg.device == p0.device else pm.to(pg.device)
+               for pg in self.progs]
+        raws = self.mesh.run(lambda s: self.progs[s]._run(pms[s]))
+        big = [r["big"] for r in raws] if raws[0]["big"] else {}
+        return {"packed": raws[0]["packed"], "big": big}
+
+    def run(self, query, aggs):
+        return self.finalize(self.submit(query, aggs), aggs)
+
+    def stage(self, raw, aggs):
+        return _Staged(raw["packed"], raw["big"])
+
+    def finalize(self, raw, aggs, staged=None):
+        return self.finalize_many(raw, aggs, 1, staged=staged)[0]
+
+    def finalize_many(self, raw, aggs, B: int, staged=None):
+        staged = staged if staged is not None else self.stage(raw, aggs)
+        p0 = self.progs[0]
+        vecs = staged.numpy()
+        hosts = [p0._unpack_host(vecs[b]) for b in range(B)]
+        if staged.big:
+            bigs = staged.big
+            ranks = p0._phase2_ranks(hosts, bigs[0])
+            sel = self.mesh.run(lambda s: self.progs[s]._phase2_select(
+                ranks, bigs[s], B))
+            p0._phase2_attach(hosts, sel[0])
+        return [p0.harvest_host(h, aggs) for h in hosts]
+
+
+def _plan_sig(plan) -> dict:
+    """The modes of a plan, node by node (what every shard must agree
+    on)."""
+    keys = ("kind", "mode", "pmode", "sel", "bisect", "slot_bisect",
+            "mask_gather", "in_slot", "pallas_counts", "pallas_prefix",
+            "pallas_slots", "int_percents", "nb", "card", "k")
+    return {path: (tuple(p.get(k) for k in keys),
+                   bool(p.get("cube")), "xpand" in p)
+            for path, p in plan.items() if isinstance(p, dict)}
+
+
+def get_program(dindex, query, aggs, config=None):
+    from ..index.loader import ShardedIndex
+    if isinstance(dindex, ShardedIndex):
+        return ShardedProgram(dindex, query, aggs, config=config)
     return Program(dindex, query, aggs, config=config)

@@ -25,17 +25,27 @@ harvest code and the differential tests read the same numbers):
   padding (bucket layouts) or value order (value layouts), the static views
   the chain kernels scan.
 
-What the port leaves out: the packed host->device transport and device limb
-derivation (the TPU's remote link made bytes expensive; here a plane is one
-`torch.from_numpy(a).to(device)` copy and limb planes are computed on the
-host), sharding (so the JAX loader's per-shard CSR partition is its
-one-device case), and the cross-process prep cache (the cube's and the dense
-products' operands are cached on the DeviceIndex, `cube_cache`, for the
-process's life).
+Sharded loading (`load_sharded_index`, the JAX loader's
+`load_device_index(index, mesh)`): the doc axis is padded to PAD_BLOCK * S
+and split into S contiguous chunks of T/S rows; CSR value rows (and
+overflow tails) are partitioned by owning shard, each shard's slice padded
+to one common PAD_BLOCK multiple, with shard-local doc ids. Each shard is a
+DeviceIndex of its own on its mesh device whose columns (`ShardColumn`) are
+views of one global host column: the same encoding, dictionaries, term ids,
+sum plans and pre-aggregate bounds, the shard's rows only. Layouts built on
+a shard column sort its rows only, so a permutation never crosses a shard.
+
+OrderedLayouts go through the cross-process prep cache
+(utils/prep_cache.py, `_layout_cached`), keyed by column, layout kind and
+shard. What the port leaves out: the packed host->device transport and
+device limb derivation (the TPU's remote link made bytes expensive; here a
+plane is one `torch.from_numpy(a).to(device)` copy and limb planes are
+computed on the host).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -43,7 +53,7 @@ import numpy as np
 import torch
 
 from ..schema import Cardinality, FieldType, Schema
-from ..utils import exact, mono as mono_mod
+from ..utils import exact, mono as mono_mod, prep_cache as PC
 
 #: doc/value axes are padded to a multiple of this (kept from the JAX
 #: package so both engines see the same padded row counts; a multiple of
@@ -151,6 +161,9 @@ class DeviceColumn:
     _tail_lo_host: Optional[np.ndarray] = None
     _tail_doc_host: Optional[np.ndarray] = None
     _tail_valid8_host: Optional[np.ndarray] = None
+    #: the prep cache anchor of the column's index: ((path, epoch,
+    #: n_shards), key prefix); set by DeviceIndex.column
+    _prep: Optional[tuple] = None
 
     @property
     def has_multi_planes(self) -> bool:
@@ -368,55 +381,88 @@ class DeviceColumn:
 
     # -- ordered layouts ------------------------------------------------------
 
-    def layout_for_ids(self, key: str, ids_host: np.ndarray,
-                       card: int) -> OrderedLayout:
+    def _layout_cached(self, kind_key, build) -> OrderedLayout:
+        """Build-or-load an OrderedLayout through the cross-process prep
+        cache (JAX `_layout_cached`): its perm, validity, bounds and sorted
+        values as host arrays."""
+        if self._prep is None:
+            return build()
+        anchor, pre = self._prep
+
+        def to_host(lo):
+            arrays = {"perm": lo.perm, "valid": lo.valid_perm_host}
+            if lo.bounds is not None:
+                arrays["bounds"] = lo.bounds
+            if lo.sorted_mono is not None:
+                arrays["sm"] = lo.sorted_mono
+            return arrays
+
+        def from_host(h):
+            return OrderedLayout(
+                perm=h["perm"], n_rows=int(h["perm"].shape[0]),
+                bounds=h.get("bounds"), valid_perm_host=h["valid"],
+                sorted_mono=h.get("sm"))
+
+        return PC.cached(anchor, pre + ("layout", self.name, kind_key),
+                         build, to_host, from_host)
+
+    def layout_for_ids(self, key: str, ids_host, card: int) -> OrderedLayout:
         """Cached OrderedLayout over arbitrary static per-row bucket ids
-        (e.g. precomputed histogram buckets): rows sorted by id with
-        32-aligned boundaries for prefix-difference reductions."""
+        (e.g. precomputed histogram buckets; an array, or a function that
+        makes it where the layout misses the prep cache): rows sorted by
+        id with 32-aligned boundaries for prefix-difference reductions."""
         if self._bid_cache is None:
             self._bid_cache = {}
         lkey = ("layout", key)
         if lkey not in self._bid_cache:
-            ids = np.asarray(ids_host, np.int64)
-            if self._host_valid is not None:
-                ids = np.where(self._host_valid, ids, -1)
-            self._bid_cache[lkey] = _build_bucket_layout(
-                ids.astype(np.int32), card)
+            def build():
+                ids = np.asarray(ids_host() if callable(ids_host)
+                                 else ids_host, np.int64)
+                if self._host_valid is not None:
+                    ids = np.where(self._host_valid, ids, -1)
+                return _build_bucket_layout(ids.astype(np.int32), card)
+            self._bid_cache[lkey] = self._layout_cached(("ids", key, card),
+                                                        build)
         return self._bid_cache[lkey]
 
     def bucket_layout(self) -> OrderedLayout:
         """Rows sorted by bucket id with 32-aligned bucket boundaries, for
         prefix-difference terms aggs."""
         if self._bucket_layout is None:
-            if self.ftype.is_stringy:
-                ids = np.where(self._host_valid,
-                               self._host_mono, -1).astype(I32)
-                card = max(1, len(self.terms))
-            else:
-                ids = self.term_ids()[0]
-                card = self.card
-            self._bucket_layout = _build_bucket_layout(ids, card)
+            def build():
+                if self.ftype.is_stringy:
+                    ids = np.where(self._host_valid,
+                                   self._host_mono, -1).astype(I32)
+                    card = max(1, len(self.terms))
+                else:
+                    ids = self.term_ids()[0]
+                    card = self.card
+                return _build_bucket_layout(ids, card)
+            self._bucket_layout = self._layout_cached("bucket", build)
         return self._bucket_layout
 
     def value_layout(self) -> OrderedLayout:
-        """Doc rows sorted by value (mono order) for rank-selection
-        percentiles; invalid rows sort last."""
+        """Rows (docs, or the value rows of a multi-valued field) sorted by
+        value (mono order) for rank-selection percentiles; invalid rows
+        sort last. A shard column sorts its own rows only."""
         if self._value_layout is None:
-            m = self._host_mono
-            valid = self._host_valid
-            key = m.copy()
-            if valid is not None:
-                key = np.where(valid, key, np.iinfo(np.int64).max)
-            n = key.shape[0]
-            perm = np.argsort(key, kind="stable").astype(I32)
-            R = _pad_to(n, PAD_BLOCK)
-            perm_p = np.zeros(R, I32)
-            perm_p[:n] = perm
-            vp = np.zeros(R, np.int8)
-            vp[:n] = 1 if valid is None else valid[perm].astype(np.int8)
-            self._value_layout = OrderedLayout(
-                perm=perm_p, n_rows=R, valid_perm_host=vp,
-                sorted_mono=key[perm])
+            def build():
+                m = self._host_mono
+                valid = self._host_valid
+                key = m.copy()
+                if valid is not None:
+                    key = np.where(valid, key, np.iinfo(np.int64).max)
+                n = key.shape[0]
+                perm = np.argsort(key, kind="stable").astype(I32)
+                R = _pad_to(n, PAD_BLOCK)
+                perm_p = np.zeros(R, I32)
+                perm_p[:n] = perm
+                vp = np.zeros(R, np.int8)
+                vp[:n] = 1 if valid is None else valid[perm].astype(np.int8)
+                return OrderedLayout(perm=perm_p, n_rows=R,
+                                     valid_perm_host=vp,
+                                     sorted_mono=key[perm])
+            self._value_layout = self._layout_cached("value", build)
         return self._value_layout
 
 
@@ -477,6 +523,31 @@ class DeviceIndex:
     #: query-independent operands of the value-domain cube and the dense
     #: products (aggs/compile.py), shared by every program on this index
     cube_cache: Dict[tuple, object] = field(default_factory=dict)
+    #: on-disk index directory (None for RAM indexes) and its contents'
+    #: digest at load: the anchor of the cross-process prep cache
+    #: (utils/prep_cache.py)
+    path: Optional[str] = None
+    stamp: Optional[str] = None
+    #: a shard of a mesh: the shard count, this shard's index, the mesh's
+    #: MeshGroup (parallel/shard.py; None unsharded) and the doc rows of
+    #: the whole index (T on one device)
+    n_shards: int = 1
+    shard: int = 0
+    mesh: Optional[object] = None
+    global_T: int = 0
+
+    def __post_init__(self):
+        if not self.global_T:
+            self.global_T = self.T
+
+    @property
+    def prep_anchor(self) -> tuple:
+        """(path, contents stamp, n_shards) of the prep cache."""
+        return (self.path, self.stamp, self.n_shards)
+
+    def prep_key(self, key) -> tuple:
+        """A prep cache key of this index: a shard's keys name the shard."""
+        return (("shard", self.shard),) + key if self.n_shards > 1 else key
 
     @property
     def alive(self) -> torch.Tensor:
@@ -493,8 +564,9 @@ class DeviceIndex:
         if build is None:
             raise KeyError(f"field {name!r} not loaded (not FAST or unknown)")
         col = build()
-        if col.ftype.is_numeric:
+        if col.ftype.is_numeric and not isinstance(col, ShardColumn):
             _plan_sums(col, self._max_addends)
+        col._prep = (self.prep_anchor, self.prep_key(()))
         self.columns[name] = col
         return col
 
@@ -506,15 +578,18 @@ class DeviceIndex:
         return -1
 
 
-def load_device_index(index, device) -> DeviceIndex:
+def load_device_index(index, device, D: int = 1) -> DeviceIndex:
     """Columns are DEFERRED: this registers a builder per fast field and
     returns (alive mask + metadata only). Each column's host prep runs on
-    its first `column()` access; its planes ship to `device` on first use."""
+    its first `column()` access; its planes ship to `device` on first use.
+    D > 1: the global host columns of a D-shard mesh (doc axis padded to
+    PAD_BLOCK * D, CSR rows partitioned by shard), which
+    `load_sharded_index` slices into its shards."""
     device = torch.device(device)
     schema: Schema = index.schema
     segments = index.segments
     n_docs = sum(s.max_doc for s in segments)
-    T = _pad_to(max(n_docs, 1), PAD_BLOCK)
+    T = _pad_to(max(n_docs, 1), PAD_BLOCK * D)
 
     alive = np.zeros(T, dtype=np.int8)
     pos = 0
@@ -537,11 +612,11 @@ def load_device_index(index, device) -> DeviceIndex:
             else:
                 builders[entry.name] = (
                     lambda e=entry: _load_csr(e, segments, T, device,
-                                              keyword=True))
+                                              keyword=True, D=D))
         elif any(s.fields[entry.name].offsets is not None for s in segments):
             builders[entry.name] = (
                 lambda e=entry: _load_csr(e, segments, T, device,
-                                          keyword=False))
+                                          keyword=False, D=D))
         else:
             builders[entry.name] = (
                 lambda e=entry: _load_numeric_single(e, segments, T, device))
@@ -549,13 +624,147 @@ def load_device_index(index, device) -> DeviceIndex:
     if max(total_values, n_docs) >= exact.MAX_ADDENDS:
         raise ValueError("index exceeds the exact-sum addend bound (2^36)")
 
+    path = getattr(index, "path", None)
     seg_starts = (np.cumsum([0] + [s.max_doc for s in segments])[:-1]
                   if segments else np.zeros(1))
     return DeviceIndex(schema=schema, epoch=index.epoch, T=T, n_docs=n_docs,
                        total_values=total_values, columns={}, device=device,
                        seg_starts=np.asarray(seg_starts, np.int64),
                        alive_host=alive, _col_builders=builders,
-                       _max_addends=max(total_values, n_docs))
+                       _max_addends=max(total_values, n_docs),
+                       path=path,
+                       stamp=PC.content_stamp(path) if path else None)
+
+
+# ---------------------------------------------------------------------------
+# sharded loading
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ShardColumn(DeviceColumn):
+    """Shard s of a global host column: its doc rows [s*Ts, (s+1)*Ts) (or
+    its slice of the partitioned value rows and tail) with the global
+    column's encoding and metadata. Term ids, per-doc pre-aggregates and
+    their bounds are the global column's, sliced; sums keep its plan."""
+
+    _parent: Optional[DeviceColumn] = None
+    _s: int = 0
+    _S: int = 1
+    _gT: int = 0
+
+    def _doc_rows(self, a):
+        if a is None:
+            return None
+        n = a.shape[0] // self._S
+        return a[self._s * n:(self._s + 1) * n]
+
+    def term_ids(self):
+        if self._term_ids_host is None:
+            ids, uniq = self._parent.term_ids()
+            self._term_ids_host = self._doc_rows(ids)
+            self._term_values_mono = uniq
+        return self._term_ids_host, self._term_values_mono
+
+    def doc_preagg_host(self, T: int) -> dict:
+        if self._doc_preagg is None:
+            self._doc_preagg = {
+                k: self._doc_rows(v) for k, v in
+                self._parent.doc_preagg_host(self._gT).items()}
+        return self._doc_preagg
+
+    def preagg_bounds(self, T: int) -> dict:
+        return self._parent.preagg_bounds(self._gT)
+
+
+def _shard_column(g: DeviceColumn, s: int, S: int, gT: int,
+                  device) -> ShardColumn:
+    """The shard-s view of global column g (see ShardColumn)."""
+    base = {f.name: getattr(g, f.name) for f in dataclasses.fields(g)
+            if f.init and f.name not in ("_dev", "_bid_cache")}
+    col = ShardColumn(**base, _parent=g, _s=s, _S=S, _gT=gT)
+    col._device = device
+    col._dev = {}
+    col._bid_cache = None
+    rows = col._doc_rows  # doc rows, or the value rows of a CSR column
+    for name in ("_host_values", "_host_valid", "_host_mono", "_host_doc",
+                 "_w_host", "_hi_host", "_lo_host", "_valid8_host",
+                 "_mpn_host", "_tail_w_host", "_tail_hi_host",
+                 "_tail_lo_host", "_tail_doc_host", "_tail_valid8_host"):
+        setattr(col, name, rows(getattr(g, name)))
+    if g.multi_planes_host is not None:
+        col.multi_planes_host = [rows(p) for p in g.multi_planes_host]
+    if g.multi_planes_wide_host is not None:
+        col.multi_planes_wide_host = [(rows(h), rows(lo))
+                                      for h, lo in g.multi_planes_wide_host]
+    for name in ("_orig_docs", "_orig_values", "_term_ids_host",
+                 "_term_values_mono", "_bucket_layout", "_value_layout",
+                 "_doc_preagg", "_preagg_bounds"):
+        setattr(col, name, None)
+    return col
+
+
+@dataclass
+class ShardedIndex:
+    """A doc-sharded index over a mesh: `shards[s]` is the DeviceIndex of
+    shard s (its T/S doc rows on mesh device s); column metadata, the
+    parameters a request extracts and set-query expansions are read from
+    shard 0 (every shard holds the same)."""
+    schema: Schema
+    epoch: int
+    T: int
+    n_docs: int
+    seg_starts: np.ndarray
+    shards: list
+    mesh: object
+    path: Optional[str] = None
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def devices(self) -> list:
+        return [d.device for d in self.shards]
+
+    @property
+    def set_query_runs(self):
+        return self.shards[0].set_query_runs
+
+    def column(self, name: str) -> DeviceColumn:
+        return self.shards[0].column(name)
+
+    def keyword_ord(self, field: str, term: str) -> int:
+        return self.shards[0].keyword_ord(field, term)
+
+
+def load_sharded_index(index, devices) -> ShardedIndex:
+    """The JAX loader's `load_device_index(index, mesh)`: S = len(devices)
+    shards of T/S doc rows each (T padded to PAD_BLOCK * S), shard s on
+    devices[s]. Global host columns build once, on first use by any shard;
+    each shard's DeviceIndex holds views of them (`_shard_column`)."""
+    from ..parallel.shard import MeshGroup
+    S = len(devices)
+    g = load_device_index(index, "cpu", D=S)
+    T, Ts = g.T, g.T // S
+    mesh = MeshGroup(devices)
+    shards = []
+    for s, dev in enumerate(devices):
+        # (the shard bodies take turns, so one builds a global column first)
+        builders = {name: (lambda name=name, s=s, dev=dev: _shard_column(
+            g.column(name), s, S, T, torch.device(dev)))
+            for name in g._col_builders}
+        shards.append(DeviceIndex(
+            schema=g.schema, epoch=g.epoch, T=Ts, n_docs=g.n_docs,
+            total_values=g.total_values, columns={},
+            device=torch.device(dev), seg_starts=g.seg_starts,
+            alive_host=g.alive_host[s * Ts:(s + 1) * Ts],
+            _col_builders=builders, _max_addends=g._max_addends,
+            set_query_runs=g.set_query_runs, path=g.path, stamp=g.stamp,
+            n_shards=S,
+            shard=s, mesh=mesh, global_T=T))
+    return ShardedIndex(schema=g.schema, epoch=g.epoch, T=T,
+                        n_docs=g.n_docs, seg_starts=g.seg_starts,
+                        shards=shards, mesh=mesh, path=g.path)
 
 
 def _plan_sums(col: DeviceColumn, max_addends: int) -> None:
@@ -646,11 +855,12 @@ def _load_keyword_dense(entry, segments, T, device) -> DeviceColumn:
     return col
 
 
-def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
+def _load_csr(entry, segments, T, device, keyword: bool,
+              D: int = 1) -> DeviceColumn:
     """Multi-valued field: padded CSR value rows (a doc's values contiguous,
     docs ascending) with their doc ids and validity, the dense per-position
-    planes and the overflow tail (the JAX loader's `_load_csr` on one
-    device)."""
+    planes and the overflow tail (the JAX loader's `_load_csr`); over D
+    shards the value rows and the tail are partitioned by owning shard."""
     from .segment import numeric_dtype
     name = entry.name
     if keyword:
@@ -690,19 +900,31 @@ def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
     if keyword:
         min_mono, max_mono, span = 0, max_mono, int(max_mono)
 
-    V = _pad_to(max(n, 1), PAD_BLOCK)
+    # value rows partitioned by owning shard (doc // (T/D)), each shard's
+    # slice padded to one common PAD_BLOCK multiple, shard-local doc ids
+    chunk = T // D
+    counts = (np.bincount(docs // chunk, minlength=D) if n
+              else np.zeros(D, np.int64))
+    Vp = _pad_to(int(counts.max()) if n else 1, PAD_BLOCK)
+    V = D * Vp
     mono_out = np.full(V, min_mono, np.int64)
-    mono_out[:n] = m
     doc_out = np.zeros(V, I32)
-    doc_out[:n] = docs
     valid_out = np.zeros(V, bool)
-    valid_out[:n] = True
     host_out = np.zeros(V, np.int64 if keyword else
                         (vals.dtype if n else np.float64))
     if not keyword and n:
         host_out[:] = mono_mod.from_mono(entry.type.value,
                                          np.full(V, min_mono, np.int64))
-    host_out[:n] = vals
+    start = 0
+    for d in range(D):
+        c = int(counts[d])
+        sel = slice(start, start + c)
+        o = d * Vp
+        mono_out[o:o + c] = m[sel]
+        doc_out[o:o + c] = (docs[sel] - d * chunk).astype(I32)
+        valid_out[o:o + c] = True
+        host_out[o:o + c] = vals[sel]
+        start += c
     col = DeviceColumn(
         name=name, ftype=entry.type, multi=True,
         terms=gterms if keyword else None,
@@ -720,34 +942,57 @@ def _load_csr(entry, segments, T, device, keyword: bool) -> DeviceColumn:
             col._w_host = a
         else:
             col._hi_host, col._lo_host = a, b
-    _multi_planes(col, m, docs, T, keyword)
+    _multi_planes(col, m, docs, T, keyword, D)
     return col
 
 
+def _shard_partition_csr(vals: np.ndarray, docs: np.ndarray, T: int, D: int,
+                         fill):
+    """Partition CSR rows by owning shard (doc // (T/D)), pad each shard's
+    slice to a common PAD_BLOCK multiple, localize doc ids (JAX
+    `_shard_partition_csr`). Returns (vals [V], doc [V] int32 shard-local,
+    valid [V] bool)."""
+    n = vals.shape[0]
+    chunk = T // D
+    shard_of_row = docs // chunk if n else docs
+    counts = (np.bincount(shard_of_row.astype(np.int64), minlength=D)
+              if n else np.zeros(D, np.int64))
+    Vp = _pad_to(int(counts.max()) if n else 1, PAD_BLOCK)
+    V = D * Vp
+    vals_out = np.full(V, fill, dtype=vals.dtype)
+    doc_out = np.zeros(V, I32)
+    valid_out = np.zeros(V, bool)
+    order = (np.argsort(shard_of_row, kind="stable") if n
+             else np.zeros(0, np.int64))
+    start = 0
+    for d in range(D):
+        c = int(counts[d])
+        sel = order[start:start + c]
+        o = d * Vp
+        vals_out[o:o + c] = vals[sel]
+        doc_out[o:o + c] = (docs[sel] - d * chunk).astype(I32)
+        valid_out[o:o + c] = True
+        start += c
+    return vals_out, doc_out, valid_out
+
+
 def _multi_planes(col: DeviceColumn, m: np.ndarray, docs: np.ndarray,
-                  T: int, keyword: bool) -> None:
+                  T: int, keyword: bool, D: int = 1) -> None:
     """The dense per-position planes of a multi-valued column and its
     overflow tail (rows of `m` are doc-ascending with their `docs`):
     narrow / keyword w values with the -1 fill, or wide (hi, lo) pairs
-    beside the value-count plane."""
+    beside the value-count plane; the tail's rows are partitioned by
+    owning shard."""
     n = m.shape[0]
     cnt = np.bincount(docs, minlength=T) if n else np.zeros(T, np.int64)
     kmax = int(cnt.max()) if n else 0
     offs = np.zeros(T + 1, np.int64)
     np.cumsum(cnt, out=offs[1:])
     K = max(min(kmax, DENSE_MULTI_K), 1)
-    if kmax > DENSE_MULTI_K:
-        # overflow rows: value positions >= DENSE_MULTI_K of each doc
-        pos_in_doc = np.arange(n, dtype=np.int64) - offs[:-1][docs]
-        tsel = np.flatnonzero(pos_in_doc >= DENSE_MULTI_K)
-        Vt = _pad_to(max(len(tsel), 1), PAD_BLOCK)
-        tdoc = np.zeros(Vt, I32)
-        tdoc[:len(tsel)] = docs[tsel]
-        tvalid = np.zeros(Vt, np.int8)
-        tvalid[:len(tsel)] = 1
-        col._tail_doc_host, col._tail_valid8_host = tdoc, tvalid
-    else:
-        tsel = None
+    # overflow rows: value positions >= DENSE_MULTI_K of each doc
+    tsel = (np.flatnonzero(np.arange(n, dtype=np.int64) - offs[:-1][docs]
+                           >= DENSE_MULTI_K)
+            if kmax > DENSE_MULTI_K else None)
     if col.narrow:
         wvals = m if keyword else _w_u64(m, col.min_mono).astype(np.int64)
         planes = []
@@ -758,9 +1003,10 @@ def _multi_planes(col: DeviceColumn, m: np.ndarray, docs: np.ndarray,
             planes.append(pk.astype(I32))
         col.multi_planes_host = planes
         if tsel is not None:
-            tw = np.full(len(col._tail_doc_host), -1, I32)
-            tw[:len(tsel)] = wvals[tsel]
-            col._tail_w_host = tw
+            tw, tdoc, tvalid = _shard_partition_csr(
+                wvals[tsel].astype(I32), docs[tsel], T, D, fill=np.int32(-1))
+            col._tail_w_host, col._tail_doc_host = tw, tdoc
+            col._tail_valid8_host = tvalid.astype(np.int8)
         return
     wv = _w_u64(m, col.min_mono)
     planes = []
@@ -773,6 +1019,10 @@ def _multi_planes(col: DeviceColumn, m: np.ndarray, docs: np.ndarray,
     col.multi_planes_wide_host = planes
     col._mpn_host = np.minimum(cnt, 2**31 - 1).astype(I32)
     if tsel is not None:
-        tu = np.zeros(len(col._tail_doc_host), np.uint64)
-        tu[:len(tsel)] = wv[tsel]
-        col._tail_hi_host, col._tail_lo_host = _split_wide(tu)
+        # partition the row indices once so both planes share the order
+        tidx, tdoc, tvalid = _shard_partition_csr(tsel, docs[tsel], T, D,
+                                                  fill=np.int64(0))
+        col._tail_hi_host, col._tail_lo_host = _split_wide(
+            np.where(tvalid, wv[tidx], np.uint64(0)))
+        col._tail_doc_host = tdoc
+        col._tail_valid8_host = tvalid.astype(np.int8)

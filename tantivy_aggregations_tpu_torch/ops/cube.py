@@ -1,7 +1,6 @@
 """Value-domain cube lowering: per-query work without the row axis.
 
-The port of the JAX package's ops/cube.py (all of it but the sharded
-operand pack, `pack_groups_sharded`, which waits for sharding).
+The port of the JAX package's ops/cube.py.
 
 When every query-chain field is a SINGLE-VALUED narrow/stringy column and
 the product of their w-domains is small (<= CUBE_DOM_CAP cells), the chain
@@ -37,6 +36,14 @@ multiplied as `ind @ op.t()` — the layout cuBLAS runs fast (on c8's
 100,001-cell site a [Dprod, K] row-major operand takes about 7x longer on
 the H100: chip_smoke.py phase 4p). The indicator is padded to at least 32
 rows (the product needs more than 16).
+
+Sharded meshes (JAX `pack_groups_sharded`): each shard builds the
+pre-aggregates of its own rows and packs them itself; the piece count of
+each group is chosen from its bounds across the shards (`group_bounds`,
+exchanged at plan time, `merge_bounds`, `pack_groups(..., bounds=)`), so
+every shard shares one column layout, dots its own operand, and one int32
+psum of the dot vectors merges them (`shard_dots`): lanes stay below S *
+2^24, so at most MAX_SHARDS = 128 shards (asserted).
 
 Gating (aggs/compile.py `_cube_gate`): programs whose chain has at least
 one extracted parameter. Match-all-shaped trees keep the row paths — the
@@ -79,6 +86,9 @@ BLOCK_GS = (128, 256, 512, 1024, 2048, 4096, 8192)
 BLOCK_BUILD_FACTOR = 3
 #: least rows of a product's left operand (torch._int_mm needs > 16)
 MM_MIN_ROWS = 32
+#: most shards whose int32 dot lanes sum exactly: each shard's lanes stay
+#: below 2^24 (CUBE_DOM_CAP * 127), so S shards below S * 2^24 <= 2^31
+MAX_SHARDS = 1 << 7
 
 #: product calls since the last reset_calls()
 calls = {"cube_dots": 0, "block_counts": 0, "slot_block_counts": 0}
@@ -245,18 +255,34 @@ def split_rm(rm: np.ndarray):
     return hi, lo
 
 
-def pack_groups(groups):
+def group_bounds(groups):
+    """[(lo, hi), ...]: each group's value bounds (0, 0 when empty)."""
+    out = []
+    for _, arr in groups:
+        a = np.asarray(arr, np.int64)
+        out.append((int(a.min()), int(a.max())) if a.size else (0, 0))
+    return out
+
+
+def merge_bounds(per_shard):
+    """Every shard's group_bounds -> the bounds across the shards."""
+    return [(min(b[i][0] for b in per_shard), max(b[i][1] for b in per_shard))
+            for i in range(len(per_shard[0]))]
+
+
+def pack_groups(groups, bounds=None):
     """[(name, int64 [m, Dprod] or [Dprod] cells), ...] -> (int8 [Dprod, K]
     pieces, layout) where layout = [(name, m, npieces), ...] in column
-    order (group-major, value-row-major, piece-minor)."""
+    order (group-major, value-row-major, piece-minor). `bounds` (a shard's
+    pack): each group's piece count comes from these (lo, hi) instead of
+    its own values."""
     cols = []
     layout = []
-    for name, arr in groups:
+    bounds = bounds or group_bounds(groups)
+    for (name, arr), (lo, hi) in zip(groups, bounds):
         a = np.asarray(arr, np.int64)
         if a.ndim == 1:
             a = a[None, :]  # [m=1, Dprod]
-        lo = int(a.min()) if a.size else 0
-        hi = int(a.max()) if a.size else 0
         n = npieces_i64(lo, hi)
         for row in a:
             cols.append(pieces_host(row, n))  # [Dprod, n]
@@ -296,6 +322,15 @@ def cube_dots(ind, op):
     dtype: lane sums <= Dprod * 127 < 2^24 (Dprod <= CUBE_DOM_CAP)."""
     calls["cube_dots"] += 1
     return _dots(ind, op)
+
+
+def shard_dots(ind, op, n_shards: int, psum):
+    """cube_dots of one shard's operand, summed over the mesh's n_shards
+    shards by `psum`: exact while n_shards <= MAX_SHARDS."""
+    assert n_shards <= MAX_SHARDS, \
+        f"cube dots summed over {n_shards} shards exceed MAX_SHARDS " \
+        f"({MAX_SHARDS}): int32 lanes must stay below 2^31"
+    return psum(cube_dots(ind, op))
 
 
 def _dots(ind, op):

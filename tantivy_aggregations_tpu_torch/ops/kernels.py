@@ -75,6 +75,12 @@ gather_rows — replaces `_gather_rows_batched` / `make_gather_rows`.
   the operand's dtype. Host side: `RowOperand` checks a resident operand
   once and keeps what a launch needs, so a call on it checks only the
   index, allocates the output and launches.
+
+Every launch runs on its operands' device (`_on_device`: that device is
+made current for the launch where it is not, so a shard on cuda:1 launches
+there). The C launchers keep per-kernel occupancy state, so launches come
+one at a time: a mesh's shard threads take turns (parallel/shard.py), and
+one Searcher is not to be called from several threads at once.
 """
 
 from __future__ import annotations
@@ -202,6 +208,26 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+class _on_device:
+    """Context of one kernel launch: CUDA device `dev` made current where
+    it is not, and the previous device restored after."""
+
+    __slots__ = ("dev", "prev")
+
+    def __init__(self, dev: int):
+        self.dev = dev
+
+    def __enter__(self):
+        cur = torch.cuda.current_device()
+        self.prev = None if cur == self.dev else cur
+        if self.prev is not None:
+            torch.cuda.set_device(self.dev)
+
+    def __exit__(self, *exc):
+        if self.prev is not None:
+            torch.cuda.set_device(self.prev)
+
+
 def _check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -298,11 +324,12 @@ def fused_metrics(mask, plane, minmax: bool = True):
     part = -(-Bq * grid * (20 if minmax else 12) // 8)
     buf = plane.new_empty(rows * Bo + part, dtype=torch.int64)
     base = buf.data_ptr()
-    rc = _library().tat_fused_metrics(
-        mask.data_ptr(), plane.data_ptr(), Bq, T, grid, rep, int(minmax),
-        base + 8 * rows * Bo, base, base + 8 * Bo, base + 16 * Bo,
-        base + 20 * Bo, _stream(plane))
-    launches[name] += 1
+    with _on_device(plane.get_device()):
+        rc = _library().tat_fused_metrics(
+            mask.data_ptr(), plane.data_ptr(), Bq, T, grid, rep, int(minmax),
+            base + 8 * rows * Bo, base, base + 8 * Bo, base + 16 * Bo,
+            base + 20 * Bo, _stream(plane))
+        launches[name] += 1
     _check_launch(name, rc)
     if not minmax:
         cnt, tot, _ = buf.split_with_sizes((Bo, Bo, part))
@@ -468,11 +495,13 @@ def _launch_chain(name, fn, pmat, ops, planes, avalid, payloads, out):
     n_ops = ops.shape[0]
     warps, stages, smem = chain_plan(len(planes), len(payloads), n_ops, P, B)
     counts, sums = out
-    rc = fn(srcs, len(planes), len(payloads), pmat.data_ptr(), B, P,
-            ops.data_ptr(), n_ops, avalid.data_ptr(), avalid.shape[0] // 32,
-            warps, stages, smem, int(_has_sets(ops)), counts.data_ptr(),
-            0 if sums is None else sums.data_ptr(), _stream(avalid))
-    launches[name] += 1
+    with _on_device(avalid.get_device()):
+        rc = fn(srcs, len(planes), len(payloads), pmat.data_ptr(), B, P,
+                ops.data_ptr(), n_ops, avalid.data_ptr(),
+                avalid.shape[0] // 32, warps, stages, smem,
+                int(_has_sets(ops)), counts.data_ptr(),
+                0 if sums is None else sums.data_ptr(), _stream(avalid))
+        launches[name] += 1
     _check_launch(name, rc)
 
 
@@ -539,12 +568,12 @@ def chain_slot_counts(pmat, ops, planes, avalid, slot, ns: int):
     warps, stages, qb, smem = slot_plan(len(planes), n_ops, P, B, ns)
     counts = torch.empty(B, ns, R // 32, dtype=torch.int32,
                          device=avalid.device)
-    rc = _library().tat_chain_slot_counts(
-        srcs, len(planes), pmat.data_ptr(), B, P, ops.data_ptr(), n_ops,
-        avalid.data_ptr(), R // 32, warps, stages, smem, int(_has_sets(ops)),
-        ns, qb,
-        counts.data_ptr(), _stream(avalid))
-    launches[name] += 1
+    with _on_device(avalid.get_device()):
+        rc = _library().tat_chain_slot_counts(
+            srcs, len(planes), pmat.data_ptr(), B, P, ops.data_ptr(), n_ops,
+            avalid.data_ptr(), R // 32, warps, stages, smem,
+            int(_has_sets(ops)), ns, qb, counts.data_ptr(), _stream(avalid))
+        launches[name] += 1
     _check_launch(name, rc)
     return counts
 
@@ -612,8 +641,9 @@ def gather_rows(idx, op):
     _need(0 < B and h.chunks * B <= I32_MAX, name,
           lambda: f"batch of {B} rows of {h.chunks} chunks")
     out = h.op.new_empty((B, *h.tail))
-    rc = h.fn(idx.data_ptr(), B, *h.args, out.data_ptr(), _stream(idx))
-    launches[name] += 1
+    with _on_device(h.dev):
+        rc = h.fn(idx.data_ptr(), B, *h.args, out.data_ptr(), _stream(idx))
+        launches[name] += 1
     _check_launch(name, rc)
     return out
 

@@ -7,7 +7,11 @@ index's columns to the device once (cached per index epoch), compile the
 LRU), execute, and harvest host-side fruits.
 
 The device is explicit: `Searcher(index, device=...)` defaults to "cuda"
-and never falls back to the CPU; the CPU tests pass device="cpu". A tree
+and never falls back to the CPU; the CPU tests pass device="cpu".
+`Searcher(index, mesh=make_mesh(...))` (parallel/shard.py; a mesh and a
+device are exclusive) loads the index doc-sharded over the mesh's devices
+and runs every program once per shard (aggs/compile.py ShardedProgram);
+the entry points are the same. A tree
 the planner cannot lower (it raises NotImplementedError) answers through
 the exact host path (`_HostFallback` over the index's oracle), with one
 warning on the package logger, and so does a request whose set-query runs
@@ -56,11 +60,14 @@ class _HostFallback:
 
 
 class Searcher:
-    def __init__(self, index, device="cuda", config=None):
+    def __init__(self, index, device=None, mesh=None, config=None):
         from .engine_config import EngineConfig
+        if mesh is not None and device is not None:
+            raise ValueError("a Searcher takes a device or a mesh, not both")
         self.index = index
         self.schema = index.schema
-        self.device = device
+        self.mesh = None if mesh is None else list(mesh)
+        self.device = None if mesh is not None else (device or "cuda")
         self.config = (config or EngineConfig()).validate()
         #: QueryStats of the most recent agg_search (when collect_stats)
         self.last_stats = None
@@ -74,9 +81,12 @@ class Searcher:
     # -- device index ----------------------------------------------------------
 
     def _get_device_index(self):
-        from .index.loader import load_device_index
+        from .index.loader import load_device_index, load_sharded_index
         if self._device_index is None or self._device_epoch != self.index.epoch:
-            self._device_index = load_device_index(self.index, self.device)
+            self._device_index = (
+                load_device_index(self.index, self.device)
+                if self.mesh is None
+                else load_sharded_index(self.index, self.mesh))
             self._device_epoch = self.index.epoch
             self._programs.clear()
         return self._device_index

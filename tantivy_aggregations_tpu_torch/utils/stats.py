@@ -4,6 +4,8 @@
   dispatch, the blocking wait for execution + the device->host fruit copy,
   harvest).
 - module logger `log`: std-logging, structured key=value formatting.
+- `prep_cache`: hits and misses of the cross-process prep cache
+  (utils/prep_cache.py) since the last `reset_prep()`.
 
 Device-side profiling is `torch.profiler` around the calls of interest; the
 engine adds no wrapper of its own.
@@ -12,11 +14,38 @@ engine adds no wrapper of its own.
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
 
 log = logging.getLogger("tantivy_aggregations_tpu_torch")
+
+#: prep cache lookups that found their artifact (hits) or not (misses),
+#: and the seconds and bytes of its reads (hits) and writes
+prep_cache = {"hits": 0, "misses": 0, "read_s": 0.0, "read_bytes": 0,
+              "write_s": 0.0, "write_bytes": 0}
+_prep_lock = threading.Lock()
+
+
+def count_prep(hit: bool, seconds: float = 0.0, nbytes: int = 0) -> None:
+    with _prep_lock:
+        prep_cache["hits" if hit else "misses"] += 1
+        if hit:
+            prep_cache["read_s"] += seconds
+            prep_cache["read_bytes"] += nbytes
+
+
+def count_prep_write(seconds: float, nbytes: int) -> None:
+    with _prep_lock:
+        prep_cache["write_s"] += seconds
+        prep_cache["write_bytes"] += nbytes
+
+
+def reset_prep() -> None:
+    with _prep_lock:
+        for k in prep_cache:
+            prep_cache[k] = type(prep_cache[k])()
 
 
 @dataclass

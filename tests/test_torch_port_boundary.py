@@ -162,3 +162,80 @@ def test_port_and_jax_writers_agree(tmp_path):
         "tantivy_aggregations_tpu_torch.searcher"
     assert type(pi.oracle_searcher()).__module__ == \
         "tantivy_aggregations_tpu_torch.oracle.engine"
+
+
+#: the port's modules of sharded meshes, replica groups and the prep cache
+SCALE_OUT = ["parallel/shard.py", "parallel/replica.py",
+             "utils/prep_cache.py"]
+#: ReplicatedSearcher's serving methods are copies of the JAX package's
+COPIED_REPLICA = ["replicas", "agg_search", "_chunks", "agg_search_batch",
+                  "agg_search_stream"]
+
+
+@pytest.mark.parametrize("rel", SCALE_OUT)
+def test_scale_out_modules_import_neither_jax_nor_the_jax_package(rel):
+    import ast
+    tree = ast.parse((PORT_PKG / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            assert not (n == "jax" or n.startswith("jax.")
+                        or n == "tantivy_aggregations_tpu"
+                        or n.startswith("tantivy_aggregations_tpu.")), \
+                (rel, n)
+
+
+def test_replica_serving_matches_jax_original():
+    from tantivy_aggregations_tpu.parallel import replica as jrep
+    from tantivy_aggregations_tpu_torch.parallel import replica as prep
+    for name in COPIED_REPLICA:
+        j = getattr(jrep.ReplicatedSearcher, name)
+        p = getattr(prep.ReplicatedSearcher, name)
+        if isinstance(j, property):
+            j, p = j.fget, p.fget
+        assert inspect.getsource(p) == inspect.getsource(j), name
+
+
+_NO_JAX_MESH = """
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["tantivy_aggregations_tpu"] = None
+import tantivy_aggregations_tpu_torch as tt
+from tantivy_aggregations_tpu_torch.models import flagship as F
+from tantivy_aggregations_tpu_torch.utils import stats
+path = tempfile.mkdtemp() + "/ix"
+F.build_bench_index(path, 3000, seed=42, n_segments=2)
+idx = tt.Index.open(path)
+o = idx.oracle_searcher()
+s = idx.searcher(mesh=tt.make_mesh(devices=["cpu"] * 2))
+for _, q, aggs in F.judged_configs():
+    assert s.agg_search(q, aggs) == o.agg_search(q, aggs)
+reqs = [(q, a) for _, q, a in F.judged_configs()]
+rs = tt.ReplicatedSearcher(tt.Index.open(path), replicas=2,
+                           devices=["cpu"] * 2)
+assert rs.agg_search_batch(reqs) == [o.agg_search(q, a) for q, a in reqs]
+stats.reset_prep()
+s2 = tt.Index.open(path).searcher(mesh=tt.make_mesh(devices=["cpu"] * 2))
+assert [s2.agg_search(q, a) for q, a in reqs] == \\
+    [o.agg_search(q, a) for q, a in reqs]
+assert stats.prep_cache["misses"] == 0 and stats.prep_cache["hits"] > 0
+assert not [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "tantivy_aggregations_tpu"))]
+print("MESH OK")
+"""
+
+
+def test_mesh_replicas_and_prep_cache_without_jax():
+    """A 2-shard mesh, two replica groups and a warm prep cache answer c1-c5
+    with neither jax nor the JAX package importable."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _NO_JAX_MESH], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "MESH OK" in res.stdout
