@@ -29,7 +29,10 @@ value-domain cube and the dense products on).
    and mv5-mv7 over the bench's multi-valued `weights`, t1-t3 over the
    tags deployment's keyword `tags` and wide `ids`; p1-p4 and h1-h5 on
    the bench index, tp, th and f1-f4 on the tags deployment), mv4 and the
-   HOST_SHAPES the host path;
+   HOST_SHAPES the host path; (3n) c7 at use_member_ops=False (a third
+   searcher on the same device index) plans prefix + chain_blocks over
+   the sku layout, the chain weights' per-position planes, and no member
+   operand;
 4. each kernel against its plain PyTorch version at the main path's shapes
    (exact `==`), B = 1 and 128, with median CUDA-event times of both, the
    bound (kernel_bound), the device time in torch.profiler and, for
@@ -38,7 +41,9 @@ value-domain cube and the dense products on).
    batch-stride-0 view); the chain kernels also under a query whose mask
    program holds every opcode (the set opcodes through a TermSet over sku
    and one over f64 prices), on the same layouts, and at B = 31, 33 and
-   200; chain_blocks on c4's layout under a 64-price TermSet and a range
+   200; chain_blocks on c7's operands at use_member_ops=False (B = 1 and
+   128, a variant in its record); chain_blocks on c4's layout under a
+   64-price TermSet and a range
    (wide_set_queries: more than 256 params); gather_rows' host time per
    call, step by step, beside index_select's (gather_host_steps);
    4b. edge cases on operands made from SEED (phase_edges), each printing
@@ -71,7 +76,10 @@ value-domain cube and the dense products on).
    for c8 the cube product on a row-major operand;
 5. the main path of each slice (c1-c5, then c6-c9, then c10, in row
    modes; then "default": c1-c10 at the default config, msearch timed 3
-   times but c6 once), each with the launch and product counters set to 0: for each
+   times but c6 once; then "nomop": c7 at use_member_ops=False, timed 3
+   times, one group profiled, chain_blocks launched and gather_rows not
+   (NOT_LAUNCHED), its p50 and ms/q printed beside the default path's
+   c7), each with the launch and product counters set to 0: for each
    config, agg_search == the port's oracle
    (c6: c6_reference, as the oracle's path for it does not finish at 10M
    docs), agg_search_batch over 256 varied requests (c6: C6_STREAM) == the
@@ -101,6 +109,8 @@ value-domain cube and the dense products on).
    a device Program, one whose runs exceed them on the exact host path,
    both == the oracle, and the Program stays cached; the host answer also
    == its three fitting thirds' device answers, merged;
+   5q. examples/quickstart_torch.py on cuda, in a process of its own,
+   to its oracle-parity line;
 6. each slice's kernels (and the default, multi and tags paths' products)
    were launched by its own main path in step 5;
 7. "sharded": the bench index over a SHARDS-shard mesh (four
@@ -216,6 +226,8 @@ C6_STREAM = 64
 #: so that chain_counts and chain_slot_counts stay on a main path; the
 #: "default" path runs c1-c10 at the JAX package's default EngineConfig.
 ROW_MODES = {"use_cube": False, "dense_mxu": False}
+#: the default EngineConfig with the member operands off
+NOMOP = {"use_member_ops": False}
 PATHS = (
     ("c1-c5", (1, 2, 3, 4, 5),
      ("fused_metrics", "chain_blocks", "chain_counts"), (), ROW_MODES),
@@ -226,7 +238,13 @@ PATHS = (
      ("fused_metrics", "chain_blocks", "gather_rows"),
      ("cube_dots", "block_counts", "slot_block_counts",
       "dense_bucket_counts_mm", "dense_bucket_sum_mm"), {}),
+    # c7 with the member operand off: its TermQuery on the multi-valued
+    # weights runs chain_blocks over the sku layout (gather_rows must not
+    # launch), timed beside the default path's c7
+    ("nomop", (7,), ("chain_blocks",), (), NOMOP),
 )
+#: kernels a path must NOT launch (checked with the counts it leaves)
+NOT_LAUNCHED = {"nomop": ("gather_rows",)}
 #: the modes the default path's plans must carry, per config (phase 3b):
 #: c2, c5, c8, c9 and c10 on the cube (c5 a pcube, c9 a scube), c3 the
 #: dense products, c1, c4, c6 and c7 none
@@ -937,12 +955,15 @@ def _check_equal(torch, name, label, got, want) -> int:
     return err
 
 
-def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
+def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None,
+                  nomop=None):
     """Each kernel vs its plain version on the main path's operands; the
     chain kernels also under every opcode, on the same layouts, and
-    chain_blocks / chain_counts at more batch sizes. With `against` (the
-    kernels module of another tree), the AB_KERNELS are also timed against
-    that tree's, in turns."""
+    chain_blocks / chain_counts at more batch sizes; chain_blocks also on
+    c7's operands at use_member_ops=False (`nomop`'s plan: the sku layout
+    under weights' per-position planes). With `against` (the kernels
+    module of another tree), the AB_KERNELS are also timed against that
+    tree's, in turns."""
     say("[4] kernels vs plain versions (exact ==)")
     cfgs = {name: (q, aggs) for _, name, q, aggs in all_configs(flagship)}
     progs = {n: searcher._program_for(q, a) for n, (q, a) in cfgs.items()}
@@ -986,6 +1007,10 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
           f"the wide-set chain planned {type(p4w).__name__} with {n_prm} "
           "params")
 
+    # c7 without the member operand: chain_blocks over the sku layout
+    p7n = (None if nomop is None else
+           nomop._program_for(*cfgs["c7_terms_prefix_multiquery"]))
+
     # (kernel, operands label, B) -> the kernel's arguments
     cases = {}
     for B in (1, 128):
@@ -1017,6 +1042,9 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
         # gather_rows: rows of c7's resident member operand
         cases[("gather_rows", "c7", B)] = _gather_rows_args(
             p7, pmat_for(p7, 7, c7_aggs, B))
+        if p7n is not None:
+            cases[("chain_blocks", "c7 nomop", B)] = _chain_blocks_args(
+                p7n, pmat_for(p7n, 7, c7_aggs, B))
     # fused_metrics on c1's MatchAll root mask at B = 128: alive, one row
     # shared by the batch (batch stride 0), as aggs/compile.py hands it over
     cases[("fused_metrics", "c1 shared", 128)] = (
@@ -1056,7 +1084,7 @@ def phase_kernels(torch, K, qc, tt, searcher, flagship, against=None):
         dev_ms = _device_ms(torch, kern)
         say(f"  {name:17s} {label:10s} B={B:<4d} device time {dev_ms} ms "
             "(torch.profiler)")
-        if label in ("c5 minmax", "c1 shared"):  # fused_metrics' variants
+        if label in ("c5 minmax", "c1 shared", "c7 nomop"):  # variants
             rec.setdefault("variants", []).append(
                 {"label": label, "B": B, "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2215,6 +2243,8 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
     for k in kernels + products:
         check(counts[k] > 0,
               f"{k} was never launched by the main path {label}")
+    for k in NOT_LAUNCHED.get(label, ()):
+        check(counts[k] == 0, f"{k} was launched by the main path {label}")
     return counts
 
 
@@ -2984,6 +3014,39 @@ def phase_device_guard(torch, K, qc, tt, idx, flagship, oracle_of):
     _free(torch, s)
 
 
+def phase_plan_nomop(searcher, flagship) -> None:
+    """Phase 3n: c7 at use_member_ops=False plans the chain_blocks kernel
+    over the sku layout (`pallas_prefix`, the chain over weights'
+    per-position planes), no member operand, and its chain fits the tile
+    kernel (the planner checks K.chain_fits)."""
+    t0 = time.time()
+    q, aggs = next((q, a) for n, _, q, a in all_configs(flagship) if n == 7)
+    prog = searcher._program_for(q, aggs)
+    check(type(prog).__name__ == "Program",
+          f"c7 without member operands planned {type(prog).__name__}")
+    p = prog.plan[("a", "t")]
+    check(p.get("pallas_prefix") and "member_op" not in p,
+          f"c7 without member operands: plan {sorted(p)}")
+    say(f"[3n] c7 at use_member_ops=False: prefix + chain_blocks over "
+        f"{len(p['chainp']['mp'].plane_keys)} planes "
+        f"({', '.join(p['chainp']['mp'].plane_keys)}), no member operand, "
+        f"planned in {time.time() - t0:.1f}s")
+
+
+def phase_quickstart() -> None:
+    """Phase 5q: examples/quickstart_torch.py on the card, in a process of
+    its own, to its oracle-parity line."""
+    script = REPO / "examples" / "quickstart_torch.py"
+    res = subprocess.run([sys.executable, str(script), "--device", "cuda"],
+                         capture_output=True, text=True, timeout=600)
+    for ln in res.stdout.splitlines():
+        say("  quickstart:", ln)
+    check(res.returncode == 0 and "oracle parity: OK" in res.stdout,
+          f"examples/quickstart_torch.py exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    say("[5q] examples/quickstart_torch.py on cuda == the oracle")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3069,14 +3132,21 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     dflt._device_epoch = searcher._device_epoch
     phase_plan(torch, dflt, flagship, "default EngineConfig", DEFAULT_MODES)
     lap("plan default", t0)
-    searchers = {"row": searcher, "default": dflt,
+    t0 = time.time()
+    nomop = idx.searcher(device="cuda", config=EngineConfig(**NOMOP))
+    nomop._device_index = searcher._get_device_index()
+    nomop._device_epoch = searcher._device_epoch
+    phase_plan_nomop(nomop, flagship)
+    lap("plan nomop", t0)
+    searchers = {"row": searcher, "default": dflt, "nomop": nomop,
                  "tags": tags_idx.searcher(device="cuda")}
     t0 = time.time()
     phase_plan_multi(torch, {"bench": dflt, "tags": searchers["tags"]})
     lap("plan multi", t0)
     t0 = time.time()
     against = load_against(args.against) if args.against else None
-    records = phase_kernels(torch, K, qc, tt, searcher, flagship, against)
+    records = phase_kernels(torch, K, qc, tt, searcher, flagship, against,
+                            nomop)
     lap("kernels", t0)
     t0 = time.time()
     phase_kernels_multi(torch, K, qc, tt, searchers, records)
@@ -3094,13 +3164,21 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     timings = {}
     for path in PATHS:
         t0 = time.time()
-        s = searchers["default" if path[0] == "default" else "row"]
-        by_path[path[0]] = phase_main_path(
+        label = path[0]
+        s = searchers[label if label in searchers else "row"]
+        by_path[label] = phase_main_path(
             torch, K, C, R, tt, idx, s, oracle, flagship, card, path,
-            answers, reps=3 if path[0] == "default" else 1, timings=timings)
-        for k, n in by_path[path[0]].items():
+            answers, reps=3 if label in ("default", "nomop") else 1,
+            timings=timings, profiled=(7,) if label == "nomop" else None)
+        for k, n in by_path[label].items():
             counts[k] += n
-        lap(f"main path {path[0]}", t0)
+        lap(f"main path {label}", t0)
+    c7 = "c7_terms_prefix_multiquery"
+    for label, how in (("default", "member operand, gather_rows"),
+                       ("nomop", "chain_blocks")):
+        p50, on, off = timings[(label, c7)]
+        say(f"[5n] c7 {label} ({how}): p50 {p50:.3f} ms, msearch {on:.4f} "
+            f"ms/q dedup on, {off:.4f} ms/q dedup off  [{card}]")
     oracles = {"bench": oracle, "tags": tags_idx.oracle_searcher()}
     for label, dep, names, kernels, prods, prof in MULTI_PATHS:
         t0 = time.time()
@@ -3134,6 +3212,9 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     t0 = time.time()
     phase_set_overflow(tt, searcher, oracle, flagship, card)
     lap("set-query overflow", t0)
+    t0 = time.time()
+    phase_quickstart()
+    lap("quickstart", t0)
     _free(torch, searchers.pop("tags"))
     t0 = time.time()
     phase_prep(torch, tt, idx, flagship, card, answers)

@@ -3,13 +3,13 @@
 The port of the JAX package's aggs/compile.py. `plan` resolves fields and
 picks an execution MODE per node from static index metadata (the choices
 the JAX package makes under the same EngineConfig, its Pallas gate on and
-unsharded: the value-domain cube (`use_cube`) and the dense products
-(`dense_mxu`) on by default, member operands always); `_run` evaluates the
-whole tree for a [B, P] int32 param matrix — one row per query of an
-msearch group, a single query is B = 1 — with eager torch ops, the five
-CUDA kernels of ops/kernels.py and the matrix products of ops/cube.py and
-ops/reductions.py; the copied `harvest` reconstructs exact user-domain
-fruits (bit-identical to the oracle).
+unsharded: the value-domain cube (`use_cube`), the dense products
+(`dense_mxu`) and member operands (`use_member_ops`) on by default);
+`_run` evaluates the whole tree for a [B, P] int32 param matrix — one row
+per query of an msearch group, a single query is B = 1 — with eager torch
+ops, the five CUDA kernels of ops/kernels.py and the matrix products of
+ops/cube.py and ops/reductions.py; the copied `harvest` reconstructs
+exact user-domain fruits (bit-identical to the oracle).
 
 The plan does not depend on the device: a program on CPU tensors plans and
 runs exactly the modes the card runs (the kernels' plain versions execute
@@ -475,6 +475,23 @@ class Program:
 
     def run(self, query, aggs):
         return self.finalize(self.submit(query, aggs), aggs)
+
+    #: array-key prefixes of the batch-shared or per-query-sliced operands
+    #: that scan_bytes leaves out: the cube's sites and block histograms,
+    #: the member operand, the dense products' operands
+    _NOT_SCANNED = ("CUBE#", "PCUBE#", "SCUBE#", "MOP#", "DMM#")
+
+    def scan_bytes(self) -> int:
+        """Bytes of the resident ROW-EXTENT device tensors this program's
+        plan references (JAX `Program.scan_bytes`): the per-query memory
+        traffic of a one-pass row formulation. A bench divides it by the
+        measured stream time for the effective scan bandwidth against the
+        card's HBM rate (above 100%: the cube, the member operand or a
+        batch-shared pass answered without a row pass per query). A
+        host-side sum; it launches nothing."""
+        return sum(v.numel() * v.element_size()
+                   for k, v in self._arrays.items()
+                   if not k.startswith(self._NOT_SCANNED))
 
     def stage(self, raw, aggs):
         """Start the device->host copy of the packed fruits: on the card a
@@ -1872,8 +1889,9 @@ class Program:
         column 0 the per-(value, bucket) matched count, then one column
         per payload sum plane (the chain_blocks payload sources) — built
         once per layout; a query copies the row of its value. Returns True
-        when planned. Unsharded only (JAX `_member_split`)."""
-        if self._sharded:
+        when planned. Unsharded only (JAX `_member_split`), and only under
+        EngineConfig.use_member_ops (off: the chain_blocks kernel)."""
+        if not self.config.use_member_ops or self._sharded:
             return False
         rchain, member = self._member_split(chain)
         if len(member) != 1 or not self._chain_is_matchall(rchain):

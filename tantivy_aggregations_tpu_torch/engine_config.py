@@ -36,6 +36,13 @@ class EngineConfig:
     #: query chain lives on a small single-valued domain evaluate as exact
     #: domain-indicator int8 matrix products — no per-query row pass
     use_cube: bool = True
+    #: member operands: a prefix-mode bucket agg gated by ONE TermQuery on
+    #: a dense multi-valued field answers from one row of a precomputed
+    #: [Df_pad, n_cols * card_pad] int64 per-(value, bucket) count /
+    #: payload-sum operand, copied by the gather_rows kernel — no
+    #: per-query row pass (bench c7's lever); off, the chain runs the
+    #: chain_blocks kernel over the bucket layout
+    use_member_ops: bool = True
 
     def validate(self) -> "EngineConfig":
         if self.dense_nb < 1:

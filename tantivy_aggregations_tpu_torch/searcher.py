@@ -6,18 +6,19 @@ index's columns to the device once (cached per index epoch), compile the
 (query shape, agg tree shape) pair to one batch-first Program (cached,
 LRU), execute, and harvest host-side fruits.
 
-The device is explicit: `Searcher(index, device=...)` defaults to "cuda"
-and never falls back to the CPU; the CPU tests pass device="cpu".
-`Searcher(index, mesh=make_mesh(...))` (parallel/shard.py; a mesh and a
-device are exclusive) loads the index doc-sharded over the mesh's devices
-and runs every program once per shard (aggs/compile.py ShardedProgram);
-the entry points are the same. A tree
-the planner cannot lower (it raises NotImplementedError) answers through
-the exact host path (`_HostFallback` over the index's oracle), with one
-warning on the package logger, and so does a request whose set-query runs
-exceed its program's run slots; the program stays cached for the requests
-of its shape that fit. Nothing else falls back: a kernel that fails
-raises.
+The arguments are the JAX package's, `Searcher(index, mesh=None,
+config=None)`, with the device keyword-only: `Searcher(index,
+device=...)` defaults to "cuda" and never falls back to the CPU; the CPU
+tests pass device="cpu". `Searcher(index, mesh)` with a mesh from
+`make_mesh(...)` (parallel/shard.py; a mesh and a device are exclusive)
+loads the index doc-sharded over the mesh's devices and runs every
+program once per shard (aggs/compile.py ShardedProgram); the entry
+points are the same. A tree the planner cannot lower (it raises
+NotImplementedError) answers through the exact host path
+(`_HostFallback` over the index's oracle), with one warning on the
+package logger, and so does a request whose set-query runs exceed its
+program's run slots; the program stays cached for the requests of its
+shape that fit. Nothing else falls back: a kernel that fails raises.
 
 `agg_search_batch` and the `agg_search_stream` generator dispatch a
 group, stage its packed fruits' copy to the host (Program.stage: a
@@ -28,6 +29,8 @@ keeps `lookahead` groups in flight.
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from .aggs import ir as agg_ir
 from .query import ir as query_ir
@@ -60,10 +63,14 @@ class _HostFallback:
 
 
 class Searcher:
-    def __init__(self, index, device=None, mesh=None, config=None):
+    def __init__(self, index, mesh=None, config=None, *, device=None):
         from .engine_config import EngineConfig
         if mesh is not None and device is not None:
             raise ValueError("a Searcher takes a device or a mesh, not both")
+        if isinstance(mesh, (str, torch.device)):
+            raise TypeError(f"mesh {mesh!r} is a device: pass device= (the "
+                            "second argument is the mesh, as in the JAX "
+                            "package)")
         self.index = index
         self.schema = index.schema
         self.mesh = None if mesh is None else list(mesh)

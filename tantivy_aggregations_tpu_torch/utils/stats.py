@@ -1,19 +1,22 @@
-"""Observability: per-query stats and structured logging.
+"""Observability: per-query stats, the profiler hook and structured
+logging.
 
 - `QueryStats`: wall-time breakdown of one agg_search (param prep, device
   dispatch, the blocking wait for execution + the device->host fruit copy,
   harvest).
+- `trace(log_dir)`: context manager around `torch.profiler.profile` (the
+  JAX package's wraps `jax.profiler.trace`) — writes one Chrome trace JSON
+  into `log_dir` when it is set, no-op otherwise.
 - module logger `log`: std-logging, structured key=value formatting.
 - `prep_cache`: hits and misses of the cross-process prep cache
   (utils/prep_cache.py) since the last `reset_prep()`.
-
-Device-side profiling is `torch.profiler` around the calls of interest; the
-engine adds no wrapper of its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -83,3 +86,24 @@ class _Timer:
 
 def timer() -> _Timer:
     return _Timer()
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Profile the enclosed queries with torch.profiler: host (CPU)
+    activity, and the card's kernels and copies when CUDA is available. On
+    exit one Chrome trace JSON (chrome://tracing, Perfetto) is written into
+    `log_dir`, created if missing. No-op when log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

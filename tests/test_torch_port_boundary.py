@@ -102,14 +102,15 @@ def test_copied_host_path_matches_jax_originals():
 
 
 def test_engine_config_keeps_the_serving_knobs():
-    """The port keeps the JAX EngineConfig's serving knobs and its cube and
-    dense-product switches with the same defaults (both on), and drops the
-    member-op and Pallas knobs."""
+    """The port keeps the JAX EngineConfig's serving knobs and its cube,
+    dense-product and member-op switches with the same defaults (all on),
+    and drops the Pallas knobs (TPU-only)."""
     port = {f.name: f.default for f in fields(EngineConfig)}
     jax_cfg = {f.name: f.default for f in fields(JaxConfig)}
     assert set(port) == {"dense_nb", "collect_stats", "max_batch",
-                         "msearch_dedup", "dense_mxu", "use_cube"}
-    assert port["dense_mxu"] and port["use_cube"]
+                         "msearch_dedup", "dense_mxu", "use_cube",
+                         "use_member_ops"}
+    assert port["dense_mxu"] and port["use_cube"] and port["use_member_ops"]
     assert all(jax_cfg[k] == v for k, v in port.items())
     assert inspect.getsource(EngineConfig.validate) == \
         inspect.getsource(JaxConfig.validate)
@@ -172,10 +173,9 @@ COPIED_REPLICA = ["replicas", "agg_search", "_chunks", "agg_search_batch",
                   "agg_search_stream"]
 
 
-@pytest.mark.parametrize("rel", SCALE_OUT)
-def test_scale_out_modules_import_neither_jax_nor_the_jax_package(rel):
+def _assert_imports_neither_jax_nor_the_jax_package(path: Path):
     import ast
-    tree = ast.parse((PORT_PKG / rel).read_text())
+    tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -187,7 +187,52 @@ def test_scale_out_modules_import_neither_jax_nor_the_jax_package(rel):
             assert not (n == "jax" or n.startswith("jax.")
                         or n == "tantivy_aggregations_tpu"
                         or n.startswith("tantivy_aggregations_tpu.")), \
-                (rel, n)
+                (path, n)
+
+
+@pytest.mark.parametrize("rel", SCALE_OUT)
+def test_scale_out_modules_import_neither_jax_nor_the_jax_package(rel):
+    _assert_imports_neither_jax_nor_the_jax_package(PORT_PKG / rel)
+
+
+#: the repo-level scripts that drive the port on the card: the check, the
+#: bench and the example
+ENTRY_POINTS = ["chip_smoke.py", "bench_torch.py",
+                "examples/quickstart_torch.py"]
+
+
+@pytest.mark.parametrize("rel", ENTRY_POINTS)
+def test_entry_points_import_neither_jax_nor_the_jax_package(rel):
+    _assert_imports_neither_jax_nor_the_jax_package(ROOT / rel)
+
+
+_NO_JAX_ENTRY = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["tantivy_aggregations_tpu"] = None
+sys.argv = ["quickstart_torch.py", "--device", "cpu"]
+try:
+    runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+import bench_torch
+from chip_smoke import c6_reference
+assert not [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "tantivy_aggregations_tpu"))]
+print("ENTRY OK")
+"""
+
+
+def test_entry_points_run_without_jax():
+    """examples/quickstart_torch.py --device cpu answers (its oracle
+    parity line), and bench_torch and chip_smoke import, with neither jax
+    nor the JAX package importable."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", _NO_JAX_ENTRY], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "oracle parity: OK" in res.stdout and "ENTRY OK" in res.stdout
 
 
 def test_replica_serving_matches_jax_original():
