@@ -27,6 +27,15 @@ The index is built with the port's models/flagship.py under
 chip_smoke.py share. c6's host-bound stream (about 0.23 s a request at 10M
 docs) keeps bench.py's length, so that config alone takes minutes.
 
+On the card every program answers through its compiled step, as bench.py's
+jitted one: one CUDA graph per program and padded batch size, captured at
+the first call of each size (aggs/compile.py `_StepGraph`). So a config's
+first-call seconds include its plan and the capture of its B = 1 graph
+(bench.py's include JAX's compile), the stream's first groups capture the
+graphs of their padded sizes, and the QueryStats split measures a replay:
+dispatch is the param copy and one graph launch. On the CPU the step runs
+eagerly.
+
 The searcher runs on the card unless `--device cpu` is given; with
 `--device cuda` (the default) and no CUDA device it exits 2 and prints no
 result. Nothing here imports jax or the JAX package.
@@ -299,7 +308,7 @@ def main(argv=None):
     plain_cfg = searcher.config
     for i, name, query, aggs in configs:
         t0 = time.time()
-        r = searcher.agg_search(query, aggs)  # plan + first run
+        r = searcher.agg_search(query, aggs)  # plan + capture + first run
         log(f"[bench] c{i} first call {time.time()-t0:.1f}s")
         # sequential p50 latency (each call ends in the fruit's host copy)
         times = []

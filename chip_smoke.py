@@ -96,6 +96,25 @@ value-domain cube and the dense products on).
    top_hits under a multi-valued terms agg, facets; a profiled group's
    phase 2 timed apart), and mv4 and the HOST_SHAPES once on the host
    path == the oracle;
+   On the card every unsharded Program answers through its compiled
+   step: one CUDA graph per program and padded batch size, captured at
+   first use (aggs/compile.py `_StepGraph`); the launch and product
+   counters count what a replay launches.
+   5g. the compiled step (phase_graphs): every program of the unsharded
+   paths above plans its step captured; its graphs at B = 1, 3 padded to
+   4 and a full group each == its raw_fn on the same param matrix
+   (packed and every phase-1 tensor), their fruits == the oracle, a
+   replay's credited launch and product counts == the eager step's and
+   its credited launches == the kernel nodes in CUDA's own record of
+   the graph (all five kernels launched from replays), then every graph
+   replayed again in a shuffled order (one shared memory pool) and held
+   ==; the graphs' own and pool bytes, and three graphs dropped for a
+   budget below them and captured again == raw_fn;
+   5t. c1-c10 in row modes and at the default config through the graph
+   and through raw_fn at B = 1 and 128 (phase_step_timings), and c2's
+   group of 65 padded to 128 in row modes: dispatch, wait, harvest and
+   total host ms and the CUDA-event ms, fruits == both ways, the eager
+   steps' peak memory beside the graph pool's reserved bytes;
    5p. phase 2's rank rows == the integer path's for the same percents,
    p1's and p2's layouts, row modes and default config, B = 1 and 128
    (phase_phase2_rows);
@@ -147,12 +166,15 @@ value-domain cube and the dense products on).
 
 Each phase prints its seconds.
 
-It prints a JSON line of per-product records (the same keys; launches
+It prints a JSON line of phase 5t's step timings ({"graph_step": ...}), a
+JSON line of per-product records (the same keys; launches
 from the default path), a JSON line of per-kernel records (launches in
 all and per path, the sharded and replicas paths among them;
 max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by,
 library_ms, device_ms; B = 128: the same keys suffixed _b128;
-fused_metrics' other operands under "variants"), then, as its last line,
+fused_metrics' other operands under "variants", `launches_replayed_5g`:
+the launches phase 5g's replays credited, `graph_nodes_5g`: the kernel
+nodes CUDA's own record of those graphs holds), then, as its last line,
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --against DIR
@@ -348,6 +370,18 @@ STREAM_CYCLES = 4
 #: the tags deployment: DOCS docs in SEGMENTS segments from SEED, with
 #: TAGS_CARD zipf-skewed tag terms
 TAGS_CARD = 64
+#: phase 5g: (distinct requests, padded batch) of each program's graphs
+#: (one query, an odd group padded as the searcher pads it, a full
+#: group), the varied requests a program draws them from, and the
+#: largest phase-1 state ("big") of an eager step kept for the replays in
+#: another order (past it they compare `packed` only)
+GRAPH_SIZES = ((1, 1), (3, 4), (128, 128))
+GRAPH_GROUP = 128
+GRAPH_KEEP_BIG = 256 << 20
+#: phase 5t: timed runs of each way (graph, raw_fn) per config, by B; and
+#: the odd group (distinct requests, padded batch) timed in a row mode
+STEP_REPS = {1: 3, 128: 2}
+PAD_ODD = (65, 128)
 
 
 def say(*a, **kw):
@@ -651,11 +685,18 @@ def multi_varied(tt):
     return varied
 
 
+def plan_nodes(prog):
+    """(path, plan entry) of a program's agg nodes (the plan's other
+    entries, `graph` and its reason, record the program's mode)."""
+    return [(path, p) for path, p in prog.plan.items()
+            if isinstance(p, dict)]
+
+
 def multi_plan_modes(prog) -> dict:
     """{node path: the modes it runs} of a Program's bucket and percentile
     nodes (the MULTI_MODES vocabulary)."""
     out = {}
-    for path, p in prog.plan.items():
+    for path, p in plan_nodes(prog):
         got = {p[k] for k in ("mode", "pmode") if p.get(k)}
         got |= {k for k in ("pallas_counts", "pallas_prefix", "pallas_slots",
                             "pcube", "scube", "cube", "dense_mm", "wslots",
@@ -2075,8 +2116,12 @@ def _profile_group(torch, searcher, reqs, top: int = 6) -> None:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     port = [(nm, ms) for nm, ms in ranked
             if any(k in nm for k in ("chain_", "gather_rows", "fused_"))]
+    e0, e1 = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
     t0 = time.perf_counter()
+    e0.record()
     groups = searcher._submit_batch(reqs)
+    e1.record()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for g in groups:
@@ -2087,7 +2132,8 @@ def _profile_group(torch, searcher, reqs, top: int = 6) -> None:
         + "; ".join(f"{nm[:48]} {ms:.3f}" for nm, ms in ranked[:top])
         + "; port kernels: " + ("; ".join(f"{nm[:60]} {ms:.3f}"
                                           for nm, ms in port) or "none")
-        + f"; unprofiled: submit + device {(t1 - t0) * 1e3:.3f} ms, "
+        + f"; unprofiled: submit + device {(t1 - t0) * 1e3:.3f} ms "
+        f"(CUDA events around the submit {e0.elapsed_time(e1):.3f} ms), "
         f"collect {(t2 - t1) * 1e3:.3f} ms")
 
 
@@ -2235,7 +2281,7 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
             _profile_group(torch, searcher, group)
             searcher.config = dedup_on
             if any(p.get("kind") == "percentiles" and not p["int_percents"]
-                   for p in prog.plan.values()):
+                   for _, p in plan_nodes(prog)):
                 _profile_phase2(torch, searcher, group)
     counts = _counters(K, C, R)
     say(f"[6] kernel launches and product calls during the main path "
@@ -2246,6 +2292,345 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
     for k in NOT_LAUNCHED.get(label, ()):
         check(counts[k] == 0, f"{k} was launched by the main path {label}")
     return counts
+
+
+def _raw_clone(torch, raw) -> dict:
+    """A step's fruits copied out of whatever buffers hold them."""
+    return {"packed": raw["packed"].clone(),
+            "big": {path: {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in st.items()}
+                    for path, st in raw["big"].items()}}
+
+
+def _raw_same(torch, a, b, big=True) -> bool:
+    """Two steps' fruits are equal: packed, and (`big`) every phase-1
+    tensor."""
+    if not torch.equal(a["packed"], b["packed"]):
+        return False
+    if not big:
+        return True
+    return a["big"].keys() == b["big"].keys() and all(
+        (torch.equal(v, b["big"][path][k]) if torch.is_tensor(v)
+         else v == b["big"][path][k])
+        for path, st in a["big"].items() for k, v in st.items())
+
+
+def _big_bytes(torch, raw) -> int:
+    return sum(v.numel() * v.element_size() for st in raw["big"].values()
+               for v in st.values() if torch.is_tensor(v))
+
+
+def graph_pool_bytes(torch):
+    """Bytes the port's CUDA graph pools (aggs/compile.py: each device's
+    _GraphBook, its current pool and those its graphs still hold) hold
+    reserved, from the caching allocator's snapshot; None where the
+    snapshot names no segment's pool."""
+    from tantivy_aggregations_tpu_torch.aggs import compile as AC
+    pools = {tuple(h) for b in AC._BOOKS.values()
+             for h in (b.pool, *b.pools)}
+    segs = torch.cuda.memory._snapshot()["segments"]
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) in pools)
+
+
+def _diff(after, before) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+#: the launch counter of each chain_tile_kernel instance, by its first
+#: template argument (csrc/kernels.cu ChainMode)
+CHAIN_MODES = ("chain_blocks", "chain_counts", "chain_slot_counts")
+
+
+def graph_kernel_nodes(K, graph, tmp) -> dict:
+    """The port's kernels among a captured graph's nodes, by launch
+    counter: what each replay of it launches, as CUDA's own record
+    of the graph gives it (CUDAGraph.debug_dump, a DOT file, of a graph
+    captured with _StepGraph.keep_nodes). Fails where no file or no node
+    was written."""
+    import re
+    dot = Path(tmp) / "graph.dot"
+    dot.unlink(missing_ok=True)
+    graph.debug_dump(str(dot))
+    check(dot.exists(), "a captured graph kept no nodes (keep_nodes off?)")
+    text = dot.read_text(errors="replace")
+    nodes = re.split(r'(?m)^\s*"?graph_\d+_node_\d+"?\s*\[', text)[1:]
+    check(nodes, f"no node in the graph's DOT file: {text[:400]!r}")
+    counts = dict.fromkeys(K.launches, 0)
+    for nd in nodes:
+        m = re.search(r"chain_tile_kernel(?:ILi|<)(\d)", nd)
+        if m:
+            counts[CHAIN_MODES[int(m.group(1))]] += 1
+        elif "fused_metrics_kernel" in nd:
+            counts["fused_metrics"] += 1
+        elif "gather_rows_kernel" in nd:
+            counts["gather_rows"] += 1
+    return counts
+
+
+def graph_memory(torch, dev) -> dict:
+    """What the captured steps of `dev` hold (aggs/compile.py _GraphBook):
+    graphs booked, their own buffers' bytes, the pool bytes booked for
+    them, the pools' reserved bytes from the allocator's snapshot, the
+    budget and the graphs dropped for it."""
+    from tantivy_aggregations_tpu_torch.aggs import compile as AC
+    book = AC._BOOKS[dev.index if dev.index is not None
+                     else torch.cuda.current_device()]
+    own = sum(e[3] for e in book.graphs.values())
+    return {"graphs": len(book.graphs), "own_bytes": own,
+            "pool_bytes_booked": book.total() - own,
+            "pool_bytes_reserved": graph_pool_bytes(torch),
+            "budget": book.budget, "dropped": book.dropped}
+
+
+def graph_programs(tt, flagship, searchers):
+    """(path label, config key, name, searcher, query, aggs, up to
+    GRAPH_GROUP varied requests of that agg tree) of every unsharded
+    main path's requests (PATHS and MULTI_PATHS)."""
+    varied = multi_varied(tt)
+    out = []
+    for label, cfg_nos, *_ in PATHS:
+        s = searchers[label if label in searchers else "row"]
+        for n, name, q, aggs in all_configs(flagship):
+            if n in cfg_nos:
+                out.append((label, n, name, s, q, aggs,
+                            flagship.varied_requests(n, aggs, GRAPH_GROUP)))
+    for label, dep, names, *_ in MULTI_PATHS:
+        s = searchers["default" if dep == "bench" else "tags"]
+        for nm in names:
+            q, aggs = multi_requests(tt, nm, 0)
+            reqs = [r for r in varied(nm, aggs, GRAPH_GROUP) if r[1] is aggs]
+            out.append((label, nm, nm, s, q, aggs, reqs))
+    return out
+
+
+def phase_graphs(torch, K, C, R, qc, tt, flagship, searchers, answers,
+                 card) -> dict:
+    """Phase 5g: the compiled step. Every unsharded path's programs plan
+    their step captured (plan["graph"]); each is replayed at B = 1, an
+    odd group of 3 padded to 4, and a full group (GRAPH_SIZES, within the
+    group's cap), and its replay's packed and big fruits == raw_fn's on
+    the same padded param matrix, the launch and product counts a replay
+    credits == the eager step's, and its fruits == the oracle where the
+    main paths asked it (c6 at B = 1 only: its host selection takes a
+    quarter of a second a query); then every graph is replayed again in
+    a shuffled order (graphs of different programs and sizes share one
+    memory pool) and held == again. The credited launches are held to the
+    kernel nodes CUDA's own record of each graph holds
+    (graph_kernel_nodes). Then the memory the graphs hold (graph_memory),
+    and the bound on it: a budget below the book's total drops the three
+    least recently used graphs, and their programs capture them again at
+    their next use, == raw_fn. Returns {"credited": the launch and product
+    counts the replays credited, "nodes": the kernel nodes of the graphs
+    replayed, "memory": graph_memory after the replays}."""
+    import tempfile
+    from tantivy_aggregations_tpu_torch.aggs import compile as AC
+    say("[5g] the compiled step: each program's CUDA graph == its raw_fn, "
+        "at B = 1, 3 -> 4 and a full group, in capture and shuffled order")
+    t0 = time.time()
+    dev = torch.device(DEVICE)
+    credited = dict.fromkeys(_counters(K, C, R), 0)
+    nodes = dict.fromkeys(K.launches, 0)
+    tmp = tempfile.TemporaryDirectory()
+    kept, n_new = [], 0
+    for label, key, name, s, q, aggs, reqs in graph_programs(
+            tt, flagship, searchers):
+        prog = s._program_for(q, aggs)
+        check(isinstance(prog, AC.Program) and prog.plan["graph"] is True,
+              f"{label} {name}: no captured step ({type(prog).__name__})")
+        cap = s._group_cap(prog)
+        sizes = []
+        for b, pad in GRAPH_SIZES:
+            b, pad = min(b, cap, len(reqs)), min(pad, cap)
+            pad = max(b, pad)
+            group = [(q, aggs)] if b == 1 else reqs[:b]
+            qs = [rq for rq, _ in group]
+            rows = [prog._extract(rq, aggs) for rq in qs]
+            rows += rows[-1:] * (pad - len(rows))
+            c0 = _counters(K, C, R)
+            eager = _raw_clone(torch, prog.raw_fn(
+                qc.param_matrix(rows, prog._pkeys, dev), prog._arrays))
+            d_eager = _diff(_counters(K, C, R), c0)
+            if pad not in prog._graphs:  # captured at first use
+                n_new += 1
+                prog.submit_many(qs, aggs, pad_to=pad)
+            c0 = _counters(K, C, R)
+            got = _raw_clone(torch, prog.submit_many(qs, aggs, pad_to=pad))
+            d_graph = _diff(_counters(K, C, R), c0)
+            check(_raw_same(torch, got, eager),
+                  f"{label} {name} B={b} (padded {pad}): the graph's fruits "
+                  "!= raw_fn's")
+            check(d_graph == d_eager,
+                  f"{label} {name} B={pad}: a replay credited {d_graph}, "
+                  f"the eager step launched {d_eager}")
+            in_graph = graph_kernel_nodes(K, prog._graphs[pad].graph,
+                                          tmp.name)
+            check(in_graph == {k: d_graph[k] for k in K.launches},
+                  f"{label} {name} B={pad}: the graph holds the kernel "
+                  f"nodes {in_graph}, a replay credited {d_graph}")
+            for k, v in d_graph.items():
+                credited[k] += v
+            for k, v in in_graph.items():
+                nodes[k] += v
+            if key != 6 or b == 1:
+                fruits = prog.finalize_many(got, aggs, len(qs))
+                for (rq, ra), fr in zip(group, fruits):
+                    ak = (key, repr(rq), repr(ra))
+                    if ak in answers:
+                        check(fr == _answer(answers, ak),
+                              f"{label} {name} B={b}: graph fruits != the "
+                              "oracle")
+            keep_big = _big_bytes(torch, eager) <= GRAPH_KEEP_BIG
+            kept.append((f"{label} {name} B={pad}", prog, qs, aggs, pad,
+                         eager if keep_big else
+                         {"packed": eager["packed"], "big": {}}, keep_big))
+            sizes.append(pad)
+        say(f"  {label} {name}: graphs at B = {sizes} == raw_fn; replays "
+            f"credit the eager launches")
+        del eager, got
+    tmp.cleanup()
+    for i in np.random.default_rng(SEED).permutation(len(kept)):
+        what, prog, qs, aggs, pad, eager, keep_big = kept[i]
+        got = prog.submit_many(qs, aggs, pad_to=pad)
+        check(_raw_same(torch, got, eager, keep_big),
+              f"{what}: replayed in shuffled order != raw_fn")
+    for k in K.launches:
+        check(credited[k] > 0 and nodes[k] > 0,
+              f"no replayed graph launched {k}")
+    mem = graph_memory(torch, dev)
+    say(f"[5g] {len(kept)} graphs (of {len({id(k[1]) for k in kept})} "
+        f"programs; {n_new} captured here) == raw_fn in capture order and "
+        f"shuffled; launches credited by the replays {credited}, kernel "
+        f"nodes in the replayed graphs {nodes}; memory {mem}  [{card}]")
+    # the bound: three of the graphs above made the least recently used,
+    # then a budget that their own bytes exceed
+    book = AC._BOOKS[dev.index if dev.index is not None
+                     else torch.cuda.current_device()]
+    again = list({(id(k[1]), k[4]): k for k in kept}.values())[:3]
+    chosen = {(id(k[1]), k[4]) for k in again}
+    for n in [n for n, e in book.graphs.items()
+              if (id(e[0]()), e[1]) not in chosen]:
+        book.touch(book.graphs[n][2]())
+    budget, dropped = book.budget, book.dropped
+    book.budget = book.total() - sum(e[3] for e in list(
+        book.graphs.values())[:3]) + 1
+    book.trim()
+    check(book.dropped > dropped and book.total() <= book.budget
+          and all(k[4] not in k[1]._graphs for k in again),
+          f"a budget below the book's total dropped "
+          f"{book.dropped - dropped} graphs, leaving {book.total()} bytes "
+          f"of {book.budget}")
+    book.budget = budget
+    for what, prog, qs, aggs, pad, eager, keep_big in again:
+        got = prog.submit_many(qs, aggs, pad_to=pad)
+        check(_raw_same(torch, got, eager, keep_big),
+              f"{what}: captured again after a drop != raw_fn")
+    say(f"[5g] the 3 least recently used graphs dropped for a budget below "
+        f"the total, captured again at their next use == raw_fn: "
+        + "; ".join(k[0] for k in again) + f"  ({time.time() - t0:.1f}s)")
+    return {"credited": credited, "nodes": nodes, "memory": mem}
+
+
+def _step_once(torch, prog, qs, aggs, way, pad_to=None):
+    """One request group through submit (the graph, the group padded to
+    `pad_to`) or raw_fn (unpadded), stage and finalize: ((dispatch, wait,
+    harvest, total host ms, device ms between CUDA events recorded before
+    the dispatch and after the staged copy), the fruits)."""
+    from tantivy_aggregations_tpu_torch.query import compile as qc
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    if way == "graph":
+        raw = prog.submit_many(qs, aggs, pad_to=pad_to)
+    else:
+        raw = prog.raw_fn(qc.param_matrix(
+            [prog._extract(q, aggs) for q in qs], prog._pkeys,
+            prog.device), prog._arrays)
+    t1 = time.perf_counter()
+    staged = prog.stage(raw, aggs)
+    e1.record()
+    staged.numpy()
+    t2 = time.perf_counter()
+    fruits = prog.finalize_many(raw, aggs, len(qs), staged=staged)
+    t3 = time.perf_counter()
+    return ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+            (t3 - t0) * 1e3, e0.elapsed_time(e1)), fruits
+
+
+def phase_step_timings(torch, flagship, searchers, card) -> list:
+    """Phase 5t: c1-c10 in the row modes and at the default config, at
+    B = 1 and B = 128 (within the cap; c6 at B = 1 only), one group
+    through its graph and through raw_fn called directly, in turns
+    (STEP_REPS[B] each, medians): dispatch / wait / harvest / total host ms
+    and the CUDA-event ms from the dispatch to the staged copy, the fruits
+    of both ways ==; and the eager steps' peak of allocated bytes above
+    what was allocated before each (per config set) beside the graph
+    pool's reserved bytes. Then the cost of padding in a device-bound row
+    mode: c2's group of PAD_ODD[0] padded to PAD_ODD[1] through its graph
+    against raw_fn on the group unpadded. Returns {"steps": the records,
+    "eager_peak_bytes", "pool_bytes"}."""
+    say("[5t] the step through its graph vs raw_fn (medians of "
+        f"{STEP_REPS[1]} at B = 1, {STEP_REPS[128]} at 128; dispatch / wait "
+        "/ harvest / total host ms, device ms between events)")
+    out = []
+    peak = {}
+    groups = [(label, n, q, aggs, B, None)
+              for label in ("row", "default")
+              for n, name, q, aggs in all_configs(flagship)
+              for B in (1, 128) if n != 6 or B == 1]
+    groups.append(("row", 2, *next((q, aggs) for n, _, q, aggs in
+                                   all_configs(flagship) if n == 2),
+                   *PAD_ODD))
+    for label, n, q, aggs, B, pad in groups:
+        s = searchers[label]
+        prog = s._program_for(q, aggs)
+        b = min(B, s._group_cap(prog))
+        qs = ([q] if b == 1 else
+              [rq for rq, _ in flagship.varied_requests(n, aggs, b)])
+        prog.submit_many(qs, aggs, pad_to=pad)  # this B's graph, captured
+        runs = {"graph": [], "eager": []}
+        for _ in range(STEP_REPS[1 if B == 1 else 128]):
+            for way in runs:
+                if way == "eager":
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                runs[way].append(_step_once(torch, prog, qs, aggs, way,
+                                            pad))
+                if way == "eager":
+                    peak[label] = max(peak.get(label, 0),
+                                      torch.cuda.max_memory_allocated()
+                                      - base)
+        check(runs["graph"][-1][1] == runs["eager"][-1][1],
+              f"{label} c{n} B={b}: the graph's fruits != raw_fn's")
+        rec = {"path": label, "config": f"c{n}", "B": b}
+        if pad is not None:
+            rec["graph_padded_to"] = pad
+        for way, rs in runs.items():
+            med = [statistics.median(x) for x in zip(*(r[0] for r in rs))]
+            rec[way] = dict(zip(("dispatch_ms", "wait_ms", "harvest_ms",
+                                 "total_ms", "device_ms"), med))
+        out.append(rec)
+        g, e = rec["graph"], rec["eager"]
+        say(f"  {label} c{n} B={b}"
+            + (f" (graph padded to {pad})" if pad else "")
+            + f": graph {g['dispatch_ms']:.3f} / "
+            f"{g['wait_ms']:.3f} / {g['harvest_ms']:.3f} / "
+            f"{g['total_ms']:.3f} ms, device {g['device_ms']:.3f}; "
+            f"raw_fn {e['dispatch_ms']:.3f} / {e['wait_ms']:.3f} / "
+            f"{e['harvest_ms']:.3f} / {e['total_ms']:.3f} ms, "
+            f"device {e['device_ms']:.3f}  [{card}]")
+    pool = graph_pool_bytes(torch)
+    say(f"[5t] eager steps' peak allocated bytes, c1-c10 row modes "
+        f"{peak['row']}, default {peak['default']}; graph pool reserved "
+        "now: "
+        + ("not measured" if pool is None else f"{pool} bytes")
+        + f"  [{card}]")
+    return {"steps": out, "eager_peak_bytes": peak, "pool_bytes": pool}
 
 
 def phase_phase2_rows(torch, tt, searchers, card):
@@ -2272,13 +2657,16 @@ def phase_phase2_rows(torch, tt, searchers, card):
                                               "price", (50.0, 99.0))})})):
             prog = Program(s._get_device_index(), *multi_requests(
                 tt, name, 0)[:1], aggs, config=s.config)
-            nodes = [p for p in prog.plan.values()
+            nodes = [p for _, p in plan_nodes(prog)
                      if p.get("kind") == "percentiles"]
             for B in (1, 128):
                 qs = [multi_requests(tt, name, j % 32)[0] for j in range(B)]
                 raw = prog.submit_many(qs, aggs)
                 vecs = prog.stage(raw, aggs).numpy()
                 want = [prog._unpack_host(vecs[b]) for b in range(B)]
+                # the changed plan is another step: its graphs are
+                # captured anew (and again after it is restored)
+                prog._graphs.clear()
                 for p in nodes:
                     p["int_percents"] = False
                 try:
@@ -2292,6 +2680,7 @@ def phase_phase2_rows(torch, tt, searchers, card):
                 finally:
                     for p in nodes:
                         p["int_percents"] = True
+                    prog._graphs.clear()
                 for p in nodes:
                     for b in range(B):
                         got = prog._node_at(hosts[b], p["path"])["pvals"]
@@ -2375,6 +2764,10 @@ def _profile_phase2(torch, searcher, reqs) -> None:
     from torch.profiler import ProfilerActivity, profile
     q0, aggs = reqs[0]
     prog = searcher._program_for(q0, aggs)
+    # the group the searcher would run: within the program's cap (tp's
+    # 26; its phase-1 state, 75 MB a query, lives in the graph's pool, its
+    # output buffer and the replay's clone)
+    reqs = reqs[:searcher._group_cap(prog)]
     raw = prog.submit_many([q for q, _ in reqs], aggs)
     staged = prog.stage(raw, aggs)
     hosts = [prog._unpack_host(v) for v in staged.numpy()]
@@ -2480,7 +2873,7 @@ def plan_modes(prog) -> dict:
     """{plan path: the cube / pcube / scube / dense_mm modes it carries}
     of a Program's plan (paths without one left out)."""
     out = {}
-    for path, p in prog.plan.items():
+    for path, p in plan_nodes(prog):
         got = [m for m in ("cube", "pcube", "scube", "dense_mm") if p.get(m)]
         if got:
             out["/".join(path[1:])] = got
@@ -2638,7 +3031,7 @@ REPLICAS, REPLICA_RUN = 2, 24
 
 def sharded_plan_modes(prog) -> dict:
     out = multi_plan_modes(prog)
-    for path, p in prog.plan.items():
+    for path, p in plan_nodes(prog):
         key = "/".join(path[1:])
         for k in ("bisect", "slot_bisect"):
             if p.get(k) and key in out:
@@ -3113,6 +3506,9 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     from tantivy_aggregations_tpu_torch.ops import kernels as K
     from tantivy_aggregations_tpu_torch.ops import reductions as R
     from tantivy_aggregations_tpu_torch.query import compile as qc
+    from tantivy_aggregations_tpu_torch.aggs import compile as AC
+    # every graph keeps its nodes, so phase 5g reads the kernels in each
+    AC._StepGraph.keep_nodes = True
     answers = {}
     t0 = time.time()
     n = prefetch_answers(tt, pool, {"bench": idx.path, "tags": tags_idx.path},
@@ -3173,6 +3569,11 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
         for k, n in by_path[label].items():
             counts[k] += n
         lap(f"main path {label}", t0)
+    pool_bytes = graph_pool_bytes(torch)
+    say("[5] graph pool after c1-c10 (row modes, default, nomop): "
+        + ("not measured" if pool_bytes is None
+           else f"{pool_bytes} bytes reserved")
+        + f", {torch.cuda.memory_reserved()} bytes reserved in all  [{card}]")
     c7 = "c7_terms_prefix_multiquery"
     for label, how in (("default", "member operand, gather_rows"),
                        ("nomop", "chain_blocks")):
@@ -3192,6 +3593,14 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
         for k, n in by_path[label].items():
             counts[k] += n
         lap(f"main path {label}", t0)
+    t0 = time.time()
+    replayed = phase_graphs(torch, K, C, R, qc, tt, flagship, searchers,
+                            answers, card)
+    lap("graphs", t0)
+    t0 = time.time()
+    step = phase_step_timings(torch, flagship, searchers, card)
+    step["graph_memory_5g"] = replayed["memory"]
+    lap("step timings", t0)
     pool.close()
     t0 = time.time()
     for name in ("mv4",) + HOST_SHAPES:
@@ -3251,6 +3660,9 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
         check(counts[name] > 0, f"kernel {name} was never launched")
         rec["launches"] = counts[name]
         rec["launches_by_path"] = {lb: c[name] for lb, c in by_path.items()}
+    for name, rec in records.items():
+        rec["launches_replayed_5g"] = replayed["credited"][name]
+        rec["graph_nodes_5g"] = replayed["nodes"][name]
     check(set(products) == set(PRODUCTS),
           f"product records {sorted(products)} != {sorted(PRODUCTS)}")
     for name, rec in products.items():
@@ -3260,6 +3672,7 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
           "jax was imported")
     say(f"whole run {time.time() - t_run:.1f}s: " + ", ".join(
         f"{k} {v:.1f}s" for k, v in phases.items()))
+    say(json.dumps({"graph_step": step}))
     say(json.dumps({"products": list(products.values())}))
     say(json.dumps({"kernels": list(records.values())}))
     say(json.dumps({"ok": True, "device": {

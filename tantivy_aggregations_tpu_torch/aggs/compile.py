@@ -5,11 +5,21 @@ picks an execution MODE per node from static index metadata (the choices
 the JAX package makes under the same EngineConfig, its Pallas gate on and
 unsharded: the value-domain cube (`use_cube`), the dense products
 (`dense_mxu`) and member operands (`use_member_ops`) on by default);
-`_run` evaluates the whole tree for a [B, P] int32 param matrix — one row
-per query of an msearch group, a single query is B = 1 — with eager torch
-ops, the five CUDA kernels of ops/kernels.py and the matrix products of
-ops/cube.py and ops/reductions.py; the copied `harvest` reconstructs
-exact user-domain fruits (bit-identical to the oracle).
+`raw_fn(pmat, arrays)` is the device step (JAX `Program.raw_fn`): the
+whole tree for a [B, P] int32 param matrix — one row per query of an
+msearch group, a single query is B = 1 — over the resident arrays, with
+torch ops, the five CUDA kernels of ops/kernels.py and the matrix
+products of ops/cube.py and ops/reductions.py; the copied `harvest`
+reconstructs exact user-domain fruits (bit-identical to the oracle).
+
+On the card the step runs as JAX runs its jitted one: `submit_many`
+captures `raw_fn` as one CUDA graph per padded batch size at its first
+use (`_StepGraph`; JAX jits at first use) and replays it on every later
+call, so a call costs one param copy and one graph launch. On the CPU
+`submit_many` calls `raw_fn` itself. The plan records the mode
+(`plan["graph"]`): every unsharded Program's step is captured; a shard's
+step (collectives at the mesh's barriers) and phase 2's selection in
+`finalize_many` (it follows host ranks) run eagerly.
 
 The plan does not depend on the device: a program on CPU tensors plans and
 runs exactly the modes the card runs (the kernels' plain versions execute
@@ -88,8 +98,8 @@ percentile_rank) and one device call per node selects the rank rows for
 the whole group (`finalize_many`). Such a node forces host-side selection
 on its terms ancestors, so every fruit beside it stays full-slot-space.
 
-top_hits sorts each row space once, by (sort key, doc), into a static
-order cached on the device index (`_hit_order`); a query's flat hits are
+top_hits sorts each row space once at plan time, by (sort key, doc), into
+a static order (`_hit_order`); a query's flat hits are
 the first k matched rows of that order (a cumsum and a searchsorted), and
 in-slot hits one stable sort per query by composite slot. facet aggs are
 terms aggs over the facet field's value rows with host-side selection of
@@ -128,6 +138,8 @@ products' operands are built on the device at each plan.
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Dict, Optional, Tuple
@@ -202,8 +214,6 @@ class SlotCtx:
     mm: Optional[dict] = None
     doc: Optional[torch.Tensor] = None
     doc_rooted: bool = True
-    #: the array key of `doc` (names the row space of a top_hits order)
-    doc_key: Optional[str] = None
 
     @property
     def nslots(self) -> int:
@@ -255,6 +265,228 @@ class _Staged:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+#: device bytes the captured steps of one device may hold (_GraphBook):
+#: 24 GiB of the H100's 80 GB, beside the resident planes and operands
+GRAPH_MEM_BUDGET = 24 << 30
+
+
+class _GraphBook:
+    """The captured steps of one device and the memory they hold, least
+    recently used first. Every program of every searcher on the device
+    captures into one graph pool (a pool per graph would hold the
+    intermediates of every (program, batch size) at once). A graph holds
+    its own param and output buffers (`_StepGraph.nbytes`) and a share of
+    the pool: the bytes by which its capture grew the device's reserved
+    memory, counted for the pool while any graph captured into it lives
+    (the caching allocator keeps a pool's segments until then). Past
+    `budget` the least recently used graphs are dropped from their
+    programs, to be captured again at their next use, until the total
+    fits or only the newest is left; a drop also starts a new pool for
+    later captures, so that the old one drains as its graphs go. A graph
+    that dies with its program (the searcher's LRU) leaves the book by
+    itself."""
+
+    def __init__(self, new_pool, budget=GRAPH_MEM_BUDGET):
+        self._new_pool = new_pool
+        self.budget = budget
+        self.pool = new_pool()
+        #: serial -> (program weakref, B, graph weakref, own bytes, pool)
+        self.graphs = OrderedDict()
+        #: pool -> [bytes its captures grew, graphs captured into it alive]
+        self.pools = {}
+        #: graphs dropped for the budget
+        self.dropped = 0
+        self._serial = 0
+
+    def total(self) -> int:
+        return (sum(e[3] for e in self.graphs.values())
+                + sum(b for b, live in self.pools.values() if live))
+
+    def add(self, prog, B, graph, grown):
+        """Book `graph`, prog's step at B just captured into `self.pool`
+        and grown it by `grown` bytes; then trim to the budget."""
+        self._serial += 1
+        n = graph.serial = self._serial
+        self.graphs[n] = (weakref.ref(prog), B,
+                          weakref.ref(graph, lambda _, n=n: self._gone(n)),
+                          graph.nbytes, self.pool)
+        pb = self.pools.setdefault(self.pool, [0, 0])
+        pb[0] += grown
+        pb[1] += 1
+        self.trim()
+
+    def touch(self, graph):
+        if graph.serial in self.graphs:
+            self.graphs.move_to_end(graph.serial)
+
+    def _gone(self, n):
+        e = self.graphs.pop(n, None)
+        if e is not None:
+            self.pools[e[4]][1] -= 1
+            if not self.pools[e[4]][1] and e[4] != self.pool:
+                del self.pools[e[4]]
+
+    def trim(self):
+        while self.total() > self.budget and len(self.graphs) > 1:
+            n, (pref, B, gref, _, pool) = next(iter(self.graphs.items()))
+            prog, graph = pref(), gref()
+            if prog is not None and prog._graphs.get(B) is graph:
+                del prog._graphs[B]
+            del graph
+            self._gone(n)  # where a caller still holds the graph
+            self.dropped += 1
+            if pool == self.pool:
+                self.pool = self._new_pool()
+
+
+#: the graph book of each device
+_BOOKS: Dict[int, _GraphBook] = {}
+#: the stream each device's steps are warmed up and captured on
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _counters():
+    """The launch and call counters a step's kernels and products bump
+    (ops/kernels.py, ops/cube.py, ops/reductions.py)."""
+    return K.launches, C.calls, R.mm_calls
+
+
+def _static_like(t):
+    """A buffer outside the graph pool for one output of the step: a
+    batch-stride-0 tensor (one shared row) keeps one row."""
+    one, _ = R.shared_row(t) if t.dim() > 1 else (t, 1)
+    return torch.empty_like(one, memory_format=torch.contiguous_format)
+
+
+def _out_view(static, shape):
+    """`static` seen with the output's `shape` (a shared row expanded
+    again)."""
+    return static if static.shape == shape else static.expand(shape)
+
+
+def _tensors_in(obj, out):
+    """Every tensor reachable through dicts, lists, tuples and RowOperands
+    of `obj`, appended to `out`."""
+    if torch.is_tensor(obj):
+        out.append(obj)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _tensors_in(v, out)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _tensors_in(v, out)
+    elif isinstance(obj, K.RowOperand):
+        out.append(obj.op)
+    return out
+
+
+class _StepGraph:
+    """A Program's device step at one padded batch size B, captured as a
+    CUDA graph (JAX's jit of the step at first use). Built by its first
+    call: the [B, P] param matrix and the outputs get buffers of their own
+    outside the graph pool; raw_fn runs once eagerly on the capture stream
+    with any host sync an error (the warm-up also makes the library
+    workspaces and the kernels' launch state that the capture then
+    reuses); then raw_fn is captured into the device's shared pool
+    (`_GraphBook.pool`), ending in copies of `packed` and every `big`
+    tensor into the output buffers. Nothing a caller reads lives in the
+    pool, so graphs of any programs and sizes replay in any order. A
+    capture or replay error propagates: no step answers eagerly instead.
+    `keep_nodes` keeps the captured graph's nodes (`keep_graph`, then
+    instantiated at once) for `CUDAGraph.debug_dump` (chip_smoke.py counts
+    the kernels in each).
+
+    The kernels' launch counters and the products' call counters count
+    where a kernel is enqueued, so the capture's counts are recorded
+    (`credit`) and credited on each replay, and the capture itself counts
+    nothing. The graph reads the program's resident tensors by address
+    (the chain kernels take their plane pointers by value): `keep` holds
+    every tensor of the plan and the arrays for the graph's life."""
+
+    keep_nodes = False
+
+    __slots__ = ("graph", "pmat", "packed", "big", "keep", "credit",
+                 "book", "nbytes", "grown", "serial", "__weakref__")
+
+    def __init__(self, prog, rows):
+        dev = prog.device
+        di = dev.index
+        if di is None:
+            di = torch.cuda.current_device()
+        if di not in _BOOKS:
+            _BOOKS[di] = _GraphBook(torch.cuda.graph_pool_handle)
+            _CAPTURE_STREAMS[di] = torch.cuda.Stream(di)
+        self.book = _BOOKS[di]
+        stream = _CAPTURE_STREAMS[di]
+        self.pmat = torch.empty((len(rows), max(1, len(prog._pkeys))),
+                                dtype=torch.int32, device=dev)
+        qc.param_matrix(rows, prog._pkeys, dev, out=self.pmat)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                warm = prog.raw_fn(self.pmat, prog._arrays)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.packed = _static_like(warm["packed"])
+            self.big = {path: {k: (_static_like(v), v.shape)
+                               for k, v in st.items() if torch.is_tensor(v)}
+                        for path, st in warm["big"].items()}
+            ints = {path: {k: v for k, v in st.items()
+                           if not torch.is_tensor(v)}
+                    for path, st in warm["big"].items()}
+            del warm
+            before = [dict(c) for c in _counters()]
+            self.graph = torch.cuda.CUDAGraph(keep_graph=self.keep_nodes)
+            reserved = torch.cuda.memory_reserved(dev)
+            self.graph.capture_begin(pool=self.book.pool)
+            try:
+                out = prog.raw_fn(self.pmat, prog._arrays)
+                self.packed.copy_(out["packed"])
+                for path, st in out["big"].items():
+                    for k, (buf, _) in self.big[path].items():
+                        buf.copy_(R.shared_row(st[k])[0] if buf.dim() > 1
+                                  else st[k])
+                del out
+            finally:
+                self.graph.capture_end()
+                self.grown = max(0, torch.cuda.memory_reserved(dev)
+                                 - reserved)
+                # the capture launched nothing: its counts go to `credit`
+                self.credit = []
+                for c, b in zip(_counters(), before):
+                    self.credit.append({k: c[k] - b[k] for k in c})
+                    c.update(b)
+            if self.keep_nodes:
+                self.graph.instantiate()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.nbytes = sum(t.numel() * t.element_size() for t in (
+            self.pmat, self.packed,
+            *(buf for st in self.big.values() for buf, _ in st.values())))
+        self.big = {path: (self.big[path], ints[path]) for path in self.big}
+        self.keep = _tensors_in((prog._arrays, prog.plan, prog._hit_cache),
+                                [])
+
+    def replay(self):
+        """Launch the step on the current stream; the fruits: a view of
+        the `packed` buffer, and clones of the `big` tensors. The clones
+        let agg_search_stream keep groups in flight: group n's phase 2
+        can run after group n+1 replayed this graph. `packed` needs none:
+        Program.stage copies it right after this launch, on the same
+        stream, so the copy runs before any later replay."""
+        self.graph.replay()
+        self.book.touch(self)
+        for c, d in zip(_counters(), self.credit):
+            for k, n in d.items():
+                c[k] += n
+        return {"packed": self.packed,
+                "big": {path: {**ints, **{k: _out_view(buf.clone(), shape)
+                                          for k, (buf, shape) in
+                                          bufs.items()}}
+                        for path, (bufs, ints) in self.big.items()}}
 
 
 def _cols(x, idx, keep=None):
@@ -348,16 +580,35 @@ class Program:
         #: the row space while planning (None: doc-rooted; "__deep__": a
         #: cross-product expansion already re-based it)
         self._mparent = None
+        #: top_hits nodes planned, with their plan entries
+        self._top_hits = []
         self._plan_aggs(aggs, ("a",), in_slot=False, hdims=(), tflat=1,
                         chain=self._root_chain, bchain=())
         self._root = (self._chain_entry(self._root_chain)
                       if self._reads_root else None)
+        #: top_hits row orders, per node path: (order, key), built here so
+        #: that the step uploads and reads back nothing (_hit_order)
+        self._hit_cache = {p["path"]: self._hit_order(node, p)
+                           for node, p in self._top_hits}
+        for p in self.plan.values():
+            if p.get("kind") == "percentiles" and not p["int_percents"]:
+                # phase 1 is in the step; phase 2's selection follows the
+                # host's ranks in finalize_many, eagerly
+                p["graph"] = False
+        # the execution mode: the step captured as one CUDA graph per padded
+        # batch on the card; a shard's step stays eager (its collectives
+        # wait at the mesh's barrier for the other shard threads)
+        self.plan["graph"] = not self._sharded
+        if self._sharded:
+            self.plan["graph_reason"] = (
+                "a shard's step: shard threads with collectives at a "
+                "barrier (JAX's shard_map under jax.jit is a later slice)")
         #: msearch group bound (None: no per-query row-axis state)
         self.batch_cap = self._batch_cap()
         #: per-query fruit layout of the packed [B, F] int64 output
         self._pack_spec = None
-        #: top_hits row orders, per node (_hit_order)
-        self._hit_cache = {}
+        #: the captured steps on the card, per padded batch size
+        self._graphs: Dict[int, _StepGraph] = {}
 
     def _batch_cap(self):
         """Queries per msearch group whose per-query state fits
@@ -377,6 +628,8 @@ class Program:
         sorts run a few queries at a time)."""
         per_q = 0
         for p in self.plan.values():
+            if not isinstance(p, dict):
+                continue
             if p.get("pmode") == "slot_rank":
                 G = p["scube"]["G"] if p.get("scube") else SLOT_GROUP
                 per_q += (p["layout"].n_rows // G) * p["nslots"] * 8
@@ -461,17 +714,46 @@ class Program:
                 return False
         return True
 
+    def example_inputs(self):
+        """(pmat, arrays) for this program's own (query, aggs) pair: valid
+        example arguments for raw_fn (JAX `Program.example_inputs`). A
+        [1, P] int32 param matrix takes the place of JAX's params dict:
+        its columns are the program's sorted param keys."""
+        return (qc.param_matrix([self._extract(self.query, self.aggs)],
+                                self._pkeys, self.device), self._arrays)
+
+    def as_callable(self):
+        """(raw_fn, example_inputs()): the whole device step as a plain
+        function plus example arguments (JAX `Program.as_callable`);
+        `finalize(raw_fn(*args), aggs)` answers the program's request."""
+        return self.raw_fn, self.example_inputs()
+
     def submit(self, query, aggs):
         return self.submit_many([query], aggs)
 
-    def submit_many(self, queries, aggs):
+    def submit_many(self, queries, aggs, pad_to=None):
         """Run B same-shape queries as one [B, P] param matrix; returns the
         device-side fruits {"packed": [B, F] int64, "big": {path: phase-1
         state}} ("big": the non-integer percentile nodes' count prefixes,
-        read by phase 2 in finalize_many)."""
-        pmat = qc.param_matrix([self._extract(q, aggs) for q in queries],
-                               self._pkeys, self.device)
-        return self._run(pmat)
+        read by phase 2 in finalize_many). `pad_to` repeats the last
+        request up to that many rows (JAX's padding, so that a few batch
+        sizes serve every group); finalize_many harvests the first rows.
+        On the card the step replays its graph for this B (captured at
+        the first call of each B); on the CPU, and where the plan keeps
+        the step eager (a shard's), raw_fn runs."""
+        rows = [self._extract(q, aggs) for q in queries]
+        if pad_to is not None:
+            rows += rows[-1:] * (pad_to - len(rows))
+        if self.device.type != "cuda" or not self.plan["graph"]:
+            return self.raw_fn(qc.param_matrix(rows, self._pkeys,
+                                               self.device), self._arrays)
+        g = self._graphs.get(len(rows))
+        if g is None:
+            g = self._graphs[len(rows)] = _StepGraph(self, rows)
+            g.book.add(self, len(rows), g, g.grown)
+        else:
+            qc.param_matrix(rows, self._pkeys, self.device, out=g.pmat)
+        return g.replay()
 
     def run(self, query, aggs):
         return self.finalize(self.submit(query, aggs), aggs)
@@ -1408,9 +1690,11 @@ class Program:
                     "top_hits under huge bucket spaces answers through "
                     "the exact host fallback")
         p = {"kind": "top_hits", "hdims": hdims, "k": k, "in_slot": in_slot,
-             "tflat": tflat, "path": path}
+             "tflat": tflat, "path": path,
+             "doc_key": self._row_doc(path) if in_slot else None}
         self.plan[path] = p
         self._reads_root = True
+        self._top_hits.append((node, p))
         if node.sort_field is None:
             p["score"] = True
             return
@@ -2071,15 +2355,33 @@ class Program:
             rows = col.host_plane("doc").shape[0]
         p["slot_rows"] = max(rows, self.dindex.T)
 
-    def _plan_children(self, node, p, col, path, *, hdims, tflat, chain,
-                       sub_bchain, parent_single, sbid):
+    def _row_doc(self, path):
+        """The doc plane key of the row space a node at `path` reads: its
+        nearest bucket ancestor's `row_doc` (None: the docs)."""
+        for i in range(len(path) - 1, 0, -1):
+            q = self.plan.get(path[:i])
+            if isinstance(q, dict) and "row_doc" in q:
+                return q["row_doc"]
+        return None
+
+    def _plan_children(self, node, p, col, path, *, in_slot, hdims, tflat,
+                       chain, sub_bchain, parent_single, sbid):
         """Plan a row-mode bucket node's subs, tracking the multi-valued
-        ancestor whose value rows they chain over (`_mparent`)."""
+        ancestor whose value rows they chain over (`_mparent`). The doc
+        plane of their row space is decided here, once: `p["row_doc"]`,
+        the array key _bucket_ctx reads (None: the docs)."""
         prev = self._mparent
         if "xpand" in p:
             self._mparent = "__deep__"  # expansion rows, not a field's rows
+            p["row_doc"] = p["xpand"]["doc"]
+        elif in_slot and not parent_single:
+            # each row of the multi-valued ancestor is one collect
+            p["row_doc"] = self._row_doc(path)
         elif col.multi and not p.get("plane_fanout"):
             self._mparent = node.field
+            p["row_doc"] = f"{node.field}:doc"
+        else:
+            p["row_doc"] = None
         try:
             for name, sub in node.sub_aggs:
                 self._plan_aggs(sub, path + (name,), in_slot=True,
@@ -2151,7 +2453,8 @@ class Program:
         sub_bchain = (bchain + (("hist", node.field, dict(p)),)
                       if bchain is not None and p["mode"] == "dense"
                       and not col.multi else None)
-        self._plan_children(node, p, col, path, hdims=hdims + (nb,),
+        self._plan_children(node, p, col, path, in_slot=in_slot,
+                            hdims=hdims + (nb,),
                             tflat=tflat * nb, chain=chain,
                             sub_bchain=sub_bchain,
                             parent_single=parent_single,
@@ -2258,7 +2561,8 @@ class Program:
                 # an occurrence-weighted slot factor: percentile
                 # descendants lower through wslots
                 sub_bchain = bchain + (("mterms", node.field, card),)
-        self._plan_children(node, p, col, path, hdims=sub_hdims,
+        self._plan_children(node, p, col, path, in_slot=in_slot,
+                            hdims=sub_hdims,
                             tflat=tflat * card, chain=chain,
                             sub_bchain=sub_bchain,
                             parent_single=parent_single, sbid=sbid)
@@ -2296,17 +2600,26 @@ class Program:
     # evaluation
     # ======================================================================
 
-    def _run(self, pmat):
-        arrays = self._arrays
+    def raw_fn(self, pmat, arrays):
+        """The device step (JAX `Program.raw_fn`): the fruits of the B
+        queries of the [B, P] int32 param matrix `pmat` over the resident
+        `arrays` (this program's `_arrays`), {"packed": [B, F] int64,
+        "big": {path: phase-1 state}}. A pure function of its arguments:
+        the run's memos live only while it runs, and it reads nothing back
+        to the host, so the card can capture it (`_StepGraph`)."""
         self._ind_cache = {}  # cube indicators of this run, per chain
         self._defer_topk = 0  # > 0 inside a plane fan-out
         #: phase-1 state of this run's non-integer percentile nodes
         self._big = big = {}
-        ctx = MaskCtx(lambda: self._root_mask(pmat, arrays))
-        out = self._eval_level(self.aggs.items(), ctx, pmat, arrays, ("a",))
-        return {"packed": self._pack_outputs(out, self.aggs,
-                                             pmat.shape[0]),
-                "big": big}
+        try:
+            ctx = MaskCtx(lambda: self._root_mask(pmat, arrays))
+            out = self._eval_level(self.aggs.items(), ctx, pmat, arrays,
+                                   ("a",))
+            return {"packed": self._pack_outputs(out, self.aggs,
+                                                 pmat.shape[0]),
+                    "big": big}
+        finally:
+            self._ind_cache = self._big = None
 
     def _root_mask(self, pmat, arrays):
         """The root scope's [B, T] mask: the root chain & alive."""
@@ -2346,7 +2659,7 @@ class Program:
                         ["cnt"]}
             if isinstance(ctx, MaskCtx):
                 return {"cnt": self._madd(ctx.count())}
-            return {"cnt": self._madd(self._slot_counts(ctx))}
+            return {"cnt": self._madd(self._slot_counts(ctx, arrays))}
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
                              A.StatsAgg)):
             if p.get("cube"):
@@ -2378,8 +2691,7 @@ class Program:
             if ctx.doc is not None:
                 fmask = _cols(fmask, ctx.doc)
             sub_ctx = SlotCtx(ctx.bid, ctx.valid & fmask, ctx.dims,
-                              doc=ctx.doc, doc_rooted=ctx.doc_rooted,
-                              doc_key=ctx.doc_key)
+                              doc=ctx.doc, doc_rooted=ctx.doc_rooted)
             out = {"cnt": self._madd(R.dense_bucket_counts(
                 sub_ctx.bid, sub_ctx.valid, sub_ctx.nslots))}
             out.update(self._eval_level(node.sub_aggs, sub_ctx, pmat, arrays,
@@ -2393,12 +2705,12 @@ class Program:
 
     # -- metrics -------------------------------------------------------------
 
-    def _slot_counts(self, ctx):
+    def _slot_counts(self, ctx, arrays):
         """[B, ns] counts of a SlotCtx: one dense product over its static
         bucket plane (ctx.mm), else index_add_."""
         if ctx.mm is not None:
             return R.dense_bucket_counts_mm(ctx.bid, ctx.valid, ctx.nslots,
-                                            op=self._arrays.get(ctx.mm["op"]))
+                                            op=arrays.get(ctx.mm["op"]))
         return R.dense_bucket_counts(ctx.bid, ctx.valid, ctx.nslots)
 
     def _eval_metric(self, node, ctx, arrays, p):
@@ -2503,7 +2815,7 @@ class Program:
                 out["sum"] = tot if p["direct"] else limb_sums()
             return out
 
-        out["cnt"] = self._slot_counts(ctx) if slot else ctx.count()
+        out["cnt"] = self._slot_counts(ctx, arrays) if slot else ctx.count()
         if need_min or need_max:
             if col.narrow:
                 v = get(f"{field}:w")
@@ -2744,18 +3056,18 @@ class Program:
 
     # -- top_hits ------------------------------------------------------------
 
-    def _hit_order(self, node, p, arrays, doc, doc_key=None):
+    def _hit_order(self, node, p):
         """(order, key) of a top_hits node's row space (the docs, or the
-        rows whose docs `doc` holds, the array `doc_key`): key [n] int64
-        is the sort field's rm at the row's doc (~rm descending; 0 in
-        score order), order [n] int64 the rows sorted by (key, doc, row) —
-        two stable sorts, once per row space (cached per node and in the
-        prep cache; the sort planes and `doc` are resident). A query's
-        hits in a slot are the first k of its matched rows in this
+        rows whose docs the array `p["doc_key"]` holds), built at plan
+        time: key [n] int64 is the sort field's rm at the row's doc (~rm
+        descending; 0 in score order), order [n] int64 the rows sorted by
+        (key, doc, row) — two stable sorts, once per row space (in the
+        prep cache; the sort planes and the doc plane are resident). A
+        query's hits in a slot are the first k of its matched rows in this
         order."""
-        hit = self._hit_cache.get(p["path"])
-        if hit is not None and hit[0] is doc:
-            return hit[1], hit[2]
+        arrays = self._arrays
+        doc_key = p["doc_key"]
+        doc = None if doc_key is None else arrays[doc_key]
         n = self.dindex.T if doc is None else doc.shape[0]
         dev = self.device
 
@@ -2775,14 +3087,12 @@ class Program:
                 order = torch.sort(doc, stable=True).indices
             return order[torch.sort(key[order], stable=True).indices], key
 
-        order, key = self._prep_cached(
+        return self._prep_cached(
             ("hits", node.sort_field, bool(node.ascending),
              bool(p.get("score")), doc_key, n),
             build, lambda ok: {"order": ok[0].cpu().numpy(),
                                "key": ok[1].cpu().numpy()},
             lambda h: (_put(h["order"], dev), _put(h["key"], dev)))
-        self._hit_cache[p["path"]] = (doc, order, key)
-        return order, key
 
     def _merge_hits(self, out):
         """On a mesh, the index's top k from every shard's (JAX's k-way
@@ -2819,7 +3129,7 @@ class Program:
         first reaches 1..k (searchsorted). Matched-ness is the mask
         itself, never a key sentinel: ~rm of a wide column's minimum is
         I64_MAX. A shared mask row is selected once."""
-        order, key = self._hit_order(node, p, arrays, None)
+        order, key = self._hit_cache[p["path"]]
         mask, rep = R.shared_row(ctx.mask)
         B, T, k = mask.shape[0], self.dindex.T, p["k"]
         dev = mask.device
@@ -2852,7 +3162,7 @@ class Program:
         to one hit per (slot, doc)). Queries run a few at a time (the
         sort's [b, rows] state)."""
         doc = ctx.doc
-        order, key = self._hit_order(node, p, arrays, doc, ctx.doc_key)
+        order, key = self._hit_cache[p["path"]]
         ns, k = ctx.nslots, p["k"]
         B, n = ctx.valid.shape
         dev = ctx.valid.device
@@ -2996,20 +3306,20 @@ class Program:
         SlotCtx the parent's slot is read at the rows' docs; in a
         multi-valued ancestor's row space a single-valued child chains per
         ancestor row, and a multi-valued one over the static
-        cross-product expansion (`xpand`)."""
+        cross-product expansion (`xpand`). The rows' doc plane is the
+        plan's (`p["row_doc"]`, _plan_children)."""
         f = node.field
         col = self._col(f)
         chain_ok = p["chain_ok"]
+        doc = None if p["row_doc"] is None else arrays[p["row_doc"]]
         if isinstance(ctx, MaskCtx):
-            if col.multi:
-                doc = arrays[f"{f}:doc"]
+            if doc is not None:
                 valid = _cols(ctx.mask, doc, arrays[f"{f}:valid"] > 0)
             else:
-                doc, valid = None, ctx.mask
+                valid = ctx.mask
             if missing:
                 valid = valid & (own >= 0)
-            return SlotCtx(own, valid, (nb,), mm, doc, chain_ok,
-                           f"{f}:doc" if col.multi else None)
+            return SlotCtx(own, valid, (nb,), mm, doc, chain_ok)
         dims = ctx.dims + (nb,)
         xp = p.get("xpand")
         if xp:
@@ -3017,15 +3327,12 @@ class Program:
                           arrays[xp["prow"]])
             own_r = own[arrays[xp["crow"]]]
             valid = arrays[xp["valid"]] & (pslot >= 0)
-            doc, doc_key = arrays[xp["doc"]], xp["doc"]
         elif not ctx.doc_rooted:
             # each row of the multi-valued ancestor is one collect
             pslot = torch.where(ctx.valid, ctx.bid, -1)
-            own_r, valid, doc = ctx.rows(own), ctx.valid, ctx.doc
-            doc_key = ctx.doc_key
+            own_r, valid = ctx.rows(own), ctx.valid
         elif col.multi:
             sod, svd = ctx.slots_of_docs(self.dindex.T)
-            doc, doc_key = arrays[f"{f}:doc"], f"{f}:doc"
             pslot = _cols(sod, doc)
             valid = (arrays[f"{f}:valid"] > 0) & _cols(svd, doc)
             own_r = own
@@ -3035,12 +3342,12 @@ class Program:
                            dims)
         else:
             pslot, valid = ctx.slots_of_docs(self.dindex.T)
-            own_r, doc, doc_key = own, None, None
+            own_r = own
         if missing:
             valid = valid & (own_r >= 0)
         bid = torch.where(valid, pslot * nb + own_r, -1)
         return SlotCtx(bid, valid, dims, None, doc,
-                       chain_ok and ctx.doc_rooted, doc_key)
+                       chain_ok and ctx.doc_rooted)
 
     def _eval_histogram(self, node, ctx, pmat, arrays, path, p):
         nb = p["nb"]
@@ -3053,7 +3360,7 @@ class Program:
             return {"counts": counts, **sub_out}
         sub_ctx = self._bucket_ctx(node, ctx, p, arrays[p["bid_key"]], nb,
                                    arrays, p.get("dense_mm"))
-        out = {"counts": self._madd(self._slot_counts(sub_ctx))}
+        out = {"counts": self._madd(self._slot_counts(sub_ctx, arrays))}
         for name, sub in node.sub_aggs:
             out[name] = self._eval(sub, sub_ctx, pmat, arrays,
                                    path + (name,))
@@ -3082,7 +3389,7 @@ class Program:
             counts = R.dense_bucket_counts_mm(
                 ids, ctx.mask, card, op=arrays.get(sub_ctx.mm["op"]))
         else:
-            counts = self._slot_counts(sub_ctx)
+            counts = self._slot_counts(sub_ctx, arrays)
         counts = self._madd(counts)
         sub_out = {name: self._eval(sub, sub_ctx, pmat, arrays,
                                     path + (name,))
@@ -3103,7 +3410,8 @@ class Program:
             for k, mm in enumerate(mms):
                 pk = arrays[f"{node.field}:mp{k}"]
                 sub_ctx = SlotCtx(pk, ctx.mask & (pk >= 0), (p["card"],), mm)
-                one = {"counts": self._madd(self._slot_counts(sub_ctx))}
+                one = {"counts": self._madd(self._slot_counts(sub_ctx,
+                                                              arrays))}
                 for name, sub in node.sub_aggs:
                     one[name] = self._eval(sub, sub_ctx, pmat, arrays,
                                            path + (name,))
@@ -3706,19 +4014,41 @@ class ShardedProgram:
     def accepts(self, query, aggs) -> bool:
         return self.progs[0].accepts(query, aggs)
 
+    def example_inputs(self):
+        """(pmat, [each shard's arrays]) for this program's own request:
+        example arguments for raw_fn (JAX `Program.example_inputs`)."""
+        p0 = self.progs[0]
+        return p0.example_inputs()[0], [pg._arrays for pg in self.progs]
+
+    def as_callable(self):
+        """(raw_fn, example_inputs()): the mesh step, eager (JAX jits its
+        shard_map; the port's sharded step under graphs is still to
+        come)."""
+        return self.raw_fn, self.example_inputs()
+
     def submit(self, query, aggs):
         return self.submit_many([query], aggs)
 
-    def submit_many(self, queries, aggs):
+    def submit_many(self, queries, aggs, pad_to=None):
         """Each shard runs the [B, P] param matrix (built once, copied to
-        each device); {"packed": shard 0's merged fruits, "big": every
-        shard's phase-1 state, or {} without phase 2}."""
+        each device; `pad_to` repeats the last request, as
+        Program.submit_many does); raw_fn's fruits."""
         p0 = self.progs[0]
-        pm = qc.param_matrix([p0._extract(q, aggs) for q in queries],
-                             p0._pkeys, p0.device)
-        pms = [pm if pg.device == p0.device else pm.to(pg.device)
+        rows = [p0._extract(q, aggs) for q in queries]
+        if pad_to is not None:
+            rows += rows[-1:] * (pad_to - len(rows))
+        return self.raw_fn(qc.param_matrix(rows, p0._pkeys, p0.device),
+                           [pg._arrays for pg in self.progs])
+
+    def raw_fn(self, pmat, arrays):
+        """The mesh step: every shard runs its Program's raw_fn over its
+        own arrays (`arrays[s]`) in lockstep; {"packed": shard 0's merged
+        fruits, "big": every shard's phase-1 state, or {} without phase
+        2}."""
+        pms = [pmat if pg.device == pmat.device else pmat.to(pg.device)
                for pg in self.progs]
-        raws = self.mesh.run(lambda s: self.progs[s]._run(pms[s]))
+        raws = self.mesh.run(lambda s: self.progs[s].raw_fn(pms[s],
+                                                            arrays[s]))
         big = [r["big"] for r in raws] if raws[0]["big"] else {}
         return {"packed": raws[0]["packed"], "big": big}
 

@@ -90,7 +90,8 @@ MM_MIN_ROWS = 32
 #: below 2^24 (CUBE_DOM_CAP * 127), so S shards below S * 2^24 <= 2^31
 MAX_SHARDS = 1 << 7
 
-#: product calls since the last reset_calls()
+#: product calls since the last reset_calls() (a graph replay credits
+#: those its capture enqueued: aggs/compile.py _StepGraph)
 calls = {"cube_dots": 0, "block_counts": 0, "slot_block_counts": 0}
 
 

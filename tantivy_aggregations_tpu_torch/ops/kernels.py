@@ -5,7 +5,9 @@ Each wrapper checks device, dtype, shape and contiguity. A tensor on the
 CPU takes the plain version (the CPU tests); a CUDA tensor launches the
 kernel, and the wrapper raises if the launch reports an error. There is no
 fallback from one to the other. `launches[name]` counts kernel launches,
-incremented where the kernel is enqueued and nowhere else.
+incremented where the kernel is enqueued and nowhere else; a step captured
+as a CUDA graph (aggs/compile.py `_StepGraph`) counts nothing while it is
+captured and credits the launches its capture enqueued on every replay.
 
 The shared library is built from the checkout's sources at first use with
 `nvcc -gencode arch=compute_90a,code=sm_90a` into build/torch_kernels/
@@ -139,7 +141,8 @@ _ROOT = Path(__file__).resolve().parents[2]
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "kernels.cu"
 BUILD_DIR = _ROOT / "build" / "torch_kernels"
 
-#: kernel launches per kernel since the last reset_launches()
+#: kernel launches per kernel since the last reset_launches() (a graph
+#: replay credits those its capture enqueued)
 launches = {"fused_metrics": 0, "chain_blocks": 0, "chain_counts": 0,
             "chain_slot_counts": 0, "gather_rows": 0}
 
@@ -347,7 +350,9 @@ def _chain_mask_plain(pmat, ops, planes, avalid):
     """[B, R] bool chain mask: the mask program over the planes, AND the
     layout's alive & valid plane."""
     R = avalid.shape[0]
-    m = eval_ops(ops.cpu().numpy(), planes, pmat, (R,))
+    host = getattr(ops, "host_ops", None)
+    m = eval_ops(ops.cpu().numpy() if host is None else host, planes, pmat,
+                 (R,))
     return m & (avalid > 0)
 
 
@@ -651,9 +656,12 @@ def gather_rows(idx, op):
 def ops_tensor(ops: np.ndarray, device) -> torch.Tensor:
     """A mask program's op list as the [n, OP_WIDTH] int32 operand, with
     its `has_sets` flag (an opcode of the extended set) and `doc_space`
-    flag (a doc-space opcode) read here, on the host."""
+    flag (a doc-space opcode) read here, on the host, and the host op list
+    itself (`host_ops`, what the plain versions interpret): a launch or a
+    plain run on it reads nothing back, so a captured step cannot sync."""
     ops = np.ascontiguousarray(ops, np.int32)
     t = torch.from_numpy(ops).to(device)
     t.has_sets = bool((ops[:, 0] >= OP_SET32).any())
     t.doc_space = bool(np.isin(ops[:, 0], DOC_SPACE_OPS).any())
+    t.host_ops = ops
     return t

@@ -309,7 +309,8 @@ DENSE_OP_MEM = 4 << 30
 #: in the product dtype, a per-chunk operand)
 _MM_STEP_ELEMS = 1 << 27
 
-#: product calls since the last reset_mm_calls()
+#: product calls since the last reset_mm_calls() (a graph replay credits
+#: those its capture enqueued: aggs/compile.py _StepGraph)
 mm_calls = {"dense_bucket_counts_mm": 0, "dense_bucket_sum_mm": 0,
             "masked_sum_planes_mm": 0}
 

@@ -707,25 +707,29 @@ def _phrase_rows(w, valid, doc, toks):
     return hits
 
 
-def to_device_async(t: torch.Tensor, device) -> torch.Tensor:
-    """Copy a small host tensor to `device` without waiting for the work
-    already queued there: a CUDA copy is staged in pinned memory and made
-    non-blocking (the caching host allocator keeps the staging buffer until
-    the copy has run). A pageable copy would synchronize the stream."""
+def to_device_async(t: torch.Tensor, device, out=None) -> torch.Tensor:
+    """Copy a small host tensor to `device` (into `out`, a device buffer of
+    its shape, where given) without waiting for the work already queued
+    there: a CUDA copy is staged in pinned memory and made non-blocking
+    (the caching host allocator keeps the staging buffer until the copy
+    has run). A pageable copy would synchronize the stream."""
     if torch.device(device).type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device) if out is None else out.copy_(t)
+    if out is None:
+        return t.pin_memory().to(device, non_blocking=True)
+    return out.copy_(t.pin_memory(), non_blocking=True)
 
 
-def param_matrix(params_list, keys, device) -> torch.Tensor:
+def param_matrix(params_list, keys, device, out=None) -> torch.Tensor:
     """[B, len(keys)] int32 device matrix of extracted params (one host
-    build, one asynchronous host->device copy). A key-less program gets one
-    zero column so every matrix has rows."""
+    build, one asynchronous host->device copy, into `out` where given: a
+    captured step's param buffer). A key-less program gets one zero column
+    so every matrix has rows."""
     mat = np.zeros((len(params_list), max(1, len(keys))), np.int32)
     for b, params in enumerate(params_list):
         for i, k in enumerate(keys):
             mat[b, i] = params[k]
-    return to_device_async(torch.from_numpy(mat), device)
+    return to_device_async(torch.from_numpy(mat), device, out)
 
 
 def eval_mask(q, dindex, params, path, arrays, prefix="") -> torch.Tensor:

@@ -23,7 +23,11 @@ shape that fit. Nothing else falls back: a kernel that fails raises.
 `agg_search_batch` and the `agg_search_stream` generator dispatch a
 group, stage its packed fruits' copy to the host (Program.stage: a
 pinned buffer and an event on the card) and collect it later; the stream
-keeps `lookahead` groups in flight.
+keeps `lookahead` groups in flight. A group of two or more distinct
+requests is padded to the next power of two, within its cap, as the JAX
+package pads it: on the card each Program replays one CUDA graph per
+padded batch size (aggs/compile.py `_StepGraph`), captured at the first
+group of that size.
 """
 
 from __future__ import annotations
@@ -289,6 +293,17 @@ class Searcher:
         else:
             uniq = list(queries)
             idxmap = list(range(len(queries)))
-        raw = prog.submit_many(uniq, aggs)
+        if len(uniq) == 1:
+            raw = prog.submit(uniq[0], aggs)
+        else:
+            # JAX's padding: a group of distinct requests runs at the next
+            # power of two (within the group's cap), so that a few batch
+            # sizes serve every group — on the card, a few captured graphs
+            # per program; finalize_many harvests the first len(uniq) rows
+            pad = 1
+            while pad < len(uniq):
+                pad *= 2
+            raw = prog.submit_many(uniq, aggs,
+                                   pad_to=min(pad, self._group_cap(prog)))
         return (prog, queries, aggs, raw, prog.stage(raw, aggs),
                 idxmap, len(uniq))

@@ -148,11 +148,17 @@ def _jax_dense_paths(aggs, plan):
     return out
 
 
+def _nodes(plan):
+    """The plan's agg-node entries (the port's plan also records its step's
+    execution mode under "graph")."""
+    return {path: p for path, p in plan.items() if isinstance(path, tuple)}
+
+
 def _modes(plan, dense):
     return {path: tuple(m for m in ("cube", "pcube", "scube")
                         if isinstance(p, dict) and p.get(m) is not None)
             + (("dense",) if path in dense else ())
-            for path, p in plan.items()}
+            for path, p in _nodes(plan).items()}
 
 
 def assert_plan_parity(jax_s, port_s, jq, jaggs, pq, paggs):
@@ -161,7 +167,8 @@ def assert_plan_parity(jax_s, port_s, jq, jaggs, pq, paggs):
     does."""
     jplan = jax_s._program_for(jq, jaggs).plan
     pplan = port_s._program_for(pq, paggs).plan
-    port_dense = {path for path, p in pplan.items() if p.get("dense_mm")}
+    port_dense = {path for path, p in _nodes(pplan).items()
+                  if p.get("dense_mm")}
     assert _modes(pplan, port_dense) == \
         _modes(jplan, _jax_dense_paths(jaggs, jplan))
 
@@ -467,7 +474,7 @@ def test_flagship_configs_plan_and_answer_as_jax(flag, n):
     pq, pa = _config(pflag, n)
     assert_plan_parity(flag["jax"], flag["port"], jq, ja, pq, pa)
     plan = flag["port"]._program_for(pq, pa).plan
-    dense = {path for path, p in plan.items() if p.get("dense_mm")}
+    dense = {path for path, p in _nodes(plan).items() if p.get("dense_mm")}
     modes = set().union(*_modes(plan, dense).values())
     assert modes == ({FLAG_MODES[n]} | ({"cube"} if n in (5, 9) else set())
                      if n in FLAG_MODES else set()), modes
