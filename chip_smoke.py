@@ -115,6 +115,9 @@ value-domain cube and the dense products on).
    group of 65 padded to 128 in row modes: dispatch, wait, harvest and
    total host ms and the CUDA-event ms, fruits == both ways, the eager
    steps' peak memory beside the graph pool's reserved bytes;
+   5g2. phase 2's selection as graphs (phase_phase2_graphs): p1-p4 and
+   tp at B = 1, 4 and a full group, each node's replayed selection == the
+   eager one on the same state, the fruits == the oracle;
    5p. phase 2's rank rows == the integer path's for the same percents,
    p1's and p2's layouts, row modes and default config, B = 1 and 128
    (phase_phase2_rows);
@@ -145,15 +148,30 @@ value-domain cube and the dense products on).
    default path's), with fused_metrics, chain_blocks, chain_counts and
    chain_slot_counts launched by the shard bodies; mv1, p1 (non-integer
    percents, phase 2's cross-shard bisection) and h2 (the in-slot top_hits
-   merge) once each == the oracle;
+   merge) once each == the oracle. On one card the mesh answers through
+   its graphs (one per mesh program and padded B: the S shard bodies and
+   their collectives captured in turn order on one stream);
+   8t. c1-c10, mv1 and p1 on the mesh through its graphs and eagerly
+   (raw_fn, and p1's phase 2), in turns (phase_mesh_step_timings): p50 at
+   B = 1 and ms/q of a group of 128, fruits == both ways;
    8k. each of those kernels == its plain version on every launch of
    SHARD_KERNELS' config on the mesh at B = 1 and 128 (the shards' own
    operands, captured), shard 0's time and bound kept as variants;
+   8g. the mesh step as graphs (phase_mesh_graphs): c1-c10, mv1, p1, h2
+   at B = 1, 3 padded to 4 and a full group, each replay == the eager
+   raw_fn (packed and every shard's phase-1 state) and the fruits == the
+   oracle, a replay's credited launches == the eager step's == the kernel
+   nodes of its graph (fused_metrics, chain_blocks, chain_counts and
+   chain_slot_counts among them), every mesh graph again in a shuffled
+   order among the default path's unsharded graphs, node counts and
+   first-call seconds printed; p1's phase-2 graphs on the mesh == the
+   eager bisection at B = 1, 4 and a full group;
 9. "replicas": ReplicatedSearcher over REPLICAS groups (cards, or one-
    shard groups on cuda:0): a mixed stream of c1-c10 through
    agg_search_batch and agg_search_stream == the single searcher's
    answers in request order, every replica submitting msearch groups in
-   both, ms/q beside the single searcher's;
+   both (through each replica's graphs on one card), ms/q beside the
+   single searcher's;
 10. the prep cache: with <index>/.prep_cache_torch emptied, c1-c10
    planned cold on a fresh searcher, then warm on another (a new
    DeviceIndex): seconds, hits and misses (the warm plan misses nothing),
@@ -166,7 +184,10 @@ value-domain cube and the dense products on).
 
 Each phase prints its seconds.
 
-It prints a JSON line of phase 5t's step timings ({"graph_step": ...}), a
+It prints a JSON line of phase 5t's step timings ({"graph_step": ...};
+with phase 8t's under "mesh_steps", 8g's node counts and first-call
+seconds per mesh graph under "mesh_graph_nodes_8g" and
+"mesh_capture_s_8g"), a
 JSON line of per-product records (the same keys; launches
 from the default path), a JSON line of per-kernel records (launches in
 all and per path, the sharded and replicas paths among them;
@@ -174,7 +195,9 @@ max_abs_err; B = 1: ms, plain_ms, bound_ms, bound_by,
 library_ms, device_ms; B = 128: the same keys suffixed _b128;
 fused_metrics' other operands under "variants", `launches_replayed_5g`:
 the launches phase 5g's replays credited, `graph_nodes_5g`: the kernel
-nodes CUDA's own record of those graphs holds), then, as its last line,
+nodes CUDA's own record of those graphs holds; `launches_replayed_8g`
+and `graph_nodes_8g`: the same for phase 8g's mesh graphs), then, as its
+last line,
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --against DIR
@@ -381,6 +404,8 @@ GRAPH_KEEP_BIG = 256 << 20
 #: phase 5t: timed runs of each way (graph, raw_fn) per config, by B; and
 #: the odd group (distinct requests, padded batch) timed in a row mode
 STEP_REPS = {1: 3, 128: 2}
+#: runs of the mesh step per way in phase 8t, by B
+MESH_STEP_REPS = {1: 5, 128: 2}
 PAD_ODD = (65, 128)
 
 
@@ -2294,30 +2319,52 @@ def phase_main_path(torch, K, C, R, tt, idx, searcher, oracle, flagship,
     return counts
 
 
+def _bigs(raw) -> list:
+    """A step's phase-1 state as a list of {path: state}: one for a
+    Program, one per shard for a mesh (ShardedProgram.raw_fn)."""
+    big = raw["big"]
+    return big if isinstance(big, list) else [big]
+
+
 def _raw_clone(torch, raw) -> dict:
     """A step's fruits copied out of whatever buffers hold them."""
+    big = [{path: {k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in st.items()}
+            for path, st in b.items()} for b in _bigs(raw)]
     return {"packed": raw["packed"].clone(),
-            "big": {path: {k: v.clone() if torch.is_tensor(v) else v
-                           for k, v in st.items()}
-                    for path, st in raw["big"].items()}}
+            "big": big if isinstance(raw["big"], list) else big[0]}
 
 
 def _raw_same(torch, a, b, big=True) -> bool:
     """Two steps' fruits are equal: packed, and (`big`) every phase-1
-    tensor."""
+    tensor (every shard's on a mesh)."""
     if not torch.equal(a["packed"], b["packed"]):
         return False
     if not big:
         return True
-    return a["big"].keys() == b["big"].keys() and all(
-        (torch.equal(v, b["big"][path][k]) if torch.is_tensor(v)
-         else v == b["big"][path][k])
-        for path, st in a["big"].items() for k, v in st.items())
+    ba, bb = _bigs(a), _bigs(b)
+    return len(ba) == len(bb) and all(
+        x.keys() == y.keys() and all(
+            (torch.equal(v, y[path][k]) if torch.is_tensor(v)
+             else v == y[path][k])
+            for path, st in x.items() for k, v in st.items())
+        for x, y in zip(ba, bb))
+
+
+def _eager_raw(prog, rows):
+    """raw_fn run eagerly on the param matrix of `rows` (extracted params):
+    a Program over its arrays, a mesh over every shard's."""
+    from tantivy_aggregations_tpu_torch.query import compile as qc
+    progs = getattr(prog, "progs", None)
+    p0 = progs[0] if progs else prog
+    arrays = [pg._arrays for pg in progs] if progs else prog._arrays
+    return prog.raw_fn(qc.param_matrix(rows, p0._pkeys, p0.device), arrays)
 
 
 def _big_bytes(torch, raw) -> int:
-    return sum(v.numel() * v.element_size() for st in raw["big"].values()
-               for v in st.values() if torch.is_tensor(v))
+    return sum(v.numel() * v.element_size() for b in _bigs(raw)
+               for st in b.values() for v in st.values()
+               if torch.is_tensor(v))
 
 
 def graph_pool_bytes(torch):
@@ -2344,12 +2391,12 @@ def _diff(after, before) -> dict:
 CHAIN_MODES = ("chain_blocks", "chain_counts", "chain_slot_counts")
 
 
-def graph_kernel_nodes(K, graph, tmp) -> dict:
-    """The port's kernels among a captured graph's nodes, by launch
-    counter: what each replay of it launches, as CUDA's own record
-    of the graph gives it (CUDAGraph.debug_dump, a DOT file, of a graph
-    captured with _StepGraph.keep_nodes). Fails where no file or no node
-    was written."""
+def graph_kernel_nodes(K, graph, tmp):
+    """(the port's kernels among a captured graph's nodes, by launch
+    counter; the graph's node count): what each replay of it launches,
+    as CUDA's own record of the graph gives it (CUDAGraph.debug_dump, a
+    DOT file, of a graph captured with _StepGraph.keep_nodes). Fails
+    where no file or no node was written."""
     import re
     dot = Path(tmp) / "graph.dot"
     dot.unlink(missing_ok=True)
@@ -2367,7 +2414,7 @@ def graph_kernel_nodes(K, graph, tmp) -> dict:
             counts["fused_metrics"] += 1
         elif "gather_rows_kernel" in nd:
             counts["gather_rows"] += 1
-    return counts
+    return counts, len(nodes)
 
 
 def graph_memory(torch, dev) -> dict:
@@ -2450,8 +2497,7 @@ def phase_graphs(torch, K, C, R, qc, tt, flagship, searchers, answers,
             rows = [prog._extract(rq, aggs) for rq in qs]
             rows += rows[-1:] * (pad - len(rows))
             c0 = _counters(K, C, R)
-            eager = _raw_clone(torch, prog.raw_fn(
-                qc.param_matrix(rows, prog._pkeys, dev), prog._arrays))
+            eager = _raw_clone(torch, _eager_raw(prog, rows))
             d_eager = _diff(_counters(K, C, R), c0)
             if pad not in prog._graphs:  # captured at first use
                 n_new += 1
@@ -2465,8 +2511,8 @@ def phase_graphs(torch, K, C, R, qc, tt, flagship, searchers, answers,
             check(d_graph == d_eager,
                   f"{label} {name} B={pad}: a replay credited {d_graph}, "
                   f"the eager step launched {d_eager}")
-            in_graph = graph_kernel_nodes(K, prog._graphs[pad].graph,
-                                          tmp.name)
+            in_graph, _ = graph_kernel_nodes(K, prog._graphs[pad].graph,
+                                             tmp.name)
             check(in_graph == {k: d_graph[k] for k in K.launches},
                   f"{label} {name} B={pad}: the graph holds the kernel "
                   f"nodes {in_graph}, a replay credited {d_graph}")
@@ -2534,29 +2580,32 @@ def phase_graphs(torch, K, C, R, qc, tt, flagship, searchers, answers,
 
 
 def _step_once(torch, prog, qs, aggs, way, pad_to=None):
-    """One request group through submit (the graph, the group padded to
-    `pad_to`) or raw_fn (unpadded), stage and finalize: ((dispatch, wait,
+    """One request group through submit_many, stage and finalize: "graph"
+    replays the graphs (the group padded to `pad_to`), "eager" runs
+    raw_fn and phase 2's selection eagerly (unpadded; a Program's or a
+    mesh's: its `_captures` made false for the call): ((dispatch, wait,
     harvest, total host ms, device ms between CUDA events recorded before
     the dispatch and after the staged copy), the fruits)."""
-    from tantivy_aggregations_tpu_torch.query import compile as qc
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    e0.record()
-    if way == "graph":
-        raw = prog.submit_many(qs, aggs, pad_to=pad_to)
-    else:
-        raw = prog.raw_fn(qc.param_matrix(
-            [prog._extract(q, aggs) for q in qs], prog._pkeys,
-            prog.device), prog._arrays)
-    t1 = time.perf_counter()
-    staged = prog.stage(raw, aggs)
-    e1.record()
-    staged.numpy()
-    t2 = time.perf_counter()
-    fruits = prog.finalize_many(raw, aggs, len(qs), staged=staged)
-    t3 = time.perf_counter()
+    if way == "eager":
+        prog._captures = lambda: False
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        raw = prog.submit_many(qs, aggs,
+                               pad_to=pad_to if way == "graph" else None)
+        t1 = time.perf_counter()
+        staged = prog.stage(raw, aggs)
+        e1.record()
+        staged.numpy()
+        t2 = time.perf_counter()
+        fruits = prog.finalize_many(raw, aggs, len(qs), staged=staged)
+        t3 = time.perf_counter()
+    finally:
+        if way == "eager":
+            del prog._captures
     return ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
             (t3 - t0) * 1e3, e0.elapsed_time(e1)), fruits
 
@@ -2564,7 +2613,7 @@ def _step_once(torch, prog, qs, aggs, way, pad_to=None):
 def phase_step_timings(torch, flagship, searchers, card) -> list:
     """Phase 5t: c1-c10 in the row modes and at the default config, at
     B = 1 and B = 128 (within the cap; c6 at B = 1 only), one group
-    through its graph and through raw_fn called directly, in turns
+    through its graph and eagerly (raw_fn, _step_once), in turns
     (STEP_REPS[B] each, medians): dispatch / wait / harvest / total host ms
     and the CUDA-event ms from the dispatch to the staged copy, the fruits
     of both ways ==; and the eager steps' peak of allocated bytes above
@@ -2631,6 +2680,104 @@ def phase_step_timings(torch, flagship, searchers, card) -> list:
         + ("not measured" if pool is None else f"{pool} bytes")
         + f"  [{card}]")
     return {"steps": out, "eager_peak_bytes": peak, "pool_bytes": pool}
+
+
+#: phase 2's graphs: the unsharded programs checked (deployment, name) and
+#: their group sizes (B, padded B; the full group within the cap)
+PHASE2_GRAPHS = (("bench", "p1"), ("bench", "p2"), ("bench", "p3"),
+                 ("bench", "p4"), ("tags", "tp"))
+PHASE2_SIZES = ((1, 1), (4, 4), (GRAPH_GROUP, GRAPH_GROUP))
+
+
+def _phase2_eager(torch, prog, ranks, big, B) -> dict:
+    """Phase 2's selection run eagerly (what the CPU and a mesh over
+    several cards run): each node's select_raw over its state's first B
+    rows, the ranks uploaded; on a mesh every shard's bisection, shard
+    0's values."""
+    from tantivy_aggregations_tpu_torch.aggs.compile import ShardedProgram
+    out = {}
+    for path, rk in ranks:
+        r = torch.from_numpy(rk).to(prog.device)
+
+        def cut(st):
+            return {k: (v[:B] if torch.is_tensor(v) else v)
+                    for k, v in st.items()}
+        if isinstance(prog, ShardedProgram):
+            out[path] = prog.mesh.run(
+                lambda s: prog.progs[s].select_raw(
+                    path, cut(big[s][path]), prog.progs[s]._arrays, r))[0]
+        else:
+            out[path] = prog.select_raw(path, cut(big[path]), prog._arrays,
+                                        r)
+    return out
+
+
+def check_phase2_graphs(torch, label, prog, reqs, cap, answers, key) -> list:
+    """Phase 2's graphs of one program (unsharded or a mesh): at each of
+    PHASE2_SIZES within the cap, the group's step replayed, its host ranks,
+    then each node's selection through its graph (_phase2_select, captured
+    at its first use) == the eager selection (_phase2_eager) on the same
+    state, and the fruits == the oracle where it was asked. Returns the
+    (B, padded B, selection ms through the graph, eager ms) of each
+    size."""
+    q, aggs = reqs[0]
+    p0 = getattr(prog, "progs", [prog])[0]
+    out = []
+    for b, pad in PHASE2_SIZES:
+        b, pad = min(b, cap, len(reqs)), min(pad, cap)
+        pad = max(b, pad)
+        group = reqs[:b]
+        raw = prog.submit_many([rq for rq, _ in group], aggs, pad_to=pad)
+        staged = prog.stage(raw, aggs)
+        hosts = [p0._unpack_host(v) for v in staged.numpy()[:b]]
+        ranks = p0._phase2_ranks(hosts, _bigs(raw)[0])
+        prog._phase2_select(ranks, raw["big"], b)  # captured at first use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = {k: v.clone() for k, v in
+               prog._phase2_select(ranks, raw["big"], b).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = _phase2_eager(torch, prog, ranks, raw["big"], b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(got.keys() == want.keys() and all(
+            torch.equal(got[k], want[k]) for k in got),
+            f"{label} B={b} (padded {pad}): phase 2's graph selection != "
+            "the eager selection")
+        check(("phase2", ranks[0][0], pad) in prog._graphs,
+              f"{label} B={b}: no phase-2 graph at {pad}")
+        fruits = prog.finalize_many(raw, aggs, b, staged=staged)
+        asked = 0
+        for (rq, ra), fr in zip(group, fruits):
+            ak = (key, repr(rq), repr(ra))
+            if ak in answers:
+                asked += 1
+                check(fr == _answer(answers, ak),
+                      f"{label} B={b}: phase-2 fruits != the oracle")
+        out.append((b, pad, (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        say(f"  {label} B={b} (padded {pad}): phase-2 graph == eager "
+            f"({len(ranks)} node), selection {(t1 - t0) * 1e3:.3f} ms "
+            f"graph vs {(t2 - t1) * 1e3:.3f} ms eager; {asked} fruits "
+            "== the oracle")
+    return out
+
+
+def phase_phase2_graphs(torch, tt, searchers, answers, card) -> None:
+    """Phase 5g2: phase 2's selection as graphs on the unsharded programs
+    (PHASE2_GRAPHS): each at B = 1, 4 and a full group == the eager
+    selection, fruits == the oracle (check_phase2_graphs)."""
+    say("[5g2] phase 2's selection: each node's graph == the eager "
+        "selection, at B = 1, 4 and a full group  [" + card + "]")
+    varied = multi_varied(tt)
+    for dep, name in PHASE2_GRAPHS:
+        s = searchers["default" if dep == "bench" else "tags"]
+        q, aggs = multi_requests(tt, name, 0)
+        reqs = [(q, aggs)] + [r for r in varied(name, aggs, GRAPH_GROUP)
+                              if r[1] is aggs][1:]
+        prog = s._program_for(q, aggs)
+        check_phase2_graphs(torch, name, prog, reqs, s._group_cap(prog),
+                            answers, name)
 
 
 def phase_phase2_rows(torch, tt, searchers, card):
@@ -2771,6 +2918,8 @@ def _profile_phase2(torch, searcher, reqs) -> None:
     raw = prog.submit_many([q for q, _ in reqs], aggs)
     staged = prog.stage(raw, aggs)
     hosts = [prog._unpack_host(v) for v in staged.numpy()]
+    # the selection's graphs at this B, captured before the profile
+    prog._phase2(hosts, staged.big)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3108,13 +3257,15 @@ def phase_sharded(torch, K, C, R, tt, idx, dflt, oracle, flagship, card,
                   answers, timings):
     """Phases 7-8: the bench index over a SHARDS-shard mesh at the default
     EngineConfig. Plans (phase_plan_sharded), then c1-c10 through
-    phase_main_path with the counters set to 0: agg_search == the oracle
-    (c6: c6_reference) and == the unsharded searcher's, agg_search_batch
-    over the varied stream == the per-query answers with dedup on and
-    off, p50 and msearch ms/q printed beside the default path's; then one
-    request each of mv1, p1 (non-integer percents through the sharded
-    phase 2) and h2 (the in-slot top_hits merge) == the oracle. Returns
-    (the path's counts, the mesh searcher)."""
+    phase_main_path with the counters set to 0 (on one card through the
+    mesh's graphs): agg_search == the oracle (c6: c6_reference) and ==
+    the unsharded searcher's, agg_search_batch over the varied stream ==
+    the per-query answers with dedup on and off, p50 and msearch ms/q
+    printed beside the default path's; then one request each of mv1, p1
+    (non-integer percents through the sharded phase 2) and h2 (the
+    in-slot top_hits merge) == the oracle; then phase 8t (graph vs eager
+    raw_fn). Returns (the path's counts, the mesh searcher, 8t's
+    records)."""
     devices, what = mesh_devices(torch, SHARDS)
     say(f"[7] sharded: the bench index over a {SHARDS}-shard mesh ({what})")
     from tantivy_aggregations_tpu_torch.utils import stats
@@ -3144,8 +3295,9 @@ def phase_sharded(torch, K, C, R, tt, idx, dflt, oracle, flagship, card,
         ms = (time.perf_counter() - t0) * 1e3
         check(got == _answer(answers, (nm, repr(q), repr(aggs))),
               f"{nm} (sharded) != oracle")
-        say(f"  {nm}: sharded == oracle ({ms:.1f} ms)")
-    return counts, s
+        say(f"  {nm}: sharded == oracle ({ms:.1f} ms, its first call: "
+            "the capture)")
+    return counts, s, phase_mesh_step_timings(torch, tt, flagship, s, card)
 
 
 #: the sharded path's kernels and the config whose shard bodies launch
@@ -3174,28 +3326,26 @@ def _capture(K, name, fn):
 def phase_shard_kernels(torch, K, qc, searcher, flagship, records):
     """Phase 8k: each kernel of the sharded path == its plain version on
     the operands its shard bodies give it on the SHARDS-shard mesh:
-    SHARD_KERNELS' config run once through agg_search (B = 1) and once as
-    an msearch group of max_batch varied requests with dedup off, every
-    launch's arguments captured (each shard's own: its shard-local
-    layout, slot plane and padded tail) and checked; shard 0's time,
-    plain time and bound kept as variants of the kernel's record. Runs
-    after the sharded path's counts are read, so its launches count on
-    no path."""
+    SHARD_KERNELS' config run once at B = 1 and once on max_batch varied
+    requests through the mesh's eager raw_fn (the step its graphs replay:
+    phase 8g holds the two ==, launches and fruits), every launch's
+    arguments captured (each shard's own: its shard-local layout, slot
+    plane and padded tail) and checked; shard 0's time, plain time and
+    bound kept as variants of the kernel's record. Runs after the sharded
+    path's counts are read, so its launches count on no path."""
     say(f"[8k] the sharded path's kernels on the {SHARDS} shards' operands "
         "(exact ==)")
     cfgs = {n: (q, a) for n, _, q, a in all_configs(flagship)}
     B = searcher.config.max_batch
-    dedup_on = searcher.config
     for name, n in SHARD_KERNELS:
         q, aggs = cfgs[n]
-        reqs = flagship.varied_requests(n, aggs, B)
-        searcher.config = dataclasses.replace(dedup_on, msearch_dedup=False)
-        try:
-            calls = (_capture(K, name, lambda: searcher.agg_search(q, aggs))
-                     + _capture(K, name,
-                                lambda: searcher.agg_search_batch(reqs)))
-        finally:
-            searcher.config = dedup_on
+        prog = searcher._program_for(q, aggs)
+        p0 = prog.progs[0]
+        rows = [p0._extract(rq, ra)
+                for rq, ra in flagship.varied_requests(n, aggs, B)]
+        calls = (_capture(K, name, lambda: _eager_raw(
+            prog, [p0._extract(q, aggs)]))
+            + _capture(K, name, lambda: _eager_raw(prog, rows)))
         by_b = {}
         for args in calls:
             by_b.setdefault(args[0].shape[0], []).append(args)
@@ -3229,6 +3379,186 @@ def phase_shard_kernels(torch, K, qc, searcher, flagship, records):
                  "bound_by": bound_by})
         del calls, by_b
     torch.cuda.empty_cache()
+
+
+def mesh_graph_programs(tt, flagship):
+    """(key, name, query, aggs, up to GRAPH_GROUP varied requests) of every
+    mesh program of phases 7-8: c1-c10, mv1, p1, h2."""
+    varied = multi_varied(tt)
+    out = [(n, name, q, aggs, flagship.varied_requests(n, aggs, GRAPH_GROUP))
+           for n, name, q, aggs in all_configs(flagship)]
+    for nm in ("mv1", "p1", "h2"):
+        q, aggs = multi_requests(tt, nm, 0)
+        out.append((nm, nm, q, aggs, [r for r in varied(nm, aggs,
+                                                          GRAPH_GROUP)
+                                      if r[1] is aggs]))
+    return out
+
+
+def phase_mesh_graphs(torch, K, C, R, tt, flagship, s4, dflt, answers,
+                      card) -> dict:
+    """Phase 8g: the mesh step as graphs (JAX's jitted shard_map). Every
+    mesh program of phases 7-8 plans its step captured; each is replayed
+    at B = 1, 3 -> 4 and a full group (GRAPH_SIZES within the cap), and
+    the replay's packed and every shard's big == the eager raw_fn's on the
+    same padded param matrix, the launches a replay credits == the eager
+    step's (the S shard bodies') == the kernel nodes of the graph
+    (graph_kernel_nodes), and the fruits == the oracle where the main
+    path asked it (c6 at B = 1 only). Then every mesh graph again in a
+    shuffled order, interleaved with the default path's unsharded graphs
+    at B = 1, each == its raw_fn; then p1's phase-2 graphs on the mesh ==
+    the eager bisection (check_phase2_graphs). Prints each graph's node
+    count and its first call's seconds (an eager warm-up, the capture and
+    one replay). Returns {"credited", "nodes" (kernel nodes by kernel),
+    "graph_nodes" ({program B=pad: nodes}), "capture_s"}."""
+    import tempfile
+    from tantivy_aggregations_tpu_torch.aggs import compile as AC
+    say(f"[8g] the mesh step as graphs: each mesh program's CUDA graph == "
+        f"its raw_fn, at B = 1, 3 -> 4 and a full group  [{card}]")
+    t_all = time.time()
+    credited = dict.fromkeys(_counters(K, C, R), 0)
+    nodes = dict.fromkeys(K.launches, 0)
+    all_nodes, capture_s, kept = {}, {}, []
+    tmp = tempfile.TemporaryDirectory()
+    for key, name, q, aggs, reqs in mesh_graph_programs(tt, flagship):
+        prog = s4._program_for(q, aggs)
+        check(isinstance(prog, AC.ShardedProgram)
+              and prog.plan["graph"] is True,
+              f"{name}: no captured mesh step ({type(prog).__name__}, "
+              f"{getattr(prog, 'plan', {}).get('graph_reason')})")
+        cap = s4._group_cap(prog)
+        p0 = prog.progs[0]
+        for b, pad in GRAPH_SIZES:
+            b, pad = min(b, cap, len(reqs)), min(pad, cap)
+            pad = max(b, pad)
+            group = [(q, aggs)] if b == 1 else reqs[:b]
+            qs = [rq for rq, _ in group]
+            rows = [p0._extract(rq, aggs) for rq in qs]
+            rows += rows[-1:] * (pad - len(rows))
+            c0 = _counters(K, C, R)
+            eager = _raw_clone(torch, _eager_raw(prog, rows))
+            d_eager = _diff(_counters(K, C, R), c0)
+            what = f"{name} B={pad}"
+            if pad not in prog._graphs:  # captured at first use
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prog.submit_many(qs, aggs, pad_to=pad)
+                torch.cuda.synchronize()
+                capture_s[what] = time.perf_counter() - t0
+            c0 = _counters(K, C, R)
+            got = _raw_clone(torch, prog.submit_many(qs, aggs, pad_to=pad))
+            d_graph = _diff(_counters(K, C, R), c0)
+            check(_raw_same(torch, got, eager),
+                  f"{name} B={b} (padded {pad}): the mesh graph's fruits "
+                  "!= raw_fn's")
+            check(d_graph == d_eager,
+                  f"{what}: a replay credited {d_graph}, the eager step "
+                  f"launched {d_eager}")
+            in_graph, n_nodes = graph_kernel_nodes(
+                K, prog._graphs[pad].graph, tmp.name)
+            check(in_graph == {k: d_graph[k] for k in K.launches},
+                  f"{what}: the graph holds the kernel nodes {in_graph}, a "
+                  f"replay credited {d_graph}")
+            all_nodes[what] = n_nodes
+            for k, v in d_graph.items():
+                credited[k] += v
+            for k, v in in_graph.items():
+                nodes[k] += v
+            if key != 6 or b == 1:
+                fruits = prog.finalize_many(got, aggs, len(qs))
+                for (rq, ra), fr in zip(group, fruits):
+                    ak = (key, repr(rq), repr(ra))
+                    if ak in answers:
+                        check(fr == _answer(answers, ak),
+                              f"{name} B={b}: mesh graph fruits != the "
+                              "oracle")
+            keep_big = _big_bytes(torch, eager) <= GRAPH_KEEP_BIG
+            kept.append((f"mesh {what}", prog, qs, aggs, pad,
+                         eager if keep_big else
+                         {"packed": eager["packed"], "big": []}, keep_big))
+            del eager, got
+        firsts = [f"B={w.split('B=')[1]} {t:.3f}s"
+                  for w, t in capture_s.items() if w.startswith(name + " ")]
+        say(f"  {name}: mesh graphs == raw_fn; nodes "
+            + ", ".join(f"B={w.split('B=')[1]} {n}"
+                        for w, n in all_nodes.items()
+                        if w.startswith(name + " "))
+            + "; first call here (warm-up + capture + replay): "
+            + (", ".join(firsts) or "none, all captured by phase 8"))
+    tmp.cleanup()
+    # the default path's unsharded graphs at B = 1, replayed among them
+    for n, name, q, aggs in all_configs(flagship):
+        prog = dflt._program_for(q, aggs)
+        rows = [prog._extract(q, aggs)]
+        kept.append((f"unsharded {name} B=1", prog, [q], aggs, 1,
+                     _raw_clone(torch, _eager_raw(prog, rows)), True))
+    for i in np.random.default_rng(SEED).permutation(len(kept)):
+        what, prog, qs, aggs, pad, eager, keep_big = kept[i]
+        got = prog.submit_many(qs, aggs, pad_to=pad)
+        check(_raw_same(torch, got, eager, keep_big),
+              f"{what}: replayed in shuffled order != raw_fn")
+    for k in SHARDED_PATH[2]:
+        check(credited[k] > 0 and nodes[k] > 0,
+              f"no replayed mesh graph launched {k}")
+    say(f"[8g] {len(all_nodes)} mesh graphs == raw_fn in capture order and "
+        f"shuffled among {len(kept) - len(all_nodes)} unsharded ones; "
+        f"launches credited {credited}, kernel nodes {nodes}, "
+        f"{sum(all_nodes.values())} nodes in all (largest "
+        f"{max(all_nodes.values())}); first calls "
+        f"{sum(capture_s.values()):.1f}s; memory "
+        f"{graph_memory(torch, torch.device(DEVICE))}  [{card}]")
+    q, aggs = multi_requests(tt, "p1", 0)
+    prog = s4._program_for(q, aggs)
+    reqs = [r for r in multi_varied(tt)("p1", aggs, GRAPH_GROUP)
+            if r[1] is aggs]
+    check_phase2_graphs(torch, "p1 mesh", prog, reqs, s4._group_cap(prog),
+                        answers, "p1")
+    say(f"[8g] ({time.time() - t_all:.1f}s)")
+    return {"credited": credited, "nodes": nodes, "graph_nodes": all_nodes,
+            "capture_s": capture_s}
+
+
+def phase_mesh_step_timings(torch, tt, flagship, s4, card) -> list:
+    """Phase 8t: c1-c10, mv1 and p1 on the mesh through its graphs and
+    eagerly (raw_fn on every shard thread, and p1's phase 2 eagerly), in
+    turns, in the same run: p50 of a single query (B = 1,
+    MESH_STEP_REPS[1] runs) and ms/q of a group of 128 (c6: B = 1 only;
+    MESH_STEP_REPS[128] runs), host ms around submit, stage and finalize
+    (_step_once); the fruits of both ways ==."""
+    say("[8t] the mesh step through its graph vs eagerly (p50 of "
+        f"{MESH_STEP_REPS[1]} at B = 1, ms/q medians of "
+        f"{MESH_STEP_REPS[128]} at 128)")
+    out = []
+    for key, name, q, aggs, reqs in mesh_graph_programs(tt, flagship):
+        if key == "h2":
+            continue
+        prog = s4._program_for(q, aggs)
+        label = f"c{key}" if isinstance(key, int) else key
+        rec = {"config": label}
+        for B in ((1,) if key == 6 else (1, 128)):
+            b = min(B, s4._group_cap(prog))
+            qs = [q] if b == 1 else [rq for rq, _ in reqs[:b]]
+            # every graph of this B captured first: the step's and, for p1,
+            # phase 2's (the first finalize captures it)
+            _step_once(torch, prog, qs, aggs, "graph")
+            runs = {"graph": [], "eager": []}
+            for _ in range(MESH_STEP_REPS[1 if B == 1 else 128]):
+                for way in runs:
+                    runs[way].append(_step_once(torch, prog, qs, aggs, way))
+            check(runs["graph"][-1][1] == runs["eager"][-1][1],
+                  f"mesh {label} B={b}: the graph's fruits != the eager "
+                  "step's")
+            for way, rs in runs.items():
+                ms = statistics.median(r[0][3] for r in rs)
+                rec[f"{way}_{'p50_ms' if b == 1 else 'ms_per_q'}"] = (
+                    ms if b == 1 else ms / b)
+        out.append(rec)
+        say(f"  mesh {label}: p50 {rec['graph_p50_ms']:.3f} ms graph vs "
+            f"{rec['eager_p50_ms']:.3f} eager"
+            + (f"; group of 128 {rec['graph_ms_per_q']:.4f} ms/q graph vs "
+               f"{rec['eager_ms_per_q']:.4f} eager" if key != 6 else "")
+            + f"  [{card}]")
+    return out
 
 
 def phase_replicas(torch, K, C, R, tt, idx, dflt, flagship, card):
@@ -3279,6 +3609,11 @@ def phase_replicas(torch, K, C, R, tt, idx, dflt, flagship, card):
           "replicas: agg_search_stream != the single searcher")
     check(all(n > 0 for v in served.values() for n in v),
           f"a replica served no group: {served}")
+    # each replica group is a one-card mesh: its programs replay graphs
+    graphs = [len(p._graphs) for sub in rs.searchers
+              for p in sub._programs.values() if hasattr(p, "_graphs")]
+    check(DEVICE == "cpu" or (graphs and all(graphs)),
+          f"a replica's program captured no graph: {graphs}")
     counts = _counters(K, C, R)
     t0 = time.time()
     dflt.agg_search_batch(reqs)
@@ -3286,7 +3621,8 @@ def phase_replicas(torch, K, C, R, tt, idx, dflt, flagship, card):
     say(f"  {len(reqs)} mixed requests == the single searcher's (batch and "
         f"stream), msearch groups per replica {served}; msearch "
         f"{t_rep * 1e3 / len(reqs):.4f} ms/q on {REPLICAS} replicas vs "
-        f"{t_single * 1e3 / len(reqs):.4f} ms/q on one searcher "
+        f"{t_single * 1e3 / len(reqs):.4f} ms/q on one searcher, "
+        f"{sum(graphs)} graphs in the replicas' {len(graphs)} programs "
         f"[{card}]" + ("" if torch.cuda.device_count() >= REPLICAS else
                        " (one card: the replicas share it, no gain "
                        "expected)"))
@@ -3601,6 +3937,9 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     step = phase_step_timings(torch, flagship, searchers, card)
     step["graph_memory_5g"] = replayed["memory"]
     lap("step timings", t0)
+    t0 = time.time()
+    phase_phase2_graphs(torch, tt, searchers, answers, card)
+    lap("phase 2 graphs", t0)
     pool.close()
     t0 = time.time()
     for name in ("mv4",) + HOST_SHAPES:
@@ -3629,15 +3968,21 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     phase_prep(torch, tt, idx, flagship, card, answers)
     lap("prep unsharded", t0)
     t0 = time.time()
-    by_path["sharded"], s4 = phase_sharded(
+    by_path["sharded"], s4, step["mesh_steps"] = phase_sharded(
         torch, K, C, R, tt, idx, dflt, oracle, flagship, card, answers,
         timings)
     lap("sharded", t0)
     t0 = time.time()
     phase_shard_kernels(torch, K, qc, s4, flagship, records)
+    lap("shard kernels", t0)
+    t0 = time.time()
+    mesh_replayed = phase_mesh_graphs(torch, K, C, R, tt, flagship, s4,
+                                      dflt, answers, card)
+    step["mesh_graph_nodes_8g"] = mesh_replayed["graph_nodes"]
+    step["mesh_capture_s_8g"] = mesh_replayed["capture_s"]
     mesh4 = [str(d) for d in s4._get_device_index().devices]
     _free(torch, s4)
-    lap("shard kernels", t0)
+    lap("mesh graphs", t0)
     t0 = time.time()
     phase_prep(torch, tt, idx, flagship, card, answers, mesh4)
     lap("prep sharded", t0)
@@ -3663,6 +4008,8 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     for name, rec in records.items():
         rec["launches_replayed_5g"] = replayed["credited"][name]
         rec["graph_nodes_5g"] = replayed["nodes"][name]
+        rec["launches_replayed_8g"] = mesh_replayed["credited"][name]
+        rec["graph_nodes_8g"] = mesh_replayed["nodes"][name]
     check(set(products) == set(PRODUCTS),
           f"product records {sorted(products)} != {sorted(PRODUCTS)}")
     for name, rec in products.items():

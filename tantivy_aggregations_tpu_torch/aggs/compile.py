@@ -15,11 +15,15 @@ reconstructs exact user-domain fruits (bit-identical to the oracle).
 On the card the step runs as JAX runs its jitted one: `submit_many`
 captures `raw_fn` as one CUDA graph per padded batch size at its first
 use (`_StepGraph`; JAX jits at first use) and replays it on every later
-call, so a call costs one param copy and one graph launch. On the CPU
-`submit_many` calls `raw_fn` itself. The plan records the mode
-(`plan["graph"]`): every unsharded Program's step is captured; a shard's
-step (collectives at the mesh's barriers) and phase 2's selection in
-`finalize_many` (it follows host ranks) run eagerly.
+call, so a call costs one param copy and one graph launch; phase 2's
+selection in `finalize_many` replays one graph per node and padded batch
+(`_phase2_replayed`; JAX's jitted `_lazy_phase2`), and a mesh whose
+shards share one card captures its S shard bodies and their collectives
+as one graph (`ShardedProgram`; JAX's `shard_map` under `jax.jit`). On
+the CPU `submit_many` calls `raw_fn` itself and phase 2 selects eagerly.
+The plan records the mode (`plan["graph"]`): captured, except on a mesh
+over two or more cards (`mesh_graph_mode`, with its reason), whose shard
+threads run eagerly.
 
 The plan does not depend on the device: a program on CPU tensors plans and
 runs exactly the modes the card runs (the kernels' plain versions execute
@@ -286,7 +290,10 @@ class _GraphBook:
     fits or only the newest is left; a drop also starts a new pool for
     later captures, so that the old one drains as its graphs go. A graph
     that dies with its program (the searcher's LRU) leaves the book by
-    itself."""
+    itself. A pool is captured into only while a graph of it lives: when
+    the current pool's last graph goes, later captures start a new one
+    (the caching allocator refuses a capture into a pool it has released,
+    and frees that pool's memory at the next empty_cache)."""
 
     def __init__(self, new_pool, budget=GRAPH_MEM_BUDGET):
         self._new_pool = new_pool
@@ -305,14 +312,15 @@ class _GraphBook:
                 + sum(b for b, live in self.pools.values() if live))
 
     def add(self, prog, B, graph, grown):
-        """Book `graph`, prog's step at B just captured into `self.pool`
-        and grown it by `grown` bytes; then trim to the budget."""
+        """Book `graph`, prog's graph for key B just captured into
+        `graph.pool` and grown it by `grown` bytes; then trim to the
+        budget."""
         self._serial += 1
         n = graph.serial = self._serial
         self.graphs[n] = (weakref.ref(prog), B,
                           weakref.ref(graph, lambda _, n=n: self._gone(n)),
-                          graph.nbytes, self.pool)
-        pb = self.pools.setdefault(self.pool, [0, 0])
+                          graph.nbytes, graph.pool)
+        pb = self.pools.setdefault(graph.pool, [0, 0])
         pb[0] += grown
         pb[1] += 1
         self.trim()
@@ -325,8 +333,10 @@ class _GraphBook:
         e = self.graphs.pop(n, None)
         if e is not None:
             self.pools[e[4]][1] -= 1
-            if not self.pools[e[4]][1] and e[4] != self.pool:
+            if not self.pools[e[4]][1]:
                 del self.pools[e[4]]
+                if e[4] == self.pool:
+                    self.pool = self._new_pool()
 
     def trim(self):
         while self.total() > self.budget and len(self.graphs) > 1:
@@ -382,78 +392,142 @@ def _tensors_in(obj, out):
     return out
 
 
+def _map_tensors(fn, tree, leaf=torch.is_tensor):
+    """`tree` (dicts, lists and tuples of tensors and host values) with
+    every tensor t (every `leaf`) replaced by fn(t)."""
+    if leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v, leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v, leaf) for v in tree)
+    return tree
+
+
+def _zip_tensors(fn, a, b) -> None:
+    """fn(x, y) on every pair of tensors at one place of two trees of one
+    structure."""
+    if torch.is_tensor(a):
+        fn(a, b)
+    elif isinstance(a, dict):
+        for k, v in a.items():
+            _zip_tensors(fn, v, b[k])
+    elif isinstance(a, (list, tuple)):
+        for v, w in zip(a, b):
+            _zip_tensors(fn, v, w)
+
+
+class _Buf:
+    """A static buffer for one output of a captured function
+    (`_static_like`) and the output's shape (`_out_view`)."""
+
+    __slots__ = ("buf", "shape")
+
+    def __init__(self, t):
+        self.buf = _static_like(t)
+        self.shape = t.shape
+
+    def view(self, clone=False):
+        return _out_view(self.buf.clone() if clone else self.buf, self.shape)
+
+
+def _is_buf(x) -> bool:
+    return isinstance(x, _Buf)
+
+
+def _fill(buf, t) -> None:
+    """Copy t into its static buffer (`_static_like`: one row where t is a
+    shared row). A tensor of another shape raises."""
+    if buf.dim() > 1 and buf.shape[0] != t.shape[0]:
+        t = R.shared_row(t)[0]
+    buf.copy_(t)
+
+
+def _state_views(bufs, state):
+    """A phase-2 node's state (its count prefix, sub-matrix or mask, G)
+    read from its static buffers (`_static_like` of each tensor) at the
+    state's shapes."""
+    return {k: (_out_view(bufs[k], v.shape) if torch.is_tensor(v) else v)
+            for k, v in state.items()}
+
+
+def _padded_ranks(rk, Bp) -> torch.Tensor:
+    """Host ranks [B, ...] as a [Bp, ...] int64 tensor, rows past B zero (a
+    rank the selection of a padded row reads and nobody harvests)."""
+    out = np.zeros((Bp,) + rk.shape[1:], np.int64)
+    out[:rk.shape[0]] = rk
+    return torch.from_numpy(out)
+
+
 class _StepGraph:
-    """A Program's device step at one padded batch size B, captured as a
-    CUDA graph (JAX's jit of the step at first use). Built by its first
-    call: the [B, P] param matrix and the outputs get buffers of their own
-    outside the graph pool; raw_fn runs once eagerly on the capture stream
-    with any host sync an error (the warm-up also makes the library
-    workspaces and the kernels' launch state that the capture then
-    reuses); then raw_fn is captured into the device's shared pool
-    (`_GraphBook.pool`), ending in copies of `packed` and every `big`
-    tensor into the output buffers. Nothing a caller reads lives in the
-    pool, so graphs of any programs and sizes replay in any order. A
-    capture or replay error propagates: no step answers eagerly instead.
-    `keep_nodes` keeps the captured graph's nodes (`keep_graph`, then
-    instantiated at once) for `CUDAGraph.debug_dump` (chip_smoke.py counts
-    the kernels in each).
+    """A device function captured as one CUDA graph (JAX's jit at first
+    use): a Program's or a mesh's step at one padded batch size B (the
+    inputs: the [B, P] param matrix), or phase 2's selection of one node
+    at the group's padded B (the inputs: the host ranks and a copy of the
+    node's phase-1 state). The caller gives the static input buffers
+    (`ins`, filled for the first call) and `fn(stream)`, the function over
+    them, whose work goes to `stream` (a mesh makes it current in every
+    shard thread: MeshGroup.run's ctx). fn runs once eagerly on the
+    device's capture stream with any host sync an error (the warm-up also
+    makes the library workspaces and the kernels' launch state that the
+    capture then reuses); then fn is captured into the device's shared
+    pool (`_GraphBook.pool`), ending in copies of every output tensor into
+    buffers of the graph's own outside the pool. Nothing a caller reads
+    lives in the pool, so graphs of any programs and sizes replay in any
+    order. A capture or replay error propagates: no step answers eagerly
+    instead. `keep_nodes` keeps the captured graph's nodes (`keep_graph`,
+    then instantiated at once) for `CUDAGraph.debug_dump` (chip_smoke.py
+    counts the nodes and the kernels in each).
 
     The kernels' launch counters and the products' call counters count
-    where a kernel is enqueued, so the capture's counts are recorded
-    (`credit`) and credited on each replay, and the capture itself counts
-    nothing. The graph reads the program's resident tensors by address
-    (the chain kernels take their plane pointers by value): `keep` holds
-    every tensor of the plan and the arrays for the graph's life."""
+    where a kernel is enqueued, so the capture's counts (every shard
+    body's on a mesh) are recorded (`credit`) and credited on each replay,
+    and the capture itself counts nothing. The graph reads the program's
+    resident tensors by address (the chain kernels take their plane
+    pointers by value): `keep` holds them for the graph's life."""
 
     keep_nodes = False
 
-    __slots__ = ("graph", "pmat", "packed", "big", "keep", "credit",
-                 "book", "nbytes", "grown", "serial", "__weakref__")
+    __slots__ = ("graph", "ins", "out", "keep", "credit", "book", "pool",
+                 "nbytes", "grown", "serial", "__weakref__")
 
-    def __init__(self, prog, rows):
-        dev = prog.device
-        di = dev.index
+    def __init__(self, device, ins, fn, keep):
+        di = device.index
         if di is None:
             di = torch.cuda.current_device()
         if di not in _BOOKS:
             _BOOKS[di] = _GraphBook(torch.cuda.graph_pool_handle)
             _CAPTURE_STREAMS[di] = torch.cuda.Stream(di)
         self.book = _BOOKS[di]
+        self.ins = ins
         stream = _CAPTURE_STREAMS[di]
-        self.pmat = torch.empty((len(rows), max(1, len(prog._pkeys))),
-                                dtype=torch.int32, device=dev)
-        qc.param_matrix(rows, prog._pkeys, dev, out=self.pmat)
-        stream.wait_stream(torch.cuda.current_stream(dev))
+        stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                warm = prog.raw_fn(self.pmat, prog._arrays)
+                warm = fn(stream)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
-            self.packed = _static_like(warm["packed"])
-            self.big = {path: {k: (_static_like(v), v.shape)
-                               for k, v in st.items() if torch.is_tensor(v)}
-                        for path, st in warm["big"].items()}
-            ints = {path: {k: v for k, v in st.items()
-                           if not torch.is_tensor(v)}
-                    for path, st in warm["big"].items()}
+            #: a _Buf for each output tensor, in the tree of fn's result
+            self.out = _map_tensors(_Buf, warm)
             del warm
             before = [dict(c) for c in _counters()]
             self.graph = torch.cuda.CUDAGraph(keep_graph=self.keep_nodes)
-            reserved = torch.cuda.memory_reserved(dev)
-            self.graph.capture_begin(pool=self.book.pool)
+            # the ordinary pool's cached free blocks back to the device (as
+            # torch.cuda.graph does before a capture): a capture cannot
+            # free them when the graph pool must grow, and runs out of
+            # memory with tens of GB cached but unused
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            self.pool = self.book.pool
+            self.graph.capture_begin(pool=self.pool)
             try:
-                out = prog.raw_fn(self.pmat, prog._arrays)
-                self.packed.copy_(out["packed"])
-                for path, st in out["big"].items():
-                    for k, (buf, _) in self.big[path].items():
-                        buf.copy_(R.shared_row(st[k])[0] if buf.dim() > 1
-                                  else st[k])
-                del out
+                _zip_tensors(lambda t, b: _fill(b.buf, t), fn(stream),
+                             self.out)
             finally:
                 self.graph.capture_end()
-                self.grown = max(0, torch.cuda.memory_reserved(dev)
+                self.grown = max(0, torch.cuda.memory_reserved(device)
                                  - reserved)
                 # the capture launched nothing: its counts go to `credit`
                 self.credit = []
@@ -462,31 +536,88 @@ class _StepGraph:
                     c.update(b)
             if self.keep_nodes:
                 self.graph.instantiate()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.nbytes = sum(t.numel() * t.element_size() for t in (
-            self.pmat, self.packed,
-            *(buf for st in self.big.values() for buf, _ in st.values())))
-        self.big = {path: (self.big[path], ints[path]) for path in self.big}
-        self.keep = _tensors_in((prog._arrays, prog.plan, prog._hit_cache),
-                                [])
+        torch.cuda.current_stream(device).wait_stream(stream)
+        bufs = _tensors_in(ins, [])
+        _map_tensors(lambda b: bufs.append(b.buf), self.out, _is_buf)
+        self.nbytes = sum(t.numel() * t.element_size() for t in bufs)
+        self.keep = _tensors_in(keep, [])
 
-    def replay(self):
-        """Launch the step on the current stream; the fruits: a view of
-        the `packed` buffer, and clones of the `big` tensors. The clones
-        let agg_search_stream keep groups in flight: group n's phase 2
-        can run after group n+1 replayed this graph. `packed` needs none:
-        Program.stage copies it right after this launch, on the same
-        stream, so the copy runs before any later replay."""
+    def replay(self, clone=()):
+        """Launch the graph on the current stream; fn's outputs as views of
+        the graph's buffers, except the top-level entries named in `clone`,
+        cloned (a step's "big": agg_search_stream keeps groups in flight,
+        so group n's phase 2 can run after group n+1 replayed this graph;
+        its "packed" needs no clone: Program.stage copies it right after
+        this launch, on the same stream, so the copy runs before any later
+        replay)."""
         self.graph.replay()
         self.book.touch(self)
         for c, d in zip(_counters(), self.credit):
             for k, n in d.items():
                 c[k] += n
-        return {"packed": self.packed,
-                "big": {path: {**ints, **{k: _out_view(buf.clone(), shape)
-                                          for k, (buf, shape) in
-                                          bufs.items()}}
-                        for path, (bufs, ints) in self.big.items()}}
+        if not isinstance(self.out, dict):
+            return _map_tensors(_Buf.view, self.out, _is_buf)
+        return {k: _map_tensors(lambda b, c=k in clone: b.view(c), v,
+                                _is_buf)
+                for k, v in self.out.items()}
+
+
+def _replayed(owner, key, alloc, fill, fn, keep, clone=()):
+    """owner's graph for `key` (`owner._graphs`, booked on its device's
+    _GraphBook), captured at its first use, replayed: alloc() makes the
+    static inputs, fill(ins) writes this call's inputs into them (a
+    pinned host copy or a device copy, on the current stream), fn(ins,
+    stream) is the function (_StepGraph), `keep` what it reads by
+    address; returns _StepGraph.replay(clone)."""
+    g = owner._graphs.get(key)
+    if g is None:
+        ins = alloc()
+        fill(ins)
+        g = owner._graphs[key] = _StepGraph(
+            owner.device, ins, lambda stream: fn(ins, stream), keep)
+        g.book.add(owner, key, g, g.grown)
+    else:
+        fill(g.ins)
+    return g.replay(clone)
+
+
+def _phase2_replayed(owner, path, sts, rk, select):
+    """Phase 2's selection of node `path` as owner's replayed graph at the
+    state's padded batch Bp (JAX jits it per node): the host ranks `rk`
+    through one pinned copy into a static int64 [Bp, ...] buffer, the
+    group's phase-1 state (`sts`: one per shard) copied on the stream into
+    static buffers of the graph's own, since the state a step's replay
+    hands out is a clone that a group in flight keeps; select(ranks,
+    states, stream) is the selection. Returns the graph's [Bp, ...]
+    output buffer."""
+    Bp = sts[0]["cum"].shape[0]
+
+    def fill(ins):
+        qc.to_device_async(_padded_ranks(rk, Bp), owner.device, out=ins[0])
+        _zip_tensors(lambda t, b: _fill(b, t), sts, ins[1])
+    return _replayed(
+        owner, ("phase2", path, Bp),
+        lambda: [torch.empty((Bp,) + rk.shape[1:], dtype=torch.int64,
+                             device=owner.device),
+                 _map_tensors(_static_like, sts)],
+        fill, lambda ins, stream: select(
+            ins[0], [_state_views(b, st) for b, st in zip(ins[1], sts)],
+            stream), owner._keep())
+
+
+def mesh_graph_mode(devices):
+    """(plan["graph"], its reason or None) of a shard on a mesh of
+    `devices`: a mesh whose shards share one device (four shards of one
+    card, a replica group's one shard, CPU shards) runs its step as one
+    captured graph, the shard bodies in turn on one stream; a mesh over
+    two or more devices keeps its step eager."""
+    devs = {torch.device(d) for d in devices}
+    if len(devs) == 1:
+        return True, None
+    return False, (
+        f"a mesh over {len(devs)} devices: a graph across cards would "
+        "need cross-device capture, untested here (it needs a machine "
+        "with two or more cards), so the shard threads run eagerly")
 
 
 def _cols(x, idx, keep=None):
@@ -590,19 +721,15 @@ class Program:
         #: that the step uploads and reads back nothing (_hit_order)
         self._hit_cache = {p["path"]: self._hit_order(node, p)
                            for node, p in self._top_hits}
-        for p in self.plan.values():
-            if p.get("kind") == "percentiles" and not p["int_percents"]:
-                # phase 1 is in the step; phase 2's selection follows the
-                # host's ranks in finalize_many, eagerly
-                p["graph"] = False
-        # the execution mode: the step captured as one CUDA graph per padded
-        # batch on the card; a shard's step stays eager (its collectives
-        # wait at the mesh's barrier for the other shard threads)
-        self.plan["graph"] = not self._sharded
-        if self._sharded:
-            self.plan["graph_reason"] = (
-                "a shard's step: shard threads with collectives at a "
-                "barrier (JAX's shard_map under jax.jit is a later slice)")
+        # the execution mode: the step, and phase 2's selection of each
+        # non-integer percentile node, captured as CUDA graphs per padded
+        # batch on the card; on a mesh over several devices they stay eager
+        # (mesh_graph_mode)
+        graph, reason = ((True, None) if not self._sharded
+                         else mesh_graph_mode(dindex.mesh.devices))
+        self.plan["graph"] = graph
+        if reason is not None:
+            self.plan["graph_reason"] = reason
         #: msearch group bound (None: no per-query row-axis state)
         self.batch_cap = self._batch_cap()
         #: per-query fruit layout of the packed [B, F] int64 output
@@ -739,21 +866,36 @@ class Program:
         request up to that many rows (JAX's padding, so that a few batch
         sizes serve every group); finalize_many harvests the first rows.
         On the card the step replays its graph for this B (captured at
-        the first call of each B); on the CPU, and where the plan keeps
-        the step eager (a shard's), raw_fn runs."""
+        the first call of each B); on the CPU, and for a shard (its
+        ShardedProgram runs it), raw_fn runs."""
         rows = [self._extract(q, aggs) for q in queries]
         if pad_to is not None:
             rows += rows[-1:] * (pad_to - len(rows))
-        if self.device.type != "cuda" or not self.plan["graph"]:
+        if not self._captures():
             return self.raw_fn(qc.param_matrix(rows, self._pkeys,
                                                self.device), self._arrays)
-        g = self._graphs.get(len(rows))
-        if g is None:
-            g = self._graphs[len(rows)] = _StepGraph(self, rows)
-            g.book.add(self, len(rows), g, g.grown)
-        else:
-            qc.param_matrix(rows, self._pkeys, self.device, out=g.pmat)
-        return g.replay()
+        return _replayed(
+            self, len(rows), lambda: self._pmat_buffer(len(rows)),
+            lambda ins: qc.param_matrix(rows, self._pkeys, self.device,
+                                        out=ins[0]),
+            lambda ins, _: self.raw_fn(ins[0], self._arrays),
+            self._keep(), clone=("big",))
+
+    def _captures(self) -> bool:
+        """True where this program's step and phase-2 selections replay
+        CUDA graphs: on the card, unsharded (a shard's run inside its
+        ShardedProgram's graphs)."""
+        return (self.device.type == "cuda" and self.plan["graph"]
+                and not self._sharded)
+
+    def _pmat_buffer(self, B):
+        return [torch.empty((B, max(1, len(self._pkeys))), dtype=torch.int32,
+                            device=self.device)]
+
+    def _keep(self):
+        """What this program's graphs read by address: the arrays, every
+        tensor of the plan and the top_hits orders."""
+        return (self._arrays, self.plan, self._hit_cache)
 
     def run(self, query, aggs):
         return self.finalize(self.submit(query, aggs), aggs)
@@ -836,17 +978,33 @@ class Program:
 
     def _phase2_select(self, ranks, big, B):
         """{path: [B, ...] rows of the ranks} (values on a mesh, from the
-        cross-shard bisection) on the device."""
+        cross-shard bisection) on the device: on the card one replayed
+        graph per node and padded batch (`_phase2_replayed`), else
+        eagerly."""
+        if self._captures():
+            return {path: _phase2_replayed(
+                self, path, [big[path]], rk,
+                lambda r, sts, _, path=path: self.select_raw(
+                    path, sts[0], self._arrays, r))[:B]
+                for path, rk in ranks}
         sel = {}
         for path, rk in ranks:
-            p = self.plan[path]
             st = {k: (v[:B] if torch.is_tensor(v) else v)
                   for k, v in big[path].items()}
-            r = torch.from_numpy(rk).to(self.device)
-            sel[path] = (self._bisect_values(p, st, self._arrays, r)
-                         if p.get("bisect") or p.get("slot_bisect")
-                         else self._select_rows(p, st, self._arrays, r))
+            sel[path] = self.select_raw(path, st, self._arrays,
+                                        torch.from_numpy(rk).to(self.device))
         return sel
+
+    def select_raw(self, path, st, arrays, ranks):
+        """Phase 2's selection of node `path` (JAX's jitted `_lazy_phase2`
+        function, `_bisect_phase2` on a mesh): the rows of the device
+        ranks [Bp, 2P] (slot_rank [Bp, ns, 2P]) over its phase-1 state
+        `st`, or on a mesh their values by the cross-shard bisection; a
+        pure function of device tensors that reads nothing back."""
+        p = self.plan[path]
+        if p.get("bisect") or p.get("slot_bisect"):
+            return self._bisect_values(p, st, arrays, ranks)
+        return self._select_rows(p, st, arrays, ranks)
 
     def _phase2_attach(self, hosts, sel):
         """One host copy of every node's selected rows, attached."""
@@ -3981,7 +4139,15 @@ class ShardedProgram:
     (parallel/shard.py MeshGroup.run), each on its shard's DeviceIndex.
     Fruits leave every shard merged, so shard 0's packed copy is the one
     staged and harvested; phase 2 resolves host ranks once and bisects on
-    every shard."""
+    every shard.
+
+    On a mesh whose shards share one card (JAX's `shard_map` under
+    `jax.jit`), the step is one CUDA graph per padded batch B holding the S
+    shard bodies and their collectives, captured in turn order on one
+    stream (`_StepGraph`; the bodies share one [B, P] param matrix), and
+    phase 2's bisection of each node one graph per padded B; a mesh over
+    several cards runs both eagerly (mesh_graph_mode), and the CPU runs
+    raw_fn."""
 
     def __init__(self, sindex, query, aggs, config=None):
         self.mesh = sindex.mesh
@@ -3994,7 +4160,11 @@ class ShardedProgram:
                                    "shard 0")
         self.plan = p0.plan
         self.config = p0.config
+        self.device = p0.device
         self.batch_cap = self._batch_cap()
+        #: the captured steps and phase-2 selections on the card, per
+        #: padded batch size (and node)
+        self._graphs: Dict[object, _StepGraph] = {}
 
     def _batch_cap(self):
         """The msearch group bound: shards on one device share its
@@ -4021,34 +4191,57 @@ class ShardedProgram:
         return p0.example_inputs()[0], [pg._arrays for pg in self.progs]
 
     def as_callable(self):
-        """(raw_fn, example_inputs()): the mesh step, eager (JAX jits its
-        shard_map; the port's sharded step under graphs is still to
-        come)."""
+        """(raw_fn, example_inputs()): the mesh step as a plain function
+        (JAX's `shard_map` step); on one card submit_many replays it as one
+        captured graph."""
         return self.raw_fn, self.example_inputs()
 
     def submit(self, query, aggs):
         return self.submit_many([query], aggs)
 
+    def _captures(self) -> bool:
+        return self.device.type == "cuda" and self.plan["graph"]
+
+    def _keep(self):
+        return [pg._keep() for pg in self.progs]
+
+    @staticmethod
+    def _on(stream):
+        """MeshGroup.run's ctx: `stream` current in every shard thread."""
+        return lambda s: torch.cuda.stream(stream)
+
     def submit_many(self, queries, aggs, pad_to=None):
-        """Each shard runs the [B, P] param matrix (built once, copied to
-        each device; `pad_to` repeats the last request, as
-        Program.submit_many does); raw_fn's fruits."""
+        """Each shard runs the [B, P] param matrix (`pad_to` repeats the
+        last request, as Program.submit_many does): on one card the
+        mesh's graph for this B (captured at the first call of each B)
+        replayed, else raw_fn (the matrix built once, copied to each
+        device)."""
         p0 = self.progs[0]
         rows = [p0._extract(q, aggs) for q in queries]
         if pad_to is not None:
             rows += rows[-1:] * (pad_to - len(rows))
-        return self.raw_fn(qc.param_matrix(rows, p0._pkeys, p0.device),
-                           [pg._arrays for pg in self.progs])
+        arrays = [pg._arrays for pg in self.progs]
+        if not self._captures():
+            return self.raw_fn(qc.param_matrix(rows, p0._pkeys, p0.device),
+                               arrays)
+        return _replayed(
+            self, len(rows), lambda: p0._pmat_buffer(len(rows)),
+            lambda ins: qc.param_matrix(rows, p0._pkeys, self.device,
+                                        out=ins[0]),
+            lambda ins, stream: self.raw_fn(ins[0], arrays,
+                                            ctx=self._on(stream)),
+            self._keep(), clone=("big",))
 
-    def raw_fn(self, pmat, arrays):
+    def raw_fn(self, pmat, arrays, ctx=None):
         """The mesh step: every shard runs its Program's raw_fn over its
-        own arrays (`arrays[s]`) in lockstep; {"packed": shard 0's merged
-        fruits, "big": every shard's phase-1 state, or {} without phase
-        2}."""
+        own arrays (`arrays[s]`) in lockstep, each inside `ctx(s)` where
+        given (MeshGroup.run); {"packed": shard 0's merged fruits, "big":
+        every shard's phase-1 state, or {} without phase 2}."""
         pms = [pmat if pg.device == pmat.device else pmat.to(pg.device)
                for pg in self.progs]
         raws = self.mesh.run(lambda s: self.progs[s].raw_fn(pms[s],
-                                                            arrays[s]))
+                                                            arrays[s]),
+                             ctx=ctx)
         big = [r["big"] for r in raws] if raws[0]["big"] else {}
         return {"packed": raws[0]["packed"], "big": big}
 
@@ -4069,10 +4262,25 @@ class ShardedProgram:
         if staged.big:
             bigs = staged.big
             ranks = p0._phase2_ranks(hosts, bigs[0])
-            sel = self.mesh.run(lambda s: self.progs[s]._phase2_select(
-                ranks, bigs[s], B))
-            p0._phase2_attach(hosts, sel[0])
+            p0._phase2_attach(hosts, self._phase2_select(ranks, bigs, B))
         return [p0.harvest_host(h, aggs) for h in hosts]
+
+    def _phase2_select(self, ranks, bigs, B):
+        """{path: [B, ...] values of the global ranks}: every shard's
+        bisection of each node, shard 0's values; on one card one
+        replayed graph per node and padded batch (the ranks through one
+        pinned copy into one static buffer the shards share, each shard's
+        phase-1 state copied into static buffers), else eagerly."""
+        if not self._captures():
+            return self.mesh.run(lambda s: self.progs[s]._phase2_select(
+                ranks, bigs[s], B))[0]
+        return {path: _phase2_replayed(
+            self, path, [big[path] for big in bigs], rk,
+            lambda r, sts, stream, path=path: self.mesh.run(
+                lambda s: self.progs[s].select_raw(
+                    path, sts[s], self.progs[s]._arrays, r),
+                ctx=self._on(stream))[0])[:B]
+            for path, rk in ranks}
 
 
 def _plan_sig(plan) -> dict:

@@ -29,12 +29,19 @@ shard body that reaches a different collective than the others (a tag
 check), or ends while others wait, raises as well.
 
 The mesh may repeat a device: `["cpu"] * 8` runs eight shards on the CPU
-(the tests), `["cuda:0"] * 4` four shards on one card.
+(the tests), `["cuda:0"] * 4` four shards on one card. `run(fn, ctx)`
+enters `ctx(s)` on shard s's thread around its body and its collectives:
+the current CUDA stream and a torch function mode are per thread, so a
+CUDA graph capture makes its stream current in every shard thread this
+way (aggs/compile.py ShardedProgram: with the bodies in turns on one
+stream, the capture records them and the combines in turn order), and a
+test enters its guard in every shard body.
 """
 
 from __future__ import annotations
 
 import threading
+from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
@@ -98,18 +105,21 @@ class MeshGroup:
 
     # -- running shard bodies ------------------------------------------------
 
-    def run(self, fn):
+    def run(self, fn, ctx=None):
         """[fn(0), ..., fn(S-1)], each on its shard's thread with its device
-        current. The first error any shard raised (not the abandoned
+        current and inside `ctx(s)` where given (a context manager each
+        shard's thread enters around its body and its collectives: a
+        capture's stream, which is current per thread, or a per-thread
+        guard). The first error any shard raised (not the abandoned
         collectives the others then see) is raised here."""
         with self._run_lock:
             self._turn, self._broken = 0, None
             if self.S == 1:
-                return [self._work(fn, 0)]
+                return [self._work(fn, 0, ctx)]
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(
                     self.S, thread_name_prefix="tat-shard")
-            futs = [self._pool.submit(self._work, fn, s)
+            futs = [self._pool.submit(self._work, fn, s, ctx)
                     for s in range(self.S)]
             errs = [f.exception() for f in futs]
             first = next((e for e in errs if e is not None
@@ -120,7 +130,7 @@ class MeshGroup:
                 raise first
             return [f.result() for f in futs]
 
-    def _work(self, fn, s):
+    def _work(self, fn, s, ctx=None):
         prev = getattr(_tls, "shard", None)
         _tls.shard = (self, s)
         dev = self.devices[s]
@@ -131,10 +141,11 @@ class MeshGroup:
             if dev.type == "cuda":
                 prev_dev = torch.cuda.current_device()
                 torch.cuda.set_device(dev)
-            out = fn(s)
-            # every shard must end together: a shard still at another
-            # collective makes this one's differ, and all of them raise
-            self.exchange(s, "end", None)
+            with (ctx(s) if ctx is not None else nullcontext()):
+                out = fn(s)
+                # every shard must end together: a shard still at another
+                # collective makes this one's differ, and all of them raise
+                self.exchange(s, "end", None)
             with self._cv:
                 self._turn = s + 1
                 self._cv.notify_all()
@@ -195,11 +206,15 @@ class MeshGroup:
                 out.append(r.to(d))
         return out
 
-    def _fold(self, xs, f):
+    def _on0(self, x):
+        """x on mesh device 0 (itself where it is there already)."""
         d0 = self.devices[0]
-        r = xs[0].to(d0)
+        return x if x.device == d0 else x.to(d0)
+
+    def _fold(self, xs, f):
+        r = self._on0(xs[0])
         for x in xs[1:]:
-            r = f(r, x.to(d0))
+            r = f(r, self._on0(x))
         return self._spread(r)
 
 
@@ -211,8 +226,7 @@ _COMBINE = {
     "sum": lambda g, xs: g._fold(xs, torch.add),
     "min": lambda g, xs: g._fold(xs, torch.minimum),
     "max": lambda g, xs: g._fold(xs, torch.maximum),
-    "gather": lambda g, xs: g._spread(
-        torch.stack([x.to(g.devices[0]) for x in xs])),
+    "gather": lambda g, xs: g._spread(torch.stack([g._on0(x) for x in xs])),
     "obj": lambda g, xs: [list(xs)] * g.S,
     "end": lambda g, xs: [None] * g.S,
 }

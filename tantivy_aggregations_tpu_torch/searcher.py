@@ -24,10 +24,12 @@ shape that fit. Nothing else falls back: a kernel that fails raises.
 group, stage its packed fruits' copy to the host (Program.stage: a
 pinned buffer and an event on the card) and collect it later; the stream
 keeps `lookahead` groups in flight. A group of two or more distinct
-requests is padded to the next power of two, within its cap, as the JAX
-package pads it: on the card each Program replays one CUDA graph per
-padded batch size (aggs/compile.py `_StepGraph`), captured at the first
-group of that size.
+requests is padded to the next power of two, within its cap (the
+program's batch_cap, a mesh's shared by the shards of one device), as
+the JAX package pads it: on the card each Program, and each mesh whose
+shards share one card, replays one CUDA graph per padded batch size
+(aggs/compile.py `_StepGraph`), captured at the first group of that size,
+and phase 2's selection one graph per node and padded batch size.
 """
 
 from __future__ import annotations

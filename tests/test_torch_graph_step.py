@@ -365,22 +365,22 @@ def _graph_flags(plan):
 @pytest.mark.parametrize("path", list(PATHS))
 def test_plan_records_the_graph_mode(deps, path):
     """Every unsharded Program of every path plans its step captured
-    (plan["graph"] True, no reason); the only node marked eager is a
-    non-integer percentile node, whose phase-2 selection follows the
-    host's ranks."""
+    (plan["graph"] True, no reason), and no node is marked eager: a
+    non-integer percentile node's phase-2 selection replays a graph of
+    its own on the card too."""
     for name, _, _, prog in _planned(deps, path):
         assert prog.plan["graph"] is True and \
             "graph_reason" not in prog.plan, name
-        phase2 = {p for p, e in prog.plan.items()
-                  if isinstance(e, dict) and e.get("kind") == "percentiles"
-                  and not e["int_percents"]}
-        assert _graph_flags(prog.plan) == dict.fromkeys(phase2, False), name
+        assert _graph_flags(prog.plan) == {}, name
 
 
 def test_sharded_replica_and_host_programs_stay_eager(deps):
-    """A mesh's and a replica group's programs plan an eager step, with
-    the reason; the step still answers through raw_fn / as_callable ==
-    the oracle; a host-path shape has no device plan at all."""
+    """Mesh and replica programs on one device plan a graph; the host
+    path stays eager. A mesh's and a replica group's programs (two CPU
+    shards of one device; one-shard groups) plan their step captured, on
+    the mesh and every shard, with no reason; the step still answers
+    through raw_fn / as_callable == the oracle (the CPU runs raw_fn); a
+    host-path shape has no device plan at all."""
     idx = deps["bench"][0]
     oracle = idx.oracle_searcher()
     reqs = _group(tt, pflag, "p1", range(3))
@@ -390,8 +390,8 @@ def test_sharded_replica_and_host_programs_stay_eager(deps):
         prog = s._program_for(*reqs[0])
         assert isinstance(prog, ShardedProgram)
         for plan in [prog.plan] + [pg.plan for pg in prog.progs]:
-            assert plan["graph"] is False and "barrier" in \
-                plan["graph_reason"]
+            assert plan["graph"] is True and "graph_reason" not in plan
+            assert _graph_flags(plan) == {}
         fn, args = prog.as_callable()
         assert prog.finalize(fn(*args), reqs[0][1]) == \
             oracle.agg_search(*reqs[0])
@@ -443,6 +443,7 @@ def _book(budget):
 
 def _capture(book, prog, B, nbytes, grown):
     g = prog._graphs[B] = _FakeGraph(nbytes)
+    g.pool = book.pool
     book.add(prog, B, g, grown)
     return g
 
@@ -493,3 +494,21 @@ def test_graph_book_keeps_the_newest_graph_over_budget():
     g = _capture(book, progs[2], 1, 10, 500)
     assert list(book.graphs) == [g.serial] and book.dropped == 2
     assert [list(p._graphs) for p in progs] == [[], [], [1]]
+
+
+def test_graph_book_starts_a_new_pool_when_its_graphs_die():
+    """When the last graph of the current pool dies (its program evicted,
+    or its graphs cleared), later captures go to a new pool: the caching
+    allocator refuses a capture into a pool it has released. A pool with
+    graphs alive stays current."""
+    book = _book(1 << 20)
+    a, b = _FakeProgram(), _FakeProgram()
+    _capture(book, a, 1, 8, 10)
+    _capture(book, b, 1, 8, 20)
+    assert book.pool == 1
+    a._graphs.clear()
+    assert book.pool == 1 and book.pools == {1: [30, 1]}
+    del b._graphs[1]
+    assert book.pool == 2 and book.pools == {} and book.total() == 0
+    g = _capture(book, a, 4, 8, 5)
+    assert g.pool == 2 and book.pools == {2: [5, 1]}
