@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel, copy or fill ran on the
+card (torch.profiler), %."""
+
+
+def read(run):
+    tr = run["trace"]
+    if not tr or not tr["busy_s"]:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
