@@ -161,6 +161,7 @@ from ..query import compile as qc
 from ..query import ir as Q
 from ..schema import FieldType
 from ..utils import exact, mono as mono_mod, prep_cache as PC
+from ..utils.stats import counters, span
 
 MAX_TERMS_CARD = 1 << 27
 MAX_HIST_NB = 1 << 20  # f64 bucket-layout bound (host boundary list is O(nb))
@@ -266,9 +267,10 @@ class _Staged:
             self.host = packed.clone()
 
     def numpy(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+        with span("tat.wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return self.host.numpy()
 
 
 #: device bytes the captured steps of one device may hold (_GraphBook):
@@ -347,6 +349,7 @@ class _GraphBook:
             del graph
             self._gone(n)  # where a caller still holds the graph
             self.dropped += 1
+            counters["graph_drops"] += 1
             if pool == self.pool:
                 self.pool = self._new_pool()
 
@@ -568,17 +571,22 @@ def _replayed(owner, key, alloc, fill, fn, keep, clone=()):
     static inputs, fill(ins) writes this call's inputs into them (a
     pinned host copy or a device copy, on the current stream), fn(ins,
     stream) is the function (_StepGraph), `keep` what it reads by
-    address; returns _StepGraph.replay(clone)."""
+    address; returns _StepGraph.replay(clone). Spanned: the capture
+    `tat.capture`, the replay `tat.launch`."""
     g = owner._graphs.get(key)
     if g is None:
         ins = alloc()
         fill(ins)
-        g = owner._graphs[key] = _StepGraph(
-            owner.device, ins, lambda stream: fn(ins, stream), keep)
+        with span("tat.capture"):
+            g = owner._graphs[key] = _StepGraph(
+                owner.device, ins, lambda stream: fn(ins, stream), keep)
         g.book.add(owner, key, g, g.grown)
+        counters["graph_captures"] += 1
     else:
         fill(g.ins)
-    return g.replay(clone)
+    counters["graph_replays"] += 1
+    with span("tat.launch"):
+        return g.replay(clone)
 
 
 def _phase2_replayed(owner, path, sts, rk, select):
@@ -867,19 +875,29 @@ class Program:
         sizes serve every group); finalize_many harvests the first rows.
         On the card the step replays its graph for this B (captured at
         the first call of each B); on the CPU, and for a shard (its
-        ShardedProgram runs it), raw_fn runs."""
-        rows = [self._extract(q, aggs) for q in queries]
-        if pad_to is not None:
-            rows += rows[-1:] * (pad_to - len(rows))
-        if not self._captures():
-            return self.raw_fn(qc.param_matrix(rows, self._pkeys,
-                                               self.device), self._arrays)
-        return _replayed(
-            self, len(rows), lambda: self._pmat_buffer(len(rows)),
-            lambda ins: qc.param_matrix(rows, self._pkeys, self.device,
-                                        out=ins[0]),
-            lambda ins, _: self.raw_fn(ins[0], self._arrays),
-            self._keep(), clone=("big",))
+        ShardedProgram runs it), raw_fn runs. Spanned as `tat.submit`:
+        `tat.params`, then `tat.param_copy` and `tat.launch` (and
+        `tat.capture` at a B's first call)."""
+        with span("tat.submit"):
+            mat = self._param_rows(queries, aggs, pad_to)
+            if not self._captures():
+                pmat = qc.to_device_async(mat, self.device)
+                with span("tat.launch"):
+                    return self.raw_fn(pmat, self._arrays)
+            return _replayed(
+                self, mat.shape[0], lambda: self._pmat_buffer(mat.shape[0]),
+                lambda ins: qc.to_device_async(mat, self.device, out=ins[0]),
+                lambda ins, _: self.raw_fn(ins[0], self._arrays),
+                self._keep(), clone=("big",))
+
+    def _param_rows(self, queries, aggs, pad_to=None) -> torch.Tensor:
+        """The [B, P] int32 host param matrix of `queries`, the last
+        request repeated up to `pad_to` rows (`tat.params`)."""
+        with span("tat.params"):
+            rows = [self._extract(q, aggs) for q in queries]
+            if pad_to is not None:
+                rows += rows[-1:] * (pad_to - len(rows))
+            return qc.param_rows(rows, self._pkeys)
 
     def _captures(self) -> bool:
         """True where this program's step and phase-2 selections replay
@@ -923,7 +941,8 @@ class Program:
         staged result, so no later stage can overwrite a buffer before it
         is read), followed by an event; on the CPU a plain copy. The
         finalize calls wait on the event."""
-        return _Staged(raw["packed"], raw["big"])
+        with span("tat.stage"):
+            return _Staged(raw["packed"], raw["big"])
 
     def finalize(self, raw, aggs, staged=None):
         return self.finalize_many(raw, aggs, 1, staged=staged)[0]
@@ -935,10 +954,12 @@ class Program:
         of the selected rows, then host harvest of the first B rows."""
         staged = staged if staged is not None else self.stage(raw, aggs)
         vecs = staged.numpy()
-        hosts = [self._unpack_host(vecs[b]) for b in range(B)]
-        if staged.big:
-            self._phase2(hosts, staged.big)
-        return [self.harvest_host(h, aggs) for h in hosts]
+        with span("tat.harvest"):
+            hosts = [self._unpack_host(vecs[b]) for b in range(B)]
+            if staged.big:
+                with span("tat.phase2"):
+                    self._phase2(hosts, staged.big)
+            return [self.harvest_host(h, aggs) for h in hosts]
 
     def _phase2(self, hosts, big):
         """Exact host ranks of each non-integer percentile node (rank:
@@ -4215,22 +4236,21 @@ class ShardedProgram:
         last request, as Program.submit_many does): on one card the
         mesh's graph for this B (captured at the first call of each B)
         replayed, else raw_fn (the matrix built once, copied to each
-        device)."""
+        device). Spanned as Program.submit_many is."""
         p0 = self.progs[0]
-        rows = [p0._extract(q, aggs) for q in queries]
-        if pad_to is not None:
-            rows += rows[-1:] * (pad_to - len(rows))
-        arrays = [pg._arrays for pg in self.progs]
-        if not self._captures():
-            return self.raw_fn(qc.param_matrix(rows, p0._pkeys, p0.device),
-                               arrays)
-        return _replayed(
-            self, len(rows), lambda: p0._pmat_buffer(len(rows)),
-            lambda ins: qc.param_matrix(rows, p0._pkeys, self.device,
-                                        out=ins[0]),
-            lambda ins, stream: self.raw_fn(ins[0], arrays,
-                                            ctx=self._on(stream)),
-            self._keep(), clone=("big",))
+        with span("tat.submit"):
+            mat = p0._param_rows(queries, aggs, pad_to)
+            arrays = [pg._arrays for pg in self.progs]
+            if not self._captures():
+                pmat = qc.to_device_async(mat, p0.device)
+                with span("tat.launch"):
+                    return self.raw_fn(pmat, arrays)
+            return _replayed(
+                self, mat.shape[0], lambda: p0._pmat_buffer(mat.shape[0]),
+                lambda ins: qc.to_device_async(mat, self.device, out=ins[0]),
+                lambda ins, stream: self.raw_fn(ins[0], arrays,
+                                                ctx=self._on(stream)),
+                self._keep(), clone=("big",))
 
     def raw_fn(self, pmat, arrays, ctx=None):
         """The mesh step: every shard runs its Program's raw_fn over its
@@ -4249,7 +4269,8 @@ class ShardedProgram:
         return self.finalize(self.submit(query, aggs), aggs)
 
     def stage(self, raw, aggs):
-        return _Staged(raw["packed"], raw["big"])
+        with span("tat.stage"):
+            return _Staged(raw["packed"], raw["big"])
 
     def finalize(self, raw, aggs, staged=None):
         return self.finalize_many(raw, aggs, 1, staged=staged)[0]
@@ -4258,12 +4279,15 @@ class ShardedProgram:
         staged = staged if staged is not None else self.stage(raw, aggs)
         p0 = self.progs[0]
         vecs = staged.numpy()
-        hosts = [p0._unpack_host(vecs[b]) for b in range(B)]
-        if staged.big:
-            bigs = staged.big
-            ranks = p0._phase2_ranks(hosts, bigs[0])
-            p0._phase2_attach(hosts, self._phase2_select(ranks, bigs, B))
-        return [p0.harvest_host(h, aggs) for h in hosts]
+        with span("tat.harvest"):
+            hosts = [p0._unpack_host(vecs[b]) for b in range(B)]
+            if staged.big:
+                bigs = staged.big
+                with span("tat.phase2"):
+                    ranks = p0._phase2_ranks(hosts, bigs[0])
+                    p0._phase2_attach(hosts,
+                                      self._phase2_select(ranks, bigs, B))
+            return [p0.harvest_host(h, aggs) for h in hosts]
 
     def _phase2_select(self, ranks, bigs, B):
         """{path: [B, ...] values of the global ranks}: every shard's
@@ -4295,7 +4319,11 @@ def _plan_sig(plan) -> dict:
 
 
 def get_program(dindex, query, aggs, config=None):
+    """The Program (a ShardedProgram on a mesh) of the request's shape:
+    planning, and the cube, dense and member operands it builds
+    (`tat.build`)."""
     from ..index.loader import ShardedIndex
-    if isinstance(dindex, ShardedIndex):
-        return ShardedProgram(dindex, query, aggs, config=config)
-    return Program(dindex, query, aggs, config=config)
+    with span("tat.build"):
+        if isinstance(dindex, ShardedIndex):
+            return ShardedProgram(dindex, query, aggs, config=config)
+        return Program(dindex, query, aggs, config=config)

@@ -14,7 +14,8 @@ class EngineConfig:
     #: blocked one-hot bucket budget: bucket aggs with a flat slot space up
     #: to this size use compare-reduce; larger use prefix/scatter paths
     dense_nb: int = 256
-    #: collect per-query QueryStats on the searcher (last_stats)
+    #: collect per-query QueryStats on the searcher (last_stats), read
+    #: from the request's spans (utils/stats.py), which it turns on
     collect_stats: bool = False
     #: msearch group cap: same-shape queries per batched dispatch (one
     #: [B, P] param matrix; the chain kernels read each plane once per

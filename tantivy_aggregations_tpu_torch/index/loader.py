@@ -54,6 +54,7 @@ import torch
 
 from ..schema import Cardinality, FieldType, Schema
 from ..utils import exact, mono as mono_mod, prep_cache as PC
+from ..utils.stats import span
 
 #: doc/value axes are padded to a multiple of this (kept from the JAX
 #: package so both engines see the same padded row counts; a multiple of
@@ -563,9 +564,10 @@ class DeviceIndex:
         build = self._col_builders.get(name)
         if build is None:
             raise KeyError(f"field {name!r} not loaded (not FAST or unknown)")
-        col = build()
-        if col.ftype.is_numeric and not isinstance(col, ShardColumn):
-            _plan_sums(col, self._max_addends)
+        with span("tat.column"):
+            col = build()
+            if col.ftype.is_numeric and not isinstance(col, ShardColumn):
+                _plan_sums(col, self._max_addends)
         col._prep = (self.prep_anchor, self.prep_key(()))
         self.columns[name] = col
         return col
@@ -581,10 +583,16 @@ class DeviceIndex:
 def load_device_index(index, device, D: int = 1) -> DeviceIndex:
     """Columns are DEFERRED: this registers a builder per fast field and
     returns (alive mask + metadata only). Each column's host prep runs on
-    its first `column()` access; its planes ship to `device` on first use.
-    D > 1: the global host columns of a D-shard mesh (doc axis padded to
-    PAD_BLOCK * D, CSR rows partitioned by shard), which
-    `load_sharded_index` slices into its shards."""
+    its first `column()` access (spanned `tat.column`, inside the plan
+    that reads it); its planes ship to `device` on first use. D > 1: the
+    global host columns of a D-shard mesh (doc axis padded to PAD_BLOCK *
+    D, CSR rows partitioned by shard), which `load_sharded_index` slices
+    into its shards. Spanned `tat.load`."""
+    with span("tat.load"):
+        return _load_device_index(index, device, D)
+
+
+def _load_device_index(index, device, D: int = 1) -> DeviceIndex:
     device = torch.device(device)
     schema: Schema = index.schema
     segments = index.segments
@@ -741,10 +749,16 @@ def load_sharded_index(index, devices) -> ShardedIndex:
     """The JAX loader's `load_device_index(index, mesh)`: S = len(devices)
     shards of T/S doc rows each (T padded to PAD_BLOCK * S), shard s on
     devices[s]. Global host columns build once, on first use by any shard;
-    each shard's DeviceIndex holds views of them (`_shard_column`)."""
+    each shard's DeviceIndex holds views of them (`_shard_column`).
+    Spanned `tat.load`."""
+    with span("tat.load"):
+        return _load_sharded_index(index, devices)
+
+
+def _load_sharded_index(index, devices) -> ShardedIndex:
     from ..parallel.shard import MeshGroup
     S = len(devices)
-    g = load_device_index(index, "cpu", D=S)
+    g = _load_device_index(index, "cpu", D=S)
     T, Ts = g.T, g.T // S
     mesh = MeshGroup(devices)
     shards = []

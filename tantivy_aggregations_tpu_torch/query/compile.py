@@ -49,6 +49,7 @@ from ..query import ir as Q
 from ..schema import FieldType
 from ..utils import exact as exact_mod
 from ..utils import mono as mono_mod
+from ..utils.stats import span
 
 U64_MAX = 2**64 - 1
 
@@ -712,24 +713,31 @@ def to_device_async(t: torch.Tensor, device, out=None) -> torch.Tensor:
     its shape, where given) without waiting for the work already queued
     there: a CUDA copy is staged in pinned memory and made non-blocking
     (the caching host allocator keeps the staging buffer until the copy
-    has run). A pageable copy would synchronize the stream."""
-    if torch.device(device).type != "cuda":
-        return t.to(device) if out is None else out.copy_(t)
-    if out is None:
-        return t.pin_memory().to(device, non_blocking=True)
-    return out.copy_(t.pin_memory(), non_blocking=True)
+    has run). A pageable copy would synchronize the stream. Spanned as
+    `tat.param_copy`."""
+    with span("tat.param_copy"):
+        if torch.device(device).type != "cuda":
+            return t.to(device) if out is None else out.copy_(t)
+        if out is None:
+            return t.pin_memory().to(device, non_blocking=True)
+        return out.copy_(t.pin_memory(), non_blocking=True)
 
 
-def param_matrix(params_list, keys, device, out=None) -> torch.Tensor:
-    """[B, len(keys)] int32 device matrix of extracted params (one host
-    build, one asynchronous host->device copy, into `out` where given: a
-    captured step's param buffer). A key-less program gets one zero column
-    so every matrix has rows."""
+def param_rows(params_list, keys) -> torch.Tensor:
+    """[B, len(keys)] int32 host matrix of extracted params. A key-less
+    program gets one zero column so every matrix has rows."""
     mat = np.zeros((len(params_list), max(1, len(keys))), np.int32)
     for b, params in enumerate(params_list):
         for i, k in enumerate(keys):
             mat[b, i] = params[k]
-    return to_device_async(torch.from_numpy(mat), device, out)
+    return torch.from_numpy(mat)
+
+
+def param_matrix(params_list, keys, device, out=None) -> torch.Tensor:
+    """[B, len(keys)] int32 device matrix of extracted params (one host
+    build, `param_rows`, one asynchronous host->device copy, into `out`
+    where given: a captured step's param buffer)."""
+    return to_device_async(param_rows(params_list, keys), device, out)
 
 
 def eval_mask(q, dindex, params, path, arrays, prefix="") -> torch.Tensor:

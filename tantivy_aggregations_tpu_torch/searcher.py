@@ -30,6 +30,11 @@ the JAX package pads it: on the card each Program, and each mesh whose
 shards share one card, replays one CUDA graph per padded batch size
 (aggs/compile.py `_StepGraph`), captured at the first group of that size,
 and phase 2's selection one graph per node and padded batch size.
+
+Every request is one `tat.request` span root (every group a `tat.group`
+and a `tat.collect`), the layers below it spanned where they run
+(utils/stats.py); spans are on under `EngineConfig.collect_stats`,
+whose `last_stats` is read from them, and inside `stats.trace`.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from .aggs import ir as agg_ir
 from .query import ir as query_ir
+from .utils.stats import QueryStats, counters, request_spans, root, span
 
 
 def _copy_fruits(v):
@@ -110,7 +116,15 @@ class Searcher:
         """The cached Program of the request's shape (planned on a miss), a
         `_HostFallback` where the planner has no device lowering for the
         shape (cached like a program), or the overflow fallback where this
-        request's set-query runs exceed the slots of its shape."""
+        request's set-query runs exceed the slots of its shape. Spanned
+        `tat.plan` (`tat.load` and `tat.build` nest in it on a miss)."""
+        with span("tat.plan"):
+            prog = self._lookup(query, aggs)
+        if isinstance(prog, _HostFallback):
+            counters["host_fallbacks"] += 1
+        return prog
+
+    def _lookup(self, query, aggs):
         from .aggs.compile import Program, get_program
         dindex = self._get_device_index()
         key = (query_ir.structural_key(query), agg_ir.structural_key(aggs))
@@ -124,6 +138,7 @@ class Searcher:
                 return self._overflow()
             try:
                 prog = get_program(dindex, query, aggs, config=self.config)
+                counters["programs_planned"] += 1
             except NotImplementedError as e:
                 from .utils.stats import log
                 log.warning("agg tree has no device lowering (%s); "
@@ -132,6 +147,7 @@ class Searcher:
         self._programs[key] = prog
         while len(self._programs) > self._max_programs:
             self._programs.pop(next(iter(self._programs)))
+            counters["programs_evicted"] += 1
         if (not isinstance(prog, _HostFallback)
                 and not prog.accepts(query, aggs)):
             # same shape, but THIS request's set-query expansion exceeds
@@ -152,28 +168,21 @@ class Searcher:
     def agg_search(self, query: query_ir.Query,
                    aggs: Dict[str, agg_ir.Agg]) -> Dict[str, dict]:
         """Run `aggs` over docs matching `query`; returns host-side fruits
-        bit-identical to OracleSearcher.agg_search on the same index."""
-        if not self.config.collect_stats:
-            return self._program_for(query, aggs).run(query, aggs)
-        from .utils.stats import QueryStats, timer
-        t = timer()
-        prog = self._program_for(query, aggs)
-        st = QueryStats(program_cached=self._program_was_cached)
-        st.prepare_ms = t.lap()
-        if isinstance(prog, _HostFallback):
-            out = prog.run(query, aggs)
-            st.device_ms = t.lap()
-        else:
-            raw = prog.submit(query, aggs)
-            st.dispatch_ms = t.lap()
-            staged = prog.stage(raw, aggs)
-            staged.numpy()  # block: execute + copy
-            st.wait_ms = t.lap()
-            out = prog.finalize(raw, aggs, staged=staged)
-            st.harvest_ms = t.lap()
-            st.device_ms = st.dispatch_ms + st.wait_ms + st.harvest_ms
-        st.total_ms = st.prepare_ms + st.device_ms
-        self.last_stats = st
+        bit-identical to OracleSearcher.agg_search on the same index. One
+        `tat.request` root; under collect_stats, `last_stats` is read from
+        its spans."""
+        counters["requests"] += 1
+        collect = self.config.collect_stats
+        with root("tat.request", collect):
+            prog = self._program_for(query, aggs)
+            if isinstance(prog, _HostFallback):
+                with span("tat.fallback"):
+                    out = prog.run(query, aggs)
+            else:
+                out = prog.run(query, aggs)
+        if collect:
+            self.last_stats = QueryStats.from_spans(
+                request_spans(), self._program_was_cached)
         return out
 
     def agg_search_batch(self, requests) -> list:
@@ -217,10 +226,16 @@ class Searcher:
         return cap if pc is None else max(1, min(cap, pc))
 
     def _collect_group(self, group):
-        prog, queries, aggs, raw, staged, idxmap, nuniq = group
-        if isinstance(prog, _HostFallback):
-            return [prog.run(q, aggs) for q in queries]
-        uniq_outs = prog.finalize_many(raw, aggs, nuniq, staged=staged)
+        """The answers of a submitted group, in request order (one
+        `tat.collect` root, args as its `tat.group`'s plus the distinct
+        rows and the padded batch size)."""
+        prog, queries, aggs, raw, staged, idxmap, nuniq, B, serial = group
+        with root("tat.collect", self.config.collect_stats, serial=serial,
+                  rows=len(queries), distinct=nuniq, padded=B):
+            if isinstance(prog, _HostFallback):
+                with span("tat.fallback"):
+                    return [prog.run(q, aggs) for q in queries]
+            uniq_outs = prog.finalize_many(raw, aggs, nuniq, staged=staged)
         if len(queries) == nuniq:
             return uniq_outs
         # duplicated requests: each caller gets its own result object
@@ -278,8 +293,17 @@ class Searcher:
             yield from self._collect_group(group)
 
     def _submit_group(self, prog, queries, aggs):
+        """Dedup, pad and submit one group, its fruits' copy staged; one
+        `tat.group` root (args: serial and rows)."""
+        counters["groups"] += 1
+        counters["group_rows"] += len(queries)
+        with root("tat.group", self.config.collect_stats,
+                  rows=len(queries)) as r:
+            return self._submit_rows(prog, queries, aggs, r.serial)
+
+    def _submit_rows(self, prog, queries, aggs, serial):
         if isinstance(prog, _HostFallback):  # answered at collect
-            return (prog, queries, aggs, None, None, None, 0)
+            return (prog, queries, aggs, None, None, None, 0, None, serial)
         # dedup identical requests (config.msearch_dedup): a program is a
         # pure function of its extracted params — compute each distinct
         # param set ONCE and fan the fruits out
@@ -295,6 +319,8 @@ class Searcher:
         else:
             uniq = list(queries)
             idxmap = list(range(len(queries)))
+        counters["distinct_rows"] += len(uniq)
+        pad = 1
         if len(uniq) == 1:
             raw = prog.submit(uniq[0], aggs)
         else:
@@ -302,10 +328,10 @@ class Searcher:
             # power of two (within the group's cap), so that a few batch
             # sizes serve every group — on the card, a few captured graphs
             # per program; finalize_many harvests the first len(uniq) rows
-            pad = 1
             while pad < len(uniq):
                 pad *= 2
-            raw = prog.submit_many(uniq, aggs,
-                                   pad_to=min(pad, self._group_cap(prog)))
+            pad = max(len(uniq), min(pad, self._group_cap(prog)))
+            counters["padded_rows"] += pad - len(uniq)
+            raw = prog.submit_many(uniq, aggs, pad_to=pad)
         return (prog, queries, aggs, raw, prog.stage(raw, aggs),
-                idxmap, len(uniq))
+                idxmap, len(uniq), pad, serial)
