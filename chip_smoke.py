@@ -10,17 +10,17 @@ built on first use under .bench_cache/, the path bench.py uses) — and
 checks it end to end. Two searchers share the device index: one in row
 modes (EngineConfig use_cube=False, dense_mxu=False: the chain kernels'
 paths) and one at the default EngineConfig (the JAX package's: the
-value-domain cube and the dense products on).
+value-domain cube and the dense reductions on).
 
 1. versions of torch, CUDA and nvcc, and the card's name and power limit;
 2. builds the port's CUDA kernels from csrc/ (timed);
 3. builds or reuses the bench index, then plans c1-c10 in row modes
    (timed: c7's member operand and c9's slot plane are built here), each
    a device Program, never the host fallback; then at the default config
-   (the cube's operands and block histograms, the dense products'
-   operands built here), printing each plan's modes, which must be
-   DEFAULT_MODES: c2, c5, c8, c9, c10 on the cube (c5 a pcube, c9 a
-   scube), c3 the dense products, c1, c4, c6, c7 none; then the tags
+   (the cube's operands and block histograms built here), printing each
+   plan's modes, which must be DEFAULT_MODES: c2, c5, c8, c9, c10 on the
+   cube (c5 a pcube, c9 a scube), c3 dense_buckets (dense_mm), c1, c4,
+   c6, c7 none; then the tags
    deployment (phase_tags_index: 10M docs, SEED, with the facet field
    `cat`, built on first use under .bench_cache/catalog_*), (3o) the
    oracle's answers of the select and catalog paths queued on worker
@@ -60,20 +60,24 @@ value-domain cube and the dense products on).
    at B in {1, 31, 33, 128, 200}, T below a tile and with a tile tail,
    int8 masks holding -1, 2, 127, -128, all-0 masks, INT32_MIN /
    INT32_MAX planes under full masks over 10M rows, stride-0 masks;
-4p. the matrix products against their plain versions (phase_products),
-   exact ==, on the main path's operands at B in {1, 17, 31, 128, 200}:
-   cube_dots on c5's post-filter sites (and their count and sum(qty) ==
-   the row reduction under the same chain), block_counts on c5's pcube
-   (== chain_counts' per-128-row counts summed to G), slot_block_counts on
-   c9's scube (== chain_slot_counts' summed), the dense products on c3's
-   histogram (its shared MatchAll mask, B = 1 and 128) and on c5's
-   post-filter histogram of qty (B distinct masks) against index_add_,
-   masked_sum_planes_mm on c2's avg(weights) pre-aggregates, and
-   cube_dots with Dprod 1003 and K 13; CUDA-event and torch.profiler ms,
-   the plain version's, and the bound (product_bound: bytes at 3.35 TB/s
-   or tensor operations at the int8 / bf16 dense peak); for c3 also its
-   operand built per row chunk and one int8 torch._int_mm of the product,
-   for c8 the cube product on a row-major operand;
+4p. the matrix products and dense_buckets against their plain versions
+   (phase_products), exact ==, on the main path's operands at B in {1,
+   17, 31, 128, 200}: cube_dots on c5's post-filter sites (and their
+   count and sum(qty) == the row reduction under the same chain),
+   block_counts on c5's pcube (== chain_counts' per-128-row counts summed
+   to G), slot_block_counts on c9's scube (== chain_slot_counts' summed),
+   dense_buckets (phase_dense) on c3's histogram and sum (its shared
+   MatchAll mask), on c5's post-filter histogram of qty and its sum (B
+   distinct masks) and on a value-row plane (weights' rows, amount at
+   their docs) against index_add_ and, at B = 1 and 128, the bf16
+   one-hot product it replaced (library_ms), and at its edges (INT32_MIN
+   / INT32_MAX and +-2^15 payloads under full masks, sorted ids, T %
+   4 != 0, 4096 and 100,000 buckets), masked_sum_planes_mm on c2's
+   avg(weights) pre-aggregates, and cube_dots with Dprod 1003 and K 13;
+   CUDA-event and torch.profiler ms, the plain version's, and the bound
+   (product_bound: bytes at 3.35 TB/s or tensor operations at the int8 /
+   bf16 dense peak; kernel_bound for dense_buckets); for c8 the cube
+   product on a row-major operand;
 5. the main path of each slice (c1-c5, then c6-c9, then c10, in row
    modes; then "default": c1-c10 at the default config, msearch timed 3
    times but c6 once; then "nomop": c7 at use_member_ops=False, timed 3
@@ -238,6 +242,8 @@ REPLACES = {
     "chain_slot_counts":
         "tantivy_aggregations_tpu/ops/pallas_kernels.py:432",
     "gather_rows": "tantivy_aggregations_tpu/ops/pallas_kernels.py:527",
+    "dense_buckets":
+        "tantivy_aggregations_tpu/ops/reductions.py:242 and :258 (products)",
 }
 #: the card's peak rates for kernel_bound: HBM3 of an H100 SXM (NVIDIA's
 #: data sheet), and int32 ALU ops — 132 SMs x 64 INT32 lanes at the 1.98 GHz
@@ -267,7 +273,7 @@ C6_STREAM = 64
 #: the main path of each slice of the port: its configs, the kernels and
 #: the matrix products that path must launch (each path runs with the
 #: counters set to 0), and its EngineConfig switches. The slices c1-c5,
-#: c6-c9 and c10 run in row modes (the cube and the dense products off),
+#: c6-c9 and c10 run in row modes (the cube and the dense reductions off),
 #: so that chain_counts and chain_slot_counts stay on a main path; the
 #: "default" path runs c1-c10 at the JAX package's default EngineConfig.
 ROW_MODES = {"use_cube": False, "dense_mxu": False}
@@ -280,7 +286,7 @@ PATHS = (
      ROW_MODES),
     ("c10", (10,), ("fused_metrics",), (), ROW_MODES),
     ("default", (1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
-     ("fused_metrics", "chain_blocks", "gather_rows"),
+     ("fused_metrics", "chain_blocks", "gather_rows", "dense_buckets"),
      ("cube_dots", "block_counts", "slot_block_counts",
       "dense_bucket_counts_mm", "dense_bucket_sum_mm"), {}),
     # c7 with the member operand off: its TermQuery on the multi-valued
@@ -292,14 +298,15 @@ PATHS = (
 NOT_LAUNCHED = {"nomop": ("gather_rows",)}
 #: the modes the default path's plans must carry, per config (phase 3b):
 #: c2, c5, c8, c9 and c10 on the cube (c5 a pcube, c9 a scube), c3 the
-#: dense products, c1, c4, c6 and c7 none
+#: dense reductions (dense_buckets), c1, c4, c6 and c7 none
 DEFAULT_MODES = {1: set(), 2: {"cube"}, 3: {"dense_mm"},
                  4: set(), 5: {"cube", "pcube"}, 6: set(), 7: set(),
                  8: {"cube"}, 9: {"cube", "scube"}, 10: {"cube"}}
 #: configs whose dedup-off group is profiled on the default path
 PROFILED_DEFAULT = (3, 5, 9, 10)
 #: the matrix products (ops/cube.py, ops/reductions.py): their source, the
-#: JAX function each replaces, and how the card runs it
+#: JAX function each replaces, and how the card runs it (the dense bucket
+#: counts and sums are the dense_buckets kernel, one of the kernels)
 PRODUCTS = {
     "cube_dots": ("tantivy_aggregations_tpu_torch/ops/cube.py",
                   "tantivy_aggregations_tpu/ops/cube.py:310", "int8"),
@@ -308,19 +315,13 @@ PRODUCTS = {
     "slot_block_counts": ("tantivy_aggregations_tpu_torch/ops/cube.py",
                           "tantivy_aggregations_tpu/ops/cube.py:395",
                           "int8"),
-    "dense_bucket_counts_mm": (
-        "tantivy_aggregations_tpu_torch/ops/reductions.py",
-        "tantivy_aggregations_tpu/ops/reductions.py:242", "bf16"),
-    "dense_bucket_sum_mm": (
-        "tantivy_aggregations_tpu_torch/ops/reductions.py",
-        "tantivy_aggregations_tpu/ops/reductions.py:258", "bf16"),
     "masked_sum_planes_mm": (
         "tantivy_aggregations_tpu_torch/ops/reductions.py",
         "tantivy_aggregations_tpu/ops/reductions.py:286", "bf16"),
 }
 #: the H100 SXM's dense tensor-core peaks (NVIDIA's data sheet): int8 for
-#: the cube's torch._int_mm products, bf16 for the dense products' batched
-#: bf16 products
+#: the cube's torch._int_mm products, bf16 for masked_sum_planes_mm's
+#: batched bf16 products
 TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 #: the multi-valued paths (phase 5m), each on its deployment at the default
 #: EngineConfig: the requests (multi_requests / tags_requests; mv4 answers
@@ -330,7 +331,8 @@ MULTI_PATHS = (
     ("multi", "bench", ("mv1", "mv2", "mv3", "mv5", "mv6", "mv7"),
      ("fused_metrics", "chain_blocks", "chain_counts", "chain_slot_counts"),
      ("block_counts",), ("mv1", "mv3", "mv7")),
-    ("tags", "tags", ("t1", "t2", "t3"), ("fused_metrics", "chain_counts"),
+    ("tags", "tags", ("t1", "t2", "t3"),
+     ("fused_metrics", "chain_counts", "dense_buckets"),
      ("dense_bucket_counts_mm", "dense_bucket_sum_mm"), ("t1", "t2")),
     # the rest of the agg surface: non-integer percents (phase 2),
     # top_hits on the bench index; in-slot top_hits, wslots' phase 2 and
@@ -951,8 +953,16 @@ def kernel_bound(torch, qc, name, args, out):
     EQ32_GUARD 1, RANGE_WIDE 4, EQ_WIDE_GUARD 2, GT_IMM 1; a set leaf 2
     (SET32) or 4 (SET_WIDE) per run slot that is not empty in the query's
     params (the kernel skips empty slots). gather_rows reads each distinct picked row
-    once and writes B rows."""
-    if name == "fused_metrics":
+    once and writes B rows. dense_buckets reads each mask row (a stride-0
+    mask as one), the bucket ids and the payload once and counts no ALU op
+    (its adds are shared-memory atomics, one per selected row and piece)."""
+    if name == "dense_buckets":
+        mask, bid = args[:2]
+        rows = 1 if mask.stride(0) == 0 else mask.shape[0]
+        ins = rows * mask.shape[1] * mask.element_size() + _nbytes(
+            (bid, args[3] if len(args) > 3 else None))
+        ops = 0
+    elif name == "fused_metrics":
         mask, plane = args[:2]
         minmax = args[2] if len(args) > 2 else True
         rows = 1 if mask.stride(0) == 0 else mask.shape[0]
@@ -1595,24 +1605,100 @@ def _digits_plain(torch, ind, hist, M):
     return d[:, :M] + (d[:, M:2 * M] << 7)
 
 
-def phase_products(torch, K, C, R, qc, row, dflt, flagship):
-    """[4p] The matrix products against their plain versions, exact ==,
-    on the main path's operands at B = 1 and 128 (and 17, 31, 200):
-    cube_dots on c5's post-filter site (and its count / sum(qty) against
-    the row reduction under the same chain); block_counts on c5's pcube
-    against chain_counts' per-128-row counts summed to G; slot_block_counts
-    on c9's scube against chain_slot_counts' per-32-row counts summed to
-    G; the dense products on c3's histogram (a shared MatchAll mask) and
-    on c5's post-filter histogram of qty (the row-mode c5's node; B
-    distinct masks), against index_add_; masked_sum_planes_mm on c2's
-    avg(weights) pre-aggregates. Then cube_dots with Dprod 1003 and K 13
-    (neither a multiple of 8) on seeded operands. Prints CUDA-event median
-    ms, the plain version's, torch.profiler device ms and the bound; for
-    c3 also the per-chunk operand build and one int8 torch._int_mm of the
-    same product (the formulation the dense products do not take), and
-    for c8 the cube product on a [Dprod, K] row-major operand. Returns the
+def onehot_product(torch, R, bid, nb, payload=None, bound=None):
+    """The bf16 one-hot product the dense bucket counts and sums ran as
+    before the dense_buckets kernel (its yardstick, library_ms): a
+    function of a [B, T] mask multiplying it by a resident operand built
+    here — bid's one-hot, or the payload's 7-bit pieces under it (the JAX
+    package's column order) — with R._mm_sums (a stride-0 mask as one
+    row), recombined to [B, nb] int64; and the operand's bytes."""
+    n = 1 if payload is None else R.npieces_for_bound(bound)
+
+    def cols(a, b, dt):
+        oh = bid[a:b, None] == torch.arange(nb, dtype=bid.dtype,
+                                            device=bid.device)
+        if payload is None:
+            return oh.to(dt)
+        return torch.cat([torch.where(oh, p[:, None], 0).to(dt)
+                          for p in R._pieces(payload[a:b], n)], dim=1)
+    op = R._fill(cols, bid.shape[0], n * nb, bid.device)
+
+    def product(mask):
+        acc = R._mm_sums(mask, n * nb, op)
+        return acc if payload is None else R._recombine(
+            acc.reshape(mask.shape[0], n, nb), n)
+    return product, op.numel() * op.element_size()
+
+
+def phase_dense(torch, K, records, label, B, args, lib=None):
+    """One dense_buckets case of phase 4p: the kernel == its plain version
+    (and == `lib`, the bf16 one-hot product, where given), CUDA-event
+    median ms of each, the bound (kernel_bound), the torch.profiler device
+    ms at B = 1 and 128; kept in the kernel's record as a variant, and as
+    its B = 1 / B = 128 numbers where `label` is c3's sum / c5's counts."""
+    kern = lambda: K.dense_buckets(*args)  # noqa: E731
+    plain = lambda: K.dense_buckets_plain(*args)  # noqa: E731
+    got = kern()
+    err = _check_equal(torch, "dense_buckets", f"{label} B={B}", got,
+                       plain())
+    if lib is not None:
+        err = max(err, _check_equal(torch, "dense_buckets",
+                                    f"{label} B={B} vs the bf16 product",
+                                    got, lib()))
+    iters = 30 if B == 1 else 10
+    ms = _cuda_ms(torch, kern, iters)
+    plain_ms = _cuda_ms(torch, plain, 3)
+    lib_ms = None if lib is None else _cuda_ms(torch, lib, iters)
+    bound_ms, bound_by = kernel_bound(torch, None, "dense_buckets", args,
+                                      _outputs(got))
+    dev_ms = _device_ms(torch, kern) if B in (1, 128) else None
+    say(f"  dense_buckets     {label:18s} B={B:<4d} kernel {ms:.4f} ms  "
+        f"device {dev_ms} ms  plain {plain_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms ({bound_by})"
+        + ("" if lib_ms is None else f"  bf16 product {lib_ms:.4f} ms")
+        + f"  max_abs_err {err}")
+    rec = records.setdefault("dense_buckets", {
+        "name": "dense_buckets", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["dense_buckets"], "launches": 0,
+        "max_abs_err": 0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    one = {"label": label, "B": B, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_ms}
+    rec.setdefault("variants", []).append(one)
+    if (label, B) in (("c3 sum shared", 1), ("c5 pf/h counts", 128)):
+        sfx = "" if B == 1 else "_b128"
+        rec.update({k + sfx: one[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "label")})
+
+
+def phase_products(torch, K, C, R, qc, row, dflt, flagship, kernel_records):
+    """[4p] The matrix products and the dense_buckets kernel against their
+    plain versions, exact ==, on the main path's operands at B = 1 and 128
+    (and 17, 31, 200): cube_dots on c5's post-filter site (and its count /
+    sum(qty) against the row reduction under the same chain); block_counts
+    on c5's pcube against chain_counts' per-128-row counts summed to G;
+    slot_block_counts on c9's scube against chain_slot_counts' per-32-row
+    counts summed to G; dense_buckets (phase_dense) on c3's histogram of
+    ts and its sum(amount) under the shared MatchAll mask, on c5's
+    post-filter histogram of qty (the row-mode c5's node: B distinct
+    masks) and its sum(qty), and on a value-row plane (a histogram of the
+    multi-valued weights with sum(amount): the plan's resident amount at
+    the rows' docs, c5's masks read at them), each also against the bf16
+    one-hot product at B = 1 and 128; dense_buckets' edges: one bucket
+    under full masks of INT32_MIN / INT32_MAX and -2^15 / 2^15 - 1
+    payloads, sorted ids, a row count that is not a
+    multiple of 4 (its byte loads), 4096 buckets at B = 200 (the query
+    tiles) and 100,000 at B = 2 (the bucket tiles); masked_sum_planes_mm
+    on c2's avg(weights) pre-aggregates. Then cube_dots with Dprod 1003
+    and K 13 (neither a multiple of 8) on seeded operands. Prints
+    CUDA-event median ms, the plain version's, torch.profiler device ms
+    and the bound; for c8 the cube product on a [Dprod, K] row-major
+    operand. Adds dense_buckets' record to `kernel_records`; returns the
     product records (launches filled in later)."""
-    say("[4p] matrix products vs plain versions (exact ==)")
+    say("[4p] matrix products and dense_buckets vs plain versions "
+        "(exact ==)")
     cfgs = {n: (q, a) for n, _, q, a in all_configs(flagship)}
 
     def pmat_for(prog, n, B):
@@ -1658,75 +1744,76 @@ def phase_products(torch, K, C, R, qc, row, dflt, flagship):
                         "device_ms" + sfx: dev_ms, "label" + sfx: label})
         return got
 
-    # c3's histogram: the MatchAll mask shared by the batch (stride 0)
+    # dense_buckets on c3's histogram: the MatchAll mask shared by the
+    # batch (stride 0), as the main path hands it over
     h = d3.plan[("a", "h")]
-    hs = d3.plan[("a", "h", "s")]["dense_mm"][h["dense_mm"]["bid_key"]][
+    bound3, key3 = d3.plan[("a", "h", "s")]["dense_mm"][h["bid_key"]][
         "sums"][0]
-    bid, nb = d3._arrays[h["bid_key"]], h["nb"]
-    amount = d3._arrays["amount:w"]
-    op_c, op_s = d3._arrays[h["dense_mm"]["op"]], d3._arrays[hs[1]]
+    bid, nb, amount = d3._arrays[h["bid_key"]], h["nb"], d3._arrays[key3]
     T = bid.shape[0]
-    for B in (1, 128):
-        mask = (d3._arrays["alive"] > 0)[None].expand(B, T)
-        run("dense_bucket_counts_mm", "c3 shared", B,
-            lambda: R.dense_bucket_counts_mm(bid, mask, nb, op=op_c),
-            lambda: R.dense_bucket_counts(bid, mask, nb),
-            (1, T, nb, T + op_c.numel() * 2, B * nb * 8), iters=10)
-        run("dense_bucket_sum_mm", "c3 shared", B,
-            lambda: R.dense_bucket_sum_mm(bid, mask, amount, nb,
-                                          bound=hs[0], op=op_s),
-            lambda: R.dense_bucket_sum(bid, mask, amount, nb),
-            (1, T, op_s.shape[1], T + op_s.numel() * 2, B * nb * 8),
-            iters=10)
-    mask = (d3._arrays["alive"] > 0)[None]
-    ms_res = [_cuda_ms(torch, lambda: R.dense_bucket_counts_mm(
-                  bid, mask, nb, op=op_c), 10),
-              _cuda_ms(torch, lambda: R.dense_bucket_sum_mm(
-                  bid, mask, amount, nb, bound=hs[0], op=op_s), 10)]
-    ms_chunk = [_cuda_ms(torch, lambda: R.dense_bucket_counts_mm(
-                    bid, mask, nb), 5),
-                _cuda_ms(torch, lambda: R.dense_bucket_sum_mm(
-                    bid, mask, amount, nb, bound=hs[0]), 5)]
-    check(torch.equal(R.dense_bucket_sum_mm(bid, mask, amount, nb,
-                                            bound=hs[0]),
-                      R.dense_bucket_sum(bid, mask, amount, nb)),
-          "c3 sum: the per-chunk build != index_add_")
-    # the partials' exactness edge, one bucket under full masks over every
-    # row: INT32_MIN / INT32_MAX payloads (5 pieces), and one-piece -128 /
-    # 127 payloads whose partials reach -2^22 and 127 * 2^15
+    alive = (d3._arrays["alive"] > 0)[None]
+    prod_c, op_c = onehot_product(torch, R, bid, nb)
+    prod_s, op_s = onehot_product(torch, R, bid, nb, amount, bound3)
+    say(f"  c3's one-hot operands (the bf16 product's, built here): "
+        f"{op_c} + {op_s} bytes")
+    for B in (1, 17, 31, 128, 200):
+        mask = alive.expand(B, T)
+        lib = B in (1, 128)
+        phase_dense(torch, K, kernel_records, "c3 counts shared", B,
+                    (mask, bid, nb),
+                    (lambda m=mask: prod_c(m)) if lib else None)
+        phase_dense(torch, K, kernel_records, "c3 sum shared", B,
+                    (mask, bid, nb, amount),
+                    (lambda m=mask: prod_s(m)) if lib else None)
+    del prod_c, prod_s
+    # the 16-bit pieces' edge: one bucket under full masks over every row
     one = torch.zeros_like(bid)
     full = torch.ones(2, T, dtype=torch.bool, device=bid.device)
-    for v, bound in ((I32_MIN, None), (I32_MAX, None), (-128, (-128, 127)),
-                     (127, (-128, 127))):
+    for v in (I32_MIN, I32_MAX, -2**15, 2**15 - 1):
         pl = torch.full((T,), v, dtype=torch.int32, device=bid.device)
-        got = R.dense_bucket_sum_mm(one, full, pl, 1, bound=bound)
-        check(torch.equal(got, R.dense_bucket_sum(one, full, pl, 1))
+        got = K.dense_buckets(full, one, 1, pl)
+        check(torch.equal(got, K.dense_buckets_plain(full, one, 1, pl))
               and int(got[0, 0]) == v * T,
-              f"dense_bucket_sum_mm at {v} over {T} rows != index_add_")
-        say(f"  dense_bucket_sum_mm    all {v} over {T} rows, full masks, "
-            f"{R.npieces_for_bound(bound)} pieces: {int(got[0, 0])} == "
-            "index_add_")
+              f"dense_buckets at {v} over {T} rows != index_add_")
+        say(f"  dense_buckets     all {v} over {T} rows, full masks: "
+            f"{int(got[0, 0])} == index_add_")
     del one, full, pl
-    a8 = torch.zeros(C.MM_MIN_ROWS, T, dtype=torch.int8, device=bid.device)
-    a8[0] = mask[0].view(torch.int8)
-    oh8 = (bid[None, :] == torch.arange(
-        R.pad8(nb), dtype=bid.dtype, device=bid.device)[:, None]).to(
-        torch.int8)
-    ms_i8 = _cuda_ms(torch, lambda: torch._int_mm(a8, oh8.t()), 3)
-    check(torch.equal(torch._int_mm(a8, oh8.t())[0, :nb].to(torch.int64),
-                      R.dense_bucket_counts(bid, mask, nb)[0]),
-          "c3 int8 _int_mm counts != index_add_")
-    del a8, oh8
-    say(f"  c3 dense products, B=1: resident operand (plan time, "
-        f"{op_c.numel() * 2 + op_s.numel() * 2} bytes) counts "
-        f"{ms_res[0]:.4f} ms, sum {ms_res[1]:.4f} ms; operand built per "
-        f"row chunk counts {ms_chunk[0]:.4f} ms, sum {ms_chunk[1]:.4f} ms; "
-        f"int8 torch._int_mm [{C.MM_MIN_ROWS}, {T}] x [{T}, "
-        f"{R.pad8(nb)}] counts (one call) {ms_i8:.4f} ms")
-    for nm, a, b in (("dense_bucket_counts_mm", ms_res[0], ms_chunk[0]),
-                     ("dense_bucket_sum_mm", ms_res[1], ms_chunk[1])):
-        records[nm]["c3_resident_ms"], records[nm]["c3_chunked_ms"] = a, b
-    records["dense_bucket_counts_mm"]["c3_int8_int_mm_ms"] = ms_i8
+    # sorted ids (every lane of a warp on one bucket), then T % 4 != 0
+    srt = torch.sort(bid).values
+    phase_dense(torch, K, kernel_records, "c3 sum sorted ids", 1,
+                (alive, srt, nb, amount))
+    odd = T - 3
+    rng = np.random.default_rng(SEED)
+    m17 = torch.from_numpy(rng.random((17, odd)) < 0.5).to(bid.device)
+    phase_dense(torch, K, kernel_records, "c3 sum T%4=1", 17,
+                (m17, bid[:odd].contiguous(), nb,
+                 amount[:odd].contiguous()))
+    del srt, m17
+    # the query tiles (4096 buckets, 200 distinct masks) and the bucket
+    # tiles (100,000 buckets)
+    for nbig, B in ((4096, 200), (100_000, 2)):
+        ids = torch.from_numpy(rng.integers(-1, nbig + 1, T).astype(
+            np.int32)).to(bid.device)
+        mb = torch.from_numpy(rng.random((B, T)) < 0.5).to(bid.device)
+        phase_dense(torch, K, kernel_records, f"{nbig} buckets counts",
+                    B, (mb, ids, nbig))
+        phase_dense(torch, K, kernel_records, f"{nbig} buckets sum", B,
+                    (mb, ids, nbig, amount))
+        del ids, mb
+    # a value-row plane: a histogram of the multi-valued weights over its
+    # value rows with sum(amount), planned on the default config
+    mv_aggs = {"h": flagship.histogram_agg(
+        "weights", interval=100,
+        sub_aggs={"s": flagship.sum_agg("amount")})}
+    dmv = dflt._program_for(flagship.MatchAllQuery(), mv_aggs)
+    hv = dmv.plan[("a", "h")]
+    _, key_v = dmv.plan[("a", "h", "s")]["dense_mm"][hv["bid_key"]][
+        "sums"][0]
+    bid_v, nb_v = dmv._arrays[hv["bid_key"]], hv["nb"]
+    pay_v, doc_v = dmv._arrays[key_v], dmv._arrays[hv["row_doc"]]
+    valid_v = dmv._arrays["weights:valid"] > 0
+    check(key_v.startswith("DPAY#") and torch.equal(pay_v, amount[doc_v]),
+          "the value-row payload is not amount read at the rows' docs")
     pf = d5.plan[("a", "pf")]["cube"]
     pfs = d5.plan[("a", "pf", "s")]["cube"]
     pc = d5.plan[("a", "p")]["pcube"]
@@ -1789,26 +1876,25 @@ def phase_products(torch, K, C, R, qc, row, dflt, flagship):
             also=(("chain_slot_counts summed to G",
                    cs.reshape(B, ns, NB, G // 32).sum(-1,
                                                       dtype=torch.int32)),))
-        # the dense products on c5's post-filter histogram (row-mode node:
-        # B distinct masks over 10M rows), operands built here
-        h = r5.plan[("a", "pf", "h")]
-        bid, nb = r5._arrays[h["bid_key"]], h["nb"]
-        if B == 1:
-            h_cnt = R.dense_counts_operand(bid, nb)
-            h_sum = R.dense_sum_operand(bid, qty, nb, (0, 99))
-        T = bid.shape[0]
-        run("dense_bucket_counts_mm", "c5 pf/h", B,
-            lambda: R.dense_bucket_counts_mm(bid, row_mask, nb, op=h_cnt),
-            lambda: R.dense_bucket_counts(bid, row_mask, nb),
-            (B, T, nb, B * T + h_cnt.numel() * 2, B * nb * 8), iters=5)
-        run("dense_bucket_sum_mm", "c5 pf/h qty", B,
-            lambda: R.dense_bucket_sum_mm(bid, row_mask, qty, nb,
-                                          bound=(0, 99), op=h_sum),
-            lambda: R.dense_bucket_sum(bid, row_mask, qty, nb),
-            (B, T, h_sum.shape[1], B * T + h_sum.numel() * 2, B * nb * 8),
-            iters=5)
-        del row_mask, cc, cs
-    del h_cnt, h_sum
+        # dense_buckets on c5's post-filter histogram of qty (row-mode
+        # node: B distinct masks over 10M rows) and its sum(qty); then the
+        # value-row plane under the same masks read at the rows' docs
+        h5 = r5.plan[("a", "pf", "h")]
+        bid5, nb5 = r5._arrays[h5["bid_key"]], h5["nb"]
+        lib = B in (1, 128)
+        for what, extra in (("counts", ()), ("sum(qty)", (qty,))):
+            prod = None
+            if lib:
+                prod, _ = onehot_product(torch, R, bid5, nb5, *extra,
+                                         bound=(0, 99))
+            phase_dense(torch, K, kernel_records, f"c5 pf/h {what}", B,
+                        (row_mask, bid5, nb5, *extra),
+                        (lambda m=row_mask: prod(m)) if lib else None)
+            del prod
+        vmask = row_mask[:, doc_v] & valid_v
+        phase_dense(torch, K, kernel_records, "value rows sum", B,
+                    (vmask, bid_v, nb_v, pay_v))
+        del row_mask, cc, cs, vmask
     # masked_sum_planes_mm: c2's avg(weights) per-doc pre-aggregates
     col = r2.dindex.column("weights")
     pb = col.preagg_bounds(r2.dindex.T)
@@ -1817,6 +1903,7 @@ def phase_products(torch, K, C, R, qc, row, dflt, flagship):
         for i in range(r2._arrays["weights:pre:sum"].shape[1])]
     bounds = [pb["cnt"]] + pb["sum"]
     op_p = R.sum_planes_operand(planes, bounds)
+    T = planes[0].shape[0]
     for B in (1, 128):
         pm2 = pmat_for(r2, 2, B)
         m2 = r2._root_mask(pm2, r2._arrays)
@@ -2414,6 +2501,8 @@ def graph_kernel_nodes(K, graph, tmp):
             counts["fused_metrics"] += 1
         elif "gather_rows_kernel" in nd:
             counts["gather_rows"] += 1
+        elif "dense_buckets_kernel" in nd:
+            counts["dense_buckets"] += 1
     return counts, len(nodes)
 
 
@@ -3304,7 +3393,8 @@ def phase_sharded(torch, K, C, R, tt, idx, dflt, oracle, flagship, card,
 #: each: c1's root metrics, c4's prefix terms, the counts under c5's rank
 #: bisection and c9's slot bisection
 SHARD_KERNELS = (("fused_metrics", 1), ("chain_blocks", 4),
-                 ("chain_counts", 5), ("chain_slot_counts", 9))
+                 ("chain_counts", 5), ("chain_slot_counts", 9),
+                 ("dense_buckets", 3))
 
 
 def _capture(K, name, fn):
@@ -3369,7 +3459,8 @@ def phase_shard_kernels(torch, K, qc, searcher, flagship, records):
             plain_ms = _cuda_ms(torch, plain, 3)
             bound_ms, bound_by = kernel_bound(torch, qc, name, args,
                                               _outputs(kern()))
-            rows = (args[0] if name == "fused_metrics" else args[3]).shape[-1]
+            rows = (args[0] if name in ("fused_metrics", "dense_buckets")
+                    else args[3]).shape[-1]
             say(f"  {name:17s} c{n} B={b:<4d} {len(launched)} launches == "
                 f"plain; shard 0 ({rows} rows): kernel {ms:.4f} ms  plain "
                 f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
@@ -3888,7 +3979,8 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     lap("edge cases", t0)
     t0 = time.time()
-    products = phase_products(torch, K, C, R, qc, searcher, dflt, flagship)
+    products = phase_products(torch, K, C, R, qc, searcher, dflt, flagship,
+                              records)
     lap("products", t0)
     oracle = idx.oracle_searcher()
     counts = dict.fromkeys(_counters(K, C, R), 0)

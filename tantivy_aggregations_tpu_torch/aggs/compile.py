@@ -49,8 +49,9 @@ Modes:
   reductions over STATIC bucket-id planes (nested buckets compose static
   slot ids; only validity is per query). A dense node right under the
   root or a filter, and the count and metric subs directly under it, run
-  as dense products (p["dense_mm"]: ops/reductions.py dense_bucket_*_mm,
-  `dense_mxu`) over an operand built once per program.
+  as the dense_buckets kernel (p["dense_mm"]: ops/reductions.py
+  dense_bucket_*_mm, `dense_mxu`) over the static bucket plane and the
+  payloads at its rows, each a resident contiguous int32 plane.
 - high-cardinality root-level terms / histograms ("prefix"): bucket-sorted
   OrderedLayout scanned by the chain_blocks kernel (chain mask evaluated
   in-kernel, per-32-row-block counts + int64 payload sums), then per-bucket
@@ -1742,8 +1743,8 @@ class Program:
     # -- dense products (ops/reductions.py *_mm) -----------------------------
 
     def _dense_op(self, key, K, rows, build):
-        """Register the resident dense-product operand `build()` under
-        `key` (cached on the device index) when its [rows, K] fits
+        """Register the resident operand `build()` of masked_sum_planes_mm
+        under `key` (cached on the device index) when its [rows, K] fits
         R.DENSE_OP_MEM, and return its array key; None where the product
         builds its operand per row chunk instead."""
         if rows * R.pad8(K) * R.mm_dtype(self.device).itemsize \
@@ -1757,25 +1758,37 @@ class Program:
         self._need(akey, cc[ck])
         return akey
 
-    def _dense_counts_plan(self, bid_key, bid, nb, doc=None):
-        """The dense-product entry of a dense bucket node right under a
-        MaskCtx: its one-hot counts operand (shared with its count subs).
-        `doc`: the rows' docs where the rows are a multi-valued field's
-        value rows (its subs' payloads are read there)."""
-        return {"bid_key": bid_key, "nb": nb, "bid": bid, "doc": doc,
-                "op": self._dense_op(f"{bid_key}@{nb}:cnt", nb, bid.shape[0],
-                                     lambda: R.dense_counts_operand(bid, nb))}
+    def _dense_counts_plan(self, bid_key, doc=None):
+        """The dense_buckets entry of a dense bucket node right under a
+        MaskCtx (its counts, and its count and metric subs', run the
+        kernel over its static bucket plane, array `bid_key`). `doc`: the
+        rows' docs where the rows are a multi-valued field's value rows
+        (its subs' payloads are read there)."""
+        return {"bid_key": bid_key, "doc": doc}
 
     def _dense_sum_plan(self, sbid, key, plane, bound):
-        """(bound, operand key) of one payload plane's dense bucket sums
-        under the static bucket plane of `sbid` (the doc-aligned payload
-        read at the bucket rows' docs)."""
-        nb, bid, doc = sbid["nb"], sbid["bid"], sbid["doc"]
-        n = R.npieces_for_bound(bound)
-        return (bound, self._dense_op(
-            f"{sbid['bid_key']}@{nb}:{key}:{bound}", n * nb, bid.shape[0],
-            lambda: R.dense_sum_operand(
-                bid, plane if doc is None else plane[doc], nb, bound)))
+        """(bound, array key) of one payload plane's dense bucket sums
+        under the static bucket plane of `sbid`: the doc-aligned payload
+        `plane` (array key `key` where it is registered whole) at the
+        bucket rows, as the contiguous int32 plane dense_buckets reads —
+        itself, or a resident copy cached on the device index where the
+        rows are a multi-valued field's value rows (`plane[doc]`) or the
+        plane is a column of a wider array. The key is None for a payload
+        bounded to (0, 0), whose sums are 0."""
+        if bound is not None and tuple(bound) == (0, 0):
+            return (bound, None)
+        doc = sbid["doc"]
+        if doc is None and self._arrays.get(key) is plane \
+                and plane.is_contiguous():
+            return (bound, key)
+        rows_of = None if doc is None else sbid["bid_key"]
+        cc = self.dindex.cube_cache
+        ck = ("dense_pay", rows_of, key)
+        if ck not in cc:
+            cc[ck] = (plane if doc is None else plane[doc]).contiguous()
+        akey = f"DPAY#{rows_of}#{key}"
+        self._need(akey, cc[ck])
+        return (bound, akey)
 
     def _dense_planes_plan(self, key, planes, bounds):
         """(bounds, operand key) of a MaskCtx metric's masked sums of
@@ -1814,7 +1827,7 @@ class Program:
             if in_slot or not self._plan_cube_count(p, chain):
                 self._reads_root = True
             if sbid is not None:
-                p["dense_mm"] = {e["bid_key"]: {"op": e["op"]} for e in sbid}
+                p["dense_mm"] = {e["bid_key"]: {} for e in sbid}
             self.plan[path] = p
             return
         if isinstance(node, (A.SumAgg, A.MinAgg, A.MaxAgg, A.AvgAgg,
@@ -1924,7 +1937,6 @@ class Program:
                     if need_sum else [])
             if sbid is not None:
                 p["dense_mm"] = {e["bid_key"]: {
-                    "op": e["op"],
                     "pcnt": self._dense_sum_plan(e, pre + "cnt", cnt,
                                                  pb["cnt"]),
                     "sums": [self._dense_sum_plan(e, f"{pre}sum{i}", v,
@@ -1951,8 +1963,7 @@ class Program:
                                                  limbs[:, i], b)
                             for i, b in enumerate(col.limb_bounds())]
                 return []
-            p["dense_mm"] = {e["bid_key"]: {"op": e["op"],
-                                            "sums": sums_of(e)}
+            p["dense_mm"] = {e["bid_key"]: {"sums": sums_of(e)}
                              for e in sbid}
         elif (chain is not None and self.config.dense_mxu and need_sum
               and not col.sum_direct):
@@ -2628,7 +2639,7 @@ class Program:
         p["bid_key"] = bid_key
         if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
             p["dense_mm"] = self._dense_counts_plan(
-                bid_key, bid, nb, col.plane("doc") if col.multi else None)
+                bid_key, col.plane("doc") if col.multi else None)
         sub_bchain = (bchain + (("hist", node.field, dict(p)),)
                       if bchain is not None and p["mode"] == "dense"
                       and not col.multi else None)
@@ -2720,16 +2731,15 @@ class Program:
             for key, pk in planes:
                 self._need(key, pk)
             if self.config.dense_mxu:
-                p["dense_mm"] = [self._dense_counts_plan(key, pk, card)
-                                 for key, pk in planes]
+                p["dense_mm"] = [self._dense_counts_plan(key)
+                                 for key, _ in planes]
                 sbid = p["dense_mm"]
         else:
             if col.multi:
                 self._need_col_planes(col)
             if p["mode"] == "dense" and not in_slot and self.config.dense_mxu:
                 p["dense_mm"] = self._dense_counts_plan(
-                    ids_key, ids, card, col.plane("doc") if col.multi
-                    else None)
+                    ids_key, col.plane("doc") if col.multi else None)
                 sbid = [p["dense_mm"]]
         sub_bchain = None
         if bchain is not None and p["mode"] == "dense":
@@ -2885,11 +2895,10 @@ class Program:
     # -- metrics -------------------------------------------------------------
 
     def _slot_counts(self, ctx, arrays):
-        """[B, ns] counts of a SlotCtx: one dense product over its static
-        bucket plane (ctx.mm), else index_add_."""
+        """[B, ns] counts of a SlotCtx: the dense_buckets kernel over its
+        static bucket plane (ctx.mm), else index_add_."""
         if ctx.mm is not None:
-            return R.dense_bucket_counts_mm(ctx.bid, ctx.valid, ctx.nslots,
-                                            op=arrays.get(ctx.mm["op"]))
+            return R.dense_bucket_counts_mm(ctx.bid, ctx.valid, ctx.nslots)
         return R.dense_bucket_counts(ctx.bid, ctx.valid, ctx.nslots)
 
     def _eval_metric(self, node, ctx, arrays, p):
@@ -2905,34 +2914,35 @@ class Program:
             dmm = (p["dense_mm"][ctx.mm["bid_key"]] if ctx.mm is not None
                    else None)
 
+        # a SlotCtx over a dense node's static bucket plane: its sums run
+        # dense_buckets over the plan's row-aligned payload planes
+        dense = slot and dmm is not None
+
         def get(key):
             """A doc-aligned plane, read at the context's rows."""
             return ctx.rows(arrays[key]) if slot else arrays[key]
 
-        def msum(plane, spec):
-            if slot and dmm is not None:
-                bound, key = spec
-                return R.dense_bucket_sum_mm(ctx.bid, valid, plane,
-                                             ctx.nslots, bound=bound,
-                                             op=arrays.get(key))
+        def dsum(spec):
+            """[B, ns] sums of one payload plane of the plan
+            (_dense_sum_plan's (bound, array key))."""
+            bound, key = spec
+            return R.dense_bucket_sum_mm(
+                ctx.bid, valid, None if key is None else arrays[key],
+                ctx.nslots, bound=bound)
+
+        def msum(plane):
             if slot:
                 return R.dense_bucket_sum(ctx.bid, valid, plane, ctx.nslots)
             return R.ts_sum_plane(plane, valid)
 
-        def msums(planes, specs):
+        def msums(planes):
             """[..., L] sums of L planes: at root / filter scope one dense
             product over all of them where planned, else plane by plane."""
             if not slot and dmm is not None:
                 bounds, key = dmm["planes"]
                 return R.masked_sum_planes_mm(valid, planes, bounds,
                                               op=arrays.get(key))
-            return torch.stack([msum(pl, sp) for pl, sp in zip(planes, specs)],
-                               dim=-1)
-
-        def specs(n, first=None):
-            if not slot or dmm is None:
-                return [None] * n
-            return ([first] if first else []) + dmm["sums"]
+            return torch.stack([msum(pl) for pl in planes], dim=-1)
 
         def mmin(plane, m):
             if slot:
@@ -2945,19 +2955,23 @@ class Program:
             return R.masked_max_i32(plane, m)
 
         def limb_sums():
+            if dense:
+                return torch.stack([dsum(sp) for sp in dmm["sums"]], dim=-1)
             limbs = get(f"{field}:limbs")
-            return msums([limbs[:, i] for i in range(limbs.shape[1])],
-                         specs(limbs.shape[1]))
+            return msums([limbs[:, i] for i in range(limbs.shape[1])])
 
         if col.multi:
             pre = f"{field}:pre:"
             cnt_doc = get(pre + "cnt")
-            planes = [cnt_doc]
-            if need_sum:
-                sm = get(pre + "sum")
-                planes += [sm[:, i] for i in range(sm.shape[1])]
-            sums = msums(planes, specs(len(planes),
-                                       dmm and dmm.get("pcnt")))
+            if dense:
+                sums = torch.stack([dsum(sp) for sp in
+                                    [dmm["pcnt"]] + dmm["sums"]], dim=-1)
+            else:
+                planes = [cnt_doc]
+                if need_sum:
+                    sm = get(pre + "sum")
+                    planes += [sm[:, i] for i in range(sm.shape[1])]
+                sums = msums(planes)
             out["cnt"] = sums[..., 0]
             if need_sum:
                 out["sum"] = sums[..., 1:]
@@ -3016,7 +3030,8 @@ class Program:
                     out["max"] = R.masked_max_wide(hi, lo, valid)
         if need_sum:
             if p["direct"]:
-                out["sum"] = msum(get(f"{field}:w"), specs(1)[0])
+                out["sum"] = (dsum(dmm["sums"][0]) if dense
+                              else msum(get(f"{field}:w")))
             else:
                 out["sum"] = limb_sums()
         return out
@@ -3563,10 +3578,9 @@ class Program:
                                    p.get("dense_mm"), missing=True)
         anc_flat = 1 if isinstance(ctx, MaskCtx) else ctx.nslots
         if sub_ctx.mm is not None and not col.multi:
-            # a missing term (id -1) matches no one-hot column: the scope's
-            # mask goes in as it is, a shared row staying one row
-            counts = R.dense_bucket_counts_mm(
-                ids, ctx.mask, card, op=arrays.get(sub_ctx.mm["op"]))
+            # a missing term (id -1) matches no bucket: the scope's mask
+            # goes in as it is, a shared row staying one row
+            counts = R.dense_bucket_counts_mm(ids, ctx.mask, card)
         else:
             counts = self._slot_counts(sub_ctx, arrays)
         counts = self._madd(counts)

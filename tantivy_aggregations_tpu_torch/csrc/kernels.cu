@@ -20,9 +20,16 @@
 // 5. gather_rows: B whole rows of a row-major operand, picked by an int32
 //    index array in device memory (member operands). Replaces
 //    _gather_rows_batched / make_gather_rows.
+// 6. dense_buckets: per query of a mask [B, T] of bytes, the exact count
+//    of the selected rows in each bucket of a static int32 bucket-id plane,
+//    or the exact int64 sum of a static int32 payload over them. Replaces
+//    the one-hot products of the JAX package's ops/reductions.py
+//    dense_bucket_counts_mxu / dense_bucket_sum_mxu. A tile kernel and a
+//    fold.
 //
-// fused_metrics and every chain kernel read each plane once per BATCH, not
-// per query (the point of the TPU kernels' batching rule).
+// fused_metrics, dense_buckets and every chain kernel read each plane once
+// per BATCH (per query tile for dense_buckets), not per query (the point of
+// the TPU kernels' batching rule).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -896,6 +903,226 @@ fused_metrics_fold(const long long* __restrict__ part_sum,
   }
 }
 
+// dense_buckets: per query b of a [B, T] byte mask, the exact int64 count of
+// the rows whose mask byte is nonzero in each bucket j of a static int32
+// bucket-id plane bid [T] (ids outside [0, nb) match nothing), or (SUM)
+// the exact int64 sum of a static int32 payload [T] over those rows.
+//
+// Bound on the H100: HBM bytes, the bid plane and the payload read once per
+// query tile and each mask row once (c3's sum at B = 1: 90 MB, 0.027 ms),
+// beside one 32-bit shared-memory atomic per (selected row, query, piece).
+//
+// Design. A histogram of few buckets is a streaming reduction with the
+// partials in shared memory. Each CTA takes one item: a tile of qt queries,
+// a tile of nbt buckets and a chunk of rows (items ordered with the query
+// tiles fastest, so the CTAs in flight share their chunk's plane reads in
+// L2). A warp step covers 512 rows: lane l keeps rows 4l .. 4l + 3 of each
+// of its four 128-row groups in registers (16-byte loads of bid and the
+// payload), so they are read once for all qt queries; per query the lane
+// loads its four 4-byte mask words (the next query's are in flight) and adds
+// each selected row into the CTA's table with a 32-bit shared atomic. The
+// table is privatized C ways (C a power of two up to 32, as many as fit qt x
+// nbt buckets in the wrapper's shared-memory budget): lane l adds into copy
+// l % C, and copy c of bucket j is word j * C + c, so at C = 32 no two lanes
+// share a bank or an address whatever the ids (sorted ids included), and
+// with fewer copies at most 32 / C lanes do. No 64-bit atomics: counts are
+// 32-bit, and a sum adds two 16-bit pieces of the payload (the low 16
+// bits unsigned and the high 16 bits signed, two counters). The table is
+// folded into the item's int64 partial every `flush` rows, at most
+// DB_FLUSH_ROWS for a sum, so a low piece's counter holds at most 65,536 x
+// 65,535 < 2^32 and a high piece's, signed, a value in [-2^31, 2^31); a
+// count counter at most T < 2^31. The fold gives each bucket a group of C lanes, lane c reading copy
+// c, summed by shuffles in int64, and zeroes the table. Each item writes its
+// partials to a scratch [B, nb, n_rc] (the row chunk innermost), and a
+// second launch adds each (query, bucket)'s n_rc partials, a warp each. No
+// global atomics, so the result is deterministic, and every step is an
+// integer add, so it is exact. The wrapper (ops/kernels.py dense_tile,
+// dense_chunks) sets qt, C, nbt, the chunks and the flush from (B, nb, SUM,
+// T), the card's resident CTAs and this layout, which it reads through
+// tat_dense_buckets_layout.
+constexpr int DB_THREADS = 256;
+constexpr int DB_WARPS = DB_THREADS / 32;
+constexpr int DB_GROUPS = 4;                      // 128-row groups a warp step
+constexpr int DB_WARP_ROWS = DB_GROUPS * 128;     // rows a warp step
+constexpr int DB_STEP = DB_WARPS * DB_WARP_ROWS;  // rows a CTA step (4096)
+constexpr int DB_FLUSH_ROWS = 1 << 16;            // rows a sum's pieces hold
+constexpr int DB_COPIES = 32;                     // most copies of a table
+// a table's shared memory: two CTAs of the largest stay resident on an SM
+constexpr int DB_TABLE_MAX = 112640;
+
+// Lane's rows r = s + 128k + 4 lane + i of a warp step: bucket ids (-1 at
+// and past `end`, so they match nothing) and, with PAY, payloads.
+template <bool PAY>
+__device__ __forceinline__ void db_rows(int4 (&b)[DB_GROUPS],
+                                        int4 (&v)[DB_GROUPS],
+                                        const int* bid, const int* pay,
+                                        long long s, long long end, int lane,
+                                        bool vec) {
+#pragma unroll
+  for (int k = 0; k < DB_GROUPS; ++k) {
+    const long long r = s + k * 128 + lane * 4;
+    if (vec && r + 4 <= end) {
+      b[k] = __ldg(reinterpret_cast<const int4*>(bid + r));
+      if (PAY) v[k] = __ldg(reinterpret_cast<const int4*>(pay + r));
+    } else {
+      int t[4] = {-1, -1, -1, -1}, u[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (r + i < end) {
+          t[i] = bid[r + i];
+          if (PAY) u[i] = pay[r + i];
+        }
+      }
+      b[k] = make_int4(t[0], t[1], t[2], t[3]);
+      v[k] = make_int4(u[0], u[1], u[2], u[3]);
+    }
+  }
+}
+
+// The same rows' mask bytes of one query row `mrow`, four to a word (byte i
+// = row i of the group; 0 at and past `end`).
+__device__ __forceinline__ void db_mask(unsigned (&m)[DB_GROUPS],
+                                        const unsigned char* mrow,
+                                        long long s, long long end, int lane,
+                                        bool vec) {
+#pragma unroll
+  for (int k = 0; k < DB_GROUPS; ++k) {
+    const long long r = s + k * 128 + lane * 4;
+    if (vec && r + 4 <= end) {
+      m[k] = __ldcs(reinterpret_cast<const unsigned*>(mrow + r));
+    } else {
+      unsigned w = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r + i < end) w |= static_cast<unsigned>(mrow[r + i]) << (8 * i);
+      m[k] = w;
+    }
+  }
+}
+
+// Fold the table's nq x nj buckets into the item's int64 partials (the
+// first flush of an item writes them, later ones add) and zero the table:
+// a group of C lanes per bucket, lane c reading copy c, summed by
+// shuffles within the group (the trip count is the CTA's, so every lane
+// reaches every shuffle).
+template <bool SUM>
+__device__ __forceinline__ void db_fold(unsigned* tab, int nq, int nj,
+                                        int C, int q0, int j0, int nb,
+                                        int rc, int n_rc, bool first,
+                                        long long* part) {
+  constexpr int WP = SUM ? 2 : 1;
+  const int c = threadIdx.x & (C - 1);
+  const int groups = DB_THREADS / C;
+  const int n = nq * nj;
+  for (int e0 = 0; e0 < n; e0 += groups) {
+    const int e = e0 + static_cast<int>(threadIdx.x) / C;
+    const int q = e / nj, j = e - q * nj;
+    long long s = 0;
+    if (e < n) {
+      unsigned* t = tab + (q * WP * nj + j) * C + c;
+      if (!SUM) {
+        s = t[0];
+      } else {
+        s = static_cast<long long>(t[0]) +
+            static_cast<long long>(static_cast<int>(t[nj * C])) * 65536LL;
+        t[nj * C] = 0u;
+      }
+      t[0] = 0u;
+    }
+    for (int off = C / 2; off > 0; off >>= 1)
+      s += __shfl_xor_sync(FULL, s, off);
+    if (e < n && c == 0) {
+      long long* o =
+          part + (static_cast<long long>(q0 + q) * nb + j0 + j) * n_rc + rc;
+      *o = first ? s : *o + s;
+    }
+  }
+}
+
+// One item per CTA: item = (rc x n_bt + bt) x n_qt + qi (query tile qi,
+// bucket tile bt, row chunk rc); the grid is n_qt x n_bt x n_rc.
+template <bool SUM>
+__global__ void __launch_bounds__(DB_THREADS, 2)
+dense_buckets_kernel(const int* __restrict__ bid,
+                     const int* __restrict__ pay,
+                     const unsigned char* __restrict__ mask, long long T,
+                     int B, int nb, int qt, int C, int nbt, int n_qt,
+                     int n_bt, long long chunk, long long flush, bool vec,
+                     long long* __restrict__ part) {
+  extern __shared__ unsigned db_tab[];
+  constexpr int WP = SUM ? 2 : 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x % n_qt;
+  const int bt = (blockIdx.x / n_qt) % n_bt;
+  const int rc = blockIdx.x / (n_qt * n_bt);
+  const int n_rc = gridDim.x / (n_qt * n_bt);
+  const int q0 = qi * qt, nq = min(qt, B - q0);
+  const int j0 = bt * nbt, nj = min(nbt, nb - j0);
+  const long long r0 = rc * chunk;
+  const long long r1 = min(T, r0 + chunk);
+  const int words = nq * WP * nj * C;
+  for (int i = threadIdx.x; i < words; i += DB_THREADS) db_tab[i] = 0u;
+  __syncthreads();
+  const int cls = lane & (C - 1);
+  const unsigned nju = static_cast<unsigned>(nj);
+  const unsigned j0u = static_cast<unsigned>(j0);
+  for (long long f0 = r0; f0 < r1; f0 += flush) {
+    const long long f1 = min(r1, f0 + flush);
+    for (long long s = f0 + warp * DB_WARP_ROWS; s < f1; s += DB_STEP) {
+      int4 b[DB_GROUPS], v[DB_GROUPS];
+      db_rows<SUM>(b, v, bid, pay, s, f1, lane, vec);
+      unsigned m[DB_GROUPS], mn[DB_GROUPS];
+      db_mask(m, mask + static_cast<long long>(q0) * T, s, f1, lane, vec);
+      for (int q = 0; q < nq; ++q) {
+        if (q + 1 < nq)
+          db_mask(mn, mask + static_cast<long long>(q0 + q + 1) * T, s, f1,
+                  lane, vec);
+        unsigned* t = db_tab + q * WP * nj * C + cls;
+#pragma unroll
+        for (int k = 0; k < DB_GROUPS; ++k) {
+          const int ids[4] = {b[k].x, b[k].y, b[k].z, b[k].w};
+          const int vals[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            // ids below j0 (and -1) wrap past nj
+            const unsigned id = static_cast<unsigned>(ids[i]) - j0u;
+            if (((m[k] >> (8 * i)) & 0xffu) != 0u && id < nju) {
+              unsigned* cnt = t + id * C;
+              if (!SUM) {
+                atomicAdd(cnt, 1u);
+              } else {
+                atomicAdd(cnt, static_cast<unsigned>(vals[i]) & 0xffffu);
+                atomicAdd(cnt + nj * C, static_cast<unsigned>(vals[i] >> 16));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < DB_GROUPS; ++k) m[k] = mn[k];
+      }
+    }
+    __syncthreads();
+    db_fold<SUM>(db_tab, nq, nj, C, q0, j0, nb, rc, n_rc, f0 == r0, part);
+    __syncthreads();
+  }
+}
+
+// One warp per (query, bucket) output i: its n_rc partials summed.
+__global__ void __launch_bounds__(DB_THREADS)
+dense_buckets_fold(const long long* __restrict__ part, int n_rc,
+                   long long n_out, long long* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * DB_WARPS + (threadIdx.x >> 5);
+  if (i >= n_out) return;  // the whole warp
+  long long s = 0;
+  for (int r = lane; r < n_rc; r += 32) s += part[i * n_rc + r];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  if (lane == 0) out[i] = s;
+}
+
 int grid_for(long long work, int per_block, int cap) {
   long long g = (work + per_block - 1) / per_block;
   if (g > cap) g = cap;
@@ -1016,6 +1243,62 @@ int launch_fused(const unsigned char* mask, const int* plane, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dense_buckets' tile kernel (counts or sums) and the occupancy state of
+// its launches
+using DbKernel = void (*)(const int*, const int*, const unsigned char*,
+                          long long, int, int, int, int, int, int, int,
+                          long long, long long, bool, long long*);
+
+DbKernel db_kernel(bool sum) {
+  return sum ? dense_buckets_kernel<true> : dense_buckets_kernel<false>;
+}
+
+int db_resident(bool sum, int smem) {
+  static Occupancy occ[2];
+  return resident_ctas(occ[sum], db_kernel(sum), DB_THREADS, smem);
+}
+
+// The tile kernel over the n_qt x n_bt x n_rc items, then the fold (a warp
+// per output). The shape comes from the wrapper and is checked here.
+int launch_dense(const unsigned char* mask, const int* bid, const int* pay,
+                 long long T, int B, int nb, int qt, int C, int nbt,
+                 int n_rc, long long chunk, long long flush, bool vec,
+                 long long* part, long long* out, cudaStream_t stream) {
+  const bool sum = pay != nullptr;
+  const long long smem =
+      static_cast<long long>(qt) * nbt * (sum ? 2 : 1) * C * 4;
+  if (T < 1 || T > INT_MAX || B < 1 || nb < 1 || qt < 1 || qt > B ||
+      C < 1 || C > DB_COPIES ||
+      (C & (C - 1)) != 0 || nbt < 1 || nbt > nb || n_rc < 1 ||
+      chunk < DB_STEP || chunk % DB_STEP != 0 || flush < DB_STEP ||
+      flush % DB_STEP != 0 || flush > chunk ||
+      (sum && flush > DB_FLUSH_ROWS) || (n_rc - 1) * chunk >= T ||
+      n_rc * chunk < T || smem > DB_TABLE_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_qt = (B + qt - 1) / qt, n_bt = (nb + nbt - 1) / nbt;
+  const long long grid = n_qt * n_bt * n_rc;
+  const long long n_out = static_cast<long long>(B) * nb;
+  const long long folds = (n_out + DB_WARPS - 1) / DB_WARPS;
+  if (grid > INT_MAX || folds > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && (T % 4 != 0 ||
+              reinterpret_cast<unsigned long long>(bid) % 16 != 0 ||
+              reinterpret_cast<unsigned long long>(pay) % 16 != 0 ||
+              reinterpret_cast<unsigned long long>(mask) % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  db_resident(sum, static_cast<int>(smem));  // raises the smem attribute
+  const DbKernel kern = db_kernel(sum);
+  kern<<<static_cast<unsigned>(grid), DB_THREADS, static_cast<size_t>(smem),
+         stream>>>(bid, pay, mask, T, B, nb, qt, C, nbt,
+                   static_cast<int>(n_qt), static_cast<int>(n_bt), chunk,
+                   flush, vec, part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_buckets_fold<<<static_cast<unsigned>(folds), DB_THREADS, 0,
+                       stream>>>(part, n_rc, n_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1089,6 +1372,41 @@ int tat_chain_slot_counts(const void* const* srcs, int n_planes,
       static_cast<const signed char*>(avalid), n_blocks, warps, stages, smem,
       sets, ns, qb, static_cast<int*>(counts), nullptr,
       static_cast<cudaStream_t>(stream));
+}
+
+// dense_buckets' layout, for the wrapper's launch shapes: out[0] rows a CTA
+// step covers, out[1] the most rows a sum's pieces are added over before a
+// fold, out[2] the most copies of a table, out[3] a table's most bytes.
+void tat_dense_buckets_layout(int* out) {
+  out[0] = DB_STEP;
+  out[1] = DB_FLUSH_ROWS;
+  out[2] = DB_COPIES;
+  out[3] = DB_TABLE_MAX;
+}
+
+// Resident CTAs of dense_buckets' tile kernel (sum: the sums', else the
+// counts') at `smem` bytes of table on the current device (the wrapper
+// sizes the row chunks by it).
+int tat_dense_buckets_resident(int sum, int smem) {
+  if (smem < 0 || smem > DB_TABLE_MAX) return 0;
+  return db_resident(sum != 0, smem);
+}
+
+// mask [B, T] bytes (rows T apart); bid [T] int32; pay [T] int32 for sums,
+// null for counts; vec: T % 4 == 0, bid and pay 16-byte and mask
+// 4-byte aligned (16- and 4-byte loads); part: B * nb * n_rc int64 scratch;
+// out: [B, nb] int64.
+int tat_dense_buckets(const void* mask, const void* bid, const void* pay,
+                      long long T, int B, int nb, int qt, int C, int nbt,
+                      int n_rc, long long chunk, long long flush, int vec,
+                      void* part, void* out, void* stream) {
+  return launch_dense(static_cast<const unsigned char*>(mask),
+                      static_cast<const int*>(bid),
+                      static_cast<const int*>(pay), T, B, nb, qt, C, nbt,
+                      n_rc, chunk, flush, vec != 0,
+                      static_cast<long long*>(part),
+                      static_cast<long long*>(out),
+                      static_cast<cudaStream_t>(stream));
 }
 
 int tat_gather_rows(const void* idx, int B, const void* op, long long n_rows,

@@ -77,6 +77,26 @@ gather_rows — replaces `_gather_rows_batched` / `make_gather_rows`.
   the operand's dtype. Host side: `RowOperand` checks a resident operand
   once and keeps what a launch needs, so a call on it checks only the
   index, allocates the output and launches.
+dense_buckets — replaces the one-hot products of the JAX package's
+  ops/reductions.py `dense_bucket_counts_mxu` / `dense_bucket_sum_mxu`.
+  Bound: HBM bytes, the bucket-id plane and the payload read once per
+  query tile and each mask row once, beside one 32-bit shared-memory
+  atomic per (selected row, query, piece). Design (written for Hopper):
+  each CTA takes a tile of queries, a tile of buckets and a chunk of
+  rows; a lane keeps 16 rows' ids and payloads in registers for
+  all the tile's queries and adds each selected row into the CTA's
+  table in shared memory, privatized up to 32 ways (lane l into copy
+  l % C, copy-minor, so 32 copies never share a bank or an address); a
+  sum adds two 16-bit pieces a row, folded into int64 partials every
+  65,536 rows at most, so no 32-bit counter overflows and no atomic is
+  64-bit. A second launch adds the chunks' partials: no global atomics,
+  deterministic, exact. `dense_tile` / `dense_chunks` set the query tile,
+  copies, bucket tile, chunks and flush from (B, nb, counts or sums, rows),
+  the resident CTAs and the kernel's own layout (`DenseLayout`, read from
+  the library): one algorithm for every shape, from c3's B = 1 shared MatchAll row to
+  msearch groups of 200 distinct masks and slot planes of PCT_SLOT_CAP
+  buckets. The plain versions are ops/reductions.py dense_bucket_counts /
+  dense_bucket_sum (`index_add_`).
 
 Every launch runs on its operands' device (`_on_device`: that device is
 made current for the launch where it is not, so a shard on cuda:1 launches
@@ -94,11 +114,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops.reductions import block32_counts, shared_row
+from ..ops.reductions import (block32_counts, dense_bucket_counts,
+                              dense_bucket_sum, shared_row)
 from ..query.compile import DOC_SPACE_OPS, OP_SET32, OP_WIDTH, eval_ops
 
 I32_MAX = 2**31 - 1
@@ -144,7 +166,7 @@ BUILD_DIR = _ROOT / "build" / "torch_kernels"
 #: kernel launches per kernel since the last reset_launches() (a graph
 #: replay credits those its capture enqueued)
 launches = {"fused_metrics": 0, "chain_blocks": 0, "chain_counts": 0,
-            "chain_slot_counts": 0, "gather_rows": 0}
+            "chain_slot_counts": 0, "gather_rows": 0, "dense_buckets": 0}
 
 _lib = None
 
@@ -197,10 +219,16 @@ def _library():
                                               i, vp, i, vp, ll, i, i, i, i,
                                               i, i, vp, vp]
         lib.tat_gather_rows.argtypes = [vp, i, vp, ll, ll, vp, vp]
+        lib.tat_dense_buckets_layout.argtypes = [ctypes.POINTER(i)]
+        lib.tat_dense_buckets_layout.restype = None
+        lib.tat_dense_buckets_resident.argtypes = [i, i]
+        lib.tat_dense_buckets.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i,
+                                          ll, ll, i, vp, vp, vp]
         for fn in (lib.tat_fused_metrics, lib.tat_fused_metrics_grid,
                    lib.tat_chain_blocks,
                    lib.tat_chain_counts, lib.tat_chain_slot_counts,
-                   lib.tat_gather_rows):
+                   lib.tat_gather_rows, lib.tat_dense_buckets_resident,
+                   lib.tat_dense_buckets):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -651,6 +679,131 @@ def gather_rows(idx, op):
         launches[name] += 1
     _check_launch(name, rc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# dense_buckets
+# ---------------------------------------------------------------------------
+
+def dense_buckets_plain(mask, bid, nb: int, payload=None):
+    """[B, nb] int64: per query, the rows whose mask byte is nonzero
+    counted per bucket of the int32 bucket-id plane `bid` (ids outside
+    [0, nb) match nothing), or with `payload` the int32 payload summed
+    over them (ops/reductions.py dense_bucket_counts / dense_bucket_sum)."""
+    m = mask.to(torch.bool)
+    if payload is None:
+        return dense_bucket_counts(bid, m, nb)
+    return dense_bucket_sum(bid, m, payload, nb)
+
+
+class DenseLayout(NamedTuple):
+    """dense_buckets' layout, as csrc/kernels.cu defines it: the rows a CTA
+    step covers, the most rows a sum's 16-bit pieces are added over before
+    a fold, the most copies of a table and a table's most bytes."""
+    step: int
+    flush_rows: int
+    copies: int
+    table_bytes: int
+
+
+def dense_tile(B: int, nb: int, sums: bool, lay: DenseLayout):
+    """(qt, C, nbt) of a dense_buckets launch over B queries and nb
+    buckets (sums: two 32-bit counters a bucket, counts: one): the
+    buckets per tile (all of them unless one query's table would exceed
+    the layout's table bytes), the queries per tile (as many as fit one
+    copy each), then the most copies C (a power of two up to the
+    layout's) that fit them."""
+    word = 8 if sums else 4
+    nbt = min(nb, lay.table_bytes // word)
+    qt = min(B, lay.table_bytes // (word * nbt))
+    C = lay.copies
+    while C > 1 and qt * nbt * word * C > lay.table_bytes:
+        C //= 2
+    return qt, C, nbt
+
+
+def dense_chunks(T: int, items: int, resident: int, sums: bool,
+                 lay: DenseLayout):
+    """(n_rc, chunk, flush) of a dense_buckets launch over T rows whose
+    (query tile, bucket tile) pairs are `items`: the rows cut into n_rc
+    chunks of whole steps so that items x n_rc is about the card's
+    `resident` CTAs (at least one chunk per item), and the rows a CTA adds
+    before folding its table (a sum: at most the layout's flush rows, so
+    no 32-bit piece counter overflows; counts: the chunk)."""
+    steps = -(-T // lay.step)
+    want = max(1, min(steps, -(-resident // items)))
+    chunk = -(-steps // want) * lay.step
+    flush = min(chunk, lay.flush_rows) if sums else chunk
+    return -(-T // chunk), chunk, flush
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_layout() -> DenseLayout:
+    out = (ctypes.c_int * 4)()
+    _library().tat_dense_buckets_layout(out)
+    return DenseLayout(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_resident(dev: int, sums: bool, smem: int) -> int:
+    """Resident CTAs of dense_buckets' tile kernel on CUDA device `dev`."""
+    with torch.cuda.device(dev):
+        return _library().tat_dense_buckets_resident(int(sums), smem)
+
+
+def dense_buckets(mask, bid, nb: int, payload=None):
+    """mask: bool/int8/uint8 [B, T] (nonzero = selected), its rows T apart
+    or all one row (batch stride 0, as `expand` makes it); bid: int32 [T]
+    static bucket ids; payload: None (counts) or an int32 [T] static
+    payload (sums).
+    Returns dense_buckets_plain's [B, nb] int64. A stride-0 mask is run
+    once, at B = 1, and its row is broadcast (an `expand` view)."""
+    name = "dense_buckets"
+    _need(mask.dim() == 2 and bid.dim() == 1
+          and mask.shape[1] == bid.shape[0]
+          and (payload is None or payload.shape == bid.shape), name,
+          lambda: f"shapes {tuple(mask.shape)} / {tuple(bid.shape)} / "
+          f"{None if payload is None else tuple(payload.shape)}")
+    _need(mask.dtype in (torch.bool, torch.int8, torch.uint8), name,
+          lambda: f"mask dtype {mask.dtype}")
+    _need(bid.dtype is _I32 and (payload is None or payload.dtype is _I32),
+          name, lambda: f"bid {bid.dtype}, payload "
+          f"{None if payload is None else payload.dtype}")
+    _need(bid.is_contiguous()
+          and (payload is None or payload.is_contiguous()), name,
+          "the bucket-id plane and the payload must be contiguous")
+    _need(nb >= 1, name, lambda: f"nb {nb}")
+    mask, rep = shared_row(mask)
+    if not _route(name, (mask, bid) if payload is None
+                  else (mask, bid, payload)):
+        out = dense_buckets_plain(mask, bid, nb, payload)
+        return out if rep == 1 else out.expand(rep, nb)
+    Bq, T = mask.shape
+    _need(0 < T <= I32_MAX and Bq > 0, name, lambda: f"shape {(Bq, T)}")
+    mask = mask.contiguous()
+    sums = payload is not None
+    lay = _dense_layout()
+    qt, C, nbt = dense_tile(Bq, nb, sums, lay)
+    dev = bid.get_device()
+    resident = _dense_resident(dev, sums, qt * nbt * (8 if sums else 4) * C)
+    n_rc, chunk, flush = dense_chunks(T, -(-Bq // qt) * -(-nb // nbt),
+                                      resident, sums, lay)
+    pay = 0 if payload is None else payload.data_ptr()
+    vec = (T % 4 == 0 and bid.data_ptr() % 16 == 0 and pay % 16 == 0
+           and mask.data_ptr() % 4 == 0)
+    # one allocation: the [Bq, nb] output, then the chunks' partials
+    n_out = Bq * nb
+    buf = bid.new_empty(n_out * (1 + n_rc), dtype=torch.int64)
+    base = buf.data_ptr()
+    with _on_device(dev):
+        rc = _library().tat_dense_buckets(
+            mask.data_ptr(), bid.data_ptr(), pay, T, Bq, nb, qt, C, nbt,
+            n_rc, chunk, flush, int(vec), base + 8 * n_out, base,
+            _stream(bid))
+        launches[name] += 1
+    _check_launch(name, rc)
+    out = buf[:n_out].view(Bq, nb)
+    return out if rep == 1 else out.expand(rep, nb)
 
 
 def ops_tensor(ops: np.ndarray, device) -> torch.Tensor:

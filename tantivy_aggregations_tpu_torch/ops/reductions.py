@@ -5,16 +5,18 @@ mask is [B, rows] bool (one row per query of a request group), planes are
 [rows] (query-independent) or [B, rows], and every result carries the
 leading B axis. All arithmetic is integer: sums accumulate in int64 (CUDA
 has native int64, so the TPU's 13-bit splits are not carried over) and no
-float appears on any result path but the dense products' fp32 partials,
-each an integer of magnitude at most 2^23 that fp32 holds exactly.
+float appears on any result path but masked_sum_planes_mm's fp32
+partials, each an integer of magnitude at most 2^23 that fp32 holds
+exactly.
 
 Dense bucket reductions are integer `index_add_` / `scatter_reduce_` into
 [B, nb] int64 (int32 for min/max) over static or composite bucket-id
 planes; out-of-range ids (e.g. -1) match nothing. Their rows are docs or a
 multi-valued field's value rows alike, so they also stand for the JAX
 package's scatter `slot_*` reductions. Over a STATIC bucket-id
-plane they also run as matrix products ("Dense products" below), of which
-the index_add_ functions are the plain versions.
+plane, counts and sums run as the dense_buckets kernel
+(`dense_bucket_counts_mm`, `dense_bucket_sum_mm` below; ops/kernels.py),
+of which the index_add_ functions are the plain versions.
 
 [B, rows]-sized int64 temporaries are built a few queries at a time
 (`_query_chunks`), so a 128-query group over 10M rows stays within a
@@ -263,8 +265,8 @@ def prefix_diff_sums_from_blocks(s64, bounds32) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Dense products: per-bucket reductions over STATIC planes as tensor-core
-# matrix products
+# Dense reductions over STATIC planes: the dense_buckets kernel and the
+# masked-sums product
 # ---------------------------------------------------------------------------
 #
 # Replaces the JAX package's ops/reductions.py `dense_bucket_counts_mxu`
@@ -272,24 +274,24 @@ def prefix_diff_sums_from_blocks(s64, bounds32) -> torch.Tensor:
 # with their helpers `npieces_for_bound`, `_pieces`, `_recombine` and
 # `_mxu_dense_chunk` (:163-224). When the bucket-id plane and the payload
 # are query-independent (a dense bucket agg right under the root or a
-# filter, or a metric at that scope), bucket aggregation is a matrix
-# product whose right operand no query changes:
+# filter, or a metric at that scope), the JAX package multiplies the masks
+# by an operand no query changes: the bucket one-hot, then the payload's
+# 7-bit pieces under it. On the card a histogram of a few buckets is a
+# streaming reduction instead: dense_bucket_counts_mm and
+# dense_bucket_sum_mm launch the dense_buckets kernel (ops/kernels.py),
+# which reads the bid plane, the payload and the mask once, no operand.
+# masked_sum_planes_mm keeps the product: the masks by the [rows, K]
+# operand of every plane's 7-bit pieces, which the planner builds once per
+# program (`sum_planes_operand`, cached on the device index) where it fits
+# DENSE_OP_MEM, else the product builds it per row chunk as the JAX
+# package does. A mask whose rows are one shared row (batch stride 0: a
+# MatchAll root) runs once, as one row, and the result is broadcast over
+# the batch.
 #
-#     counts[q, j] = sum_r mask[q, r] * onehot[r, j]
-#     sums[q, j]   = sum_r mask[q, r] * (piece_i[r] * onehot[r, j])
-#
-# so a request group shares one [rows, K] operand: the bucket one-hot, then
-# the payload's 7-bit pieces under it (JAX's column order, piece-major).
-# The planner builds it once per program (`*_operand`, cached on the device
-# index) where it fits DENSE_OP_MEM, else a product builds it per row chunk
-# as the JAX package does. A mask whose rows are one shared row (batch
-# stride 0: a MatchAll root) is multiplied once, as one row, and the result
-# is broadcast over the batch.
-#
-# Formulation on the card: `torch._int_mm` runs an int8 product of this
-# shape (a few output columns, 10M-deep) on very few CTAs — about 19 ms for
-# [32, 10M] x [10M, 32] on the H100, whatever the chunking (`chip_smoke.py`
-# phase 4p times it beside this one) — so the rows are cut into
+# The product's formulation on the card: `torch._int_mm` runs an int8
+# product of this shape (a few output columns, 10M-deep) on very few CTAs —
+# about 19 ms for [32, 10M] x [10M, 32] on the H100, whatever the chunking
+# (PERF.md) — so the rows are cut into
 # MM_CHUNK-row partials and multiplied as ONE batched bf16 product with
 # fp32 partials (`torch.bmm(..., out_dtype=torch.float32)`). Exact by
 # construction: the mask is 0/1 and every piece lies in [-128, 127], both
@@ -309,8 +311,10 @@ DENSE_OP_MEM = 4 << 30
 #: in the product dtype, a per-chunk operand)
 _MM_STEP_ELEMS = 1 << 27
 
-#: product calls since the last reset_mm_calls() (a graph replay credits
-#: those its capture enqueued: aggs/compile.py _StepGraph)
+#: calls since the last reset_mm_calls() (a graph replay credits those its
+#: capture enqueued: aggs/compile.py _StepGraph); each dense_bucket_*_mm
+#: call launches dense_buckets once, but a sum of a payload bounded to
+#: (0, 0), which is 0 and launches nothing
 mm_calls = {"dense_bucket_counts_mm": 0, "dense_bucket_sum_mm": 0,
             "masked_sum_planes_mm": 0}
 
@@ -359,21 +363,6 @@ def pad8(k: int) -> int:
     """k rounded up to a multiple of 8 (at least 8): the widths a
     tensor-core product's operands are padded to."""
     return max(8, -(-k // 8) * 8)
-
-
-def _onehot(bid, nb: int):
-    return bid[:, None] == torch.arange(nb, dtype=bid.dtype,
-                                        device=bid.device)
-
-
-def _counts_cols(bid, nb: int, dtype):
-    return _onehot(bid, nb).to(dtype)
-
-
-def _sum_cols(bid, plane, nb: int, n: int, dtype):
-    oh = _onehot(bid, nb)
-    return torch.cat([torch.where(oh, p[:, None], 0).to(dtype)
-                      for p in _pieces(plane, n)], dim=1)
 
 
 def _planes_cols(planes, nps, dtype):
@@ -430,41 +419,28 @@ def _mm_sums(mask, K: int, op=None, cols_of=None):
     return acc if rep == 1 else acc.expand(rep, K)
 
 
-def dense_counts_operand(bid, nb: int):
-    """The resident operand of dense_bucket_counts_mm: bid's one-hot."""
-    return _fill(lambda a, b, d: _counts_cols(bid[a:b], nb, d),
-                 bid.shape[0], nb, bid.device)
-
-
-def dense_bucket_counts_mm(bid, valid, nb: int, op=None) -> torch.Tensor:
-    """dense_bucket_counts over a static [rows] bid plane as one product:
-    [B, rows] validity -> [B, nb] int64 counts (ids outside [0, nb) match
-    nothing)."""
+def dense_bucket_counts_mm(bid, valid, nb: int) -> torch.Tensor:
+    """dense_bucket_counts over a static contiguous int32 [rows] bid
+    plane: [B, rows] validity -> [B, nb] int64 counts (ids outside
+    [0, nb) match nothing), by the dense_buckets kernel (its plain
+    version, dense_bucket_counts, for CPU tensors)."""
+    from . import kernels  # kernels imports this module
     mm_calls["dense_bucket_counts_mm"] += 1
-    return _mm_sums(valid, nb, op,
-                    lambda a, b, d: _counts_cols(bid[a:b], nb, d))
+    return kernels.dense_buckets(valid, bid, nb)
 
 
-def dense_sum_operand(bid, plane, nb: int, bound=None):
-    n = npieces_for_bound(bound)
-    return _fill(lambda a, b, d: _sum_cols(bid[a:b], plane[a:b], nb, n, d),
-                 bid.shape[0], n * nb, bid.device)
-
-
-def dense_bucket_sum_mm(bid, valid, plane, nb: int, bound=None,
-                        op=None) -> torch.Tensor:
-    """dense_bucket_sum over a static bid plane and a static int32 payload:
-    its 7-bit pieces under the one-hot ride one product, recombined with
-    int64 shifts -> [B, nb]. `bound`: a static inclusive (lo, hi) on the
-    payload's values, which sets the piece count (None: 5)."""
+def dense_bucket_sum_mm(bid, valid, plane, nb: int,
+                        bound=None) -> torch.Tensor:
+    """dense_bucket_sum over a static int32 bid plane and a static
+    contiguous int32 payload -> [B, nb], by the dense_buckets kernel.
+    `bound`: a static inclusive (lo, hi) on the payload's values or None:
+    (0, 0) sums are 0 (nothing launches)."""
+    from . import kernels  # kernels imports this module
     mm_calls["dense_bucket_sum_mm"] += 1
-    B = valid.shape[0]
     if bound is not None and tuple(bound) == (0, 0):
-        return torch.zeros(B, nb, dtype=torch.int64, device=valid.device)
-    n = npieces_for_bound(bound)
-    acc = _mm_sums(valid, n * nb, op,
-                   lambda a, b, d: _sum_cols(bid[a:b], plane[a:b], nb, n, d))
-    return _recombine(acc.reshape(B, n, nb), n)
+        return torch.zeros(valid.shape[0], nb, dtype=torch.int64,
+                           device=valid.device)
+    return kernels.dense_buckets(valid, bid, nb, plane)
 
 
 def _live_planes(planes, bounds):

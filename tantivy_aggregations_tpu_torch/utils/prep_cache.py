@@ -5,8 +5,9 @@ format and a directory of its own. The cube's operands and block
 histograms, the OrderedLayout permutations and the static top_hits orders
 are pure functions of the index CONTENTS, expensive to rebuild (argsorts,
 bincounts, device builds at 10M rows) and reusable across processes. (The
-dense products' bf16 operands are not kept: the card builds them from
-resident planes faster than they read back from disk; PERF.md.) Their
+masked-sums product's bf16 operands and dense_buckets' payload planes at
+value rows are not kept: the card builds them from resident planes, the
+one-hot operands faster than they read back from disk; PERF.md.) Their
 HOST forms are stored as .npz files in `<index>/.prep_cache_torch/`,
 keyed by (format version, epoch, shard count, key), where the epoch is the
 index's `content_stamp`: a digest of its meta.json and of the names, sizes

@@ -411,9 +411,11 @@ def test_cube_under_bucket_aggs_unaffected(four):
 
 
 def test_dense_products_nested_and_chunked(four, monkeypatch):
-    """Dense products under MatchAll over every sub kind (multi-valued and
-    f64 limb sums, min / max, counts) and beside a nested bucket, with the
-    operands built per row chunk (DENSE_OP_MEM = 0) and resident."""
+    """Dense reductions under MatchAll over every sub kind (multi-valued
+    and f64 limb sums, min / max, counts) and beside a nested bucket: the
+    histogram's sums read contiguous int32 payload planes of its rows; the
+    root metrics' masked-sums product with its operands built per row
+    chunk (DENSE_OP_MEM = 0) and resident."""
     def aggs(m):
         return {"h": m.histogram_agg("qty", interval=9, sub_aggs={
                     "st": m.stats_agg("price"), "mc": m.stats_agg("counts"),
@@ -424,14 +426,26 @@ def test_dense_products_nested_and_chunked(four, monkeypatch):
                 "sw": m.sum_agg("wide")}
     want = four_way(four, tat.MatchAllQuery(), aggs(tat), tt.MatchAllQuery(),
                     aggs(tt))
-    plan = four["port"]._program_for(tt.MatchAllQuery(), aggs(tt)).plan
-    assert plan[("a", "h")]["dense_mm"]["op"] is not None
+    prog = four["port"]._program_for(tt.MatchAllQuery(), aggs(tt))
+    plan = prog.plan
+    rows = prog._arrays[plan[("a", "h")]["bid_key"]].shape
+    keys = []
+    for sub in ("st", "mc", "w"):
+        for e in plan[("a", "h", sub)]["dense_mm"].values():
+            keys += [k for _, k in ([e["pcnt"]] if "pcnt" in e else [])
+                     + e["sums"] if k is not None]
+    assert len(keys) >= 3
+    for key in keys:
+        pay = prog._arrays[key]
+        assert pay.dtype == torch.int32 and pay.shape == rows \
+            and pay.is_contiguous(), key
+    assert plan[("a", "sw")]["dense_mm"]["planes"][1] is not None
     monkeypatch.setattr(preductions, "DENSE_OP_MEM", 0)
     s = four["port"].index.searcher(device="cpu")
     preductions.reset_mm_calls()
     assert s.agg_search(tt.MatchAllQuery(), aggs(tt)) == want
     plan = s._program_for(tt.MatchAllQuery(), aggs(tt)).plan
-    assert plan[("a", "h")]["dense_mm"]["op"] is None
+    assert plan[("a", "sw")]["dense_mm"]["planes"][1] is None
     assert all(preductions.mm_calls.values()), preductions.mm_calls
 
 

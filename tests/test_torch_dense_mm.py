@@ -1,14 +1,20 @@
-"""The port's matrix products against their plain versions and the JAX
-package's functions, on seeded numpy inputs:
+"""The port's dense reductions and matrix products against their plain
+versions and the JAX package's functions, on seeded numpy inputs:
 
-- the dense products (ops/reductions.py dense_bucket_counts_mm,
-  dense_bucket_sum_mm, masked_sum_planes_mm) == the `index_add_` /
-  row-reduction versions == the JAX `*_mxu` functions;
+- the dense reductions (ops/reductions.py dense_bucket_counts_mm,
+  dense_bucket_sum_mm: the dense_buckets kernel, ops/kernels.py; and the
+  product masked_sum_planes_mm) == the `index_add_` / row-reduction
+  versions == the JAX `*_mxu` functions; dense_buckets' tile choice, and
+  its arithmetic emulated in numpy over the tiles it chooses under the
+  layout csrc/kernels.cu defines (32-bit counters per copy, pieces folded
+  every flush) == exact;
 - the cube products (ops/cube.py cube_dots, block_counts,
   slot_block_counts) and the block histograms they read == a numpy int64
   reference == the JAX ops/cube.py functions;
 - recombine / split_rm at the int64 edges, and every exactness bound the
   port asserts, tripped."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +26,7 @@ from tantivy_aggregations_tpu.ops import cube as jcube
 from tantivy_aggregations_tpu.ops import reductions as jred
 
 from tantivy_aggregations_tpu_torch.ops import cube as C
+from tantivy_aggregations_tpu_torch.ops import kernels as K
 from tantivy_aggregations_tpu_torch.ops import reductions as R
 
 torch.set_num_threads(2)
@@ -55,14 +62,25 @@ def _jax_rows(fn, valid):
 
 
 # ---------------------------------------------------------------------------
-# dense products
+# dense reductions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,nb", [(1, 5), (17, 30), (31, 13)])
+def _bids(rng, rows, lo, hi):
+    """int32 bucket ids in [lo, hi) (out of range too), a few at the int32
+    extremes."""
+    bid = rng.integers(lo, hi, rows).astype(np.int32)
+    bid[rng.integers(0, rows, 16)] = I32_MIN
+    bid[rng.integers(0, rows, 16)] = I32_MAX
+    return bid
+
+
+@pytest.mark.parametrize("B,nb", [(1, 5), (17, 30), (31, 13), (200, 300)])
 def test_dense_bucket_counts_mm(B, nb):
+    """== index_add_ == the JAX product, over a mask of B rows and over one
+    row shared by all B (batch stride 0: run once, broadcast)."""
     rng = np.random.default_rng(B * 100 + nb)
     rows = 32768
-    bid = rng.integers(-1, nb + 2, rows).astype(np.int32)  # out of range too
+    bid = _bids(rng, rows, -1, nb + 2)
     valid = rng.random((B, rows)) < 0.6
     got = R.dense_bucket_counts_mm(_t(bid), _t(valid), nb)
     assert got.dtype == torch.int64 and got.shape == (B, nb)
@@ -70,26 +88,39 @@ def test_dense_bucket_counts_mm(B, nb):
     want = _jax_rows(lambda v: jred.dense_bucket_counts_mxu(
         jnp.asarray(bid), v, nb), valid)
     np.testing.assert_array_equal(got.numpy()[list(JAX_ROWS)], want)
+    shared = _t(valid[:1]).expand(B, rows)
+    got = R.dense_bucket_counts_mm(_t(bid), shared, nb)
+    assert got.shape == (B, nb) and torch.equal(
+        got, R.dense_bucket_counts(_t(bid), shared.contiguous(), nb))
 
 
-@pytest.mark.parametrize("B,nb", [(1, 7), (17, 3), (31, 30)])
+@pytest.mark.parametrize("B,nb", [(1, 7), (17, 3), (31, 30), (200, 300)])
 def test_dense_bucket_sum_mm(B, nb):
+    """== index_add_ == the JAX product for full-range, INT32_MIN /
+    INT32_MAX and negative payloads, each with its static bound as the plan
+    passes it (None where it spans the int32 range)."""
     rng = np.random.default_rng(B + nb)
     rows = 32768
-    bid = rng.integers(-1, nb + 1, rows).astype(np.int32)
+    bid = _bids(rng, rows, -1, nb + 1)
     valid = rng.random((B, rows)) < 0.5
-    for i, plane in enumerate(_planes(rng, rows)):
+    planes = _planes(rng, rows) + [rng.integers(-2**15, 2**15, rows)]
+    bounds = [None] * 4 + [(0, 9999), (-2**15, 2**15 - 1)]
+    for i, (plane, bound) in enumerate(zip(planes, bounds)):
         plane = plane.astype(np.int32)
-        bound = None if i < 4 else (0, 9999)
         got = R.dense_bucket_sum_mm(_t(bid), _t(valid), _t(plane), nb,
                                     bound=bound)
         assert torch.equal(got, R.dense_bucket_sum(_t(bid), _t(valid),
                                                    _t(plane), nb)), i
-        if i in (0, 3, 4):  # full range, alternating extremes, bounded
+        if i in (0, 3, 4, 5):  # full range, extremes, bounded, negative
             want = _jax_rows(lambda v: jred.dense_bucket_sum_mxu(
                 jnp.asarray(bid), v, jnp.asarray(plane), nb, bound=bound),
                 valid)
             np.testing.assert_array_equal(got.numpy()[list(JAX_ROWS)], want)
+    shared = _t(valid[:1]).expand(B, rows)
+    got = R.dense_bucket_sum_mm(_t(bid), shared, _t(planes[0].astype(
+        np.int32)), nb)
+    assert torch.equal(got, R.dense_bucket_sum(
+        _t(bid), shared.contiguous(), _t(planes[0].astype(np.int32)), nb))
 
 
 @pytest.mark.parametrize("B", [1, 17, 31])
@@ -110,13 +141,16 @@ def test_masked_sum_planes_mm(B):
 
 @pytest.mark.parametrize("rows", [1000, 32768 + 4000, 3 * 32768])
 def test_dense_products_row_tails_shared_masks_and_resident_ops(rows):
-    """Rows that are not a multiple of the product chunk; a batch-stride-0
-    mask (one product row, broadcast); the plan-time resident operand and
-    the per-chunk build agree; every call counts once."""
+    """Rows that are not a multiple of a kernel step or of the product
+    chunk; a batch-stride-0 mask (one row, broadcast); the kernel wrapper
+    == its plain version, counts and sums; the
+    masked-sums product's plan-time resident operand and its per-chunk
+    build agree; every call counts once, a (0, 0)-bounded sum (zeros) too."""
     rng = np.random.default_rng(rows)
     nb, B = 11, 5
     bid = _t(rng.integers(-1, nb, rows).astype(np.int32))
     plane = _t(rng.integers(I32_MIN, I32_MAX, rows).astype(np.int32))
+    small = _t(rng.integers(0, 100, rows).astype(np.int32))
     row = _t(rng.random(rows) < 0.5)
     shared = row[None].expand(B, rows)
     R.reset_mm_calls()
@@ -124,30 +158,173 @@ def test_dense_products_row_tails_shared_masks_and_resident_ops(rows):
         want_c = R.dense_bucket_counts(bid, mask, nb)
         want_s = R.dense_bucket_sum(bid, mask, plane, nb)
         assert torch.equal(R.dense_bucket_counts_mm(bid, mask, nb), want_c)
-        assert torch.equal(R.dense_bucket_counts_mm(
-            bid, mask, nb, op=R.dense_counts_operand(bid, nb)), want_c)
+        assert torch.equal(K.dense_buckets(mask, bid, nb), want_c)
         assert torch.equal(R.dense_bucket_sum_mm(bid, mask, plane, nb),
                            want_s)
+        assert torch.equal(K.dense_buckets(mask.to(torch.uint8), bid, nb,
+                                           small),
+                           R.dense_bucket_sum(bid, mask, small, nb))
         assert torch.equal(R.dense_bucket_sum_mm(
-            bid, mask, plane, nb,
-            op=R.dense_sum_operand(bid, plane, nb)), want_s)
+            bid, mask, plane, nb, bound=(0, 0)), torch.zeros(B, nb,
+                                                             dtype=torch.int64))
         ps = [plane, bid]
+        assert torch.equal(R.masked_sum_planes_mm(mask, ps),
+                           R.masked_sum_planes(mask, ps))
         assert torch.equal(R.masked_sum_planes_mm(
             mask, ps, op=R.sum_planes_operand(ps)),
             R.masked_sum_planes(mask, ps))
-    assert R.mm_calls == {"dense_bucket_counts_mm": 4,
+    assert R.mm_calls == {"dense_bucket_counts_mm": 2,
                           "dense_bucket_sum_mm": 4,
-                          "masked_sum_planes_mm": 2}
+                          "masked_sum_planes_mm": 4}
 
 
 def test_dense_product_partial_bound_is_asserted(monkeypatch):
     """A product partial of more rows than MM_CHUNK_MAX could leave the
-    exact range of its fp32 partials: the product refuses it."""
+    exact range of its fp32 partials: masked_sum_planes_mm refuses it."""
     monkeypatch.setattr(R, "MM_CHUNK", R.MM_CHUNK_MAX * 2)
-    bid = torch.zeros(R.MM_CHUNK, dtype=torch.int32)
+    plane = torch.zeros(R.MM_CHUNK, dtype=torch.int32)
     with pytest.raises(AssertionError, match="exact"):
-        R.dense_bucket_counts_mm(bid, torch.ones(1, R.MM_CHUNK,
-                                                 dtype=torch.bool), 3)
+        R.masked_sum_planes_mm(torch.ones(1, R.MM_CHUNK, dtype=torch.bool),
+                               [plane])
+
+
+# dense_buckets' tiles and arithmetic (the kernel runs on the card only;
+# chip_smoke.py holds it == its plain version there)
+
+def _cu_layout():
+    """dense_buckets' layout as csrc/kernels.cu defines it: its `constexpr
+    int DB_*` values evaluated in order, so that these tests follow the
+    kernel's source (on the card the wrapper reads the same values from
+    the library)."""
+    env = {}
+    for name, expr in re.findall(r"constexpr int (DB_\w+) = ([^;]+);",
+                                 K._SRC.read_text()):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return K.DenseLayout(env["DB_STEP"], env["DB_FLUSH_ROWS"],
+                         env["DB_COPIES"], env["DB_TABLE_MAX"])
+
+
+LAYOUT = _cu_layout()
+
+
+def _emulate_dense_buckets(mask, bid, nb, payload, resident, lay=LAYOUT):
+    """The dense_buckets kernel's arithmetic in numpy over the tiles,
+    chunks and flushes its wrapper chooses under layout `lay`: per (item,
+    flush window, query), 32-bit counters per (piece, bucket, copy), lane
+    l adding into copy l % C (row r sits on lane (r % 128) // 4), wrapping
+    as the card's do; each window's counters folded into int64."""
+    B, T = mask.shape
+    sums = payload is not None
+    qt, Cp, nbt = K.dense_tile(B, nb, sums, lay)
+    n_qt, n_bt = -(-B // qt), -(-nb // nbt)
+    n_rc, chunk, flush = K.dense_chunks(T, n_qt * n_bt, resident, sums, lay)
+    assert qt * nbt * (8 if sums else 4) * Cp <= lay.table_bytes
+    copy = (np.arange(T) % 128) // 4 % Cp
+    if sums:
+        pieces = [(payload & 0xFFFF).astype(np.uint32),
+                  (payload >> 16).astype(np.uint32)]
+    else:
+        pieces = [np.ones(T, np.uint32)]
+    out = np.zeros((B, nb), np.int64)
+    for rc in range(n_rc):
+        r1 = min(T, (rc + 1) * chunk)
+        for f0 in range(rc * chunk, r1, flush):
+            w = slice(f0, min(r1, f0 + flush))
+            for bt in range(n_bt):
+                j0, nj = bt * nbt, min(nbt, nb - bt * nbt)
+                ids = bid[w].astype(np.int64) - j0
+                hit = (ids >= 0) & (ids < nj)
+                for b in range(B):
+                    sel = hit & (mask[b, w] != 0)
+                    tabs = [np.zeros((nj, Cp), np.uint32) for _ in pieces]
+                    for tab, pc in zip(tabs, pieces):
+                        np.add.at(tab, (ids[sel], copy[w][sel]), pc[w][sel])
+                    s = tabs[0].astype(np.int64).sum(1)
+                    if sums:
+                        s += tabs[1].view(np.int32).astype(np.int64).sum(1) \
+                            * 65536
+                    out[b, j0:j0 + nj] += s
+    return out
+
+
+@pytest.mark.parametrize("B,nb,sums,split", [
+    (1, 31, True, False), (1, 10, False, False), (128, 31, False, False),
+    (200, 31, True, False), (128, K.PCT_SLOT_CAP, False, True),
+    (200, K.PCT_SLOT_CAP, True, True), (3, 100_000, True, True)])
+def test_dense_tile_fits_and_splits_the_batch(B, nb, sums, split):
+    """dense_tile: the table of qt queries x nbt buckets x C copies fits
+    the layout's table bytes; the batch (and past one query's table, the
+    buckets) splits only where the whole batch would not fit one copy
+    each; c3's and c5's B = 1 histograms keep all 32 copies. dense_chunks:
+    whole steps covering the rows once, about the resident CTAs in all, a
+    sum's flush within the layout's flush rows."""
+    lay = LAYOUT
+    word = 8 if sums else 4
+    qt, Cp, nbt = K.dense_tile(B, nb, sums, lay)
+    assert 1 <= qt <= B and 1 <= nbt <= nb and Cp in (1, 2, 4, 8, 16, 32)
+    assert qt * nbt * word * Cp <= lay.table_bytes
+    assert (qt < B or nbt < nb) == split == (B * nb * word > lay.table_bytes)
+    assert nbt == nb or nbt * word > lay.table_bytes - word
+    if B == 1 and nb <= 32:
+        assert Cp == lay.copies == 32
+    if Cp < lay.copies:
+        assert qt * nbt * word * Cp * 2 > lay.table_bytes
+    items = -(-B // qt) * -(-nb // nbt)
+    for T, resident in ((1000, 264), (10_027_008, 264), (10_027_008, 7),
+                        (2**31 - 1, 1056)):
+        n_rc, chunk, flush = K.dense_chunks(T, items, resident, sums, lay)
+        assert chunk % lay.step == 0 and flush % lay.step == 0
+        assert (n_rc - 1) * chunk < T <= n_rc * chunk
+        assert flush <= chunk and (not sums or flush <= lay.flush_rows)
+        assert items * n_rc <= max(resident, items) + items
+
+
+@pytest.mark.parametrize("case", ["c3", "counts", "negative", "split",
+                                  "bucket-tiles", "tail"])
+def test_dense_buckets_tiles_emulated_exactly(case):
+    """The kernel's arithmetic over its own tiles == exact (the plain
+    version): every (query, bucket, row) counted once across query tiles,
+    bucket tiles, row chunks and flush windows, whatever the resident
+    CTAs; a table budget cut so that the batch and the buckets split."""
+    rng = np.random.default_rng(len(case))
+    T, B, nb, resident, lay = 20_000, 3, 31, 5, LAYOUT
+    if case == "split":
+        B, nb = 40, 300
+        lay = lay._replace(table_bytes=16384)
+    if case == "bucket-tiles":
+        nb = 700
+        lay = lay._replace(table_bytes=1024)
+    if case == "tail":
+        T, resident = 4 * lay.step + 13, 264
+    bid = _bids(rng, T, -2, nb + 3)
+    mask = rng.random((B, T)) < 0.6
+    payload = {"c3": rng.integers(0, 10_000, T),
+               "negative": rng.integers(-2**15, 2**15, T)}.get(
+        case, rng.integers(I32_MIN, I32_MAX, T, endpoint=True))
+    payload = payload.astype(np.int32)
+    if case == "counts":
+        payload = None
+    got = _emulate_dense_buckets(mask, bid, nb, payload, resident, lay)
+    want = K.dense_buckets_plain(_t(mask), _t(bid), nb,
+                                 None if payload is None else _t(payload))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("v", [I32_MIN, I32_MAX])
+def test_dense_buckets_pieces_hold_a_full_flush(v):
+    """The 32-bit piece counters hold the layout's flush rows of a payload
+    extreme (INT32_MIN / INT32_MAX) in one bucket and one copy over three
+    flush windows; one window twice as long wraps them."""
+    lay = LAYOUT._replace(copies=1)
+    T = 2 * lay.flush_rows + lay.step
+    bid = np.zeros(T, np.int32)
+    mask = np.ones((1, T), bool)
+    payload = np.full(T, v, np.int32)
+    got = _emulate_dense_buckets(mask, bid, 1, payload, 1, lay)
+    assert got.tolist() == [[v * T]]
+    long = lay._replace(flush_rows=2 * lay.flush_rows)
+    assert _emulate_dense_buckets(mask, bid, 1, payload, 1,
+                                  long)[0, 0] != v * T
 
 
 def test_npieces_for_bound_matches_jax():

@@ -755,6 +755,38 @@ def test_kernel_wrappers_refuse_bad_operands():
                                                        dtype=torch.int8))
     with pytest.raises(ValueError):  # non-contiguous operand
         K.gather_rows(idx, torch.zeros(16, 4, dtype=torch.int8).t())
+    bid = torch.zeros(128, dtype=torch.int32)
+    for bad in ((m.to(torch.int32), bid, 3),  # mask dtype
+                (m, bid.to(torch.int64), 3),  # bucket-id dtype
+                (m, bid[:64], 3),  # rows
+                (m, torch.zeros(128, 2, dtype=torch.int32)[:, 0], 3),
+                (m, bid, 0),  # no bucket
+                (m, bid, 3, bid[:64]),  # payload rows
+                (m, bid, 3, bid.to(torch.int64))):  # payload dtype
+        with pytest.raises(ValueError):
+            K.dense_buckets(*bad)
+    with pytest.raises(ValueError, match="device"):
+        K.dense_buckets(m, bid.to("meta"), 3)
+
+
+def test_dense_buckets_runs_a_shared_mask_once(monkeypatch):
+    """As fused_metrics: the shared-row logic sits before the device
+    routing, so the plain version (on the card, the kernel) sees the one
+    row, and the result is that row broadcast."""
+    seen = []
+    plain = K.dense_buckets_plain
+
+    def spy(mask, *a):
+        seen.append(tuple(mask.shape))
+        return plain(mask, *a)
+
+    monkeypatch.setattr(K, "dense_buckets_plain", spy)
+    mask = torch.ones(1, 128, dtype=torch.bool).expand(7, -1)
+    bid = torch.arange(128, dtype=torch.int32) % 5 - 1
+    got = K.dense_buckets(mask, bid, 3, torch.arange(128, dtype=torch.int32))
+    assert seen == [(1, 128)] and got.shape == (7, 3)
+    want = [sum(r for r in range(128) if r % 5 - 1 == j) for j in range(3)]
+    assert got.tolist() == [want] * 7
 
 
 # ---------------------------------------------------------------------------
