@@ -1,16 +1,11 @@
-"""Mean of an integer field's values: the exact sum over the count, one
-rounding to f64; with the sum and the count beside it."""
+"""Mean of a numeric field's values, with the exact sum and the count
+beside it: for an integer field the exact sum over the count, rounded
+once to f64; for an f64 field the rounded sum over the count in f64;
+None where there is no value."""
 
-from fractions import Fraction
+PARTS = ("count", "sum")
 
 
-def evaluate(ref, args, w):
-    field = args["field"]
-    if ref.col(field)["type"] == "f64":
-        raise NotImplementedError("the reference averages integer fields "
-                                  "only")
-    rw = ref.row_weights(field, w)
-    s = ref.weighted_sum(field, rw)
-    n = int(rw.sum())
-    return {"value": None if n == 0 else float(Fraction(s) / n),
-            "sum": s, "count": n}
+def fruit(ref, field, p):
+    return {"value": ref.mean(field, p["sum"], p["count"]),
+            "sum": p["sum"], "count": p["count"]}

@@ -1,28 +1,26 @@
-"""Fixed-interval histogram of an integer field: key index
-floor((v - offset) / interval) per value, non-empty buckets only, keys
-ascending, the bucket key offset + index * interval; doc_count counts
-value occurrences (by weight), and the sub-aggs see a doc once per
-occurrence in the bucket."""
+"""Fixed-interval histogram of a numeric field: key index
+floor((v - offset) / interval) per value in exact arithmetic
+(Reference.bucket_keys), non-empty buckets only, keys ascending, the
+bucket key offset + index * interval (Reference.bucket_key); doc_count
+counts value occurrences (by weight), and the sub-aggs see a doc once
+per occurrence in the bucket."""
 
 import numpy as np
 
 
 def evaluate(ref, args, w):
     field = args["field"]
-    if ref.col(field)["type"] == "f64":
-        raise NotImplementedError("the reference buckets integer fields "
-                                  "only")
-    interval, offset = int(args["interval"]), int(args.get("offset", 0))
+    interval, offset = args["interval"], args.get("offset", 0)
     rw = ref.row_weights(field, w)
     live = rw > 0
-    keys = ref.bucket_keys(field, interval, offset)
+    keys = ref.bucket_keys(field, interval, offset, live)
     lk = keys[live]
     if lk.size == 0:
         return {"buckets": []}
     k0 = int(lk.min())
     counts = ref.counts(lk - k0, rw[live], int(lk.max()) - k0 + 1)
     present = np.nonzero(counts)[0].tolist()
-    buckets = [{"key": offset + (k0 + j) * interval,
+    buckets = [{"key": ref.bucket_key(field, interval, offset, k0 + j),
                 "doc_count": int(counts[j])} for j in present]
     subs = args.get("aggs", {})
     if subs:

@@ -1,9 +1,9 @@
-"""Exact sum of an integer field's values (every value of a multi-valued
-one), each as often as its doc's weight."""
+"""Sum of a numeric field's values (every value of a multi-valued one),
+each as often as its doc's weight: exact, a Python int for an integer
+field, rounded once to the nearest f64 for an f64 field."""
+
+PARTS = ("sum",)
 
 
-def evaluate(ref, args, w):
-    field = args["field"]
-    if ref.col(field)["type"] == "f64":
-        raise NotImplementedError("the reference sums integer fields only")
-    return {"value": ref.weighted_sum(field, ref.row_weights(field, w))}
+def fruit(ref, field, p):
+    return {"value": p["sum"]}

@@ -13,7 +13,8 @@ def evaluate(ref, args, w):
         raise NotImplementedError("the reference orders terms by count")
     c = ref.col(field)
     if "codes" not in c:
-        raise NotImplementedError("the reference groups keyword fields only")
+        raise NotImplementedError("the reference groups keyword fields "
+                                  "only: terms over numeric fields are out")
     size = int(args.get("size", 10))
     counts = ref.counts(c["codes"], ref.row_weights(field, w),
                         len(c["terms"]))

@@ -15,8 +15,8 @@ def mask(ref, args):
     if c["type"] != "f64":
         for b in (lower, upper):
             if b is not None and int(b) != b:
-                raise NotImplementedError("fractional bounds on an integer "
-                                          "field")
+                raise NotImplementedError("fractional bounds on integer "
+                                          "ranges are out")
     if lower is not None:
         lb = v.dtype.type(lower)
         hit &= (v >= lb) if args.get("include_lower", True) else (v > lb)
