@@ -51,7 +51,13 @@ Modes:
   root or a filter, and the count and metric subs directly under it, run
   as the dense_buckets kernel (p["dense_mm"]: ops/reductions.py
   dense_bucket_*_mm, `dense_mxu`) over the static bucket plane and the
-  payloads at its rows, each a resident contiguous int32 plane.
+  payloads at its rows, each a resident contiguous int32 plane. An f64
+  histogram's buckets span its column's [min, max], except where that
+  passes MAX_HIST_NB buckets and the root query bounds the field by a
+  range: they then span the range (`_range_layout`), whose bounds
+  select the program in the searcher, and the bucket plane is built on
+  the device and held by the program alone (`_range_bucket_ids`). The
+  JAX package answers such a shape on its host path.
 - high-cardinality root-level terms / histograms ("prefix"): bucket-sorted
   OrderedLayout scanned by the chain_blocks kernel (chain mask evaluated
   in-kernel, per-32-row-block counts + int64 payload sums), then per-bucket
@@ -143,6 +149,8 @@ products' operands are built on the device at each plan.
 
 from __future__ import annotations
 
+import math
+import types
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -161,8 +169,8 @@ from ..parallel import shard as SH
 from ..query import compile as qc
 from ..query import ir as Q
 from ..schema import FieldType
-from ..utils import exact, mono as mono_mod, prep_cache as PC
-from ..utils.stats import counters, span
+from ..utils import exact as _exact, mono as mono_mod, prep_cache as PC
+from ..utils.stats import counters, lap, span
 
 MAX_TERMS_CARD = 1 << 27
 MAX_HIST_NB = 1 << 20  # f64 bucket-layout bound (host boundary list is O(nb))
@@ -173,6 +181,25 @@ MAX_HIST_NB_HOST = 1 << 24  # columns spanning more buckets than this are
 GROUP = 128
 #: rows per chain_slot_counts block (the slot_rank selection window)
 SLOT_GROUP = 32
+
+
+def _f64_spanned(fn):
+    """`fn` of utils/exact.py, lapped `tat.f64_exact` (a lap, not a
+    profiler span: each call takes a few us)."""
+    def spanned(*args):
+        with lap("tat.f64_exact"):
+            return fn(*args)
+    return spanned
+
+
+#: utils/exact.py as this module reads it, with the harvest's exact f64
+#: work lapped `tat.f64_exact`: a sum put together from its limb planes
+#: and rounded once, and a bucket key rounded (the harvest is a copy of
+#: the JAX package's and keeps its text)
+exact = types.SimpleNamespace(**{
+    **vars(_exact),
+    "f64_reconstruct_sum": _f64_spanned(_exact.f64_reconstruct_sum),
+    "f64_histogram_key": _f64_spanned(_exact.f64_histogram_key)})
 
 
 def _wrap64(x: int) -> int:
@@ -669,6 +696,92 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# f64 histograms laid out over the request's range
+# ---------------------------------------------------------------------------
+
+def _f64_nb(lo_m: int, hi_m: int, node) -> int:
+    """Buckets of an f64 histogram over the values of mono [lo_m, hi_m]
+    (what exact.f64_histogram_buckets would lay out, without building it)."""
+    iv, off = Fraction(float(node.interval)), Fraction(float(node.offset))
+    lo = Fraction(mono_mod.scalar_from_mono("f64", lo_m))
+    hi = Fraction(mono_mod.scalar_from_mono("f64", hi_m))
+    return int((hi - off) // iv - (lo - off) // iv) + 1
+
+
+def _range_bounds(query, col):
+    """(lo_m, hi_m): the inclusive mono bounds that the root query's ranges
+    on `col`'s f64 field (a root RangeQuery, or RangeQuery clauses among a
+    root BooleanQuery's must) put on every matching doc's value, clipped
+    to the column's [min_mono, max_mono]; the column's least value alone
+    where they match nothing (no doc then reaches a bucket); None where
+    the root query bounds no value of the field. The bounds are
+    normalized as the query's params are (`qc._extract`)."""
+    clauses = ((query,) if isinstance(query, Q.RangeQuery) else
+               query.must if isinstance(query, Q.BooleanQuery) else ())
+    ranges = [c for c in clauses
+              if isinstance(c, Q.RangeQuery) and c.field == col.name]
+    if not ranges:
+        return None
+    lo_m, hi_m = col.min_mono, col.max_mono
+    for q in ranges:
+        if any(b is not None and math.isnan(float(b))
+               for b in (q.lower, q.upper)):
+            return col.min_mono, col.min_mono
+        if q.lower is not None:
+            lo_m = max(lo_m, qc._zero_bound(FieldType.F64, q.lower, True,
+                                            q.include_lower)
+                       + (0 if q.include_lower else 1))
+        if q.upper is not None:
+            hi_m = min(hi_m, qc._zero_bound(FieldType.F64, q.upper, False,
+                                            q.include_upper)
+                       - (0 if q.include_upper else 1))
+    return (lo_m, hi_m) if lo_m <= hi_m else (col.min_mono, col.min_mono)
+
+
+def _range_layout(query, col, node):
+    """The mono span [lo_m, hi_m] an f64 histogram `node` over `col` is
+    laid out on in place of the column's, or None for the column's: only
+    where the column's span passes MAX_HIST_NB buckets and the root query
+    bounds the field by a range. Only such a doc reaches any bucket, and a
+    single-valued doc holds that one value, so buckets outside the range
+    are never live and the layout stays exact."""
+    if (node.calendar or col.ftype != FieldType.F64 or col.multi
+            or col.n_values == 0
+            or _f64_nb(col.min_mono, col.max_mono, node) <= MAX_HIST_NB):
+        return None
+    return _range_bounds(query, col)
+
+
+def range_layout_fields(dindex, query, aggs) -> tuple:
+    """The fields of the request's f64 histograms that are laid out over
+    its range (`_range_layout`): their bounds select the program, so the
+    searcher keys the shape's programs by them. Empty for every shape whose
+    histograms all take the column's span."""
+    out = set()
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+            return
+        if isinstance(node, A.HistogramAgg) and dindex.schema.field(
+                node.field).type == FieldType.F64 and _range_layout(
+                    query, dindex.column(node.field), node) is not None:
+            out.add(node.field)
+        for _, sub in getattr(node, "sub_aggs", ()):
+            walk(sub)
+
+    walk(aggs)
+    return tuple(sorted(out))
+
+
+def range_layout_key(dindex, query, fields) -> tuple:
+    """The range bounds of `fields` (range_layout_fields) in this request,
+    which select its program among its shape's (the layouts read them)."""
+    return tuple(_range_bounds(query, dindex.column(f)) for f in fields)
 
 
 class Program:
@@ -2203,18 +2316,27 @@ class Program:
                     "rbounds": np.asarray(rb, np.int64),
                     "keys": np.asarray(keys, np.int64)}
         if col.ftype == FieldType.F64:
-            lo = mono_mod.scalar_from_mono("f64", col.min_mono)
-            hi = mono_mod.scalar_from_mono("f64", col.max_mono)
-            k_min, bounds_mono = exact.f64_histogram_buckets(
-                lo, hi, float(node.interval), float(node.offset))
-            nb = len(bounds_mono) + 1
+            span_m = _range_layout(self.query, col, node)
+            lo_m, hi_m = span_m or (col.min_mono, col.max_mono)
+            nb = _f64_nb(lo_m, hi_m, node)
             if nb > MAX_HIST_NB:
                 raise NotImplementedError(
-                    f"f64 histogram would span {nb} buckets on device")
+                    f"f64 histogram would span {nb} buckets on device"
+                    if span_m is None else
+                    f"f64 histogram would span {nb} buckets on device "
+                    f"over its query's range on {node.field!r}")
+            k_min, bounds_mono = exact.f64_histogram_buckets(
+                mono_mod.scalar_from_mono("f64", lo_m),
+                mono_mod.scalar_from_mono("f64", hi_m),
+                float(node.interval), float(node.offset))
             rb = [_wrap64((int(b) - col.min_mono) - 2**63)
                   for b in bounds_mono]
-            return {"hmode": "bounds", "k_min": k_min, "nb": nb,
-                    "rbounds": np.asarray(rb, np.int64)}
+            out = {"hmode": "bounds", "k_min": k_min, "nb": nb,
+                   "rbounds": np.asarray(rb, np.int64)}
+            if span_m is not None:
+                out["range"] = span_m
+                counters["hist_range_layouts"] += 1
+            return out
         iv, off = int(node.interval), int(node.offset)
         lo_u = col.min_user()
         hi_u = mono_mod.scalar_from_mono(col.ftype.value, col.max_mono)
@@ -2605,6 +2727,15 @@ class Program:
                 "composite bucket slot space exceeds 2^31 on device")
         bid_key = (f"{node.field}:bid:cal:{node.calendar}" if node.calendar
                    else f"{node.field}:bid:{node.interval}:{node.offset}")
+        # a range layout's bucket plane is the program's own, so that it
+        # goes when the searcher drops the program: the cube, prefix and
+        # slot_rank percentile paths, which cache per layout on the index,
+        # are not taken
+        ranged = "range" in p
+        if ranged and _has_pct_sub(node):
+            raise NotImplementedError(
+                "percentiles under an f64 histogram laid out over its "
+                "query's range")
         hb = {}
 
         def bid_host():
@@ -2614,7 +2745,7 @@ class Program:
 
         self.plan[path] = p
         if tflat * nb <= self.dense_nb and not in_slot and not col.multi \
-                and self._plan_cube_bucket(
+                and not ranged and self._plan_cube_bucket(
                     node, p, path, sig="h:" + bid_key, chain=chain, nb=nb,
                     bid_host=bid_host, sub_hdims=hdims + (nb,),
                     sub_tflat=tflat * nb,
@@ -2623,7 +2754,7 @@ class Program:
             return
         budget = self._dense_budget(node)
         if tflat * nb > budget and not in_slot and not col.multi \
-                and self._sub_kinds_ok(node):
+                and not ranged and self._sub_kinds_ok(node):
             p["mode"] = "prefix"
             layout = col.layout_for_ids(bid_key, bid_host, nb)
             self._plan_prefix(node, p, layout, f"HL:{bid_key}#", chain,
@@ -2632,7 +2763,8 @@ class Program:
         self._reads_root = True
         p["mode"] = "dense" if tflat * nb <= budget else "scatter"
         self._slot_rows(p, col, in_slot)
-        bid = col.bucket_id_plane(bid_key, bid_host)
+        bid = (self._range_bucket_ids(col, p) if ranged
+               else col.bucket_id_plane(bid_key, bid_host))
         self._need(bid_key, bid)
         if col.multi:
             self._need_col_planes(col)
@@ -2642,7 +2774,7 @@ class Program:
                 bid_key, col.plane("doc") if col.multi else None)
         sub_bchain = (bchain + (("hist", node.field, dict(p)),)
                       if bchain is not None and p["mode"] == "dense"
-                      and not col.multi else None)
+                      and not col.multi and not ranged else None)
         self._plan_children(node, p, col, path, in_slot=in_slot,
                             hdims=hdims + (nb,),
                             tflat=tflat * nb, chain=chain,
@@ -2650,6 +2782,20 @@ class Program:
                             parent_single=parent_single,
                             sbid=([p["dense_mm"]] if p.get("dense_mm")
                                   else None))
+
+    @staticmethod
+    def _range_bucket_ids(col, p) -> torch.Tensor:
+        """_host_bucket_ids of a "bounds" layout, on the device: the rows'
+        mono offsets rm = w - 2^63 from the column's w plane (narrow) or
+        its (hi, lo) pair, against the layout's bounds. int32 [R]."""
+        if col.narrow:
+            rm = col.plane("w").to(torch.int64) + torch.iinfo(torch.int64).min
+        else:
+            rm = (col.plane("hi").to(torch.int64) * 2**32
+                  + (col.plane("lo").to(torch.int64) + 2**31))
+        rb = torch.as_tensor(p["rbounds"], dtype=torch.int64,
+                             device=rm.device)
+        return torch.searchsorted(rb, rm, right=True, out_int32=True)
 
     def _plan_terms(self, node, path, *, in_slot, hdims, tflat, chain,
                     bchain, parent_single):

@@ -44,6 +44,13 @@ class EngineConfig:
     #: per-query row pass (bench c7's lever); off, the chain runs the
     #: chain_blocks kernel over the bucket layout
     use_member_ops: bool = True
+    #: answer a request that has no device lowering (or whose set-query
+    #: runs exceed its program's slots) on the exact host path; off, the
+    #: searcher raises NotImplementedError with the planner's reason
+    #: instead, for a deployment whose every answer has to come from the
+    #: device (the host path is orders of magnitude slower on large
+    #: indexes). Port-only: the JAX package always falls back
+    host_fallback: bool = True
 
     def validate(self) -> "EngineConfig":
         if self.dense_nb < 1:

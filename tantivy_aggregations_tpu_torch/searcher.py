@@ -18,7 +18,9 @@ NotImplementedError) answers through the exact host path
 (`_HostFallback` over the index's oracle), with one warning on the
 package logger, and so does a request whose set-query runs exceed its
 program's run slots; the program stays cached for the requests of its
-shape that fit. Nothing else falls back: a kernel that fails raises.
+shape that fit. Under `EngineConfig(host_fallback=False)` such a request
+raises NotImplementedError instead. Nothing else falls back: a kernel
+that fails raises.
 
 `agg_search_batch` and the `agg_search_stream` generator dispatch a
 group, stage its packed fruits' copy to the host (Program.stage: a
@@ -58,6 +60,21 @@ def _copy_fruits(v):
     return v
 
 
+class _RangePrograms:
+    """The program cache's entry of a shape whose f64 histograms are laid
+    out over its query's range (aggs/compile.py `_range_layout`): the
+    histograms' fields, and the shape's programs by the range's bounds,
+    insertion-ordered, the Searcher's newest `_max_range_programs` of
+    them. Each such program holds its own bucket plane, which goes with
+    it."""
+
+    __slots__ = ("fields", "programs")
+
+    def __init__(self, fields):
+        self.fields = fields
+        self.programs = {}
+
+
 class _HostFallback:
     """Exact host execution for the rare agg-tree shapes the device planner
     cannot lower yet (SURVEY.md §2.1: the spec defines semantics for every
@@ -92,8 +109,13 @@ class Searcher:
         self.last_stats = None
         self._device_index = None
         self._device_epoch = None
-        self._programs = {}  # insertion-ordered; pruned LRU-style
+        #: shape key -> its Program (or _HostFallback), or its
+        #: _RangePrograms; insertion-ordered, pruned LRU-style
+        self._programs = {}
         self._max_programs = 256
+        #: the programs a _RangePrograms keeps (each holds an int32 bucket
+        #: plane of one row per doc)
+        self._max_range_programs = 4
         self._program_was_cached = False
         self._overflow_fb = None  # host path for set-query run overflow
 
@@ -121,14 +143,34 @@ class Searcher:
         with span("tat.plan"):
             prog = self._lookup(query, aggs)
         if isinstance(prog, _HostFallback):
+            if not self.config.host_fallback:
+                raise NotImplementedError(
+                    f"no device path for this request ({prog.reason}), and "
+                    "EngineConfig.host_fallback is off")
             counters["host_fallbacks"] += 1
         return prog
 
     def _lookup(self, query, aggs):
-        from .aggs.compile import Program, get_program
+        from .aggs.compile import (Program, get_program, range_layout_fields,
+                                   range_layout_key)
         dindex = self._get_device_index()
         key = (query_ir.structural_key(query), agg_ir.structural_key(aggs))
-        prog = self._programs.pop(key, None)  # re-inserted: LRU refresh
+        entry = self._programs.pop(key, None)  # re-inserted: LRU refresh
+        if entry is None:
+            # an f64 histogram laid out over its query's range (a column
+            # too wide for the device) reads the range's bounds at plan
+            # time: such a shape keeps a program per bounds
+            with span("tat.build"):  # it loads the histograms' columns
+                fields = range_layout_fields(dindex, query, aggs)
+            if fields:
+                entry = _RangePrograms(fields)
+        progs = bounds = None
+        if isinstance(entry, _RangePrograms):
+            self._programs[key] = entry
+            progs = entry.programs
+            bounds = range_layout_key(dindex, query, entry.fields)
+            entry = progs.pop(bounds, None)
+        prog = entry
         self._program_was_cached = prog is not None
         if prog is None:
             if not Program.accepts_on(dindex, query, aggs):
@@ -141,13 +183,22 @@ class Searcher:
                 counters["programs_planned"] += 1
             except NotImplementedError as e:
                 from .utils.stats import log
-                log.warning("agg tree has no device lowering (%s); "
-                            "running the exact host path", e)
+                if self.config.host_fallback:
+                    log.warning("agg tree has no device lowering (%s); "
+                                "running the exact host path", e)
                 prog = _HostFallback(self.index.oracle_searcher(), str(e))
-        self._programs[key] = prog
+        if progs is None:
+            self._programs[key] = prog
+        else:
+            progs[bounds] = prog
+            while len(progs) > self._max_range_programs:
+                progs.pop(next(iter(progs)))
+                counters["programs_evicted"] += 1
         while len(self._programs) > self._max_programs:
-            self._programs.pop(next(iter(self._programs)))
-            counters["programs_evicted"] += 1
+            gone = self._programs.pop(next(iter(self._programs)))
+            counters["programs_evicted"] += (
+                len(gone.programs) if isinstance(gone, _RangePrograms)
+                else 1)
         if (not isinstance(prog, _HostFallback)
                 and not prog.accepts(query, aggs)):
             # same shape, but THIS request's set-query expansion exceeds
@@ -158,8 +209,9 @@ class Searcher:
 
     def _overflow(self):
         from .utils.stats import log
-        log.warning("set query expansion exceeds the program's run "
-                    "slots; running the exact host path")
+        if self.config.host_fallback:
+            log.warning("set query expansion exceeds the program's run "
+                        "slots; running the exact host path")
         if self._overflow_fb is None:
             self._overflow_fb = _HostFallback(
                 self.index.oracle_searcher(), "set-query run overflow")

@@ -11,6 +11,8 @@ structured logging.
   one flag test. Spans are on while a `trace(log_dir)` block is open,
   and inside the requests of a searcher whose `EngineConfig.collect_stats`
   is set (`root`).
+- `lap(name)`: a span that only laps into the span table, with no
+  profiler record (`tat.f64_exact`: many calls of a few us each).
 - `root(name, collect, ...)`: the span that one request (`tat.request`)
   or one msearch group (`tat.group` at submit, `tat.collect` at collect)
   nests under; its args carry the serial (and a group's rows, distinct
@@ -20,9 +22,9 @@ structured logging.
 - `span_table()` / `reset_spans()`: count and total ns of every span
   name, summed over the threads, since the last reset.
 - `counters`: always-on counts of requests, groups, group rows, plans,
-  evictions, host fallbacks and graph captures, replays and drops (one
-  dict increment at each site, as ops/kernels.py's `launches`);
-  `reset_counters()`.
+  evictions, host fallbacks, graph captures, replays and drops, and
+  range-bounded histogram layouts (one dict increment at each site, as
+  ops/kernels.py's `launches`); `reset_counters()`.
 - `QueryStats`: one agg_search's wall-time split, read from its spans
   (`QueryStats.from_spans`).
 - `trace(log_dir)`: context manager around `torch.profiler.profile` (the
@@ -80,12 +82,14 @@ def reset_prep() -> None:
 #: requests (`group_rows`), the distinct rows the device groups ran after
 #: dedup (`distinct_rows`) and the rows their power-of-two padding added
 #: (`padded_rows`), programs planned and dropped by a searcher's LRU,
-#: requests routed to the exact host path, and the step graphs captured,
-#: replayed and dropped for the graph memory budget
+#: requests routed to the exact host path, the step graphs captured,
+#: replayed and dropped for the graph memory budget, and the f64
+#: histograms that planning laid out over their query's range rather than
+#: over their column's span (aggs/compile.py `_range_layout`)
 counters = {"requests": 0, "groups": 0, "group_rows": 0, "distinct_rows": 0,
             "padded_rows": 0, "programs_planned": 0, "programs_evicted": 0,
             "host_fallbacks": 0, "graph_captures": 0, "graph_replays": 0,
-            "graph_drops": 0}
+            "graph_drops": 0, "hist_range_layouts": 0}
 
 
 def reset_counters() -> None:
@@ -185,6 +189,17 @@ class _Span:
         return False
 
 
+class _Lap(_Span):
+    """A span without its profiler record (`lap`)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        self.rf = None
+        self.t0 = time.perf_counter_ns()
+        return self
+
+
 class _Root(_Span):
     __slots__ = ("collect", "serial", "fields")
 
@@ -220,6 +235,16 @@ def span(name: str, args: Optional[str] = None):
     if not _on:
         return _OFF
     return _Span(name, args)
+
+
+def lap(name: str):
+    """span() without the profiler's record_function: only the
+    perf_counter_ns lap into the thread's span table, for work done in
+    many calls of a few us each, where a record_function (several us
+    under a profiler session) would outweigh the work it times."""
+    if not _on:
+        return _OFF
+    return _Lap(name, None)
 
 
 def root(name: str, collect: bool = False, serial: Optional[int] = None,

@@ -119,7 +119,12 @@ def plan_modes(plan) -> dict:
 def assert_plan_parity(jax_s, port_s, jq, jaggs, pq, paggs):
     """The port plans (pq, paggs) as the JAX package plans (jq, jaggs):
     the host path in both, or device Programs with equal modes per node.
-    Returns "host" or "device"."""
+    Returns "host" or "device". One divergence is on purpose and is not
+    held here: an f64 histogram whose column spans more than MAX_HIST_NB
+    buckets, under a range on its own field, plans on the device in the
+    port (laid out over the range, aggs/compile.py `_range_layout`) and
+    on the host path in the JAX package; its answers are held `==` the
+    oracle and the JAX package in tests/test_torch_hist_range_layout.py."""
     from tantivy_aggregations_tpu.searcher import _HostFallback as JaxFb
     jp = jax_s._program_for(jq, jaggs)
     pp = port_s._program_for(pq, paggs)

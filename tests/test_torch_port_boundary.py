@@ -104,13 +104,15 @@ def test_copied_host_path_matches_jax_originals():
 def test_engine_config_keeps_the_serving_knobs():
     """The port keeps the JAX EngineConfig's serving knobs and its cube,
     dense-product and member-op switches with the same defaults (all on),
-    and drops the Pallas knobs (TPU-only)."""
+    and drops the Pallas knobs (TPU-only). Its one knob of its own,
+    host_fallback, defaults to the JAX package's behaviour (on)."""
     port = {f.name: f.default for f in fields(EngineConfig)}
     jax_cfg = {f.name: f.default for f in fields(JaxConfig)}
     assert set(port) == {"dense_nb", "collect_stats", "max_batch",
                          "msearch_dedup", "dense_mxu", "use_cube",
-                         "use_member_ops"}
+                         "use_member_ops", "host_fallback"}
     assert port["dense_mxu"] and port["use_cube"] and port["use_member_ops"]
+    assert port.pop("host_fallback") is True
     assert all(jax_cfg[k] == v for k, v in port.items())
     assert inspect.getsource(EngineConfig.validate) == \
         inspect.getsource(JaxConfig.validate)
