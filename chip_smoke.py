@@ -78,6 +78,13 @@ value-domain cube and the dense reductions on).
    (product_bound: bytes at 3.35 TB/s or tensor operations at the int8 /
    bf16 dense peak; kernel_bound for dense_buckets); for c8 the cube
    product on a row-major operand;
+4e. dense_extremes against its plain version (phase_extremes), exact ==,
+   on the nyc_taxis cell's distance histogram (41,353,216 rows, 50
+   buckets, made from SEED) at B = 1 and 128, on its first 2^22 rows at
+   B = 3, 31, 33 and 200, and at its edges (4096 and 100,000 buckets,
+   int32 extremes, sorted ids, T % 4 != 0, one extreme alone), timed on
+   the nyc shape beside the two int64 scatter_reduce_ passes it replaced
+   (library_ms);
 5. the main path of each slice (c1-c5, then c6-c9, then c10, in row
    modes; then "default": c1-c10 at the default config, msearch timed 3
    times but c6 once; then "nomop": c7 at use_member_ops=False, timed 3
@@ -244,7 +251,16 @@ REPLACES = {
     "gather_rows": "tantivy_aggregations_tpu/ops/pallas_kernels.py:527",
     "dense_buckets":
         "tantivy_aggregations_tpu/ops/reductions.py:242 and :258 (products)",
+    "dense_extremes":
+        "tantivy_aggregations_tpu/ops/reductions.py:327 and :338 (XLA "
+        "reductions)",
 }
+#: the nyc_taxis cell's distance histogram (PERF.md §4): its rows (41,336,673
+#: trips, padded as the loader pads them), its docs and buckets, the shape
+#: phase 4e times dense_extremes on
+NYC_ROWS, NYC_DOCS, NYC_NB = 41_353_216, 41_336_673, 50
+#: rows of phase 4e's operands at the batch sizes past the nyc shape's
+EXTREME_ROWS = 1 << 22
 #: the card's peak rates for kernel_bound: HBM3 of an H100 SXM (NVIDIA's
 #: data sheet), and int32 ALU ops — 132 SMs x 64 INT32 lanes at the 1.98 GHz
 #: boost clock
@@ -329,8 +345,9 @@ TENSOR_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 #: path must launch, and the requests whose dedup-off group is profiled
 MULTI_PATHS = (
     ("multi", "bench", ("mv1", "mv2", "mv3", "mv5", "mv6", "mv7"),
-     ("fused_metrics", "chain_blocks", "chain_counts", "chain_slot_counts"),
-     ("block_counts",), ("mv1", "mv3", "mv7")),
+     ("fused_metrics", "chain_blocks", "chain_counts", "chain_slot_counts",
+      "dense_extremes"),
+     ("block_counts", "dense_bucket_extremes_mm"), ("mv1", "mv3", "mv7")),
     ("tags", "tags", ("t1", "t2", "t3"),
      ("fused_metrics", "chain_counts", "dense_buckets"),
      ("dense_bucket_counts_mm", "dense_bucket_sum_mm"), ("t1", "t2")),
@@ -594,7 +611,9 @@ def multi_requests(tt, name: str, k: int):
     if name == "mv3":
         return (amt, {"t": tt.terms_agg("weights", size=10, sub_aggs={
                           "s": tt.sum_agg("amount")}),
-                      "h": tt.histogram_agg("weights", interval=100)})
+                      "h": tt.histogram_agg("weights", interval=100,
+                                            sub_aggs={"st": tt.stats_agg(
+                                                "price")})})
     if name == "mv4":
         return (amt, {"t": tt.terms_agg("weights", size=10, sub_aggs={
             "p": tt.percentiles_agg("price", pct)})})
@@ -955,8 +974,17 @@ def kernel_bound(torch, qc, name, args, out):
     params (the kernel skips empty slots). gather_rows reads each distinct picked row
     once and writes B rows. dense_buckets reads each mask row (a stride-0
     mask as one), the bucket ids and the payload once and counts no ALU op
-    (its adds are shared-memory atomics, one per selected row and piece)."""
-    if name == "dense_buckets":
+    (its adds are shared-memory atomics, one per selected row and piece);
+    dense_extremes the same, each distinct payload plane once."""
+    if name == "dense_extremes":
+        mask, bid = args[:2]
+        rows = 1 if mask.stride(0) == 0 else mask.shape[0]
+        planes = {t.data_ptr(): t for ps in args[3:] if ps is not None
+                  for t in ps}
+        ins = rows * mask.shape[1] * mask.element_size() + _nbytes(
+            (bid, *planes.values()))
+        ops = 0
+    elif name == "dense_buckets":
         mask, bid = args[:2]
         rows = 1 if mask.stride(0) == 0 else mask.shape[0]
         ins = rows * mask.shape[1] * mask.element_size() + _nbytes(
@@ -1671,6 +1699,193 @@ def phase_dense(torch, K, records, label, B, args, lib=None):
         rec.update({k + sfx: one[k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "label")})
+
+
+def nyc_extreme_operands(torch, T: int, seed: int):
+    """The nyc_taxis cell's distance_amount_agg operands over T rows, made
+    from `seed` as perfbench/data/nyc_taxis.py draws the trips, on the
+    card: the range-laid-out bucket plane (distances lognormal, median 1.7
+    mi, 1% zeros, 0.1% past the range; floor(d) where 0 <= d < 50, else -1,
+    and -1 past the docs), its range mask [1, T], total_amount's wide (hi,
+    lo) planes (amounts lognormal, median $11.80, 0.05% refunds, split from
+    their order-preserving int64) and a second pair a little above it (a
+    max plane beside a min plane), and the amounts in cents as a narrow
+    int32 plane."""
+    from tantivy_aggregations_tpu_torch.ops.cube import split_rm
+    from tantivy_aggregations_tpu_torch.utils.mono import f64_to_mono
+    rng = np.random.default_rng(seed)
+    docs = min(T, NYC_DOCS)
+    d = np.round(rng.lognormal(np.log(1.7), 0.9, T), 2)
+    d[rng.random(T) < 0.01] = 0.0
+    d[rng.random(T) < 0.001] = 75.0
+    bid = np.where(d < 50.0, np.floor(d), -1).astype(np.int32)
+    bid[docs:] = -1
+    a = np.round(rng.lognormal(np.log(11.8), 0.6, T), 2)
+    a[rng.random(T) < 0.0005] *= -1
+    dev = torch.device(DEVICE)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    wide = tuple(map(put, split_rm(f64_to_mono(a))))
+    wide_hi = tuple(map(put, split_rm(f64_to_mono(
+        a + np.round(rng.random(T) * 5, 2)))))
+    return {"bid": put(bid), "mask": put(bid >= 0)[None], "wide": wide,
+            "wide_max": wide_hi,
+            "narrow": put(np.round(a * 100).astype(np.int32))}
+
+
+def phase_extremes(torch, K, R, records) -> None:
+    """[4e] dense_extremes against its plain version (dense_bucket_min /
+    dense_bucket_max over wide_recon), exact ==: on the nyc_taxis cell's
+    distance histogram over its NYC_ROWS rows (nyc_extreme_operands: 50
+    buckets; stats of a wide and of a narrow payload, a min and a max
+    plane of their own) at B = 1 and 128 (distinct masks, and the range
+    mask shared at batch stride 0); on the plane's first EXTREME_ROWS rows
+    at B = 3, 31, 33 and 200; at its edges: 4096 buckets at B = 200 (the
+    query tiles) and 100,000 at B = 3 (the bucket tiles), one bucket under
+    full masks over pairs and values at INT32_MIN / INT32_MAX, sorted ids,
+    T % 4 != 0, a min or a max alone. At B = 1 and 128 on the nyc shape,
+    the CUDA-event median ms, the torch.profiler device ms, the plain
+    version's ms, the bound (kernel_bound) and, at B = 1, `library_ms`:
+    the two int64 scatter_reduce_ passes (amin, amax) the port ran before,
+    on their prebuilt index and value planes. Adds the kernel's record to
+    `records`."""
+    say("[4e] dense_extremes vs its plain version (exact ==)")
+    rec = records.setdefault("dense_extremes", {
+        "name": "dense_extremes", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["dense_extremes"], "launches": 0,
+        "max_abs_err": 0})
+    t0 = time.time()
+    nyc = nyc_extreme_operands(torch, NYC_ROWS, SEED)
+    torch.cuda.synchronize()
+    say(f"  nyc operands: {NYC_ROWS} rows, {NYC_NB} buckets, made in "
+        f"{time.time() - t0:.1f}s")
+    bid, mask = nyc["bid"], nyc["mask"]
+    T = bid.shape[0]
+    dev = bid.device
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def masks(B, rows, p):
+        """B random masks of `rows` rows, each row selected with
+        probability p, drawn on the card a few queries at a time."""
+        out = torch.empty(B, rows, dtype=torch.bool, device=dev)
+        step = max(1, (1 << 28) // rows)
+        for b0 in range(0, B, step):
+            b1 = min(B, b0 + step)
+            out[b0:b1] = torch.rand((b1 - b0, rows), generator=gen,
+                                    device=dev) < p
+        return out
+
+    def case(label, args, timed=False, lib=None):
+        kern = lambda: K.dense_extremes(*args)  # noqa: E731
+        plain = lambda: K.dense_extremes_plain(*args)  # noqa: E731
+        t1 = time.time()
+        got = kern()
+        torch.cuda.synchronize()
+        err = _check_equal(torch, "dense_extremes", label, got, plain())
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        B = args[0].shape[0]
+        if not timed:
+            say(f"  dense_extremes    {label:32s} B={B:<4d} == plain "
+                f"({time.time() - t1:.1f}s)")
+            return
+        ms = _cuda_ms(torch, kern, 30 if B == 1 else 10)
+        dev_ms = _device_ms(torch, kern)
+        plain_ms = _cuda_ms(torch, plain, 3 if B == 1 else 1)
+        lib_ms = None if lib is None else _cuda_ms(torch, lib, 10)
+        bound_ms, bound_by = kernel_bound(torch, None, "dense_extremes",
+                                          args, _outputs(got))
+        say(f"  dense_extremes    {label:32s} B={B:<4d} kernel {ms:.4f} ms  "
+            f"device {dev_ms} ms  plain {plain_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})"
+            + ("" if lib_ms is None else
+               f"  scatter_reduce_ amin + amax {lib_ms:.4f} ms")
+            + f"  max_abs_err {err}")
+        one = {"label": label, "B": B, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms}
+        rec.setdefault("variants", []).append(one)
+        sfx = "" if B == 1 else "_b128"
+        if "ms" + sfx not in rec:
+            rec.update({k + sfx: one[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "label")})
+
+    # the parent's path at B = 1 (library_ms): its two int64 scatters over
+    # their prebuilt flat index and value planes
+    idx, ok = R._bucket_index(bid, mask, NYC_NB, slice(0, 1))
+    rm = R.wide_recon(*nyc["wide"])
+    vmin = torch.where(ok, rm, R.I64_MAX).reshape(-1)
+    vmax = torch.where(ok, rm, R.I64_MIN).reshape(-1)
+    outs = torch.empty(2, NYC_NB, dtype=torch.int64, device=dev)
+
+    def scatters():
+        outs[0].fill_(R.I64_MAX).scatter_reduce_(0, idx, vmin, "amin")
+        outs[1].fill_(R.I64_MIN).scatter_reduce_(0, idx, vmax, "amax")
+    wide, narrow = nyc["wide"], (nyc["narrow"],)
+    case("nyc stats wide", (mask, bid, NYC_NB, wide, wide), timed=True,
+         lib=scatters)
+    scatters()
+    check(torch.equal(outs[0], K.dense_extremes(mask, bid, NYC_NB,
+                                                wide)[0][0])
+          and torch.equal(outs[1], K.dense_extremes(mask, bid, NYC_NB, None,
+                                                    wide)[1][0]),
+          "dense_extremes on the nyc shape != the two scatter_reduce_ passes")
+    del scatters, idx, ok, rm, vmin, vmax, outs
+    case("nyc stats narrow", (mask, bid, NYC_NB, narrow, narrow),
+         timed=True)
+    case("nyc min and max planes wide",
+         (mask, bid, NYC_NB, wide, nyc["wide_max"]), timed=True)
+    case("nyc stats wide shared mask",
+         (mask.expand(128, T), bid, NYC_NB, wide, wide))
+    m128 = masks(128, T, 0.5) & mask
+    case("nyc stats wide distinct masks", (m128, bid, NYC_NB, wide, wide),
+         timed=True)
+    del m128
+    # the batch sizes past them, on the plane's first rows
+    n = EXTREME_ROWS
+    sb, sw = bid[:n], tuple(t[:n] for t in wide)
+    sn = (nyc["narrow"][:n],)
+    for B in (3, 31, 33, 200):
+        mb = masks(B, n, 0.6)
+        case(f"{n} rows wide", (mb, sb, NYC_NB, sw, sw))
+        case(f"{n} rows narrow min and max planes",
+             (mb, sb, NYC_NB, sn, (nyc["narrow"][n:2 * n],)))
+    # the query tiles (4096 buckets, 200 distinct masks) and the bucket
+    # tiles (100,000 buckets)
+    for nbig, B in ((4096, 200), (100_000, 3)):
+        ids = torch.from_numpy(rng.integers(-1, nbig + 1, n).astype(
+            np.int32)).to(dev)
+        mb = masks(B, n, 0.5)
+        case(f"{nbig} buckets wide", (mb, ids, nbig, sw, sw))
+        case(f"{nbig} buckets narrow", (mb, ids, nbig, sn, sn))
+    del ids, mb
+    # one bucket under full masks: pairs and values at the int32 extremes
+    one = torch.zeros(n, dtype=torch.int32, device=dev)
+    full = torch.ones(2, n, dtype=torch.bool, device=dev)
+    ext = torch.from_numpy(rng.choice(np.array([I32_MIN, I32_MIN + 1, -1, 0,
+                                                I32_MAX - 1, I32_MAX],
+                                               np.int32), (2, n))).to(dev)
+    case("one bucket int32 extremes wide", (full, one, 1, tuple(ext),
+                                            tuple(ext)))
+    case("one bucket int32 extremes narrow", (full, one, 1, (ext[0],),
+                                              (ext[1],)))
+    del one, full, ext
+    # sorted ids (every lane of a warp on one bucket), T % 4 != 0, one
+    # extreme alone
+    srt = torch.sort(sb).values
+    case("sorted ids", (mask[:, :n], srt, NYC_NB, sw, sw))
+    odd = n - 3
+    m17 = masks(17, odd, 0.5)
+    case("T%4=1", (m17, sb[:odd].contiguous(), NYC_NB,
+                   tuple(t[:odd].contiguous() for t in sw),
+                   tuple(t[:odd].contiguous() for t in sw)))
+    case("min alone", (mask[:, :n], sb, NYC_NB, sw, None))
+    case("max alone", (mask[:, :n], sb, NYC_NB, None, sn))
+    del srt, m17, nyc, sb, sw, sn
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def phase_products(torch, K, C, R, qc, row, dflt, flagship, kernel_records):
@@ -2503,6 +2718,8 @@ def graph_kernel_nodes(K, graph, tmp):
             counts["gather_rows"] += 1
         elif "dense_buckets_kernel" in nd:
             counts["dense_buckets"] += 1
+        elif "dense_extremes_kernel" in nd:
+            counts["dense_extremes"] += 1
     return counts, len(nodes)
 
 
@@ -3982,6 +4199,9 @@ def main_paths(torch, tt, EngineConfig, flagship, args, t_run, lap, phases,
     products = phase_products(torch, K, C, R, qc, searcher, dflt, flagship,
                               records)
     lap("products", t0)
+    t0 = time.time()
+    phase_extremes(torch, K, R, records)
+    lap("extremes", t0)
     oracle = idx.oracle_searcher()
     counts = dict.fromkeys(_counters(K, C, R), 0)
     by_path = {}

@@ -3090,15 +3090,35 @@ class Program:
                                               op=arrays.get(key))
             return torch.stack([msum(pl) for pl in planes], dim=-1)
 
-        def mmin(plane, m):
-            if slot:
-                return R.dense_bucket_min(ctx.bid, m, plane, ctx.nslots)
-            return R.masked_min_i32(plane, m)
-
-        def mmax(plane, m):
-            if slot:
-                return R.dense_bucket_max(ctx.bid, m, plane, ctx.nslots)
-            return R.masked_max_i32(plane, m)
+        def extremes(planes_of, m):
+            """The node's "min" / "max" of the payload `planes_of(which)`
+            (`(w,)`, or a wide `(hi, lo)`) under mask m: over a static
+            bucket plane (ctx.mm) both in one dense_extremes launch, else
+            one reduction each."""
+            if slot and ctx.mm is not None:
+                mn, mx = R.dense_bucket_extremes_mm(
+                    ctx.bid, m, ctx.nslots,
+                    planes_of("min") if need_min else None,
+                    planes_of("max") if need_max else None)
+                return {k: v for k, v in (("min", mn), ("max", mx))
+                        if v is not None}
+            res = {}
+            for which, need in (("min", need_min), ("max", need_max)):
+                if not need:
+                    continue
+                ps = planes_of(which)
+                is_min = which == "min"
+                if slot:
+                    red = R.dense_bucket_min if is_min else R.dense_bucket_max
+                    v = ps[0] if len(ps) == 1 else R.wide_recon(*ps)
+                    res[which] = red(ctx.bid, m, v, ctx.nslots)
+                elif len(ps) == 1:
+                    red = R.masked_min_i32 if is_min else R.masked_max_i32
+                    res[which] = red(ps[0], m)
+                else:
+                    red = R.masked_min_wide if is_min else R.masked_max_wide
+                    res[which] = red(*ps, m)
+            return res
 
         def limb_sums():
             if dense:
@@ -3121,22 +3141,11 @@ class Program:
             out["cnt"] = sums[..., 0]
             if need_sum:
                 out["sum"] = sums[..., 1:]
-            mm = valid & (cnt_doc > 0)
-            for which, need, red in (("min", need_min, mmin),
-                                     ("max", need_max, mmax)):
-                if not need:
-                    continue
-                if col.narrow:
-                    out[which] = red(get(pre + which + "A"), mm)
-                elif slot:
-                    v = R.wide_recon(get(pre + which + "A"),
-                                     get(pre + which + "B"))
-                    out[which] = red(v, mm)
-                else:
-                    wide = (R.masked_min_wide if which == "min"
-                            else R.masked_max_wide)
-                    out[which] = wide(arrays[pre + which + "A"],
-                                      arrays[pre + which + "B"], mm)
+            if need_min or need_max:
+                parts = "A" if col.narrow else "AB"
+                out.update(extremes(
+                    lambda which: tuple(get(pre + which + x) for x in parts),
+                    valid & (cnt_doc > 0)))
             return out
 
         if p.get("fused"):
@@ -3156,24 +3165,10 @@ class Program:
 
         out["cnt"] = self._slot_counts(ctx, arrays) if slot else ctx.count()
         if need_min or need_max:
-            if col.narrow:
-                v = get(f"{field}:w")
-                if need_min:
-                    out["min"] = mmin(v, valid)
-                if need_max:
-                    out["max"] = mmax(v, valid)
-            elif slot:
-                v = R.wide_recon(get(f"{field}:hi"), get(f"{field}:lo"))
-                if need_min:
-                    out["min"] = mmin(v, valid)
-                if need_max:
-                    out["max"] = mmax(v, valid)
-            else:
-                hi, lo = arrays[f"{field}:hi"], arrays[f"{field}:lo"]
-                if need_min:
-                    out["min"] = R.masked_min_wide(hi, lo, valid)
-                if need_max:
-                    out["max"] = R.masked_max_wide(hi, lo, valid)
+            # one payload for both extremes
+            ps = tuple(get(f"{field}:{x}") for x in
+                       (("w",) if col.narrow else ("hi", "lo")))
+            out.update(extremes(lambda which: ps, valid))
         if need_sum:
             if p["direct"]:
                 out["sum"] = (dsum(dmm["sums"][0]) if dense

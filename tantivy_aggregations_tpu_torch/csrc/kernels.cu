@@ -26,6 +26,11 @@
 //    the one-hot products of the JAX package's ops/reductions.py
 //    dense_bucket_counts_mxu / dense_bucket_sum_mxu. A tile kernel and a
 //    fold.
+// 7. dense_extremes: per query of a mask [B, T] of bytes, the exact min
+//    and / or max of a static payload (an int32 plane or a wide (hi, lo)
+//    pair) over the selected rows in each bucket of a static int32
+//    bucket-id plane. Replaces the JAX package's ops/reductions.py
+//    dense_bucket_min / dense_bucket_max. A tile kernel and a fold.
 //
 // fused_metrics, dense_buckets and every chain kernel read each plane once
 // per BATCH (per query tile for dense_buckets), not per query (the point of
@@ -1123,6 +1128,209 @@ dense_buckets_fold(const long long* __restrict__ part, int n_rc,
   if (lane == 0) out[i] = s;
 }
 
+// dense_extremes: per query b of a [B, T] byte mask and bucket j of a
+// static int32 bucket-id plane bid [T] (ids outside [0, nb) match nothing),
+// the exact min and / or max of a static payload over the rows whose mask
+// byte is nonzero: an int32 plane (int32 out, I32_MAX / I32_MIN for an
+// empty bucket) or a wide (hi, lo) pair (int64 out in the rm domain,
+// hi * 2^32 + (lo + 2^31), I64_MAX / I64_MIN for an empty bucket). The min
+// and the max may read different payloads (a multi-valued field's per-doc
+// min and max planes). Replaces the JAX package's ops/reductions.py
+// dense_bucket_min / dense_bucket_max (:327, :338), XLA one-hot
+// reductions with no Pallas kernel; the port ran them as two int64
+// scatter_reduce_ passes whose atomics serialize on the few buckets.
+//
+// Bound on the H100: HBM bytes, the bid plane and the payload planes read
+// once per query tile and each mask row once (a 41.3M-row wide payload at
+// B = 1: 165 MB of ids, 41 MB of mask, 330 MB of (hi, lo): 0.160 ms at
+// 3.35 TB/s).
+//
+// Design: dense_buckets' streaming pass (same items, warp steps, db_rows /
+// db_mask loads and C-way privatized table), with a table of 64-bit
+// extremes. Each payload value becomes an order-preserving unsigned key
+// once per warp step (a wide pair: its rm value with the sign bit flipped;
+// a narrow value: its bits with the sign bit flipped), kept in registers
+// for all the tile's queries. A selected row reads its copy's current
+// extreme and only where the key improves on it issues Hopper's native
+// 64-bit shared atomicMin / atomicMax, so after the first rows of a chunk
+// almost no row costs an atomic. An item folds its table once, at the end
+// of its chunk (extremes cannot overflow), by shuffles within each group
+// of C lanes, into a scratch [ne, B, nb, n_rc] of keys; a second launch
+// folds each output's n_rc keys, a warp each, and writes it in the
+// payload's domain. No global atomics, no float: exact and deterministic.
+// The wrapper (ops/kernels.py extremes_tile, dense_chunks) sets qt, C, nbt
+// and the chunks as for dense_buckets, with 8 bytes per extreme a bucket.
+constexpr unsigned long long DE_MIN_NONE = ~0ull;  // a min's identity key
+constexpr unsigned long long DE_SIGN = 1ull << 63;
+
+// The key of each of the lane's 16 rows of a warp step (as db_rows lays
+// them out) from payload a (narrow) or the pair (a, b) = (hi, lo) (wide).
+template <bool WIDE>
+__device__ __forceinline__ void de_keys(
+    unsigned long long (&key)[DB_GROUPS * 4], const int* a, const int* b,
+    long long s, long long end, int lane, bool vec) {
+  int4 x[DB_GROUPS], y[DB_GROUPS];
+  if (WIDE)
+    db_rows<true>(x, y, a, b, s, end, lane, vec);
+  else
+    db_rows<false>(x, y, a, nullptr, s, end, lane, vec);
+#pragma unroll
+  for (int k = 0; k < DB_GROUPS; ++k) {
+    const int xs[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+    const int ys[4] = {y[k].x, y[k].y, y[k].z, y[k].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned long long lo =
+          static_cast<unsigned>(WIDE ? ys[i] : xs[i]) ^ 0x80000000u;
+      key[k * 4 + i] =
+          WIDE ? (static_cast<unsigned long long>(
+                      static_cast<unsigned>(xs[i]) ^ 0x80000000u)
+                  << 32) | lo
+               : lo;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned long long de_pick(bool is_min,
+                                                      unsigned long long a,
+                                                      unsigned long long b) {
+  return is_min ? (b < a ? b : a) : (b > a ? b : a);
+}
+
+// Fold the table's nq x ne x nj entries (ne extremes: the min's first
+// where asked) into the item's keys in `part` [ne, B, nb, n_rc]: a group of
+// C lanes per entry, lane c reading copy c, folded by shuffles within the
+// group (the trip count is the CTA's, so every lane reaches every shuffle).
+__device__ __forceinline__ void de_fold(const unsigned long long* tab,
+                                        int nq, int ne, int nj, int C,
+                                        bool do_min, int q0, int j0, int B,
+                                        int nb, int rc, int n_rc,
+                                        unsigned long long* part) {
+  const int c = threadIdx.x & (C - 1);
+  const int groups = DB_THREADS / C;
+  const int n = nq * ne * nj;
+  for (int e0 = 0; e0 < n; e0 += groups) {
+    const int e = e0 + static_cast<int>(threadIdx.x) / C;
+    const int q = e / (ne * nj), r = e - q * ne * nj;
+    const int x = r / nj, j = r - x * nj;
+    const bool is_min = do_min && x == 0;
+    unsigned long long s = is_min ? DE_MIN_NONE : 0ull;
+    if (e < n) s = tab[static_cast<long long>(e) * C + c];
+    for (int off = C / 2; off > 0; off >>= 1)
+      s = de_pick(is_min, s, __shfl_xor_sync(FULL, s, off));
+    if (e < n && c == 0)
+      part[((static_cast<long long>(x) * B + q0 + q) * nb + j0 + j) * n_rc +
+           rc] = s;
+  }
+}
+
+// One item per CTA, as dense_buckets_kernel's: item = (rc x n_bt + bt) x
+// n_qt + qi. Payloads: (a0, b0) for every extreme asked, or with SEP (a0,
+// b0) for the min and (a1, b1) for the max; b0, b1 null unless WIDE.
+template <bool WIDE, bool SEP>
+__global__ void __launch_bounds__(DB_THREADS, 2)
+dense_extremes_kernel(const int* __restrict__ bid,
+                      const int* __restrict__ a0, const int* __restrict__ b0,
+                      const int* __restrict__ a1, const int* __restrict__ b1,
+                      const unsigned char* __restrict__ mask, long long T,
+                      int B, int nb, int qt, int C, int nbt, int n_qt,
+                      int n_bt, long long chunk, bool vec, bool do_min,
+                      bool do_max, unsigned long long* __restrict__ part) {
+  extern __shared__ unsigned long long de_tab[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x % n_qt;
+  const int bt = (blockIdx.x / n_qt) % n_bt;
+  const int rc = blockIdx.x / (n_qt * n_bt);
+  const int n_rc = gridDim.x / (n_qt * n_bt);
+  const int q0 = qi * qt, nq = min(qt, B - q0);
+  const int j0 = bt * nbt, nj = min(nbt, nb - j0);
+  const long long r0 = rc * chunk;
+  const long long r1 = min(T, r0 + chunk);
+  const int ne = static_cast<int>(do_min) + static_cast<int>(do_max);
+  // a query's entries: the min's nj x C words (where asked), the max's
+  const int min_words = do_min ? nj * C : 0;
+  const int per_q = ne * nj * C;
+  for (int i = threadIdx.x; i < nq * per_q; i += DB_THREADS)
+    de_tab[i] = i % per_q < min_words ? DE_MIN_NONE : 0ull;
+  __syncthreads();
+  const int cls = lane & (C - 1);
+  const unsigned nju = static_cast<unsigned>(nj);
+  const unsigned j0u = static_cast<unsigned>(j0);
+  for (long long s = r0 + warp * DB_WARP_ROWS; s < r1; s += DB_STEP) {
+    int4 b[DB_GROUPS], unused[DB_GROUPS];
+    db_rows<false>(b, unused, bid, nullptr, s, r1, lane, vec);
+    unsigned long long k0[DB_GROUPS * 4], k1[DB_GROUPS * 4];
+    de_keys<WIDE>(k0, a0, b0, s, r1, lane, vec);
+    if (SEP) de_keys<WIDE>(k1, a1, b1, s, r1, lane, vec);
+    unsigned m[DB_GROUPS], mn[DB_GROUPS];
+    db_mask(m, mask + static_cast<long long>(q0) * T, s, r1, lane, vec);
+    for (int q = 0; q < nq; ++q) {
+      if (q + 1 < nq)
+        db_mask(mn, mask + static_cast<long long>(q0 + q + 1) * T, s, r1,
+                lane, vec);
+      unsigned long long* t = de_tab + q * per_q + cls;
+#pragma unroll
+      for (int k = 0; k < DB_GROUPS; ++k) {
+        const int ids[4] = {b[k].x, b[k].y, b[k].z, b[k].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // ids below j0 (and -1) wrap past nj
+          const unsigned id = static_cast<unsigned>(ids[i]) - j0u;
+          if (((m[k] >> (8 * i)) & 0xffu) != 0u && id < nju) {
+            unsigned long long* w = t + id * C;
+            if (do_min) {
+              const unsigned long long v = k0[k * 4 + i];
+              if (v < *reinterpret_cast<volatile unsigned long long*>(w))
+                atomicMin(w, v);
+            }
+            if (do_max) {
+              const unsigned long long v =
+                  SEP ? k1[k * 4 + i] : k0[k * 4 + i];
+              unsigned long long* x = w + min_words;
+              if (v > *reinterpret_cast<volatile unsigned long long*>(x))
+                atomicMax(x, v);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < DB_GROUPS; ++k) m[k] = mn[k];
+    }
+  }
+  __syncthreads();
+  de_fold(de_tab, nq, ne, nj, C, do_min, q0, j0, B, nb, rc, n_rc, part);
+}
+
+// One warp per output (extreme x, query, bucket): its n_rc keys folded and
+// written in the payload's domain (WIDE: int64 rm, else int32).
+template <bool WIDE>
+__global__ void __launch_bounds__(DB_THREADS)
+dense_extremes_fold(const unsigned long long* __restrict__ part, int n_rc,
+                    long long n_out, int ne, bool do_min,
+                    void* __restrict__ out_min, void* __restrict__ out_max) {
+  const int lane = threadIdx.x & 31;
+  const long long g =
+      static_cast<long long>(blockIdx.x) * DB_WARPS + (threadIdx.x >> 5);
+  if (g >= ne * n_out) return;  // the whole warp
+  const int x = static_cast<int>(g / n_out);
+  const long long i = g - x * n_out;
+  const bool is_min = do_min && x == 0;
+  unsigned long long s = is_min ? DE_MIN_NONE : 0ull;
+  for (int r = lane; r < n_rc; r += 32)
+    s = de_pick(is_min, s, part[g * n_rc + r]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = de_pick(is_min, s, __shfl_xor_sync(FULL, s, off));
+  if (lane != 0) return;
+  void* out = is_min ? out_min : out_max;
+  if (WIDE)
+    static_cast<long long*>(out)[i] = static_cast<long long>(s ^ DE_SIGN);
+  else
+    static_cast<int*>(out)[i] =
+        static_cast<int>(static_cast<unsigned>(s) ^ 0x80000000u);
+}
+
 int grid_for(long long work, int per_block, int cap) {
   long long g = (work + per_block - 1) / per_block;
   if (g > cap) g = cap;
@@ -1299,6 +1507,76 @@ int launch_dense(const unsigned char* mask, const int* bid, const int* pay,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dense_extremes' tile kernel (narrow or wide payload, one payload or a
+// min's and a max's) and the occupancy state of its launches
+using DeKernel = void (*)(const int*, const int*, const int*, const int*,
+                          const int*, const unsigned char*, long long, int,
+                          int, int, int, int, int, int, long long, bool, bool,
+                          bool, unsigned long long*);
+
+DeKernel de_kernel(bool wide, bool sep) {
+  if (wide)
+    return sep ? dense_extremes_kernel<true, true>
+               : dense_extremes_kernel<true, false>;
+  return sep ? dense_extremes_kernel<false, true>
+             : dense_extremes_kernel<false, false>;
+}
+
+int de_resident(bool wide, bool sep, int smem) {
+  static Occupancy occ[4];
+  return resident_ctas(occ[2 * wide + sep], de_kernel(wide, sep), DB_THREADS,
+                       smem);
+}
+
+// The tile kernel over the n_qt x n_bt x n_rc items, then the fold (a warp
+// per output). The shape comes from the wrapper and is checked here. The
+// payload is wide where b0 is given; the max reads (a1, b1) where a1 is
+// given (sep), else (a0, b0) as the min does.
+int launch_extremes(const unsigned char* mask, const int* bid, const int* a0,
+                    const int* b0, const int* a1, const int* b1, long long T,
+                    int B, int nb, int qt, int C, int nbt, int n_rc,
+                    long long chunk, bool vec, bool do_min, bool do_max,
+                    unsigned long long* part, void* out_min, void* out_max,
+                    cudaStream_t stream) {
+  const bool wide = b0 != nullptr, sep = a1 != nullptr;
+  const int ne = static_cast<int>(do_min) + static_cast<int>(do_max);
+  const long long smem = static_cast<long long>(qt) * nbt * ne * C * 8;
+  if (T < 1 || T > INT_MAX || B < 1 || nb < 1 || qt < 1 || qt > B ||
+      C < 1 || C > DB_COPIES || (C & (C - 1)) != 0 || nbt < 1 || nbt > nb ||
+      n_rc < 1 || chunk < DB_STEP || chunk % DB_STEP != 0 ||
+      (n_rc - 1) * chunk >= T || n_rc * chunk < T || smem > DB_TABLE_MAX ||
+      ne < 1 || a0 == nullptr || (sep && !(do_min && do_max)) ||
+      (sep && wide != (b1 != nullptr)) || (!sep && b1 != nullptr) ||
+      (do_min && out_min == nullptr) || (do_max && out_max == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_qt = (B + qt - 1) / qt, n_bt = (nb + nbt - 1) / nbt;
+  const long long grid = n_qt * n_bt * n_rc;
+  const long long n_out = static_cast<long long>(B) * nb;
+  const long long folds = (ne * n_out + DB_WARPS - 1) / DB_WARPS;
+  if (grid > INT_MAX || folds > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec) {
+    const int* planes[5] = {bid, a0, b0, a1, b1};
+    bool ok = T % 4 == 0 &&
+              reinterpret_cast<unsigned long long>(mask) % 4 == 0;
+    for (const int* p : planes)
+      ok = ok && reinterpret_cast<unsigned long long>(p) % 16 == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  de_resident(wide, sep, static_cast<int>(smem));  // raises the smem attribute
+  const DeKernel kern = de_kernel(wide, sep);
+  kern<<<static_cast<unsigned>(grid), DB_THREADS, static_cast<size_t>(smem),
+         stream>>>(bid, a0, b0, a1, b1, mask, T, B, nb, qt, C, nbt,
+                   static_cast<int>(n_qt), static_cast<int>(n_bt), chunk,
+                   vec, do_min, do_max, part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto fold = wide ? dense_extremes_fold<true> : dense_extremes_fold<false>;
+  fold<<<static_cast<unsigned>(folds), DB_THREADS, 0, stream>>>(
+      part, n_rc, n_out, ne, do_min, out_min, out_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1407,6 +1685,34 @@ int tat_dense_buckets(const void* mask, const void* bid, const void* pay,
                       static_cast<long long*>(part),
                       static_cast<long long*>(out),
                       static_cast<cudaStream_t>(stream));
+}
+
+// Resident CTAs of dense_extremes' tile kernel (a wide or narrow payload,
+// sep: a min's and a max's) at `smem` bytes of table on the current device.
+int tat_dense_extremes_resident(int wide, int sep, int smem) {
+  if (smem < 0 || smem > DB_TABLE_MAX) return 0;
+  return de_resident(wide != 0, sep != 0, smem);
+}
+
+// mask [B, T] bytes (rows T apart); bid [T] int32; a0 [T] int32 the payload
+// (wide: its hi plane, b0 its lo plane; narrow: b0 null); a1, b1 the max's
+// where it reads other planes than the min (both extremes asked), else
+// null; vec: T % 4 == 0, every plane 16-byte and mask 4-byte aligned;
+// part: ne * B * nb * n_rc 8-byte scratch (ne = do_min + do_max); out_min,
+// out_max [B, nb] (wide int64, else int32), null where not asked.
+int tat_dense_extremes(const void* mask, const void* bid, const void* a0,
+                       const void* b0, const void* a1, const void* b1,
+                       long long T, int B, int nb, int qt, int C, int nbt,
+                       int n_rc, long long chunk, int vec, int do_min,
+                       int do_max, void* part, void* out_min, void* out_max,
+                       void* stream) {
+  return launch_extremes(
+      static_cast<const unsigned char*>(mask), static_cast<const int*>(bid),
+      static_cast<const int*>(a0), static_cast<const int*>(b0),
+      static_cast<const int*>(a1), static_cast<const int*>(b1), T, B, nb, qt,
+      C, nbt, n_rc, chunk, vec != 0, do_min != 0, do_max != 0,
+      static_cast<unsigned long long*>(part), out_min, out_max,
+      static_cast<cudaStream_t>(stream));
 }
 
 int tat_gather_rows(const void* idx, int B, const void* op, long long n_rows,

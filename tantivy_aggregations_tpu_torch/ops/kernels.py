@@ -97,6 +97,20 @@ dense_buckets — replaces the one-hot products of the JAX package's
   msearch groups of 200 distinct masks and slot planes of PCT_SLOT_CAP
   buckets. The plain versions are ops/reductions.py dense_bucket_counts /
   dense_bucket_sum (`index_add_`).
+dense_extremes — replaces the JAX package's ops/reductions.py
+  `dense_bucket_min` / `dense_bucket_max` (XLA one-hot reductions, no
+  Pallas kernel), which the port ran as int64 `scatter_reduce_` passes.
+  Bound: HBM bytes, the bucket-id plane and the payload planes read once
+  per query tile and each mask row once. Design (written for Hopper): the
+  dense_buckets pass, with a table of 64-bit order-preserving keys (a wide
+  (hi, lo) pair's rm value, or a narrow value, with its sign bit flipped):
+  a selected row reads its copy's extreme and issues a 64-bit shared
+  atomicMin / atomicMax only where it improves on it; the min and the max
+  of one payload (or of a multi-valued field's min and max planes) in one
+  pass; the table folded once an item, a second launch folding the items.
+  `extremes_tile` / `dense_chunks` set the launch as for dense_buckets.
+  The plain versions are ops/reductions.py dense_bucket_min /
+  dense_bucket_max (over `wide_recon` for a wide pair).
 
 Every launch runs on its operands' device (`_on_device`: that device is
 made current for the launch where it is not, so a shard on cuda:1 launches
@@ -120,7 +134,8 @@ import numpy as np
 import torch
 
 from ..ops.reductions import (block32_counts, dense_bucket_counts,
-                              dense_bucket_sum, shared_row)
+                              dense_bucket_max, dense_bucket_min,
+                              dense_bucket_sum, shared_row, wide_recon)
 from ..query.compile import DOC_SPACE_OPS, OP_SET32, OP_WIDTH, eval_ops
 
 I32_MAX = 2**31 - 1
@@ -166,7 +181,8 @@ BUILD_DIR = _ROOT / "build" / "torch_kernels"
 #: kernel launches per kernel since the last reset_launches() (a graph
 #: replay credits those its capture enqueued)
 launches = {"fused_metrics": 0, "chain_blocks": 0, "chain_counts": 0,
-            "chain_slot_counts": 0, "gather_rows": 0, "dense_buckets": 0}
+            "chain_slot_counts": 0, "gather_rows": 0, "dense_buckets": 0,
+            "dense_extremes": 0}
 
 _lib = None
 
@@ -224,11 +240,16 @@ def _library():
         lib.tat_dense_buckets_resident.argtypes = [i, i]
         lib.tat_dense_buckets.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i,
                                           ll, ll, i, vp, vp, vp]
+        lib.tat_dense_extremes_resident.argtypes = [i, i, i]
+        lib.tat_dense_extremes.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
+                                           i, i, i, i, ll, i, i, i, vp, vp,
+                                           vp, vp]
         for fn in (lib.tat_fused_metrics, lib.tat_fused_metrics_grid,
                    lib.tat_chain_blocks,
                    lib.tat_chain_counts, lib.tat_chain_slot_counts,
                    lib.tat_gather_rows, lib.tat_dense_buckets_resident,
-                   lib.tat_dense_buckets):
+                   lib.tat_dense_buckets, lib.tat_dense_extremes_resident,
+                   lib.tat_dense_extremes):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -713,13 +734,24 @@ def dense_tile(B: int, nb: int, sums: bool, lay: DenseLayout):
     the layout's table bytes), the queries per tile (as many as fit one
     copy each), then the most copies C (a power of two up to the
     layout's) that fit them."""
-    word = 8 if sums else 4
+    return _tile(B, nb, 8 if sums else 4, lay)
+
+
+def _tile(B: int, nb: int, word: int, lay: DenseLayout):
+    """(qt, C, nbt) of a table of `word` bytes a (query, bucket, copy)."""
     nbt = min(nb, lay.table_bytes // word)
     qt = min(B, lay.table_bytes // (word * nbt))
     C = lay.copies
     while C > 1 and qt * nbt * word * C > lay.table_bytes:
         C //= 2
     return qt, C, nbt
+
+
+def extremes_tile(B: int, nb: int, ne: int, lay: DenseLayout):
+    """(qt, C, nbt) of a dense_extremes launch over B queries and nb
+    buckets with ne extremes (min, max or both): dense_tile's choice for a
+    64-bit word per extreme a bucket."""
+    return _tile(B, nb, 8 * ne, lay)
 
 
 def dense_chunks(T: int, items: int, resident: int, sums: bool,
@@ -804,6 +836,113 @@ def dense_buckets(mask, bid, nb: int, payload=None):
     _check_launch(name, rc)
     out = buf[:n_out].view(Bq, nb)
     return out if rep == 1 else out.expand(rep, nb)
+
+
+# ---------------------------------------------------------------------------
+# dense_extremes
+# ---------------------------------------------------------------------------
+
+def dense_extremes_plain(mask, bid, nb: int, min_planes=None,
+                         max_planes=None):
+    """(min, max) [B, nb] per bucket of the int32 bucket-id plane `bid`
+    (ids outside [0, nb) match nothing) over the rows whose mask byte is
+    nonzero, None where not asked: of an int32 plane (`(w,)`: int32, I32_MAX
+    / I32_MIN for an empty bucket) or of a wide pair (`(hi, lo)`: int64 in
+    the rm domain, I64_MAX / I64_MIN) — ops/reductions.py dense_bucket_min /
+    dense_bucket_max over `w` or `wide_recon(hi, lo)`."""
+    m = mask.to(torch.bool)
+
+    def red(planes, fn):
+        if planes is None:
+            return None
+        v = planes[0] if len(planes) == 1 else wide_recon(*planes)
+        return fn(bid, m, v, nb)
+    return red(min_planes, dense_bucket_min), red(max_planes,
+                                                  dense_bucket_max)
+
+
+@functools.lru_cache(maxsize=None)
+def _extremes_resident(dev: int, wide: bool, sep: bool, smem: int) -> int:
+    """Resident CTAs of dense_extremes' tile kernel on CUDA device `dev`."""
+    with torch.cuda.device(dev):
+        return _library().tat_dense_extremes_resident(int(wide), int(sep),
+                                                      smem)
+
+
+def dense_extremes(mask, bid, nb: int, min_planes=None, max_planes=None):
+    """mask: bool/int8/uint8 [B, T] (nonzero = selected), its rows T apart
+    or all one row (batch stride 0, as `expand` makes it); bid: int32 [T]
+    static bucket ids; min_planes, max_planes: None, or the static payload
+    of that extreme as a tuple of contiguous int32 [T] planes, `(w,)` or a
+    wide `(hi, lo)` (both of one width; the same planes or, for a
+    multi-valued field, its min's and its max's).
+    Returns dense_extremes_plain's (min, max). A stride-0 mask is run once,
+    at B = 1, and its rows are broadcast (`expand` views)."""
+    name = "dense_extremes"
+    asked = [p for p in (min_planes, max_planes) if p is not None]
+    _need(len(asked) > 0, name, "neither a min nor a max asked")
+    width = len(asked[0])
+    _need(width in (1, 2) and all(len(p) == width for p in asked), name,
+          lambda: f"payload widths {[len(p) for p in asked]}")
+    planes = [t for p in asked for t in p]
+    _need(mask.dim() == 2 and bid.dim() == 1
+          and mask.shape[1] == bid.shape[0]
+          and all(t.shape == bid.shape for t in planes), name,
+          lambda: f"shapes {tuple(mask.shape)} / {tuple(bid.shape)} / "
+          f"{[tuple(t.shape) for t in planes]}")
+    _need(mask.dtype in (torch.bool, torch.int8, torch.uint8), name,
+          lambda: f"mask dtype {mask.dtype}")
+    _need(bid.dtype is _I32 and all(t.dtype is _I32 for t in planes), name,
+          lambda: f"bid {bid.dtype}, payload {[t.dtype for t in planes]}")
+    _need(bid.is_contiguous() and all(t.is_contiguous() for t in planes),
+          name, "the bucket-id plane and the payload must be contiguous")
+    _need(nb >= 1, name, lambda: f"nb {nb}")
+    mask, rep = shared_row(mask)
+    if not _route(name, (mask, bid, *planes)):
+        out = dense_extremes_plain(mask, bid, nb, min_planes, max_planes)
+        return tuple(x if x is None or rep == 1 else x.expand(rep, nb)
+                     for x in out)
+    Bq, T = mask.shape
+    _need(0 < T <= I32_MAX and Bq > 0, name, lambda: f"shape {(Bq, T)}")
+    mask = mask.contiguous()
+    wide = width == 2
+    do_min, do_max = min_planes is not None, max_planes is not None
+    ne = len(asked)
+    # the max reads planes of its own only where they differ from the min's
+    sep = ne == 2 and any(a.data_ptr() != b.data_ptr()
+                          for a, b in zip(min_planes, max_planes))
+    p0 = [t.data_ptr() for t in asked[0]] + [0] * (2 - width)
+    p1 = ([t.data_ptr() for t in max_planes] + [0] * (2 - width) if sep
+          else [0, 0])
+    lay = _dense_layout()
+    qt, C, nbt = extremes_tile(Bq, nb, ne, lay)
+    dev = bid.get_device()
+    resident = _extremes_resident(dev, wide, sep, qt * nbt * 8 * ne * C)
+    n_rc, chunk, _ = dense_chunks(T, -(-Bq // qt) * -(-nb // nbt), resident,
+                                  False, lay)
+    vec = (T % 4 == 0 and mask.data_ptr() % 4 == 0
+           and all(p % 16 == 0 for p in (bid.data_ptr(), *p0, *p1)))
+    # one allocation: the outputs ([ne, Bq, nb], int64 or int32), then the
+    # items' keys [ne, Bq, nb, n_rc]
+    n_out = Bq * nb
+    buf = bid.new_empty(ne * n_out * (1 + n_rc), dtype=torch.int64)
+    base = buf.data_ptr()
+    obytes = 8 if wide else 4
+    outs = buf[:ne * n_out] if wide else buf[:ne * n_out].view(_I32)
+    with _on_device(dev):
+        rc = _library().tat_dense_extremes(
+            mask.data_ptr(), bid.data_ptr(), *p0, *p1, T, Bq, nb, qt, C,
+            nbt, n_rc, chunk, int(vec), int(do_min), int(do_max),
+            base + 8 * ne * n_out, base if do_min else 0,
+            base + obytes * n_out * do_min if do_max else 0, _stream(bid))
+        launches[name] += 1
+    _check_launch(name, rc)
+
+    def out(e):
+        o = outs[e * n_out:(e + 1) * n_out].view(Bq, nb)
+        return o if rep == 1 else o.expand(rep, nb)
+    return (out(0) if do_min else None,
+            out(int(do_min)) if do_max else None)
 
 
 def ops_tensor(ops: np.ndarray, device) -> torch.Tensor:

@@ -16,7 +16,9 @@ multi-valued field's value rows alike, so they also stand for the JAX
 package's scatter `slot_*` reductions. Over a STATIC bucket-id
 plane, counts and sums run as the dense_buckets kernel
 (`dense_bucket_counts_mm`, `dense_bucket_sum_mm` below; ops/kernels.py),
-of which the index_add_ functions are the plain versions.
+of which the index_add_ functions are the plain versions, and mins and
+maxes as the dense_extremes kernel (`dense_bucket_extremes_mm`), of which
+the scatter_reduce_ functions are.
 
 [B, rows]-sized int64 temporaries are built a few queries at a time
 (`_query_chunks`), so a 128-query group over 10M rows stays within a
@@ -314,9 +316,10 @@ _MM_STEP_ELEMS = 1 << 27
 #: calls since the last reset_mm_calls() (a graph replay credits those its
 #: capture enqueued: aggs/compile.py _StepGraph); each dense_bucket_*_mm
 #: call launches dense_buckets once, but a sum of a payload bounded to
-#: (0, 0), which is 0 and launches nothing
+#: (0, 0), which is 0 and launches nothing; each dense_bucket_extremes_mm
+#: call launches dense_extremes once
 mm_calls = {"dense_bucket_counts_mm": 0, "dense_bucket_sum_mm": 0,
-            "masked_sum_planes_mm": 0}
+            "masked_sum_planes_mm": 0, "dense_bucket_extremes_mm": 0}
 
 
 def reset_mm_calls() -> None:
@@ -441,6 +444,19 @@ def dense_bucket_sum_mm(bid, valid, plane, nb: int,
         return torch.zeros(valid.shape[0], nb, dtype=torch.int64,
                            device=valid.device)
     return kernels.dense_buckets(valid, bid, nb, plane)
+
+
+def dense_bucket_extremes_mm(bid, valid, nb: int, min_planes=None,
+                             max_planes=None):
+    """dense_bucket_min and / or dense_bucket_max over a static contiguous
+    int32 [rows] bid plane in one launch of the dense_extremes kernel (its
+    plain version for CPU tensors): `min_planes`, `max_planes` None or the
+    extreme's static payload, `(w,)` an int32 plane or `(hi, lo)` a wide
+    pair -> (min, max) [B, nb], int32 or int64 in the rm domain, None where
+    not asked (ops/kernels.py dense_extremes)."""
+    from . import kernels  # kernels imports this module
+    mm_calls["dense_bucket_extremes_mm"] += 1
+    return kernels.dense_extremes(valid, bid, nb, min_planes, max_planes)
 
 
 def _live_planes(planes, bounds):

@@ -145,7 +145,8 @@ def test_dense_products_row_tails_shared_masks_and_resident_ops(rows):
     chunk; a batch-stride-0 mask (one row, broadcast); the kernel wrapper
     == its plain version, counts and sums; the
     masked-sums product's plan-time resident operand and its per-chunk
-    build agree; every call counts once, a (0, 0)-bounded sum (zeros) too."""
+    build agree; the per-bucket min and max in one call; every call
+    counts once, a (0, 0)-bounded sum (zeros) too."""
     rng = np.random.default_rng(rows)
     nb, B = 11, 5
     bid = _t(rng.integers(-1, nb, rows).astype(np.int32))
@@ -167,6 +168,12 @@ def test_dense_products_row_tails_shared_masks_and_resident_ops(rows):
         assert torch.equal(R.dense_bucket_sum_mm(
             bid, mask, plane, nb, bound=(0, 0)), torch.zeros(B, nb,
                                                              dtype=torch.int64))
+        mn, mx = R.dense_bucket_extremes_mm(bid, mask, nb, (plane,),
+                                            (plane,))
+        assert torch.equal(mn, R.dense_bucket_min(bid, mask.contiguous(),
+                                                  plane, nb))
+        assert torch.equal(mx, R.dense_bucket_max(bid, mask.contiguous(),
+                                                  plane, nb))
         ps = [plane, bid]
         assert torch.equal(R.masked_sum_planes_mm(mask, ps),
                            R.masked_sum_planes(mask, ps))
@@ -175,7 +182,8 @@ def test_dense_products_row_tails_shared_masks_and_resident_ops(rows):
             R.masked_sum_planes(mask, ps))
     assert R.mm_calls == {"dense_bucket_counts_mm": 2,
                           "dense_bucket_sum_mm": 4,
-                          "masked_sum_planes_mm": 4}
+                          "masked_sum_planes_mm": 4,
+                          "dense_bucket_extremes_mm": 2}
 
 
 def test_dense_product_partial_bound_is_asserted(monkeypatch):
@@ -325,6 +333,230 @@ def test_dense_buckets_pieces_hold_a_full_flush(v):
     long = lay._replace(flush_rows=2 * lay.flush_rows)
     assert _emulate_dense_buckets(mask, bid, 1, payload, 1,
                                   long)[0, 0] != v * T
+
+
+# dense_extremes' tiles and arithmetic (the kernel runs on the card only;
+# chip_smoke.py holds it == its plain version there)
+
+#: the identity key of each extreme (an empty bucket's)
+KEY_NONE = {"min": np.uint64(2**64 - 1), "max": np.uint64(0)}
+
+
+def _keys(planes):
+    """The kernel's order-preserving unsigned keys of a payload: a narrow
+    plane's values, or a wide (hi, lo) pair's rm value, sign bit flipped."""
+    u = [np.asarray(p, np.int32).view(np.uint32) ^ np.uint32(0x80000000)
+         for p in planes]
+    if len(u) == 1:
+        return u[0].astype(np.uint64)
+    return (u[0].astype(np.uint64) << np.uint64(32)) | u[1].astype(np.uint64)
+
+
+def _from_keys(k, wide):
+    """Keys back to the output domain: int64 rm (wide) or int32."""
+    if wide:
+        return (k ^ np.uint64(2**63)).view(np.int64)
+    return ((k & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            ^ np.uint32(0x80000000)).view(np.int32)
+
+
+def _emulate_dense_extremes(mask, bid, nb, min_planes, max_planes,
+                            resident, lay=LAYOUT):
+    """The dense_extremes kernel's arithmetic in numpy over the tiles and
+    chunks its wrapper chooses under layout `lay`: per (item, query) a
+    table of 64-bit keys per (extreme, bucket, copy) starting at each
+    extreme's identity, lane l folding its rows into copy l % C (row r sits
+    on lane (r % 128) // 4); each item's table folded over its copies into
+    the [ne, B, nb, n_rc] scratch; the scratch folded over the row chunks
+    and written in the payload's domain. A batch-stride-0 torch `mask`
+    runs once, broadcast."""
+    shared = mask.shape[0] > 1 and mask.stride(0) == 0
+    m = (mask[:1] if shared else mask).numpy() != 0
+    B, T = m.shape
+    asked = [(w, ps) for w, ps in (("min", min_planes), ("max", max_planes))
+             if ps is not None]
+    ne, wide = len(asked), len(asked[0][1]) == 2
+    qt, Cp, nbt = K.extremes_tile(B, nb, ne, lay)
+    n_qt, n_bt = -(-B // qt), -(-nb // nbt)
+    n_rc, chunk, _ = K.dense_chunks(T, n_qt * n_bt, resident, False, lay)
+    assert qt * nbt * 8 * ne * Cp <= lay.table_bytes
+    assert (n_rc - 1) * chunk < T <= n_rc * chunk
+    copy = (np.arange(T) % 128) // 4 % Cp
+    keys = {w: _keys(ps) for w, ps in asked}
+    part = {w: np.empty((B, nb, n_rc), np.uint64) for w, _ in asked}
+    for rc in range(n_rc):
+        rows = slice(rc * chunk, min(T, (rc + 1) * chunk))
+        for bt in range(n_bt):
+            j0, nj = bt * nbt, min(nbt, nb - bt * nbt)
+            ids = bid[rows].astype(np.int64) - j0
+            hit = (ids >= 0) & (ids < nj)
+            for b in range(B):
+                sel = hit & m[b, rows]
+                for w, _ in asked:
+                    tab = np.full((nj, Cp), KEY_NONE[w])
+                    fold = np.minimum if w == "min" else np.maximum
+                    fold.at(tab, (ids[sel], copy[rows][sel]),
+                            keys[w][rows][sel])
+                    part[w][b, j0:j0 + nj, rc] = fold.reduce(tab, axis=1)
+    out = []
+    for w in ("min", "max"):
+        if w not in part:
+            out.append(None)
+            continue
+        fold = np.minimum if w == "min" else np.maximum
+        v = _from_keys(fold.reduce(part[w], axis=-1), wide)
+        out.append(np.broadcast_to(v, (mask.shape[0], nb)) if shared else v)
+    return out
+
+
+def _extreme_payload(rng, T, width):
+    """(w,) or (hi, lo) int32 planes holding INT32_MIN / INT32_MAX; a wide
+    pair's hi drawn from seven values, so that most rows of a bucket tie
+    on hi and lo decides."""
+    lo = rng.integers(I32_MIN, I32_MAX, T, endpoint=True)
+    lo[::7] = I32_MIN
+    lo[3::11] = I32_MAX
+    if width == 1:
+        return (lo.astype(np.int32),)
+    hi = rng.choice(np.array([I32_MIN, I32_MIN + 1, -1, 0, 1, I32_MAX - 1,
+                              I32_MAX]), T)
+    return hi.astype(np.int32), lo.astype(np.int32)
+
+
+#: case: (B, nb, payload width, the max's own planes, extremes asked,
+#: options: a table budget, a stride-0 mask, rows, resident CTAs)
+EXTREME_CASES = {
+    "narrow B=1 nb=50": (1, 50, 1, False, "both", {}),
+    "wide B=1 nb=50": (1, 50, 2, False, "both", {}),
+    "wide B=3 min and max planes": (3, 50, 2, True, "both", {}),
+    "narrow B=3 min and max planes": (3, 50, 1, True, "both", {}),
+    "wide B=128 nb=50": (128, 50, 2, False, "both", {}),
+    "wide B=128 stride-0 mask": (128, 50, 2, False, "both",
+                                 {"shared": True}),
+    "narrow B=128 nb=4096": (128, 4096, 1, False, "both", {}),
+    "wide B=3 nb=100000": (3, 100_000, 2, True, "both", {}),
+    "wide B=1 nb=1": (1, 1, 2, False, "both", {}),
+    "wide B=3 min only": (3, 50, 2, False, "min", {}),
+    "narrow B=3 max only": (3, 50, 1, False, "max", {}),
+    "wide split table": (40, 300, 2, True, "both", {"table": 16384}),
+    "narrow tail rows": (3, 50, 1, False, "both",
+                         {"rows": 4 * LAYOUT.step + 13, "resident": 264}),
+}
+
+
+@pytest.mark.parametrize("case", list(EXTREME_CASES))
+def test_dense_extremes_tiles_emulated_exactly(case):
+    """The kernel's arithmetic over its own tiles == the plain version
+    (dense_bucket_min / dense_bucket_max, over wide_recon for a pair):
+    every selected row folded once across query tiles, bucket tiles and
+    row chunks; empty buckets at the identities (I32_MAX / I32_MIN, I64_MAX
+    / I64_MIN), ids -2, -1 and >= nb matching nothing, INT32 extremes on hi
+    and on lo, ties on hi broken by lo, a min and a max of different
+    planes, one extreme alone, a stride-0 mask run once."""
+    B, nb, width, sep, asked, opt = EXTREME_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + B)
+    T = opt.get("rows", 20_000)
+    lay = LAYOUT._replace(table_bytes=opt.get("table", LAYOUT.table_bytes))
+    # ids from -2, past nb and at the int32 extremes; past 3 buckets the
+    # last 3 stay empty
+    bid = _bids(rng, T, -2, max(1, nb - 3))
+    bid[rng.integers(0, T, 16)] = nb
+    mask = _t(rng.random((1 if opt.get("shared") else B, T)) < 0.6)
+    if opt.get("shared"):
+        mask = mask.expand(B, T)
+    ps = _extreme_payload(rng, T, width)
+    mn = ps if asked != "max" else None
+    mx = (_extreme_payload(rng, T, width) if sep else ps) \
+        if asked != "min" else None
+    got = _emulate_dense_extremes(mask, bid, nb, mn, mx,
+                                  opt.get("resident", 5), lay)
+    want = K.dense_extremes_plain(
+        mask.contiguous(), _t(bid), nb,
+        None if mn is None else tuple(map(_t, mn)),
+        None if mx is None else tuple(map(_t, mx)))
+    for g, w, fill in zip(got, want, ((I32_MAX, I64_MAX), (I32_MIN,
+                                                           I64_MIN))):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        assert w.dtype == (torch.int64 if width == 2 else torch.int32)
+        np.testing.assert_array_equal(g, w.numpy())
+        assert nb <= 3 or (w[:, -3:] == fill[width - 1]).all()
+    # the wrapper on the CPU gives the plain version's
+    wrapped = K.dense_extremes(
+        mask, _t(bid), nb, None if mn is None else tuple(map(_t, mn)),
+        None if mx is None else tuple(map(_t, mx)))
+    for g, w in zip(wrapped, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("pair", [(I32_MIN, I32_MIN), (I32_MIN, I32_MAX),
+                                  (-1, I32_MAX), (0, I32_MIN), (0, -1),
+                                  (I32_MAX, I32_MAX)])
+def test_extreme_keys_keep_the_rm_order(pair):
+    """A wide pair's key, sign bit flipped back, is wide_recon's rm value,
+    and keys order as rm values do around the pair."""
+    rng = np.random.default_rng(abs(pair[0]) % 97 + abs(pair[1]) % 89)
+    hi = np.r_[pair[0], rng.integers(I32_MIN, I32_MAX, 64)].astype(np.int32)
+    lo = np.r_[pair[1], rng.integers(I32_MIN, I32_MAX, 64)].astype(np.int32)
+    rm = R.wide_recon(_t(hi), _t(lo)).numpy()
+    k = _keys((hi, lo))
+    np.testing.assert_array_equal(_from_keys(k, True), rm)
+    np.testing.assert_array_equal(np.argsort(k, kind="stable"),
+                                  np.argsort(rm, kind="stable"))
+
+
+def _refused_args(case):
+    T = 64
+    i32 = torch.int32
+    w = torch.zeros(T, dtype=i32)
+    args = {"mask": torch.ones(2, T, dtype=torch.bool),
+            "bid": torch.zeros(T, dtype=i32), "nb": 4,
+            "min_planes": (w,), "max_planes": (w,)}
+    args.update({
+        "nothing asked": {"min_planes": None, "max_planes": None},
+        "three planes": {"min_planes": (w, w, w), "max_planes": None},
+        "mixed widths": {"max_planes": (w, w)},
+        "bid rows": {"bid": torch.zeros(T + 4, dtype=i32)},
+        "payload rows": {"min_planes": (torch.zeros(T - 4, dtype=i32),)},
+        "mask rank": {"mask": torch.ones(T, dtype=torch.bool)},
+        "mask dtype": {"mask": torch.ones(2, T)},
+        "bid dtype": {"bid": torch.zeros(T, dtype=torch.int64)},
+        "payload dtype": {"max_planes": (w.to(torch.int64),)},
+        "payload not contiguous": {
+            "min_planes": (torch.zeros(2 * T, dtype=i32)[::2],)},
+        "bid not contiguous": {"bid": torch.zeros(2 * T, dtype=i32)[::2]},
+        "no bucket": {"nb": 0},
+    }[case])
+    return args
+
+
+@pytest.mark.parametrize("case", [
+    "nothing asked", "three planes", "mixed widths", "bid rows",
+    "payload rows", "mask rank", "mask dtype", "bid dtype", "payload dtype",
+    "payload not contiguous", "bid not contiguous", "no bucket"])
+def test_dense_extremes_refuses(case):
+    with pytest.raises(ValueError, match="dense_extremes"):
+        K.dense_extremes(**_refused_args(case))
+
+
+@pytest.mark.parametrize("width,shared", [(1, False), (2, False), (2, True)])
+def test_dense_extremes_cpu_tensors_take_the_plain_version(monkeypatch,
+                                                           width, shared):
+    """CPU tensors never reach the library or the launch counter."""
+    def no_library():
+        raise AssertionError("the CUDA library was loaded")
+    monkeypatch.setattr(K, "_library", no_library)
+    rng = np.random.default_rng(width)
+    T, B, nb = 4096, 5, 9
+    bid = _t(rng.integers(-1, nb + 1, T).astype(np.int32))
+    ps = tuple(map(_t, _extreme_payload(rng, T, width)))
+    mask = _t(rng.random((1 if shared else B, T)) < 0.5).expand(B, T)
+    before = K.launches["dense_extremes"]
+    got = K.dense_extremes(mask, bid, nb, ps, ps)
+    want = K.dense_extremes_plain(mask.contiguous(), bid, nb, ps, ps)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert K.launches["dense_extremes"] == before
 
 
 def test_npieces_for_bound_matches_jax():

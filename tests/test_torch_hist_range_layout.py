@@ -276,6 +276,75 @@ def test_sums_and_wide_layouts_under_a_range(env):
     assert stats.counters["host_fallbacks"] == 0
 
 
+#: case: (query, histogram args, its subs) -> the calls expected of the
+#: per-bucket extremes: dense_bucket_extremes_mm (one kernel launch on the
+#: card), dense_bucket_min, dense_bucket_max
+EXTREMES_ROUTES = {
+    # the track body: stats over the static range-laid-out plane (ctx.mm)
+    "track stats": ((0.0, 50.0), ("trip_distance", 1.0),
+                    lambda pkg: {"st": pkg.stats_agg("total_amount")},
+                    (1, 0, 0)),
+    # a min node and a max node beside each other: a launch each
+    "min and max nodes": ((0.0, 50.0), ("trip_distance", 1.0),
+                          lambda pkg: {"lo": pkg.min_agg("total_amount"),
+                                       "hi": pkg.max_agg("total_amount")},
+                          (2, 0, 0)),
+    # a multi-valued field: its min and max planes in one launch
+    "multi-valued stats": ((0.0, 50.0), ("trip_distance", 1.0),
+                           lambda pkg: {"st": pkg.stats_agg("fares")},
+                           (1, 0, 0)),
+    # 310 buckets, past the dense budget: the scatter mode plans no ctx.mm
+    "scatter stats": ((-1.0, 30.0), ("trip_distance", 0.1),
+                      lambda pkg: {"st": pkg.stats_agg("total_amount")},
+                      (0, 1, 1)),
+    # a histogram nested under terms: a composite slot plane, no ctx.mm
+    "nested stats": (None, ("total_amount", 100.0),
+                     lambda pkg: {"st": pkg.stats_agg("trip_distance")},
+                     (0, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(EXTREMES_ROUTES))
+def test_bucket_extremes_take_the_dense_kernel_over_a_static_plane(
+        env, monkeypatch, case):
+    """`_eval_metric`'s per-bucket min and max: over a dense node's static
+    bucket plane (ctx.mm) one dense_bucket_extremes_mm call per metric
+    node (the dense_extremes kernel on the card), both extremes of a
+    stats in it; every other bucket context keeps dense_bucket_min /
+    dense_bucket_max. Answers == the port's oracle == the JAX package's."""
+    rng, (field, interval), subs, want = EXTREMES_ROUTES[case]
+    calls = {}
+
+    def spy(name):
+        fn = getattr(pcompile.R, name)
+
+        def counted(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        monkeypatch.setattr(pcompile.R, name, counted)
+    for name in ("dense_bucket_extremes_mm", "dense_bucket_min",
+                 "dense_bucket_max"):
+        spy(name)
+
+    def q(pkg):
+        if rng is None:
+            return pkg.MatchAllQuery()
+        return pkg.BooleanQuery(must=[_range(pkg, lower=rng[0],
+                                             upper=rng[1])])
+
+    def aggs(pkg):
+        h = pkg.histogram_agg(field, interval, sub_aggs=subs(pkg))
+        if rng is None:
+            return {"t": pkg.terms_agg("vendor", 2, sub_aggs={"h": h})}
+        return {"h": h}
+    got = _answers(env, q, aggs)
+    assert got
+    assert tuple(calls.get(n, 0) for n in (
+        "dense_bucket_extremes_mm", "dense_bucket_min",
+        "dense_bucket_max")) == want
+    assert stats.counters["host_fallbacks"] == 0
+
+
 def test_percentiles_under_a_range_layout_fall_back(env):
     """Percentiles would cache a slot plane per range on the index: the
     shape answers on the host path, and the reason says why."""
